@@ -1,4 +1,5 @@
-"""The port imports no JAX, optax or orbax, directly or through varnet_tpu."""
+"""The port imports no JAX, optax or orbax, directly or through varnet_tpu: not
+when imported, not through Adam training, not through LM refinement."""
 
 import os
 import subprocess
@@ -10,12 +11,17 @@ SCRIPT = """
 import sys
 import varnet_tpu_torch
 from varnet_tpu_torch import VarNet
-from varnet_tpu_torch.ops import fused_residual
+from varnet_tpu_torch.ops import build, fused_residual, value_and_jac
+from varnet_tpu_torch.train import gauss_newton
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
 vn = VarNet(transient_ad_2d()["pde"], layer_width=(8, 8), disc_num=4, b_disc_num=4,
             t_disc_num=3, device="cpu")
 vn.train(epoch_num=2, weight=(1.0, 10.0, 10.0), save_freq=2, verbose=False,
          error_disc=4, error_times=2)
+for use_pallas in (True, False):
+    vn.use_pallas = use_pallas
+    vn.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=2, k_chunks=2, precond=2,
+                 verbose=False, error_disc=4, error_times=2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

@@ -1,10 +1,13 @@
 """varnet_tpu_torch -- the PyTorch/CUDA port of varnet_tpu.
 
 The same variational (weak-form) neural PDE solver, run eagerly in PyTorch on
-one device.  On an NVIDIA Hopper GPU the interior weak residual and its
-parameter gradient run through a hand-written CUDA kernel
-(``csrc/dir_residual.cu``, built at first use); on the CPU through its plain
-PyTorch version.  The JAX package ``varnet_tpu`` is the reference this port is
+one device: Adam training (``VarNet.train``) and Levenberg-Marquardt refinement
+(``VarNet.refine_lm``).  On an NVIDIA Hopper GPU the Adam step's interior weak
+residual and its parameter gradient run through a hand-written CUDA kernel
+(``csrc/dir_residual.cu``), and LM's value + jacobian evaluation, its parameter
+backward and its parameter-tangent JVP through three more
+(``csrc/value_and_jac.cu``), all built at first use; on the CPU through their
+plain PyTorch versions.  The JAX package ``varnet_tpu`` is the reference this port is
 tested against; this package imports no JAX.
 """
 
@@ -19,6 +22,7 @@ from .models.mlp import (
     mlp_value_and_jac,
     params_from_jax,
     params_to_numpy,
+    ravel_params,
 )
 from .problems.adpde import ADPDE, MORVar
 from .train.loss import make_loss_fn
@@ -45,6 +49,7 @@ __all__ = [
     "mlp_value_and_jac",
     "params_from_jax",
     "params_to_numpy",
+    "ravel_params",
     "make_loss_fn",
     "OptimizerConfig",
     "make_optimizer",

@@ -1,11 +1,13 @@
 """High-level orchestrator: the ``VarNet`` class (flagship subset).
 
 PyTorch counterpart of ``varnet_tpu/api.py``: same constructor and
-``train`` / ``evaluate`` / ``compute_error`` call shapes, one explicit
-device.  Fixed data is assembled once on the host, moved to the device and
-kept there; the fused residual's data layout is prepared once per ``train``
-call.  On a CUDA device the interior residual runs through the hand-written
-kernel (``ops/fused_residual.py``); on the CPU through its plain version.
+``train`` / ``refine_lm`` / ``evaluate`` / ``compute_error`` call shapes, one
+explicit device.  Fixed data is assembled once on the host, moved to the device
+and kept there; the fused residual's data layout is prepared once per ``train``
+call.  On a CUDA device the Adam step's interior residual runs through the
+hand-written kernel of ``ops/fused_residual.py``, and the LM refinement's value +
+jacobian evaluation through those of ``ops/value_and_jac.py`` (K5 forward and
+backward, K6 JVP); on the CPU through their plain versions.
 """
 
 from __future__ import annotations
@@ -19,9 +21,19 @@ import numpy as np
 import torch
 
 from .fem.assembly import FixedData, build_fixed_data, pad_points, pad_quad
-from .models.mlp import init_mlp, make_input_scaling, mlp_apply, params_from_jax
+from .models.mlp import (
+    init_mlp,
+    leaf_segments,
+    make_input_scaling,
+    mlp_apply,
+    mlp_value_and_jac,
+    params_from_jax,
+    ravel_params,
+)
 from .ops.fused_residual import prepare_residual_data
+from .ops.value_and_jac import value_and_jac
 from .problems.adpde import ADPDE
+from .train.gauss_newton import LMState, make_lm_step, make_residual_fn
 from .train.loss import make_loss_fn
 from .train.optim import OptimizerConfig, make_optimizer
 from .train.trainer import TrainResult, make_train_step, split_batches
@@ -48,6 +60,11 @@ class VarNet:
       use_fused_residual: interior residual through the fused residual
                     (kernel on CUDA, plain version on CPU); False takes the
                     general value + jacobian path
+      use_pallas:   the value + jacobian evaluation of ``refine_lm`` through
+                    ``ops/value_and_jac.py`` (kernels K5/K6 on CUDA, their
+                    plain versions on CPU); "auto" = on a CUDA device.  False
+                    takes ``mlp_value_and_jac`` under autograd.  (The JAX
+                    package's name for its Pallas kernels.)
     """
 
     def __init__(
@@ -63,6 +80,7 @@ class VarNet:
         device="cuda",
         optimizer: Optional[OptimizerConfig] = None,
         use_fused_residual: bool = True,
+        use_pallas="auto",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -80,6 +98,8 @@ class VarNet:
         self.seed = int(seed)
         self.optimizer_cfg = optimizer or OptimizerConfig()
         self.use_fused_residual = bool(use_fused_residual)
+        self.use_pallas = (self.device.type == "cuda" if use_pallas == "auto"
+                           else bool(use_pallas))
         self.has_react = not (
             pde.react is None
             or (np.isscalar(pde.react) and float(pde.react) == 0.0)
@@ -222,6 +242,121 @@ class VarNet:
         if folderpath is not None:
             with open(os.path.join(folderpath, "train_result.json"), "w") as f:
                 json.dump(result.as_dict(), f, indent=2)
+        return result
+
+    # ------------------------------------------------------------------ #
+    # Levenberg-Marquardt refinement
+
+    def refine_lm(
+        self,
+        steps: int = 100,
+        weight: Optional[Sequence[float]] = None,
+        cg_iters: int = 50,
+        save_freq: int = 10,
+        verbose: bool = True,
+        error_disc: int = 64,
+        error_times: int = 5,
+        lam0: float = 1e-3,
+        target_error: Optional[float] = None,
+        matmul_precision: Optional[str] = "highest",
+        k_chunks: int = 1,
+        folderpath: Optional[str] = None,
+        cg_segment: int = 0,
+        resume: bool = False,
+        max_retries: int = 0,
+        retry_backoff: float = 30.0,
+        precond: int = 0,
+        precond_mode: str = "leaf",
+    ) -> TrainResult:
+        """Levenberg-Marquardt refinement (matrix-free Gauss-Newton + CG; see
+        ``train/gauss_newton.py``), the reference ``VarNet.refine_lm``.  Start
+        from an Adam-trained state.
+
+        steps:       LM iterations; cg_iters CG iterations each
+        weight:      (w_int, w_bc[, w_ic]) loss weights
+        save_freq:   report period (iterations): loss, lam and rel-L2
+        lam0:        initial damping
+        k_chunks:    interior evaluated in that many checkpointed chunks of the
+                     test-function axis (bounds the reverse pass's memory)
+        cg_segment:  CG in segments of that many iterations, re-linearized
+                     per segment (0: one linearization per step)
+        precond:     Hutchinson probes of the Jacobi preconditioner (0: plain
+                     CG); precond_mode 'leaf' (per-leaf means) or 'diag'
+        target_error: early stop once rel-L2 falls below it
+
+        On the kernel path (``use_pallas``) J v runs K6 and J^T w K5's
+        backward.  Checkpointing and fault recovery (``folderpath``,
+        ``resume``, ``max_retries``) are not ported yet (ROADMAP Queue 1 item 9).
+        """
+        if folderpath is not None or resume or int(max_retries) > 0:
+            raise NotImplementedError(
+                "refine_lm checkpoints and fault recovery (folderpath, resume, "
+                "max_retries) are not ported to varnet_tpu_torch yet (ROADMAP item 9)")
+        with matmul_precision_scope(matmul_precision):
+            return self._refine_lm_impl(
+                int(steps), weight, int(cg_iters), int(save_freq), verbose, error_disc,
+                error_times, float(lam0), target_error, int(k_chunks), int(cg_segment),
+                int(precond), precond_mode)
+
+    def _refine_lm_impl(self, steps, weight, cg_iters, save_freq, verbose, error_disc,
+                        error_times, lam0, target_error, k_chunks, cg_segment, precond,
+                        precond_mode) -> TrainResult:
+        td = self.static.time_dependent
+        if weight is None:
+            weight = (1.0, 1.0) + ((1.0,) if td else ())
+        w_full = [float(w) for w in weight] + [0.0] * (4 - len(weight))
+        if not td:
+            w_full = [w_full[0], w_full[1], 0.0, w_full[2]]
+
+        quad_d = self._to_device(pad_quad(self.fixed.quad, k_chunks))
+        bc_d = self._to_device(pad_points(self.fixed.bc, 1))
+        ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
+        res_fn = make_residual_fn(
+            self.static, activation=self.activation, k_chunks=k_chunks,
+            value_and_jac=value_and_jac if self.use_pallas else mlp_value_and_jac,
+            has_react=self.has_react, device=self.device)
+        theta0 = self._params(None)
+        flat0, unravel = ravel_params(theta0)
+
+        def closure(flat):
+            return res_fn(unravel(flat), quad_d, bc_d, ic_d, w_full)
+
+        lm_step = make_lm_step(closure, cg_iters=cg_iters, cg_segment=cg_segment,
+                               precond=precond, leaf_segments=leaf_segments(theta0),
+                               precond_mode=precond_mode)
+        with torch.no_grad():
+            r0 = closure(flat0)
+        state = LMState(flat=flat0,
+                        lam=torch.tensor(lam0, dtype=torch.float32, device=self.device),
+                        loss=torch.dot(r0, r0))
+
+        result = TrainResult()
+        t_start = None
+        for it in range(1, steps + 1):
+            state = lm_step(state)
+            if t_start is None:
+                self._sync()
+                t_start = time.perf_counter()
+            if it % save_freq == 0 or it == steps:
+                theta_now = unravel(state.flat)
+                loss, lam = float(state.loss), float(state.lam)
+                err = self.compute_error(theta_now, disc=error_disc, n_times=error_times)
+                result.epochs.append(it)
+                result.losses.append({"loss": loss, "lam": lam})
+                result.errors.append(err if err is not None else float("nan"))
+                result.wall_times.append(time.perf_counter() - t_start)
+                if verbose:
+                    err_s = f"{err:.3e}" if err is not None else "n/a"
+                    print(f"[varnet/lm] it {it:5d}  loss {loss:.4e}  lam {lam:.1e}"
+                          f"  relL2 {err_s}  ({result.wall_times[-1]:.1f}s)", flush=True)
+                if target_error is not None and err is not None and err < target_error:
+                    if verbose:
+                        print(f"[varnet/lm] target {target_error:.1e} reached")
+                    break
+        self.theta = [{k: v.detach().clone() for k, v in layer.items()}
+                      for layer in unravel(state.flat)]
+        result.total_steps = steps
+        self.train_result = result
         return result
 
     # ------------------------------------------------------------------ #

@@ -62,6 +62,32 @@ def params_to_numpy(params) -> list:
     return [{k: layer[k].detach().cpu().numpy() for k in ("w", "b")} for layer in params]
 
 
+def ravel_params(params: Params):
+    """(flat, unravel): the parameters as one flat vector in the order of JAX's
+    ``ravel_pytree`` -- per layer ``b`` before ``w`` (dict keys sorted), ``w``
+    row-major [fan_in, fan_out] -- and the inverse, which returns views of the
+    vector it is given (so gradients and forward-mode tangents of the vector
+    reach every leaf)."""
+    shapes = [(tuple(layer["b"].shape), tuple(layer["w"].shape)) for layer in params]
+    flat = torch.cat([layer[k].reshape(-1) for layer in params for k in ("b", "w")])
+
+    def unravel(vec: torch.Tensor) -> Params:
+        out, i = [], 0
+        for bs, ws in shapes:
+            nb, nw = math.prod(bs), math.prod(ws)
+            out.append({"b": vec[i:i + nb].view(bs), "w": vec[i + nb:i + nb + nw].view(ws)})
+            i += nb + nw
+        return out
+
+    return flat, unravel
+
+
+def leaf_segments(params: Params) -> np.ndarray:
+    """Leaf id of every entry of the ``ravel_params`` vector."""
+    sizes = [layer[k].numel() for layer in params for k in ("b", "w")]
+    return np.repeat(np.arange(len(sizes)), sizes)
+
+
 def make_input_scaling(lo, hi, dtype=torch.float32, device=None):
     """Affine map of inputs onto [-1, 1]: x_n = (x - shift) * scale."""
     lo = torch.as_tensor(np.asarray(lo), dtype=dtype, device=device)

@@ -17,7 +17,8 @@ Two implementations share one signature:
 * ``dir_residual_fwd_plain`` / ``dir_residual_bwd_plain``: straightforward
   vectorised PyTorch.  The backward mirrors ``_dir_bwd_kernel`` step by step.
 * ``csrc/dir_residual.cu``: hand-written CUDA for sm_90a, built with ``nvcc``
-  into a plain-C shared library at first use and called through ``ctypes``.
+  (``ops/build.py``, with every other ``csrc/*.cu``) into a plain-C shared
+  library at first use and called through ``ctypes``.
 
 ``dir_residual_fwd`` / ``dir_residual_bwd`` dispatch on the device of the data:
 CPU tensors take the plain version, CUDA tensors launch the kernel (or raise),
@@ -29,20 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "varnet_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import build
+
 MAX_IN = 4          # kernel's padded input width; n_in <= 3 is supported
 MAX_HIDDEN = 64
 ACTIVATIONS = {"tanh": 0, "sigmoid": 1}
@@ -189,44 +183,11 @@ def dir_residual_bwd_plain(params, data: ResidualData, activation: str, gr):
 # CUDA kernel: build, load, launch
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused residual kernel is built from "
-                       "varnet_tpu_torch/csrc at first use")
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build ``csrc/dir_residual.cu`` (once per source hash) and load it.
-    The build log with ptxas' register and spill report sits beside the
-    library (``build.log``)."""
-    out_dir = BUILD_DIR / _source_hash()
-    lib_path = out_dir / "libdir_residual.so"
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libdir_residual.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "dir_residual.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, lib_path)
-    return bind_library(ctypes.CDLL(str(lib_path)))
-
-
-def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of the kernel library's entry points."""
+    """The kernel library (every ``csrc/*.cu``, built once by ``ops/build.py``)
+    with this module's entry points declared."""
+    lib = build.load_library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vr_dir_residual_n_params.argtypes = [i32, i32]
     lib.vr_dir_residual_fwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
@@ -313,11 +274,6 @@ def _common_args(data: ResidualData, params, activation, hp):
             int(data.has_react), len(params) - 1, hp, ACTIVATIONS[activation]]
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {err}")
-
-
 def _packed(lib, params):
     """(hp, packed parameters), the layout checked against the library's."""
     hp = padded_width(params)
@@ -336,7 +292,7 @@ def kernel_fwd(lib, params, data: ResidualData, activation: str, stream=None):
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(),
         data.scale.data_ptr(), packed.data_ptr(), r.data_ptr(),
         *_common_args(data, params, activation, hp), stream)
-    _raise_on(err, "dir_residual_fwd")
+    build.raise_on(err, "dir_residual_fwd")
     return r
 
 
@@ -345,7 +301,7 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
     hp, packed = _packed(lib, params)
     n_hidden = len(params) - 1
     blocks = ctypes.c_int(0)
-    _raise_on(lib.vr_dir_residual_bwd_blocks(data.k, data.nq, data.d, n_hidden, hp,
+    build.raise_on(lib.vr_dir_residual_bwd_blocks(data.k, data.nq, data.d, n_hidden, hp,
                                              ctypes.byref(blocks)),
               "dir_residual_bwd_blocks")
     npp = packed.numel()
@@ -356,7 +312,7 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(),
         data.scale.data_ptr(), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(),
         blocks.value, grad.data_ptr(), *_common_args(data, params, activation, hp), stream)
-    _raise_on(err, "dir_residual_bwd")
+    build.raise_on(err, "dir_residual_bwd")
     return unpack_grads(grad, params, hp)
 
 

@@ -5,19 +5,29 @@ verbatim, pure NumPy)."""
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
 
 
 @contextlib.contextmanager
-def matmul_precision_scope():
+def matmul_precision_scope(precision: Optional[str] = "highest"):
     """Scoped full-f32 matmuls: TF32 off for CUDA matmuls and cuDNN, the
-    previous flags restored after the scope.
+    previous flags restored after the scope.  ``precision`` follows the JAX
+    package's ``matmul_precision``: "highest" / "float32" (the default) turn
+    TF32 off, None leaves the flags as they are; reduced precisions are not
+    ported.
 
     TF32 keeps about three decimal digits, the same trap as the TPU MXU's
     bf16 default that put a ~5e-3 floor under accuracy.
     """
+    if precision is None:
+        yield
+        return
+    if precision not in ("highest", "float32"):
+        raise NotImplementedError(f"matmul_precision={precision!r} is not ported "
+                                  "(the port computes in full f32: 'highest')")
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
