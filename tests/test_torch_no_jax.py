@@ -1,5 +1,6 @@
 """The port imports no JAX, optax or orbax, directly or through varnet_tpu: not
-when imported, not through Adam training, not through LM refinement."""
+when imported, not through Adam training, not through LM refinement, not through
+the Fourier-feature causal curriculum and its LM polish."""
 
 import os
 import subprocess
@@ -22,6 +23,16 @@ for use_pallas in (True, False):
     vn.use_pallas = use_pallas
     vn.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=2, k_chunks=2, precond=2,
                  verbose=False, error_disc=4, error_times=2)
+from varnet_tpu_torch.examples import contaminant_2d
+from varnet_tpu_torch.problems.analytic import contaminant_transport_2d
+from varnet_tpu_torch.train.causal import train_causal
+from varnet_tpu_torch.utils.io import CONTAMINANT_CAUSAL_FOURIER_B
+ff, _ = train_causal(lambda t: contaminant_transport_2d(t_final=t)["pde"], windows=(0.5, 1.0),
+                     epoch_num=2, weight=(1.0, 10.0, 10.0), t_disc_full=4, verbose=False,
+                     varnet_kwargs=dict(layer_width=(8, 8), disc_num=4, b_disc_num=4,
+                                        fourier_features=8, fourier_scale="0.5,2.0",
+                                        device="cpu", input_scaling=False))
+ff.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=2, k_chunks=2, verbose=False)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

@@ -7,8 +7,11 @@ residual and its parameter gradient run through a hand-written CUDA kernel
 (``csrc/dir_residual.cu``), and LM's value + jacobian evaluation, its parameter
 backward and its parameter-tangent JVP through three more
 (``csrc/value_and_jac.cu``), all built at first use; on the CPU through their
-plain PyTorch versions.  The JAX package ``varnet_tpu`` is the reference this port is
-tested against; this package imports no JAX.
+plain PyTorch versions.  A net behind a fixed random-Fourier-feature embedding
+(``VarNet(fourier_features=...)``, the contaminant recipe of
+``train/causal.py::train_causal``) runs through the kernels of
+``csrc/ff_mlp.cu`` (K2-FF, K7, K8).  The JAX package ``varnet_tpu`` is the
+reference this port is tested against; this package imports no JAX.
 """
 
 from .api import VarNet
@@ -16,7 +19,10 @@ from .fem.assembly import FixedData, PointData, ProblemStatic, QuadData, build_f
 from .fem.element import HatQuadrature, MasterElement
 from .geometry.domain import Domain1D, RectangleDomain2D
 from .models.mlp import (
+    ff_apply,
+    ff_value_and_jac,
     init_mlp,
+    make_fourier_features,
     make_input_scaling,
     mlp_apply,
     mlp_value_and_jac,
@@ -26,6 +32,7 @@ from .models.mlp import (
 )
 from .problems.adpde import ADPDE, MORVar
 from .train.loss import make_loss_fn
+from .train.causal import train_causal
 from .train.optim import OptimizerConfig, make_optimizer
 from .train.trainer import TrainResult
 from .utils.io import load_theta_npz, save_theta_npz
@@ -44,6 +51,10 @@ __all__ = [
     "PointData",
     "ProblemStatic",
     "init_mlp",
+    "make_fourier_features",
+    "ff_apply",
+    "ff_value_and_jac",
+    "train_causal",
     "make_input_scaling",
     "mlp_apply",
     "mlp_value_and_jac",

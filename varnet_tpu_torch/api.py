@@ -5,14 +5,18 @@ PyTorch counterpart of ``varnet_tpu/api.py``: same constructor and
 explicit device.  Fixed data is assembled once on the host, moved to the device
 and kept there; the fused residual's data layout is prepared once per ``train``
 call.  On a CUDA device the Adam step's interior residual runs through the
-hand-written kernel of ``ops/fused_residual.py``, and the LM refinement's value +
-jacobian evaluation through those of ``ops/value_and_jac.py`` (K5 forward and
-backward, K6 JVP); on the CPU through their plain versions.
+hand-written kernels of ``ops/fused_residual.py`` (K1/K2, or K2-FF for a net
+behind a Fourier-feature embedding), and the value + jacobian evaluation of the
+LM refinement and of the Adam general path through those of
+``ops/value_and_jac.py`` (K5 forward and backward, K6 JVP; K7/K8 with the
+embedding); on the CPU through their plain versions.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import time
 from typing import Any, Optional, Sequence
@@ -22,16 +26,19 @@ import torch
 
 from .fem.assembly import FixedData, build_fixed_data, pad_points, pad_quad
 from .models.mlp import (
+    ff_apply,
+    ff_value_and_jac,
     init_mlp,
     leaf_segments,
+    make_fourier_features,
     make_input_scaling,
     mlp_apply,
     mlp_value_and_jac,
     params_from_jax,
     ravel_params,
 )
+from .ops import value_and_jac as vj
 from .ops.fused_residual import prepare_residual_data
-from .ops.value_and_jac import value_and_jac
 from .problems.adpde import ADPDE
 from .train.gauss_newton import LMState, make_lm_step, make_residual_fn
 from .train.loss import make_loss_fn
@@ -54,17 +61,28 @@ class VarNet:
       device:       torch device of the fixed data, parameters and training;
                     'cuda' raises when no GPU is present (no fallback)
       optimizer:    OptimizerConfig (Adam by default)
-    Inputs are scaled onto [-1, 1] from the domain bounds, as in the JAX
-    package's default.
+      input_scaling: inputs scaled onto [-1, 1] from the domain bounds (the
+                    JAX package's default); False feeds raw coordinates to
+                    every path (fused residual, general path, BC/IC
+                    penalties, LM residual, ``evaluate``)
+      fourier_features: F > 0 puts a fixed random-Fourier-feature embedding
+                    [sin | cos](2 pi x B) (B [n_in, F]) in front of the MLP,
+                    whose input width becomes 2F
+      fourier_scale: std of B, a sequence of stds (multi-scale basis, F
+                    split across them) or their string form "0.5,2.0"
+      fourier_b:    an explicit B [n_in, F] (e.g. the JAX package's draw,
+                    which a ``torch.Generator`` cannot reproduce); no draw is
+                    made then
 
       use_fused_residual: interior residual through the fused residual
                     (kernel on CUDA, plain version on CPU); False takes the
                     general value + jacobian path
-      use_pallas:   the value + jacobian evaluation of ``refine_lm`` through
-                    ``ops/value_and_jac.py`` (kernels K5/K6 on CUDA, their
-                    plain versions on CPU); "auto" = on a CUDA device.  False
-                    takes ``mlp_value_and_jac`` under autograd.  (The JAX
-                    package's name for its Pallas kernels.)
+      use_pallas:   the value + jacobian evaluation of ``refine_lm`` and of
+                    the Adam general path through ``ops/value_and_jac.py``
+                    (kernels K5/K6 or K7/K8 on CUDA, their plain versions on
+                    CPU); "auto" = on a CUDA device.  False takes
+                    ``mlp_value_and_jac`` (``ff_value_and_jac``) under
+                    autograd.  (The JAX package's name for its Pallas kernels.)
     """
 
     def __init__(
@@ -81,6 +99,10 @@ class VarNet:
         optimizer: Optional[OptimizerConfig] = None,
         use_fused_residual: bool = True,
         use_pallas="auto",
+        input_scaling: bool = True,
+        fourier_features: Optional[int] = None,
+        fourier_scale=0.5,
+        fourier_b=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -110,11 +132,48 @@ class VarNet:
         )
         self.static = self.fixed.static
         gen = torch.Generator().manual_seed(self.seed)
-        self.theta = init_mlp(gen, self.static.n_inputs, self.layer_width,
-                              device=self.device)
-        self.scale, self.shift = make_input_scaling(
-            self.static.input_lo, self.static.input_hi, device=self.device)
+        # the embedding is drawn before the net, as the JAX package splits its key
+        self.fourier_b = None
+        n_in = self.static.n_inputs
+        if fourier_b is not None:
+            b_mat = torch.as_tensor(np.asarray(fourier_b), dtype=torch.float32)
+            if b_mat.ndim != 2 or b_mat.shape[0] != n_in or (
+                    fourier_features is not None and b_mat.shape[1] != int(fourier_features)):
+                raise ValueError(f"fourier_b must be [{n_in}, F], got {tuple(b_mat.shape)}")
+            self.fourier_b = b_mat.to(self.device)
+        elif fourier_features is not None:
+            self.fourier_b = make_fourier_features(gen, n_in, int(fourier_features),
+                                                   fourier_scale).to(self.device)
+        net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
+        self.theta = init_mlp(gen, net_in, self.layer_width, device=self.device)
+        self.input_scaling = bool(input_scaling)
+        self.scale = self.shift = None
+        if self.input_scaling:
+            self.scale, self.shift = make_input_scaling(
+                self.static.input_lo, self.static.input_hi, device=self.device)
         self.train_result: Optional[TrainResult] = None
+
+    @property
+    def fourier_bt(self) -> Optional[torch.Tensor]:
+        """2 pi B^T [F, n_in] in f32, as the JAX package hands it to its kernels."""
+        if self.fourier_b is None:
+            return None
+        return ((2.0 * math.pi) * self.fourier_b.T).contiguous()
+
+    def _apply_fn(self):
+        """u_theta at points: ``mlp_apply`` or, with an embedding, ``ff_apply``."""
+        if self.fourier_b is None:
+            return mlp_apply
+        return functools.partial(ff_apply, self.fourier_b)
+
+    def _value_and_jac(self, kernel: bool):
+        """(u, du/dx) evaluation: through the kernels' autograd Function
+        (K5/K6, or K7/K8 with an embedding) when ``kernel``, else the plain
+        matmul chain."""
+        if self.fourier_b is None:
+            return vj.value_and_jac if kernel else mlp_value_and_jac
+        return functools.partial(vj.ff_value_and_jac if kernel else ff_value_and_jac,
+                                 self.fourier_b)
 
     # ------------------------------------------------------------------ #
     # training
@@ -170,7 +229,9 @@ class VarNet:
 
         loss_fn = make_loss_fn(self.static, activation=self.activation,
                                has_react=self.has_react, fused=self.use_fused_residual,
-                               device=self.device)
+                               device=self.device, input_scaling=self.input_scaling,
+                               value_and_jac=self._value_and_jac(self.use_pallas),
+                               apply_fn=self._apply_fn())
         quads = quad_d if batch_num == 1 else split_batches(quad_d, batch_num)
 
         def prepare(q):
@@ -178,7 +239,8 @@ class VarNet:
             if not self.use_fused_residual:
                 return None
             return prepare_residual_data(q, self.scale, self.shift, time_dependent=td,
-                                         has_react=self.has_react, device=self.device)
+                                         has_react=self.has_react, device=self.device,
+                                         fourier_bt=self.fourier_bt)
 
         prepared = prepare(quads) if batch_num == 1 else [prepare(q) for q in quads]
 
@@ -285,8 +347,9 @@ class VarNet:
         target_error: early stop once rel-L2 falls below it
 
         On the kernel path (``use_pallas``) J v runs K6 and J^T w K5's
-        backward.  Checkpointing and fault recovery (``folderpath``,
-        ``resume``, ``max_retries``) are not ported yet (ROADMAP Queue 1 item 9).
+        backward (K8 and K7's backward with a Fourier-feature embedding).
+        Checkpointing and fault recovery (``folderpath``, ``resume``,
+        ``max_retries``) are not ported yet (ROADMAP Queue 1 item 9).
         """
         if folderpath is not None or resume or int(max_retries) > 0:
             raise NotImplementedError(
@@ -313,8 +376,9 @@ class VarNet:
         ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
         res_fn = make_residual_fn(
             self.static, activation=self.activation, k_chunks=k_chunks,
-            value_and_jac=value_and_jac if self.use_pallas else mlp_value_and_jac,
-            has_react=self.has_react, device=self.device)
+            value_and_jac=self._value_and_jac(self.use_pallas),
+            has_react=self.has_react, device=self.device,
+            input_scaling=self.input_scaling, apply_fn=self._apply_fn())
         theta0 = self._params(None)
         flat0, unravel = ravel_params(theta0)
 
@@ -381,12 +445,13 @@ class VarNet:
         are evaluated in chunks of ``chunk`` points."""
         coords = self._make_coords(x, t, mu)
         net = self._params(theta)
+        apply = self._apply_fn()
         outs = []
         with torch.no_grad(), matmul_precision_scope():
             for s in range(0, coords.shape[0], chunk):
                 block = torch.as_tensor(coords[s:s + chunk], dtype=torch.float32,
                                         device=self.device)
-                u = mlp_apply(net, block, self.activation, self.scale, self.shift)
+                u = apply(net, block, self.activation, self.scale, self.shift)
                 outs.append(u.double().cpu().numpy())
         return np.concatenate(outs) if outs else np.zeros(0)
 

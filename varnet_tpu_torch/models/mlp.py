@@ -1,4 +1,5 @@
-"""Trial-function network: MLP with a forward-mode value + input-jacobian.
+"""Trial-function network: MLP (optionally behind a fixed random-Fourier-feature
+embedding) with a forward-mode value + input-jacobian.
 
 PyTorch counterpart of ``varnet_tpu/models/mlp.py``.  Parameters keep the
 JAX package's layout so the two compare like for like: a plain list of
@@ -149,3 +150,79 @@ def mlp_value_and_jac(
     u = state[:, 0, 0] + b[0]
     du = state[:, 1:, 0]
     return u, du
+
+
+def make_fourier_features(generator: torch.Generator, n_in: int, n_feat: int,
+                          scale=1.0, dtype=torch.float32) -> torch.Tensor:
+    """Random Fourier feature matrix B [n_in, n_feat], drawn from ``generator``.
+
+    The embedding gamma(x) = [sin(2 pi x B), cos(2 pi x B)] (2 n_feat wide)
+    counters the spectral bias of plain MLPs; B is fixed, not trained.
+    ``scale`` is a float, a sequence of floats or their string form ("0.5" or
+    "0.5,2.0"): with several scales ``n_feat`` is split evenly across them
+    (remainder to the first block) and the per-scale blocks are concatenated,
+    as in the JAX package.  The numbers differ from ``jax.random``'s, so a B
+    drawn by the JAX package is carried over as an explicit array instead
+    (``VarNet(fourier_b=...)``)."""
+    if isinstance(scale, str):
+        scale = [float(s) for s in scale.split(",")]
+        if len(scale) == 1:
+            scale = scale[0]
+    if isinstance(scale, (int, float)):
+        return float(scale) * torch.randn((int(n_in), int(n_feat)), generator=generator,
+                                          dtype=dtype)
+    scales = [float(s) for s in scale]
+    n_feat = int(n_feat)
+    counts = [n_feat // len(scales)] * len(scales)
+    counts[0] += n_feat - sum(counts)
+    return torch.cat([s * torch.randn((int(n_in), n), generator=generator, dtype=dtype)
+                      for s, n in zip(scales, counts)], dim=1)
+
+
+def _embed(b_mat, xs):
+    """[sin | cos](2 pi xs B) of scaled points xs [P, n_in] -> [P, 2F]."""
+    ang = 2.0 * math.pi * (xs @ b_mat.to(xs.dtype))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1), ang
+
+
+def ff_apply(b_mat, params: Params, x: torch.Tensor, activation: str = "tanh",
+             scale: Optional[torch.Tensor] = None,
+             shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """u_theta(x) through the Fourier-feature embedding: [P, n_in] -> [P]."""
+    act, _ = _activation_pair(activation)
+    xs = (x if scale is None else (x - shift) * scale).to(params[0]["w"].dtype)
+    a, _ = _embed(b_mat, xs)
+    for layer in params[:-1]:
+        a = act(a @ layer["w"] + layer["b"])
+    return (a @ params[-1]["w"] + params[-1]["b"])[..., 0]
+
+
+def ff_value_and_jac(b_mat, params: Params, x: torch.Tensor, activation: str = "tanh",
+                     scale: Optional[torch.Tensor] = None,
+                     shift: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, du/dx) through the Fourier-feature embedding + MLP (the math of
+    ``varnet_tpu.models.mlp.ff_value_and_jac``): the embedding jacobian seeds
+    the n_in tangent rows; du is with respect to the ORIGINAL coordinates."""
+    act, act_prime = _activation_pair(activation)
+    p, n_in = x.shape
+    dtype = params[0]["w"].dtype
+    xs = (x if scale is None else (x - shift) * scale).to(dtype)
+    bm = b_mat.to(dtype)
+    a, ang = _embed(bm, xs)
+    dxs = torch.eye(n_in, dtype=dtype, device=x.device)
+    if scale is not None:
+        dxs = dxs * scale[None, :].to(dtype)
+    dang = 2.0 * math.pi * (dxs @ bm)                            # [n_in, F]
+    cos_a, sin_a = torch.cos(ang), torch.sin(ang)
+    jac = torch.cat([cos_a[:, None, :] * dang[None], -sin_a[:, None, :] * dang[None]], dim=-1)
+    for layer in params[:-1]:
+        w, b = layer["w"], layer["b"]
+        state = torch.cat([a[:, None, :], jac], dim=1)
+        state = (state.reshape(p * (1 + n_in), -1) @ w).reshape(p, 1 + n_in, -1)
+        z = state[:, 0, :] + b
+        a = act(z)
+        jac = state[:, 1:, :] * act_prime(z, a)[:, None, :]
+    w, b = params[-1]["w"], params[-1]["b"]
+    state = torch.cat([a[:, None, :], jac], dim=1)
+    state = (state.reshape(p * (1 + n_in), -1) @ w).reshape(p, 1 + n_in, -1)
+    return state[:, 0, 0] + b[0], state[:, 1:, 0]

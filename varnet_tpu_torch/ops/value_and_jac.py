@@ -16,18 +16,29 @@ raise); each counts its kernel launches in ``.launches``.  ``ValueAndJacFn``
 carries both differentiation rules (``backward`` -> K5 backward, ``jvp`` -> K6),
 so reverse and forward mode go through one function where JAX needed two
 wrapped twins; ``value_and_jac`` is the drop-in for ``mlp_value_and_jac``.
-Coordinates are fixed data: no gradient or tangent flows to them.
+
+The Fourier-feature twins (``pallas_ff_value_and_jac`` / ``_jvp``: K7 forward
+and backward, K8) are ``ff_vj_fwd`` / ``ff_vj_bwd`` / ``ff_vj_jvp`` with the
+fixed bt = 2 pi B^T [F, n_in], kernels in ``csrc/ff_mlp.cu``, the Function
+``FfValueAndJacFn`` and the drop-in ``ff_value_and_jac`` for
+``models.mlp.ff_value_and_jac``.  Coordinates (and B) are fixed data: no gradient
+or tangent flows to them.  With ``bt`` None the K7 / K8 kernels run a plain net
+(layer 0 reads the coordinates): on CUDA ``value_and_jac`` sends a net wider than
+K5 / K6 take (hidden width 65..128) through them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
+from ..models import mlp as _mlp
 from ..models.mlp import mlp_value_and_jac
 from . import build
+from . import fused_residual as fr
 from .fused_residual import ACTIVATIONS, MAX_HIDDEN, _act_triple, _offsets, padded_width
 
 MAX_IN = 4   # the kernels take n_in <= 4 (W0 is stored padded to 4 columns)
@@ -114,6 +125,13 @@ def vj_jvp_plain(params, xs_t, activation: str, tangent):
     s = torch.cat([a] + [sp * wts[0][:, j:j + 1] for j in range(n_in)], dim=1)
     ds = torch.cat([sp * dz] + [dsp * wts[0][:, j:j + 1] + sp * dwts[0][:, j:j + 1]
                                 for j in range(n_in)], dim=1)
+    return _jvp_tail(wts, bs, dwts, dbs, s, ds, n_in, p, activation)
+
+
+def _jvp_tail(wts, bs, dwts, dbs, s, ds, n_in, p, activation):
+    """Hidden and output layers of the parameter-tangent JVP from layer 0's
+    packed state (s, ds) [H, (1 + n) P] (``_jvp_tail``)."""
+    act, act_p, act_pp = _act_triple(activation)
     for wt, b, dwt, db in zip(wts[1:-1], bs[1:-1], dwts[1:-1], dbs[1:-1]):
         zc = wt @ s
         dzc = dwt @ s + wt @ ds
@@ -127,6 +145,94 @@ def vj_jvp_plain(params, xs_t, activation: str, tangent):
     doc = dwts[-1] @ s + wts[-1] @ ds                           # [1, (1+n) P]
     dout = doc.reshape(1 + n_in, p)
     return torch.cat([dout[:1] + dbs[-1], dout[1:]], dim=0)
+
+
+def _ff_embed(bt, xs_t):
+    """The in-kernel embedding of ``pallas_mlp._embed``: a0 = [sin | cos](bt xs)
+    [2F, P] and the n_in seeded jacobian panels [cos bt_j | -sin bt_j]; with
+    ``bt`` None the coordinates and the unit panels e_j."""
+    if bt is None:
+        eye = torch.eye(xs_t.shape[0], dtype=xs_t.dtype, device=xs_t.device)
+        return xs_t, [eye[:, j:j + 1].expand_as(xs_t) for j in range(xs_t.shape[0])]
+    ang = fr._small_k(bt, xs_t)
+    sn, cs = torch.sin(ang), torch.cos(ang)
+    return torch.cat([sn, cs]), [torch.cat([cs * bt[:, j:j + 1], -sn * bt[:, j:j + 1]])
+                                 for j in range(xs_t.shape[0])]
+
+
+def ff_vj_fwd_plain(params, xs_t, bt, activation: str = "tanh"):
+    """K7 forward, plain: out [1 + n_in, P] = (u, du/dxs) of the Fourier-feature
+    net at the scaled points xs_t, with bt = 2 pi B^T [F, n_in]
+    (``_fwd_kernel_ff``)."""
+    act, act_p, _ = _act_triple(activation)
+    wts, bs = _wt_layout(params)
+    a, jac = _ff_embed(bt, xs_t)
+    for wt, b in zip(wts[:-1], bs[:-1]):
+        a = act(wt @ a + b)
+        sp = act_p(a)
+        jac = [sp * (wt @ j) for j in jac]
+    return torch.cat([wts[-1] @ a + bs[-1]] + [wts[-1] @ j for j in jac])
+
+
+def ff_vj_bwd_plain(params, xs_t, bt, activation: str, g):
+    """K7 backward, plain: parameter gradients of <g, out> for g [1 + n_in, P]
+    (``_bwd_kernel_ff``).  B is fixed: no gradient flows to it."""
+    act, act_p, act_pp = _act_triple(activation)
+    wts, bs = _wt_layout(params)
+    n_in = xs_t.shape[0]
+    a0, j0 = _ff_embed(bt, xs_t)
+    acts, pres, jacs = [], [], []
+    a, jac = a0, j0
+    for wt, b in zip(wts[:-1], bs[:-1]):
+        pre = [wt @ j for j in jac]
+        a = act(wt @ a + b)
+        sp = act_p(a)
+        jac = [sp * q for q in pre]
+        acts.append(a)
+        pres.append(pre)
+        jacs.append(jac)
+    gu, gdu = g[0:1], [g[j + 1:j + 2] for j in range(n_in)]
+    n = len(params)
+    d_wts, d_bs = [None] * n, [None] * n
+    d_wts[-1] = gu @ acts[-1].T + sum(gdu[j] @ jacs[-1][j].T for j in range(n_in))
+    d_bs[-1] = gu.sum(dim=1, keepdim=True)
+    ga = wts[-1].T @ gu
+    g_jac = [wts[-1].T @ gd for gd in gdu]
+    for l in range(n - 2, -1, -1):
+        sp = act_p(acts[l])
+        spp = act_pp(acts[l], sp)
+        gz = sp * ga
+        for j in range(n_in):
+            gz = gz + (g_jac[j] * pres[l][j]) * spp
+        gp = [sp * gj for gj in g_jac]
+        a_in, j_in = (a0, j0) if l == 0 else (acts[l - 1], jacs[l - 1])
+        d_wts[l] = gz @ a_in.T + sum(gp[j] @ j_in[j].T for j in range(n_in))
+        d_bs[l] = gz.sum(dim=1, keepdim=True)
+        if l > 0:
+            ga = wts[l].T @ gz
+            g_jac = [wts[l].T @ q for q in gp]
+    return [{"w": dw.T, "b": db[:, 0]} for dw, db in zip(d_wts, d_bs)]
+
+
+def ff_vj_jvp_plain(params, xs_t, bt, activation: str, tangent):
+    """K8, plain: dout [1 + n_in, P] along the parameter tangent (B fixed, no
+    tangent) -- ``_jvp_kernel_ff``: the embedding seeds both the packed state
+    and its tangent, then the shared ``_jvp_tail``."""
+    act, act_p, act_pp = _act_triple(activation)
+    wts, bs = _wt_layout(params)
+    dwts, dbs = _wt_layout(tangent)
+    n_in, p = xs_t.shape
+    a0, j0 = _ff_embed(bt, xs_t)
+    z = wts[0] @ a0 + bs[0]
+    dz = dwts[0] @ a0 + dbs[0]
+    a = act(z)
+    sp = act_p(a)
+    dsp = act_pp(a, sp) * dz
+    pre = [wts[0] @ j for j in j0]
+    dpre = [dwts[0] @ j for j in j0]
+    s = torch.cat([a] + [sp * q for q in pre], dim=1)
+    ds = torch.cat([sp * dz] + [dsp * q + sp * dq for q, dq in zip(pre, dpre)], dim=1)
+    return _jvp_tail(wts, bs, dwts, dbs, s, ds, n_in, p, activation)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +249,14 @@ def load_library() -> ctypes.CDLL:
     lib.vj_jvp.argtypes = [ptr] * 4 + [i64] + [i32] * 4 + [ptr]
     lib.vj_bwd_blocks.argtypes = [i64, i32, i32, i32, ctypes.POINTER(i32)]
     lib.vj_bwd.argtypes = [ptr] * 4 + [i32, ptr, i64] + [i32] * 4 + [ptr]
-    for fn in (lib.vj_n_params_c, lib.vj_fwd, lib.vj_jvp, lib.vj_bwd_blocks, lib.vj_bwd):
+    lib.ff_n_params_c.argtypes = [i32] * 3
+    lib.ff_vj_fwd.argtypes = [ptr] * 4 + [i64] + [i32] * 5 + [ptr]
+    lib.ff_vj_jvp.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr]
+    lib.ff_vj_bwd_blocks.argtypes = [i64] + [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ff_vj_bwd.argtypes = [ptr] * 5 + [i32, ptr, i64] + [i32] * 5 + [ptr]
+    for fn in (lib.vj_n_params_c, lib.vj_fwd, lib.vj_jvp, lib.vj_bwd_blocks, lib.vj_bwd,
+               lib.ff_n_params_c, lib.ff_vj_fwd, lib.ff_vj_jvp, lib.ff_vj_bwd_blocks,
+               lib.ff_vj_bwd):
         fn.restype = i32
     return lib
 
@@ -330,12 +443,160 @@ def value_and_jac(params, x, activation: str = "tanh", scale=None, shift=None):
     ``mlp_value_and_jac`` (du is with respect to the ORIGINAL coordinates),
     differentiable in reverse and forward mode with respect to ``params`` only.
     A net without a hidden layer falls back to ``mlp_value_and_jac``, as
-    ``pallas_value_and_jac`` does."""
+    ``pallas_value_and_jac`` does; on CUDA a net wider than K5 / K6 take runs
+    on K7 / K8 without an embedding."""
     if len(params) < 2:
         return mlp_value_and_jac(params, x, activation, scale, shift)
     xs = x if scale is None else (x - shift) * scale
     xs_t = xs.detach().T.to(torch.float32).contiguous()
-    out = ValueAndJacFn.apply(xs_t, activation, *_leaves(params))
+    if fr.uses_ff_kernels(params, xs_t.is_cuda, False):
+        out = FfValueAndJacFn.apply(xs_t, None, activation, *_leaves(params))
+    else:
+        out = ValueAndJacFn.apply(xs_t, activation, *_leaves(params))
+    du = out[1:]
+    if scale is not None:
+        du = du * scale[:, None].to(du.dtype)
+    return out[0], du.T
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: the Fourier-feature twins (csrc/ff_mlp.cu, unit mode)
+
+
+def _ff_vj_args(params, xs_t, activation, hp, fp):
+    n_in, p = xs_t.shape
+    return [p, n_in, fr.ff_ke(fp), len(params) - 1, hp, ACTIVATIONS[activation]]
+
+
+def kernel_ff_vj_fwd(lib, params, xs_t, bt, activation: str, stream=None):
+    """Launch K7's forward of ``lib`` (no device dispatch): out [1 + n_in, P]."""
+    hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
+    btp = fr._ptr(fr.ff_bt(bt, fp))
+    out = torch.empty((1 + xs_t.shape[0], xs_t.shape[1]), dtype=torch.float32,
+                      device=xs_t.device)
+    build.raise_on(lib.ff_vj_fwd(xs_t.data_ptr(), btp, packed.data_ptr(),
+                                 out.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp),
+                                 stream), "ff_vj_fwd")
+    return out
+
+
+def kernel_ff_vj_bwd(lib, params, xs_t, bt, activation: str, g, stream=None):
+    """Launch K7's backward of ``lib``: gradients of <g, out>."""
+    hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
+    btp = fr._ptr(fr.ff_bt(bt, fp))
+    n_in, p = xs_t.shape
+    g = g.detach().to(torch.float32).contiguous()
+    if tuple(g.shape) != (1 + n_in, p) or g.device != xs_t.device:
+        raise ValueError(f"cotangent must be [{1 + n_in}, {p}] on {xs_t.device}")
+    blocks = ctypes.c_int(0)
+    build.raise_on(lib.ff_vj_bwd_blocks(p, n_in, fr.ff_ke(fp), len(params) - 1, hp,
+                                        ctypes.byref(blocks)), "ff_vj_bwd_blocks")
+    partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32,
+                           device=xs_t.device)
+    grad = torch.empty(packed.numel(), dtype=torch.float32, device=xs_t.device)
+    build.raise_on(lib.ff_vj_bwd(xs_t.data_ptr(), btp, packed.data_ptr(),
+                                 g.data_ptr(), partials.data_ptr(), blocks.value,
+                                 grad.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp),
+                                 stream), "ff_vj_bwd")
+    return fr.ff_unpack(grad, params, hp, fp)
+
+
+def kernel_ff_vj_jvp(lib, params, xs_t, bt, activation: str, tangent, stream=None):
+    """Launch K8 of ``lib``: dout [1 + n_in, P] along ``tangent``."""
+    hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
+    dpacked = fr.ff_pack(tangent, hp, fp)
+    btp = fr._ptr(fr.ff_bt(bt, fp))
+    dout = torch.empty((1 + xs_t.shape[0], xs_t.shape[1]), dtype=torch.float32,
+                       device=xs_t.device)
+    build.raise_on(lib.ff_vj_jvp(xs_t.data_ptr(), btp, packed.data_ptr(),
+                                 dpacked.data_ptr(), dout.data_ptr(),
+                                 *_ff_vj_args(params, xs_t, activation, hp, fp), stream),
+                   "ff_vj_jvp")
+    return dout
+
+
+def _ff_check(params, xs_t, bt, activation):
+    fr.check_ff_args(params, bt, (xs_t,), activation)
+    if bt is not None and bt.shape[1] != xs_t.shape[0]:
+        raise ValueError(f"bt has {bt.shape[1]} input columns, the points {xs_t.shape[0]}")
+
+
+def ff_vj_fwd(params, xs_t, bt, activation: str = "tanh"):
+    """K7 forward: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
+    if _route(xs_t, activation) == "cpu":
+        return ff_vj_fwd_plain(params, xs_t, bt, activation)
+    _ff_check(params, xs_t, bt, activation)
+    out = kernel_ff_vj_fwd(load_library(), params, xs_t, bt, activation, _stream(xs_t))
+    ff_vj_fwd.launches += 1
+    return out
+
+
+def ff_vj_bwd(params, xs_t, bt, activation: str, g):
+    """K7 backward; dispatch as ``ff_vj_fwd``."""
+    if _route(xs_t, activation) == "cpu":
+        return ff_vj_bwd_plain(params, xs_t, bt, activation, g)
+    _ff_check(params, xs_t, bt, activation)
+    grads = kernel_ff_vj_bwd(load_library(), params, xs_t, bt, activation, g, _stream(xs_t))
+    ff_vj_bwd.launches += 1
+    return grads
+
+
+def ff_vj_jvp(params, xs_t, bt, activation: str, tangent):
+    """K8; dispatch as ``ff_vj_fwd``."""
+    if _route(xs_t, activation) == "cpu":
+        return ff_vj_jvp_plain(params, xs_t, bt, activation, tangent)
+    _ff_check(params, xs_t, bt, activation)
+    dout = kernel_ff_vj_jvp(load_library(), params, xs_t, bt, activation, tangent,
+                            _stream(xs_t))
+    ff_vj_jvp.launches += 1
+    return dout
+
+
+ff_vj_fwd.launches = 0
+ff_vj_bwd.launches = 0
+ff_vj_jvp.launches = 0
+
+
+class FfValueAndJacFn(torch.autograd.Function):
+    """out = ff_vj_fwd(params, xs_t, bt); ``backward`` by K7's backward, ``jvp``
+    by K8.  Differentiable in the parameters only: xs_t and bt are fixed."""
+
+    @staticmethod
+    def forward(xs_t, bt, activation, *flat):
+        return ff_vj_fwd(_as_params(flat), xs_t, bt, activation)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xs_t, bt, activation, *flat = inputs
+        ctx.activation = activation
+        ctx.save_for_backward(xs_t, bt, *flat)
+        ctx.save_for_forward(xs_t, bt, *flat)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs_t, bt, *flat = ctx.saved_tensors
+        grads = ff_vj_bwd(_as_params(flat), xs_t, bt, ctx.activation, g)
+        return (None, None, None, *_leaves(grads))
+
+    @staticmethod
+    def jvp(ctx, _dxs, _dbt, _dact, *dflat):
+        xs_t, bt, *flat = ctx.saved_tensors
+        tangent = [torch.zeros_like(t) if d is None else d for t, d in zip(flat, dflat)]
+        return ff_vj_jvp(_as_params(flat), xs_t, bt, ctx.activation, _as_params(tangent))
+
+
+def ff_value_and_jac(b_mat, params, x, activation: str = "tanh", scale=None, shift=None):
+    """(u, du/dx) of the Fourier-feature net through :class:`FfValueAndJacFn`:
+    the signature and semantics of ``models.mlp.ff_value_and_jac`` (bind B with
+    ``functools.partial``), differentiable in reverse and forward mode with
+    respect to ``params`` only.  bt = 2 pi B^T is formed as the JAX package
+    forms it.  A net without a hidden layer falls back to the plain function."""
+    if len(params) < 2:
+        return _mlp.ff_value_and_jac(b_mat, params, x, activation, scale, shift)
+    xs = x if scale is None else (x - shift) * scale
+    xs_t = xs.detach().T.to(torch.float32).contiguous()
+    bt = ((2.0 * math.pi) * b_mat.to(device=x.device, dtype=torch.float32).T).contiguous()
+    out = FfValueAndJacFn.apply(xs_t, bt, activation, *_leaves(params))
     du = out[1:]
     if scale is not None:
         du = du * scale[:, None].to(du.dtype)

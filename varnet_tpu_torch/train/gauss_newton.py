@@ -43,12 +43,15 @@ def make_residual_fn(
     k_chunks: int = 1,
     has_react: bool = False,
     device=None,
+    input_scaling: bool = True,
+    apply_fn: Callable = mlp_apply,
     **unported,
 ):
     """Weighted residual VECTOR ``residual_fn(theta, quad, bc, ic=None,
     weights=(1, 1, 1, 0)) -> r_full`` with sum(r^2) == the total loss of
     ``make_loss_fn`` (its normalized-residual convention).  Inputs are scaled
-    onto [-1, 1] as in the JAX package.
+    onto [-1, 1] as in the JAX package unless ``input_scaling`` is False;
+    ``apply_fn`` evaluates the net at the BC/IC points.
 
     ``k_chunks > 1`` evaluates the interior over that many chunks of the
     test-function axis, each under ``torch.utils.checkpoint`` when a graph is
@@ -68,7 +71,9 @@ def make_residual_fn(
     n_bc = float(max(static.n_bc, 1))
     n_ic = float(max(static.n_ic, 1))
     n_k = float(max(static.n_test, 1))
-    scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
+    scale = shift = None
+    if input_scaling:
+        scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
 
     def interior(net, quad, coords, kappa, vel, src, react, mask):
         k, nq = coords.shape[0], coords.shape[1]
@@ -99,10 +104,10 @@ def make_residual_fn(
                     parts.append(interior(theta, quad, *chunk))
             r = torch.cat(parts)
         parts = [math.sqrt(weights[0] / n_k) * r]
-        u_bc = mlp_apply(theta, bc.coords, activation, scale, shift)
+        u_bc = apply_fn(theta, bc.coords, activation, scale, shift)
         parts.append(math.sqrt(weights[1] / n_bc) * (u_bc - bc.values) * bc.mask)
         if ic is not None:
-            u_ic = mlp_apply(theta, ic.coords, activation, scale, shift)
+            u_ic = apply_fn(theta, ic.coords, activation, scale, shift)
             parts.append(math.sqrt(weights[2] / n_ic) * (u_ic - ic.values) * ic.mask)
         return torch.cat(parts)
 

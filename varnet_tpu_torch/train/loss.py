@@ -12,6 +12,8 @@ input jacobian, then the weak-form contraction).
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from ..fem.assembly import ProblemStatic
@@ -29,6 +31,9 @@ def make_loss_fn(
     has_react: bool = False,
     fused: bool = False,
     device=None,
+    input_scaling: bool = True,
+    value_and_jac: Callable = mlp_value_and_jac,
+    apply_fn: Callable = mlp_apply,
     **unported,
 ):
     """Build ``loss_fn(theta, quad, bc, ic=None, weights=(1, 1, 1),
@@ -38,7 +43,11 @@ def make_loss_fn(
     ``fused``: the interior residual goes through ``fused_residual`` on
     ``prepared``, the data from ``prepare_residual_data`` (the trainer builds
     it once per ``train`` call); otherwise through the general path on
-    ``quad``.  Inputs are scaled onto [-1, 1] as in the JAX package.
+    ``quad`` with ``value_and_jac`` (``mlp_value_and_jac``, or the kernel
+    path of ``ops/value_and_jac.py``).  ``apply_fn`` evaluates the net at the
+    BC/IC points (``ff_apply`` for a Fourier-feature net).
+    ``input_scaling``: inputs scaled onto [-1, 1] as in the JAX package;
+    False feeds raw coordinates.
     """
     unknown = sorted(set(unported) - set(UNPORTED))
     if unknown:
@@ -51,7 +60,9 @@ def make_loss_fn(
     n_in = static.n_inputs
     n_bc = float(max(static.n_bc, 1))
     n_ic = float(max(static.n_ic, 1))
-    scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
+    scale = shift = None
+    if input_scaling:
+        scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
 
     def loss_fn(theta, quad, bc, ic=None, weights=(1.0, 1.0, 1.0), prepared=None):
         k, nq = quad.coords.shape[0], quad.coords.shape[1]
@@ -59,7 +70,7 @@ def make_loss_fn(
             r = fused_residual(theta, prepared, activation)
         else:
             flat = quad.coords.reshape(k * nq, n_in)
-            u, du = mlp_value_and_jac(theta, flat, activation, scale, shift)
+            u, du = value_and_jac(theta, flat, activation, scale, shift)
             grad_u = du[:, :d].reshape(k, nq, d)
             u_t = du[:, d].reshape(k, nq) if td else None
             r = weak_residual(
@@ -72,12 +83,12 @@ def make_loss_fn(
         r = r / torch.sum(quad.w)
         loss_int = masked_sum_sq(r, quad.mask) / float(max(static.n_test, 1))
 
-        u_bc = mlp_apply(theta, bc.coords, activation, scale, shift)
+        u_bc = apply_fn(theta, bc.coords, activation, scale, shift)
         loss_bc = masked_mse(u_bc, bc.values, bc.mask, n_bc)
         total = weights[0] * loss_int + weights[1] * loss_bc
         aux = {"loss_int": loss_int, "loss_bc": loss_bc}
         if ic is not None:
-            u_ic = mlp_apply(theta, ic.coords, activation, scale, shift)
+            u_ic = apply_fn(theta, ic.coords, activation, scale, shift)
             loss_ic = masked_mse(u_ic, ic.values, ic.mask, n_ic)
             total = total + weights[2] * loss_ic
             aux["loss_ic"] = loss_ic

@@ -10,6 +10,12 @@ import os
 import numpy as np
 import torch
 
+# B [3, 128] of the pinned contaminant net (benchmarks/results/theta_contaminant_causal.npz):
+# the JAX package's draw at seed 0, F = 128, scales (0.5, 2.0), n_in = 3, carried as an array
+# because a torch.Generator cannot reproduce jax.random's numbers.
+CONTAMINANT_CAUSAL_FOURIER_B = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "contaminant_causal_fourier_b.npy")
+
 
 def save_theta_npz(path: str, theta, prefix: str = "") -> None:
     """Persist an MLP parameter list ``[{'w','b'}, ...]`` (NumPy arrays or
