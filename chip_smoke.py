@@ -58,12 +58,34 @@ is non-zero and no result line is printed):
                seconds per LM iteration.  Kernel vs plain (rtol 2e-2) at disc 16 /
                t_disc 10.
 
+12. hard-tables -- exact BC on the 3-D transient case at the recipe's mesh (disc 16 /
+               t_disc 10, w64x2: 30,375 test functions x 256 points, P = 7,776,000,
+               n_in 4): the host f64 transform tables, built once for the phases below
+               (seconds on their own line).
+13. kernels-dirp -- K4 (precoeff residual) forward (rtol 1e-5) and backward (rtol 1e-4)
+               against its plain version on that mesh with the hard fold, and at the 2-D
+               order-2 mesh (disc 48, integ_p_num 3: per-node tables, 9,025 x 36 points)
+               with the hard fold; kernel and plain timed at the same shape.
+14. hard-train -- 20 Adam epochs of ``VarNet(hard_bc=True)`` at the 3-D transient mesh
+               through K4 (launches rise every epoch, the loss falls); 20 epochs kernel vs
+               plain at disc 8 / t_disc 6 (rtol 2e-4); 20 epochs of the order-2 2-D hard
+               case through K4; a penalty 2-D net at disc 48 on K1/K2, one
+               ``refine_tests`` round, then epochs on K4.
+15. hard-accuracy -- the pinned hard-BC thetas re-score on the card: 3-D transient
+               < 3e-4, 2-D steady < 4.0e-5, 1-D transient < 5e-6.
+16. hard-lm -- 2 LM iterations (cg 10, k_chunks 16) from ``theta_hardbc_3dt.npz`` at the
+               3-D transient mesh on K5 / K6: launches rise by >= steps x cg_iters, the
+               loss does not rise, rel-L2 stays < 3e-4.  Kernel vs plain (rtol 2e-2) at
+               disc 8 / t_disc 6.
+
 Cuts: the contaminant recipe (``benchmarks/contaminant_causal.py``) runs 8000 Adam
 epochs per window and 12 LM iterations of cg 150; here 8 epochs per window and 2 LM
 iterations of cg 10 (widths, features, mesh and the rest of the recipe are as
 published).  The kernel-vs-plain runs use disc 16 / t_disc 10, since the plain
 versions' [P, 256] panels at the full mesh would not fit the card.  The flagship
-phases keep PR 1 and PR 2's depths.  The bounds (``_bounds``) count the layer products
+phases keep PR 1 and PR 2's depths.  The exact-BC recipe (``benchmarks/hardbc_tpu.py
+--case 3dt``: 24,000 Adam epochs, 50 LM iterations of cg 200) is cut to 20 epochs and
+2 LM iterations of cg 10 at its published mesh and width.  The bounds (``_bounds``) count the layer products
 of each kernel's work at the timed shape.
 
 The line before last is the per-kernel JSON summary; the last line is
@@ -136,6 +158,19 @@ def _median_ms(fn, n=20, warmup=3):
     return statistics.median(times)
 
 
+def _seeded_net(n_in, widths, seed):
+    """A seeded random net on the card (biases drawn too) and its generator."""
+    import torch
+
+    from varnet_tpu_torch.models.mlp import init_mlp
+
+    gen = torch.Generator().manual_seed(seed)
+    params = init_mlp(gen, n_in, widths, device="cuda")
+    for layer in params:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).cuda()
+    return params, gen
+
+
 def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -145,7 +180,7 @@ def phase_kernels(widths, seed=0):
     import torch
 
     from varnet_tpu_torch.fem.assembly import build_fixed_data
-    from varnet_tpu_torch.models.mlp import init_mlp, make_input_scaling
+    from varnet_tpu_torch.models.mlp import make_input_scaling
     from varnet_tpu_torch.ops import fused_residual as fr
     from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
@@ -156,10 +191,7 @@ def phase_kernels(widths, seed=0):
     scale, shift = make_input_scaling(st.input_lo, st.input_hi)
     data = fr.prepare_residual_data(fd.quad, scale, shift, time_dependent=True,
                                     has_react=False, device="cuda")
-    gen = torch.Generator().manual_seed(seed)
-    params = init_mlp(gen, st.n_inputs, widths, device="cuda")
-    for layer in params:
-        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).cuda()
+    params, gen = _seeded_net(st.n_inputs, widths, seed)
     gr = torch.randn(data.k, generator=gen).cuda()
 
     r_k = fr.dir_residual_fwd(params, data, "tanh")
@@ -321,13 +353,8 @@ def phase_kernels_vj(widths, xs_t, seed=0):
     """K5 / K6 kernels vs plain at the bench mesh for one width."""
     import torch
 
-    from varnet_tpu_torch.models.mlp import init_mlp
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator().manual_seed(seed)
-    params = init_mlp(gen, xs_t.shape[0], widths, device="cuda")
-    for layer in params:
-        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).cuda()
+    params, _ = _seeded_net(xs_t.shape[0], widths, seed)
     return _vj_compare(params, xs_t, seed + 1, f"kernels-vj w{'x'.join(map(str, widths))}",
                        timed=True)
 
@@ -681,6 +708,285 @@ def phase_lm_ff():
 
 
 # ---------------------------------------------------------------------------
+# The exact-BC / per-node-table slice (K4)
+
+RESULTS = os.path.join(ROOT, "benchmarks", "results")
+HARD_3DT = dict(disc_num=16, b_disc_num=24, t_disc_num=10)   # P = 7,776,000 points
+HARD_3DT_SMALL = dict(disc_num=8, b_disc_num=24, t_disc_num=6)
+HARD_2D_O2 = dict(disc_num=48, b_disc_num=48, integ_p_num=3, test_order=2)
+HARD_ADAM = dict(lr=2e-3, decay_rate=0.1, decay_steps=6000)  # hardbc_tpu.py, 24,000 epochs
+HARD_LM = dict(steps=2, cg_iters=10, k_chunks=16)
+
+
+def _hard_vn(factory, widths, mesh, **kw):
+    from varnet_tpu_torch import VarNet
+    from varnet_tpu_torch.problems import analytic
+    from varnet_tpu_torch.train.optim import OptimizerConfig
+
+    return VarNet(getattr(analytic, factory)()["pde"], layer_width=widths, device="cuda",
+                  hard_bc=True, optimizer=OptimizerConfig(**HARD_ADAM), **{**mesh, **kw})
+
+
+def phase_hard_tables():
+    """The 3-D transient hard-BC VarNet at the recipe's mesh and its host f64
+    transform tables, built once for the K4 phases; beside the threaded,
+    chunked build of ``VarNet._hard_tables``, one single-threaded
+    ``HardBC.tables`` call over the same points, which must give the same
+    tables bit for bit."""
+    from varnet_tpu_torch.fem.assembly import pad_quad
+
+    t0 = time.perf_counter()
+    vn = _hard_vn("transient_ad_3d", (64, 64), HARD_3DT)
+    secs_build = time.perf_counter() - t0
+    hq = vn._hard_tables(pad_quad(vn.fixed.quad, 1))
+    real = int(vn.fixed.quad.mask.sum())
+    t0 = time.perf_counter()
+    single = vn.hard.tables(np.asarray(vn.fixed.quad.coords)[:real])
+    secs_single = time.perf_counter() - t0
+    for name, a, b in zip(single._fields, single, vn._hard_cache[1]):
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+            raise AssertionError(f"hard table {name}: threaded build differs from one call")
+    del single
+    log("hard-tables", mesh="d16/t10", k=vn.static.n_test, nq=vn.static.n_quad_per_test,
+        points=vn.static.n_test * vn.static.n_quad_per_test,
+        assembly_seconds=f"{secs_build:.3f}", table_seconds=f"{vn.hard_table_seconds:.3f}",
+        threads=min(8, os.cpu_count() or 1), single_call_seconds=f"{secs_single:.3f}")
+    return vn, hq
+
+
+def _dirp_compare(params, data, gen, label, timed=True):
+    """K4 forward / backward against the plain version on ``data``."""
+    import torch
+
+    from varnet_tpu_torch.ops import fused_residual as fr
+
+    gr = torch.randn(data.k, generator=gen).cuda()
+    checks = {
+        "fwd": (lambda: [fr.dirp_residual_fwd(params, data, "tanh")],
+                lambda: [fr.dir_residual_fwd_plain(params, data, "tanh")], R_RTOL),
+        "bwd": (lambda: [g[k] for g in fr.dirp_residual_bwd(params, data, "tanh", gr)
+                         for k in ("w", "b")],
+                lambda: [g[k] for g in fr.dir_residual_bwd_plain(params, data, "tanh", gr)
+                         for k in ("w", "b")], G_RTOL),
+    }
+    out = {}
+    for name, (kernel, plain, rtol) in checks.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        rel = max(_rel_err(a, b) for a, b in zip(got, ref))
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        if not (np.isfinite(rel) and rel <= rtol):
+            raise AssertionError(f"{label}: dirp_residual_{name} differs from plain by "
+                                 f"{rel:.3e} > {rtol}")
+        del got, ref
+        torch.cuda.empty_cache()
+        out[name] = {"rel_err": rel, "abs_err": abs_err}
+        if timed:
+            out[name]["ms"] = _median_ms(kernel, n=5, warmup=1)
+            out[name]["plain_ms"] = _median_ms(plain, n=5, warmup=1)
+            torch.cuda.empty_cache()
+    log(label, points=data.k * data.nq, k=data.k, nq=data.nq,
+        **{f"{k}_{m}": f"{v:.4g}" for k, d in out.items() for m, v in d.items()})
+    return out
+
+
+def phase_kernels_dirp(vn3, hq3):
+    """K4 vs plain at the 3-D transient mesh (hard fold, n_in 4, nq 256) and at
+    the 2-D order-2 mesh (hard fold, per-node tables, nq 36)."""
+    import torch
+
+    from varnet_tpu_torch.fem.assembly import pad_quad
+    from varnet_tpu_torch.ops import fused_residual as fr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = fr.prepare_residual_coeffs(pad_quad(vn3.fixed.quad, 1), vn3.scale, vn3.shift,
+                                      time_dependent=True, has_react=vn3.has_react, hard=hq3,
+                                      device="cuda")
+    params, gen = _seeded_net(4, (64, 64), 21)
+    full = _dirp_compare(params, data, gen, "kernels-dirp 3dt-hard w64x2")
+    del data
+    torch.cuda.empty_cache()
+    vn2 = _hard_vn("steady_ad_2d", (48, 48), HARD_2D_O2)
+    data2 = fr.prepare_residual_coeffs(vn2.fixed.quad, vn2.scale, vn2.shift,
+                                       time_dependent=False, has_react=vn2.has_react,
+                                       hard=vn2._hard_tables(vn2.fixed.quad), device="cuda")
+    params2, gen2 = _seeded_net(2, (48, 48), 22)
+    _dirp_compare(params2, data2, gen2, "kernels-dirp 2d-o2-hard w48x2")
+    return full, data2.k * data2.nq
+
+
+def _losses(res):
+    return np.array([r["loss"] for r in res.losses])
+
+
+def phase_hard_train(vn3):
+    """20 Adam epochs at the 3-D transient mesh through K4 (the slice's main
+    path); kernel vs plain at a reduced mesh; the order-2 hard case; a
+    refinement that moves a penalty net from K1/K2 onto K4."""
+    import torch
+
+    from varnet_tpu_torch import VarNet
+    from varnet_tpu_torch.fem.assembly import pad_quad
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.problems.analytic import steady_ad_2d
+
+    epochs = 20
+    first = vn3.train(epoch_num=1, save_freq=1, verbose=False, error_disc=24)  # seeded net's loss
+    fr.dirp_residual_fwd.launches = fr.dirp_residual_bwd.launches = 0
+    res = vn3.train(epoch_num=epochs, save_freq=epochs, verbose=False, error_disc=24)
+    torch.cuda.synchronize()
+    launches = {"fwd": fr.dirp_residual_fwd.launches, "bwd": fr.dirp_residual_bwd.launches}
+    if min(launches.values()) < epochs:
+        raise AssertionError(f"K4 launches {launches} < 1 per epoch over {epochs} epochs")
+    loss0, loss_end = first.losses[0]["loss"], res.losses[-1]["loss"]
+    if not (np.isfinite(loss_end) and loss_end < loss0):
+        raise AssertionError(f"hard 3dt loss did not fall: {loss0} -> {loss_end}")
+    log("hard-train kernel", mesh="d16/t10", epochs=epochs, dirp_fwd=launches["fwd"],
+        dirp_bwd=launches["bwd"], loss_start=f"{loss0:.6e}", loss_end=f"{loss_end:.6e}",
+        rel_l2=f"{res.errors[-1]:.4e}", steps_per_sec=f"{res.steps_per_sec:.4f}",
+        quad_evals_per_sec=f"{res.quad_evals_per_sec:.6e}")
+
+    runs = {}
+    for fused in (True, False):
+        vk = _hard_vn("transient_ad_3d", (64, 64), HARD_3DT_SMALL, use_fused_residual=fused,
+                      use_pallas=fused)
+        runs[fused] = _losses(vk.train(epoch_num=epochs, save_freq=1, verbose=False,
+                                       error_disc=8, error_times=2))
+    worst = float(np.max(np.abs(runs[True] - runs[False]) / np.abs(runs[False])))
+    if not worst <= 2e-4:
+        raise AssertionError(f"hard kernel vs plain 20-epoch trajectories differ by {worst:.3e}")
+    log("hard-train 20-epoch kernel vs plain", mesh="d8/t6", max_rel_diff=f"{worst:.3e}",
+        loss_end_kernel=f"{runs[True][-1]:.6e}", loss_end_plain=f"{runs[False][-1]:.6e}")
+
+    vo = _hard_vn("steady_ad_2d", (48, 48), HARD_2D_O2)
+    before = fr.dirp_residual_fwd.launches
+    ro = vo.train(epoch_num=epochs, save_freq=epochs, verbose=False, error_disc=96)
+    if fr.dirp_residual_fwd.launches - before < epochs:
+        raise AssertionError("the order-2 hard run did not go through K4 every epoch")
+    log("hard-train order-2 2-D", mesh="d48 integ3", k=vo.static.n_test,
+        nq=vo.static.n_quad_per_test, loss_end=f"{ro.losses[-1]['loss']:.6e}",
+        rel_l2=f"{ro.errors[-1]:.4e}", steps_per_sec=f"{ro.steps_per_sec:.4f}",
+        dirp_fwd=fr.dirp_residual_fwd.launches - before)
+
+    va = VarNet(steady_ad_2d()["pde"], layer_width=(48, 48), disc_num=48, b_disc_num=48,
+                device="cuda")
+    counts = lambda: (fr.dir_residual_fwd.launches, fr.dirp_residual_fwd.launches)  # noqa: E731
+    c0 = counts()
+    va.train(epoch_num=5, weight=(1.0, 10.0), save_freq=5, verbose=False, error_disc=96)
+    c1 = counts()
+    info = va.refine_tests(frac=0.1, verbose=False)
+    rr = va.train(epoch_num=5, weight=(1.0, 10.0), save_freq=5, verbose=False, error_disc=96)
+    c2 = counts()
+    if not (c1[0] - c0[0] >= 5 and c1[1] == c0[1] and c2[1] - c1[1] >= 5 and c2[0] == c1[0]):
+        raise AssertionError(f"refinement did not move the net from K1/K2 to K4: {c0} {c1} {c2}")
+    log("hard-train refine_tests 2-D", added=info["n_added"], n_test=info["n_test"],
+        dir_fwd_before=c1[0] - c0[0], dirp_fwd_after=c2[1] - c1[1],
+        loss_end=f"{rr.losses[-1]['loss']:.6e}")
+    # K4 against its plain version on the refined space's data (penalty form,
+    # mixed-scale per-node tables) at the trained net
+    data_a = fr.prepare_residual_coeffs(pad_quad(va.fixed.quad, 1), va.scale, va.shift,
+                                        time_dependent=False, has_react=va.has_react,
+                                        device="cuda")
+    _dirp_compare(va.theta, data_a, torch.Generator().manual_seed(23),
+                  "kernels-dirp 2d-refined w48x2", timed=False)
+    return launches, res
+
+
+def phase_hard_accuracy():
+    """The pinned hard-BC thetas re-score under their bounds on the card."""
+    from varnet_tpu_torch import load_theta_npz
+
+    out = {}
+    for pin, factory, widths, mesh, disc, bound in (
+            ("3dt", "transient_ad_3d", (64, 64), dict(disc_num=4, t_disc_num=3), 24, 3e-4),
+            ("2d", "steady_ad_2d", (48, 48), dict(disc_num=8), 96, 4.0e-5),
+            ("1dt", "transient_ad_1d", (32, 32, 32), dict(disc_num=8, t_disc_num=4), 256,
+             5e-6)):
+        theta = load_theta_npz(os.path.join(RESULTS, f"theta_hardbc_{pin}.npz"))
+        err = _hard_vn(factory, widths, mesh).compute_error(theta, disc=disc, n_times=5)
+        if not err < bound:
+            raise AssertionError(f"theta_hardbc_{pin} re-scores {err:.4e} >= {bound:g}")
+        out[pin] = err
+    log("hard-accuracy", **{f"{k}_rel_l2": f"{v:.6e}" for k, v in out.items()})
+
+
+def _hard_lm_loss(vn, theta):
+    """sum r^2 of the exact-BC LM residual at theta (plain path)."""
+    import torch
+
+    from varnet_tpu_torch.fem.assembly import pad_points, pad_quad
+    from varnet_tpu_torch.fem.hardbc import tables_to
+    from varnet_tpu_torch.train.gauss_newton import make_residual_fn
+
+    quad_h = pad_quad(vn.fixed.quad, HARD_LM["k_chunks"])
+    res_fn = make_residual_fn(vn.static, k_chunks=HARD_LM["k_chunks"], device="cuda",
+                              hard_mode=True)
+    with torch.no_grad():
+        r = res_fn(theta, vn._to_device(quad_h), vn._to_device(pad_points(vn.fixed.bc, 1)),
+                   vn._to_device(pad_points(vn.fixed.ic, 1)), (1.0, 1.0, 1.0, 0.0),
+                   hard=tables_to(vn._hard_tables(quad_h), "cuda"))
+    return float(torch.dot(r, r))
+
+
+def phase_hard_lm(vn3):
+    """K5 / K6 vs plain on one LM chunk of the recipe's mesh; ``refine_lm``
+    from the pinned 3-D transient hard theta there on K5 / K6; kernel vs plain
+    LM losses at the reduced mesh."""
+    import torch
+
+    from varnet_tpu_torch import load_theta_npz, params_from_jax
+    from varnet_tpu_torch.fem.assembly import pad_quad
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    theta = params_from_jax(load_theta_npz(os.path.join(RESULTS, "theta_hardbc_3dt.npz")),
+                            device="cuda")
+    # K5 / K6 against their plain versions at the pinned theta on one LM chunk
+    # of the 3dt mesh: the shape (n_in 4, w64x2, K / k_chunks test functions)
+    # that refine_lm gives them below
+    quad_h = pad_quad(vn3.fixed.quad, HARD_LM["k_chunks"])
+    kc = quad_h.coords.shape[0] // HARD_LM["k_chunks"]
+    coords = torch.from_numpy(np.array(quad_h.coords[:kc], dtype=np.float32)).cuda()
+    xs_t = ((coords.reshape(-1, coords.shape[-1]) - vn3.shift) * vn3.scale).T.contiguous()
+    _vj_compare(theta, xs_t, 24, "kernels-vj hard3dt-chunk w64x2", timed=True)
+    del coords, xs_t
+    torch.cuda.empty_cache()
+    start = _hard_lm_loss(vn3, theta)
+    vn3.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
+    vj.vj_fwd.launches = vj.vj_bwd.launches = vj.vj_jvp.launches = 0
+    t0 = time.perf_counter()
+    rk = vn3.refine_lm(save_freq=1, verbose=False, error_disc=24, error_times=5, **HARD_LM)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"vj_fwd": vj.vj_fwd.launches, "vj_bwd": vj.vj_bwd.launches,
+                "vj_jvp": vj.vj_jvp.launches}
+    need = HARD_LM["steps"] * HARD_LM["cg_iters"]
+    if min(launches.values()) < need:
+        raise AssertionError(f"hard LM kernel launches {launches} < steps x cg_iters = {need}")
+    lk = _losses(rk)
+    if not (np.all(np.isfinite(lk)) and lk[0] <= start * (1 + 1e-5) and np.all(np.diff(lk) <= 0)):
+        raise AssertionError(f"hard LM loss rose: start {start} -> {lk.tolist()}")
+    if not rk.errors[-1] < 3e-4:
+        raise AssertionError(f"hard LM rel-L2 {rk.errors[-1]:.4e} >= 3e-4")
+    per_it = (rk.wall_times[-1] - rk.wall_times[0]) / (HARD_LM["steps"] - 1)
+    log("hard-lm kernel", mesh="d16/t10", **HARD_LM, loss_start=f"{start:.6e}",
+        losses=",".join(f"{v:.6e}" for v in lk), rel_l2=f"{rk.errors[-1]:.6e}",
+        s_per_iter=f"{per_it:.4f}", call_seconds=f"{secs:.3f}", **launches)
+    small = {}
+    for use_pallas in (True, False):
+        v = _hard_vn("transient_ad_3d", (64, 64), HARD_3DT_SMALL, use_pallas=use_pallas)
+        v.theta = [{k: t.clone() for k, t in layer.items()} for layer in theta]
+        small[use_pallas] = _losses(v.refine_lm(save_freq=1, verbose=False, error_disc=8,
+                                                error_times=2, **HARD_LM))
+    worst = float(np.max(np.abs(small[True] - small[False]) / np.abs(small[False])))
+    if not worst <= 2e-2:
+        raise AssertionError(f"hard LM kernel vs plain losses differ by {worst:.3e}")
+    log("hard-lm kernel vs plain", mesh="d8/t6",
+        losses_kernel=",".join(f"{v:.6e}" for v in small[True]),
+        losses_plain=",".join(f"{v:.6e}" for v in small[False]), max_rel_diff=f"{worst:.3e}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 
 PEAK_F32 = 67e12   # FLOP/s, f32 outside the tensor cores (H100 SXM data sheet)
@@ -754,6 +1060,14 @@ def main():
     ff_launches = phase_causal()
     phase_contaminant_accuracy()
     lm_ff_launches = phase_lm_ff()
+    torch.cuda.empty_cache()
+    vn3, hq3 = phase_hard_tables()
+    dirp, _ = phase_kernels_dirp(vn3, hq3)
+    del hq3
+    dirp_launches, _ = phase_hard_train(vn3)
+    phase_hard_accuracy()
+    phase_hard_lm(vn3)
+    p3, k3 = vn3.static.n_test * vn3.static.n_quad_per_test, vn3.static.n_test
 
     p_bench, k_bench = k20["points"], k20["k"]
     src = "varnet_tpu_torch/csrc/"
@@ -782,6 +1096,12 @@ def main():
                ff["ff_vj_bwd"], _bounds("bwd", panels=4, points=p_chunk, **ff_net)),
         _entry("ff_vj_jvp", src + "ff_mlp.cu", mlp_py + ":532", lm_ff_launches["ff_vj_jvp"],
                ff["ff_vj_jvp"], _bounds("jvp", panels=4, points=p_chunk, **ff_net)),
+    ] + [
+        # K4 reads xs, cdir (n_in rows each), csrc and cu: n_fields = n_in + 2
+        _entry(f"dirp_residual_{kind}", src + "dir_residual.cu", res_py + ":1340",
+               dirp_launches[kind], dirp[kind],
+               _bounds(kind, (64, 64), 4, 2, p3, 4, n_k=k3, n_fields=6))
+        for kind in ("fwd", "bwd")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

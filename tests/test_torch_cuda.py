@@ -1,5 +1,6 @@
-"""The CUDA kernels (fused residual K1/K2 and K2-FF; value + jacobian K5/K6 and
-K7/K8) against their plain PyTorch versions on the card.
+"""The CUDA kernels (fused residual K1/K2, K2-FF and the precoeff residual K4;
+value + jacobian K5/K6 and K7/K8) against their plain PyTorch versions on the
+card.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip.  The CUDA
 machine has no JAX, and tests/conftest.py imports it, so run them with
@@ -390,3 +391,129 @@ def test_wide_plain_net_runs_on_the_ff_kernels(cuda, fused):
     before = vj.ff_vj_jvp.launches
     VarNet(transient_ad_2d()["pde"], **kw).refine_lm(**lm)
     assert vj.ff_vj_jvp.launches - before >= 3
+
+
+# ---------------------------------------------------------------------------
+# K4, the precoeff residual (exact BC, per-node test tables), and K1 at n_in = 4
+
+# name, factory name, assembly kwargs, time-dependent, reaction, hard
+DIRP_CASES = [
+    ("3dt-hard", "transient_ad_3d", dict(disc_num=3, b_disc_num=3, t_disc_num=2), True,
+     False, True),                                             # n_in 4, nq 256
+    ("3dt", "transient_ad_3d", dict(disc_num=3, b_disc_num=3, t_disc_num=2), True, False,
+     False),
+    ("2d-o2-hard", "steady_ad_2d", dict(disc_num=8, b_disc_num=4, test_order=2,
+                                        integ_p_num=3), False, False, True),  # per node, nq 36
+    ("2dt-o2", "transient_ad_2d", dict(disc_num=6, b_disc_num=4, t_disc_num=4,
+                                       test_order=2), True, False, False),
+    ("adr1d-hard", "steady_adr_1d", dict(disc_num=16), False, True, True),
+    ("mor2d", "mor_steady_ad_2d", dict(disc_num=6, b_disc_num=4), False, False, False),
+]
+
+
+def _dirp_case(cuda, factory, kw, td, react, hard, widths, seed=0):
+    from varnet_tpu_torch.fem.hardbc import HardBC
+    from varnet_tpu_torch.problems import analytic
+
+    pde = getattr(analytic, factory)()["pde"]
+    fd = build_fixed_data(pde, **kw)
+    st = fd.static
+    scale, shift = make_input_scaling(st.input_lo, st.input_hi)
+    hq = HardBC(pde).tables(fd.quad.coords) if hard else None
+    data = fr.prepare_residual_coeffs(fd.quad, scale, shift, time_dependent=td,
+                                      has_react=react, hard=hq, device=cuda)
+    gen = torch.Generator().manual_seed(seed)
+    params = init_mlp(gen, st.n_inputs, widths, device=cuda)
+    for layer in params:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).to(cuda)
+    return data, params, torch.randn(data.k, generator=gen).to(cuda)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("widths", [(20, 20), (64, 64), (13, 48, 7), (32, 32, 32)])
+@pytest.mark.parametrize("name,factory,kw,td,react,hard", DIRP_CASES,
+                         ids=[c[0] for c in DIRP_CASES])
+def test_dirp_kernel_matches_plain(cuda, name, factory, kw, td, react, hard, widths,
+                                   activation):
+    data, params, gr = _dirp_case(cuda, factory, kw, td, react, hard, widths)
+    before = (fr.dirp_residual_fwd.launches, fr.dirp_residual_bwd.launches)
+    r = fr.dirp_residual_fwd(params, data, activation)
+    grads = fr.dirp_residual_bwd(params, data, activation, gr)
+    torch.cuda.synchronize()
+    assert (fr.dirp_residual_fwd.launches, fr.dirp_residual_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(r, fr.dir_residual_fwd_plain(params, data, activation)) < 1e-5
+    for g, p in zip(grads, fr.dir_residual_bwd_plain(params, data, activation, gr)):
+        for k in ("w", "b"):
+            assert g[k].shape == p[k].shape
+            if p[k].abs().max() > 0:
+                assert _rel(g[k], p[k]) < 1e-4, (k, _rel(g[k], p[k]))
+
+
+def test_dirp_backward_is_deterministic(cuda):
+    data, params, gr = _dirp_case(cuda, *DIRP_CASES[0][1:], (64, 64), seed=1)
+    g1 = fr.dirp_residual_bwd(params, data, "tanh", gr)
+    g2 = fr.dirp_residual_bwd(params, data, "tanh", gr)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+def test_dirp_refuses_nets_wider_than_64(cuda):
+    data, params, _ = _dirp_case(cuda, *DIRP_CASES[0][1:], (72, 72))
+    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+        fr.dirp_residual_fwd(params, data, "tanh")
+    from varnet_tpu_torch.problems.analytic import steady_ad_2d
+
+    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+        VarNet(steady_ad_2d()["pde"], layer_width=(72, 72), disc_num=6, b_disc_num=4,
+               device=cuda, hard_bc=True).train(epoch_num=1, verbose=False)
+
+
+@pytest.mark.parametrize("widths", [(20, 20), (64, 64)])
+def test_k1_takes_four_inputs(cuda, widths):
+    """The repair of the n_in <= 3 limit: K1/K2 on the 3-D transient penalty
+    problem (n_in 4, nq 256) against their plain version."""
+    from varnet_tpu_torch.problems.analytic import transient_ad_3d
+
+    fd = build_fixed_data(transient_ad_3d()["pde"], 3, b_disc_num=3, t_disc_num=2)
+    scale, shift = make_input_scaling(fd.static.input_lo, fd.static.input_hi)
+    data = fr.prepare_residual_data(fd.quad, scale, shift, time_dependent=True,
+                                    has_react=False, device=cuda)
+    assert data.xs.shape[0] == 4 and data.nq == 256
+    gen = torch.Generator().manual_seed(2)
+    params = init_mlp(gen, 4, widths, device=cuda)
+    gr = torch.randn(data.k, generator=gen).to(cuda)
+    r = fr.dir_residual_fwd(params, data, "tanh")
+    grads = fr.dir_residual_bwd(params, data, "tanh", gr)
+    assert _rel(r, fr.dir_residual_fwd_plain(params, data, "tanh")) < 1e-5
+    for g, p in zip(grads, fr.dir_residual_bwd_plain(params, data, "tanh", gr)):
+        for k in ("w", "b"):
+            if p[k].abs().max() > 0:
+                assert _rel(g[k], p[k]) < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["hard", "order2", "refined"])
+def test_training_on_cuda_goes_through_k4(cuda, kind):
+    """VarNet(hard_bc=True), VarNet(test_order=2) and a refined test space train
+    through K4 (its launch counters rise every epoch) and take the plain path's
+    steps; the hard LM runs on K5 / K6."""
+    from varnet_tpu_torch.problems.analytic import steady_ad_2d
+
+    kw = dict(layer_width=(16, 16), disc_num=8, b_disc_num=6, device=cuda,
+              hard_bc=kind == "hard", test_order=2 if kind == "order2" else 1)
+    train = dict(epoch_num=4, weight=(1.0, 10.0), save_freq=1, verbose=False, error_disc=8)
+    vns = [VarNet(steady_ad_2d()["pde"], **kw),
+           VarNet(steady_ad_2d()["pde"], use_pallas=False, use_fused_residual=False, **kw)]
+    if kind == "refined":
+        for v in vns:
+            v.refine_tests(frac=0.3, verbose=False)
+    before = (fr.dirp_residual_fwd.launches, fr.dirp_residual_bwd.launches)
+    res = vns[0].train(**train)
+    assert fr.dirp_residual_fwd.launches - before[0] == 4
+    assert fr.dirp_residual_bwd.launches - before[1] == 4
+    np.testing.assert_allclose([r["loss"] for r in res.losses],
+                               [r["loss"] for r in vns[1].train(**train).losses], rtol=2e-4)
+    if kind == "hard":
+        before = vj.vj_jvp.launches
+        vns[0].refine_lm(steps=1, cg_iters=3, k_chunks=2, verbose=False, error_disc=8)
+        assert vj.vj_jvp.launches - before >= 3

@@ -148,7 +148,7 @@ def test_unsupported_inputs_raise():
     with pytest.raises(ValueError, match="hidden width"):
         fr._check_kernel_args(params_from_jax(_setup(*CASES[0][1:3], (72, 8))[2]), data,
                               "tanh")
-    wide = data._replace(xs=torch.zeros(4, data.xs.shape[1]))
+    wide = data._replace(xs=torch.zeros(5, data.xs.shape[1]))  # the kernel takes n_in <= 4
     with pytest.raises(ValueError, match="n_in"):
         fr._check_kernel_args(params, wide, "tanh")
 

@@ -94,7 +94,7 @@ def test_unported_options_raise():
     st = build_fixed_data(steady_adr_1d()["pde"], 8).static
     with pytest.raises(NotImplementedError, match="source_fn"):
         make_loss_fn(st, source_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="hard_mode"):
-        make_loss_fn(st, hard_mode=True)
+    with pytest.raises(NotImplementedError, match="has_obs"):  # hard_mode is ported
+        make_loss_fn(st, has_obs=True)
     with pytest.raises(TypeError, match="bogus"):
         make_loss_fn(st, bogus=1)

@@ -1,6 +1,7 @@
 """The port imports no JAX, optax or orbax, directly or through varnet_tpu: not
 when imported, not through Adam training, not through LM refinement, not through
-the Fourier-feature causal curriculum and its LM polish."""
+the Fourier-feature causal curriculum and its LM polish, not through exact-BC
+Adam + LM, a test-space refinement and the obstacle CLI with ``--hard-bc``."""
 
 import os
 import subprocess
@@ -33,6 +34,15 @@ ff, _ = train_causal(lambda t: contaminant_transport_2d(t_final=t)["pde"], windo
                                         fourier_features=8, fourier_scale="0.5,2.0",
                                         device="cpu", input_scaling=False))
 ff.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=2, k_chunks=2, verbose=False)
+hv = VarNet(transient_ad_2d()["pde"], layer_width=(8, 8), disc_num=4, b_disc_num=4,
+            t_disc_num=3, device="cpu", hard_bc=True)
+hv.train(epoch_num=2, save_freq=2, verbose=False, error_disc=4, error_times=2)
+hv.refine_lm(steps=1, cg_iters=2, k_chunks=2, verbose=False, error_disc=4, error_times=2)
+hv.refine_tests(frac=0.2, verbose=False)
+hv.train(epoch_num=1, save_freq=1, verbose=False, error_disc=4, error_times=2)
+from varnet_tpu_torch.examples import obstacle_2d
+obstacle_2d.main(["--hard-bc", "--width", "8", "--disc", "6", "--bdisc", "6", "--epochs", "2",
+                  "--save-freq", "2", "--lm-steps", "1", "--lm-cg", "2", "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

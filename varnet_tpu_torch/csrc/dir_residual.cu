@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels ops/pallas_residual.py::_dirq_residual_fn (q-blocked, G > 1)
 // and ::_fused_residual_fn(directional=True) (G = 1, no Fourier features) of the JAX
-// package.  Both compute, for every test function k,
+// package (K1/K2, "table mode"), and ::_dirp_residual_fn, the precomputed-coefficient
+// variant (K4, "precoeff mode").  All compute, for every test function k,
 //
 //     r_k = sum_q [ c(k,q) . du/dxs + cu(k,q) u + csrc(k,q) ],
 //     c_j = w_q scale_j (vel_j N_q + kappa dN_qj)  (j < d),   c_t = w_q scale_t N_q,
@@ -25,9 +26,19 @@
 // the forward and the point-sum of the backward are reduced inside the block, the
 // latter as register-tiled outer products (2 FMAs per shared-memory load, not 0.5).
 // Nothing but r (forward) and one gradient partial per block (backward) is written to
-// device memory.  The backward's block size is the one that keeps the most threads
-// resident per SM (occupancy calculator), since its per-point state grows with depth
-// and width.
+// device memory.
+//
+// Precoeff mode (K4) reads c, csrc and cu per point from device memory instead of
+// forming them from the field rows and the shared [nq] table: the host folded the test
+// tables (shared [nq] or per-node [K, nq]: order-2 test spaces, refined hats), the input
+// scale and, for exact BC/IC, the affine ansatz u = A + B n into them
+// (ops/fused_residual.py::prepare_residual_coeffs).  Only the point reader (vr_point)
+// differs; the forward and backward bodies are K1's.  It reads 2 n_in + 1 floats per
+// point (+ 1 for cu) against n_in + 2 + d (+ 1 for reaction) in table mode, still far
+// below the FMA work per point, so K4 is bound by operations like K1.
+//
+// The backward's block size is the one that keeps the most threads resident per SM
+// (occupancy calculator), since its per-point state grows with depth and width.
 //
 // TPU -> Hopper translation.  The TPU grid runs in order and sums dW across grid steps
 // in place; here blocks run in no order, so the backward is persistent (each block
@@ -76,26 +87,36 @@ __device__ __forceinline__ float vr_ddact(float a, float sp, int act) {
 
 struct VrProblem {
   const float* xs;     // [n_in][P] scaled coordinates
-  const float* flds;   // [2 + d (+1)][P]: kappa, vel_0..vel_{d-1}, src[, react]
-  const float* tab;    // [nq][2 + d]: N, w, dN_0..dN_{d-1}
-  const float* scale;  // [n_in]
+  const float* flds;   // table mode: [2 + d (+1)][P]: kappa, vel_0..vel_{d-1}, src[, react]
+  const float* tab;    // table mode: [nq][2 + d]: N, w, dN_0..dN_{d-1}
+  const float* scale;  // table mode: [n_in]
+  const float* cdir;   // precoeff mode: [n_in][P] directions (zero rows for MOR inputs)
+  const float* csrc;   // precoeff mode: [P] additive term
+  const float* cu;     // precoeff mode: [P] coefficient of u (when has_react)
   long long P;         // K * nq
-  int k, nq, n_in, d, td, has_react, n_hidden, act;
+  int k, nq, n_in, d, td, has_react, n_hidden, act, pre;
 };
+
+// Floats of the shared-memory quadrature table (none in precoeff mode), padded to 4.
+__host__ __device__ inline int vr_tab_floats(const VrProblem& pb) {
+  return pb.pre ? 0 : (pb.nq * (2 + pb.d) + 3) / 4 * 4;
+}
 
 // Cooperative load of the packed parameters, the quadrature table and the input scale.
 __device__ __forceinline__ void vr_load_consts(const VrProblem& pb, const float* params,
                                                int npp, float* sW, float* sTab,
                                                float* sScale) {
   for (int i = threadIdx.x; i < npp; i += blockDim.x) sW[i] = params[i];
+  if (pb.pre) return;
   const int ntab = pb.nq * (2 + pb.d);
   for (int i = threadIdx.x; i < ntab; i += blockDim.x) sTab[i] = pb.tab[i];
   if (threadIdx.x < VR_MAX_IN)
     sScale[threadIdx.x] = threadIdx.x < pb.n_in ? pb.scale[threadIdx.x] : 0.0f;
 }
 
-// Scaled coordinates x, direction c and the u / source coefficients of point p
-// (the math of _dir_coeffs).  Invalid points (p >= P) get all zeros.
+// Scaled coordinates x, direction c and the u / source coefficients of point p: read
+// (precoeff mode) or formed from the fields and the table (the math of _dir_coeffs).
+// Invalid points (p >= P) get all zeros.
 __device__ __forceinline__ void vr_point(const VrProblem& pb, const float* sTab,
                                          const float* sScale, long long p, bool valid,
                                          float x[VR_MAX_IN], float c[VR_MAX_IN],
@@ -105,6 +126,18 @@ __device__ __forceinline__ void vr_point(const VrProblem& pb, const float* sTab,
   cu = 0.0f;
   csrc = 0.0f;
   if (!valid) return;
+  if (pb.pre) {
+#pragma unroll
+    for (int j = 0; j < VR_MAX_IN; ++j) {
+      if (j < pb.n_in) {
+        x[j] = pb.xs[j * pb.P + p];
+        c[j] = pb.cdir[j * pb.P + p];
+      }
+    }
+    csrc = pb.csrc[p];
+    if (pb.has_react) cu = pb.cu[p];
+    return;
+  }
   const int q = (int)(p % pb.nq);
   const float* row = sTab + q * (2 + pb.d);
   const float n_q = row[0], w_q = row[1];
@@ -192,7 +225,7 @@ __global__ void vr_fwd_kernel(VrProblem pb, const float* __restrict__ params,
   const int npp = vr_n_params(HP, pb.n_hidden);
   float* sW = smem;
   float* sTab = sW + npp;
-  float* sScale = sTab + (pb.nq * (2 + pb.d) + 3) / 4 * 4;
+  float* sScale = sTab + vr_tab_floats(pb);
   float* sA = sScale + VR_MAX_IN;
   float* sP = sA + HP * T;
   float* sRed = sP + HP * T;
@@ -316,7 +349,7 @@ __global__ void vr_bwd_kernel(VrProblem pb, const float* __restrict__ params,
   float* sW = smem;
   float* sG = sW + npp;
   float* sTab = sG + npp;
-  float* sScale = sTab + (pb.nq * (2 + pb.d) + 3) / 4 * 4;
+  float* sScale = sTab + vr_tab_floats(pb);
   float* sA = sScale + VR_MAX_IN;    // [Lh][HP][ld] a, then gz, then ga of the layer below
   float* sP = sA + Lh * HP * ld;     // [Lh][HP][ld] pre, then gp, then gj of the layer below
   float* sO = sP + Lh * HP * ld;     // [2][ld] output-row cotangents (value, tangent)
@@ -413,17 +446,17 @@ const int kFwdTargetThreads = 256;
 const int kBwdThreadChoices[] = {256, 224, 192, 160, 128, 96, 64, 32};
 const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
 
-size_t consts_floats(int hp, int n_hidden, int nq, int d) {
-  return (size_t)vr_n_params(hp, n_hidden) + (nq * (2 + d) + 3) / 4 * 4 + VR_MAX_IN;
+size_t consts_floats(int hp, const VrProblem& pb) {
+  return (size_t)vr_n_params(hp, pb.n_hidden) + vr_tab_floats(pb) + VR_MAX_IN;
 }
 
-size_t fwd_smem(int hp, int n_hidden, int nq, int d, int T) {
-  return sizeof(float) * (consts_floats(hp, n_hidden, nq, d) + 2 * (size_t)hp * T + T);
+size_t fwd_smem(int hp, const VrProblem& pb, int T) {
+  return sizeof(float) * (consts_floats(hp, pb) + 2 * (size_t)hp * T + T);
 }
 
-size_t bwd_smem(int hp, int n_hidden, int nq, int d, int T) {
-  const size_t per_point = 2 * (size_t)n_hidden * hp + 2 + 2 * VR_MAX_IN;
-  return sizeof(float) * (consts_floats(hp, n_hidden, nq, d) + vr_n_params(hp, n_hidden) +
+size_t bwd_smem(int hp, const VrProblem& pb, int T) {
+  const size_t per_point = 2 * (size_t)pb.n_hidden * hp + 2 + 2 * VR_MAX_IN;
+  return sizeof(float) * (consts_floats(hp, pb) + vr_n_params(hp, pb.n_hidden) +
                           per_point * (T + 1));
 }
 
@@ -432,9 +465,20 @@ VrProblem make_problem(const float* xs, const float* flds, const float* tab,
                        int has_react, int n_hidden, int act) {
   VrProblem pb;
   pb.xs = xs; pb.flds = flds; pb.tab = tab; pb.scale = scale;
+  pb.cdir = nullptr; pb.csrc = nullptr; pb.cu = nullptr;
   pb.P = (long long)k * nq;
   pb.k = k; pb.nq = nq; pb.n_in = n_in; pb.d = d; pb.td = td; pb.has_react = has_react;
-  pb.n_hidden = n_hidden; pb.act = act;
+  pb.n_hidden = n_hidden; pb.act = act; pb.pre = 0;
+  return pb;
+}
+
+// Precoeff mode: has_cu says whether cu is read (reaction and / or the hard-BC fold).
+VrProblem make_pre_problem(const float* xs, const float* cdir, const float* csrc,
+                           const float* cu, int k, int nq, int n_in, int has_cu,
+                           int n_hidden, int act) {
+  VrProblem pb = make_problem(xs, nullptr, nullptr, nullptr, k, nq, n_in, 0, 0, has_cu,
+                              n_hidden, act);
+  pb.cdir = cdir; pb.csrc = csrc; pb.cu = cu; pb.pre = 1;
   return pb;
 }
 
@@ -443,7 +487,7 @@ int launch_fwd(const VrProblem& pb, const float* params, float* r, cudaStream_t 
   const int kpb = pb.nq >= kFwdTargetThreads ? 1 : kFwdTargetThreads / pb.nq;
   const int T = kpb * pb.nq;
   if (T > 1024) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = fwd_smem(HP, pb.n_hidden, pb.nq, pb.d, T);
+  const size_t smem = fwd_smem(HP, pb, T);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(vr_fwd_kernel<HP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -470,7 +514,7 @@ int bwd_config(const VrProblem& pb, int* threads, int* blocks) {
     return (int)err;
   int best_T = 0, best_per_sm = 0;
   for (int T : kBwdThreadChoices) {
-    const size_t smem = bwd_smem(HP, pb.n_hidden, pb.nq, pb.d, T);
+    const size_t smem = bwd_smem(HP, pb, T);
     if (smem > kMaxSmem) continue;
     int per_sm = 0;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vr_bwd_kernel<HP>, T,
@@ -496,7 +540,7 @@ int launch_bwd(const VrProblem& pb, const float* params, const float* gr, float*
   int err = bwd_config<HP>(pb, &T, &want);
   if (err) return err;
   if (n_blocks != want) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem(HP, pb.n_hidden, pb.nq, pb.d, T);
+  const size_t smem = bwd_smem(HP, pb, T);
   const long long n_tiles = (pb.P + T - 1) / T;
   vr_bwd_kernel<HP><<<n_blocks, T, smem, stream>>>(pb, params, gr, partials, n_tiles);
   if ((err = (int)cudaGetLastError()) != 0) return err;
@@ -553,6 +597,36 @@ int vr_dir_residual_bwd(const float* xs, const float* flds, const float* tab,
                         void* stream) {
   const VrProblem pb = make_problem(xs, flds, tab, scale, k, nq, n_in, d, td, has_react,
                                     n_hidden, act);
+  VR_DISPATCH(hp, launch_bwd<HP>(pb, params, gr, partials, n_blocks, grad,
+                                 (cudaStream_t)stream))
+}
+
+// K4, precoeff mode: r [k] from the precomputed xs, cdir [n_in][P], csrc [P] and cu [P]
+// (read when has_cu; may be null otherwise).  Returns a cudaError_t value.
+int vr_dirp_residual_fwd(const float* xs, const float* cdir, const float* csrc,
+                         const float* cu, const float* params, float* r, int k, int nq,
+                         int n_in, int has_cu, int n_hidden, int hp, int act, void* stream) {
+  const VrProblem pb = make_pre_problem(xs, cdir, csrc, cu, k, nq, n_in, has_cu, n_hidden,
+                                        act);
+  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, r, (cudaStream_t)stream))
+}
+
+// Number of K4 backward blocks for this problem on the current device.
+int vr_dirp_residual_bwd_blocks(int k, int nq, int n_hidden, int hp, int* blocks) {
+  const VrProblem pb = make_pre_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 0, 0,
+                                        n_hidden, 0);
+  int threads = 0;
+  VR_DISPATCH(hp, bwd_config<HP>(pb, &threads, blocks))
+}
+
+// K4's packed parameter gradient grad [n_params] for the cotangent gr [k]; partials as
+// in vr_dir_residual_bwd (n_blocks from vr_dirp_residual_bwd_blocks).
+int vr_dirp_residual_bwd(const float* xs, const float* cdir, const float* csrc,
+                         const float* cu, const float* params, const float* gr,
+                         float* partials, int n_blocks, float* grad, int k, int nq, int n_in,
+                         int has_cu, int n_hidden, int hp, int act, void* stream) {
+  const VrProblem pb = make_pre_problem(xs, cdir, csrc, cu, k, nq, n_in, has_cu, n_hidden,
+                                        act);
   VR_DISPATCH(hp, launch_bwd<HP>(pb, params, gr, partials, n_blocks, grad,
                                  (cudaStream_t)stream))
 }

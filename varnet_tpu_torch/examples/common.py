@@ -20,8 +20,6 @@ from ..train.optim import OptimizerConfig
 UNPORTED = {
     "resume": (True, "item 9 (checkpoints)"),
     "ensemble": (lambda v: v >= 2, "item 18 (train_ensemble)"),
-    "hard_bc": (True, "item 14 (hard BC)"),
-    "test_order": (2, "item 14 (order-2 test space)"),
     "plot": (True, "item 18 (viz / sim_res)"),
     "devices": (lambda v: v is not None and v != 1, "item 10 (multi-device)"),
 }
@@ -56,8 +54,10 @@ def make_parser(desc: str, **defaults) -> argparse.ArgumentParser:
                    help="early-stop rel-L2 error target")
     p.add_argument("--plot", action="store_true", help="not ported yet")
     p.add_argument("--test-order", type=int, default=1, choices=(1, 2),
-                   help="test-function order (2 is not ported yet)")
-    p.add_argument("--hard-bc", action="store_true", help="not ported yet")
+                   help="test-function order: 1 = hats (reference), 2 = quadratic Lagrange")
+    p.add_argument("--hard-bc", action="store_true",
+                   help="exact Dirichlet-BC/IC imposition (u = G + tau D net; the BC/IC "
+                        "penalty rows drop out)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--devices", type=int, default=None, help="one device only for now")
     p.add_argument("--device", type=str, default="cuda",
@@ -100,9 +100,11 @@ def run_case(pde, args, weight, t_disc_num=None, **varnet_kwargs) -> VarNet:
         disc_num=args.disc,
         b_disc_num=args.bdisc,
         t_disc_num=t_disc_num,
+        test_order=args.test_order,
         seed=args.seed,
         device=args.device,
         optimizer=optimizer_of(args),
+        hard_bc=getattr(args, "hard_bc", False),
         **varnet_kwargs,
     )
     res = vn.train(

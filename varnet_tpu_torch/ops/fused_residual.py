@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``ops/pallas_residual.py`` directional kernels
 (``_dirq_residual_fn``, G > 1, and ``_fused_residual_fn(directional=True)``,
 G = 1, with ``n_ff = 0`` (K1/K2) or behind a Fourier-feature embedding, ``n_ff >
-0`` (K2-FF)).  For every test function k it computes
+0`` (K2-FF)) and of its precomputed-coefficient kernel ``_dirp_residual_fn``
+(K4).  For every test function k it computes
 
     r_k = sum_q [ c(k,q) . du/dxs + cu(k,q) u + csrc(k,q) ],
     c_j = w_q scale_j (vel_j N_q + kappa dN_qj)   (j < d),   c_t = w_q scale_t N_q,
@@ -13,7 +14,10 @@ by pushing ONE directional tangent through the MLP beside the activations, and
 its closed-form parameter backward (gradients flow to the parameters only; the
 quadrature data is constant).  With Fourier features (``ResidualData.bt`` =
 2 pi B^T) layer 0 takes the embedding [sin | cos](bt xs) and its tangent along c
-(``_embed_dir``).
+(``_embed_dir``).  K4 takes c, cu and csrc per point from
+:func:`prepare_residual_coeffs` (:class:`CoeffData`), which folds into them the
+test tables (shared [nQ] or per-node [K, nQ]: order-2 test spaces, adaptively
+refined hats), the input scale and, for exact BC/IC, the ansatz u = A + B n.
 
 Two implementations share one signature:
 
@@ -25,8 +29,9 @@ Two implementations share one signature:
   ``csrc/*.cu``) into a plain-C shared library at first use and called through
   ``ctypes``.
 
-``dir_residual_fwd`` / ``dir_residual_bwd`` (K1/K2) and ``dir_residual_ff_fwd``
-/ ``dir_residual_ff_bwd`` (K2-FF) dispatch on the device of the data: CPU
+``dir_residual_fwd`` / ``dir_residual_bwd`` (K1/K2), ``dir_residual_ff_fwd`` /
+``dir_residual_ff_bwd`` (K2-FF) and ``dirp_residual_fwd`` / ``dirp_residual_bwd``
+(K4, ``csrc/dir_residual.cu`` in precoeff mode) dispatch on the device of the data: CPU
 tensors take the plain version, CUDA tensors launch the kernel (or raise),
 anything else raises.  Each counts its kernel launches in ``.launches``.
 ``DirResidualFn`` is the autograd glue for both nets, ``fused_residual`` the
@@ -46,7 +51,7 @@ import torch
 
 from . import build
 
-MAX_IN = 4          # kernel's padded input width; n_in <= 3 is supported
+MAX_IN = 4          # kernel's padded input width: n_in <= 4
 MAX_HIDDEN = 64
 ACTIVATIONS = {"tanh": 0, "sigmoid": 1}
 
@@ -69,6 +74,31 @@ class ResidualData(NamedTuple):
     bt: Optional[torch.Tensor] = None  # [F, n_in] 2 pi B^T of a Fourier-feature net
 
 
+class CoeffData(NamedTuple):
+    """Fixed per-point data of the precoeff residual (K4), p = k * nq + q.
+    Built once per training call by :func:`prepare_residual_coeffs`."""
+
+    xs: torch.Tensor               # [n_in, P] f32 scaled coordinates
+    cdir: torch.Tensor             # [n_in, P] f32 direction c (zero rows: MOR inputs)
+    csrc: torch.Tensor             # [P] f32 additive term
+    cu: Optional[torch.Tensor]     # [P] f32 coefficient of u, or None
+    k: int
+    nq: int
+
+    @property
+    def bt(self):
+        """No Fourier-feature embedding: K4 runs plain MLPs only."""
+        return None
+
+
+def _as_f32(a, device):
+    """f32 tensor on ``device``; host arrays are cast to f32 on the host (and
+    copied: they may be read-only), as the JAX package casts them."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=torch.float32, device=device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
 def prepare_residual_data(quad, scale, shift, *, time_dependent: bool,
                           has_react: bool, device=None, fourier_bt=None) -> ResidualData:
     """The kernel layout of a QuadData (NumPy arrays or tensors) with shared
@@ -78,14 +108,11 @@ def prepare_residual_data(quad, scale, shift, *, time_dependent: bool,
     as on the general path, so both round identically.  ``fourier_bt`` (2 pi
     B^T [F, n_in]) marks the data of a Fourier-feature net (kernel K2-FF)."""
     if quad.N.ndim != 1:
-        raise ValueError("per-node test tables (test_order=2) are not ported yet")
+        raise ValueError("per-node test tables (test_order=2, refined hats) take the "
+                         "precoeff residual: prepare_residual_coeffs")
     k, nq, n_in = quad.coords.shape
     d = quad.dN.shape[-1]
-    def dev(a):  # f32 device tensor (host arrays copied: they may be read-only)
-        if isinstance(a, torch.Tensor):
-            return a.to(dtype=torch.float32, device=device)
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
-
+    dev = functools.partial(_as_f32, device=device)
     xs = dev(quad.coords)
     if scale is None:
         scale = torch.ones(n_in)
@@ -104,6 +131,77 @@ def prepare_residual_data(quad, scale, shift, *, time_dependent: bool,
                         None if fourier_bt is None else dev(fourier_bt).contiguous())
 
 
+def prepare_residual_coeffs(quad, scale, shift, *, time_dependent: bool, has_react: bool,
+                            hard=None, device=None) -> CoeffData:
+    """The precoeff residual's data (K4) of a QuadData with shared [nQ] OR
+    per-node [K, nQ] tables: the formulas and f32 casts of the JAX package's
+    ``prepare_residual_coeffs``, in the port's [rows, P] layout.
+
+    ``hard``: the exact-BC/IC tables (``fem/hardbc.py::HardQuad``, host f64
+    or tensors) of the ansatz u = A + B n, which makes the residual affine in
+    the raw net's outputs, so it folds into the coefficients:
+
+        direction row j : w sc_j B (vel_j N + kappa dN_j),   time row: w sc_d B N
+        cu   : w (Bt N + (vel . dB) N + kappa dB . dN [+ react B N])
+        csrc : w ((At N + (vel . dA) N + kappa dA . dN [+ react A N]) - src N)
+
+    (steady problems drop At / Bt).  cu is always present in hard mode.
+    Inputs beyond x (and t), the MOR parameters, get zero direction rows."""
+    k, nq, n_in = quad.coords.shape
+    d = quad.dN.shape[-1]
+    td = bool(time_dependent)
+    dev = functools.partial(_as_f32, device=device)
+    xs = dev(quad.coords)
+    if scale is None:
+        sc = torch.ones(n_in, device=xs.device)
+    else:
+        xs = (xs - dev(shift)) * dev(scale)
+        sc = dev(scale).reshape(-1)
+
+    def kq(a):  # a table, shared [nQ] or per-node [K, nQ], as [K, nQ]
+        a = dev(a)
+        return a.expand(k, nq) if a.ndim == 1 else a
+
+    n_kq, w_kq = kq(quad.N), kq(quad.w)
+    dn_kq = dev(quad.dN)
+    if dn_kq.ndim == 2:
+        dn_kq = dn_kq.expand(k, nq, d)
+    kappa, vel, src = dev(quad.kappa), dev(quad.vel), dev(quad.src)
+    if hard is None:
+        rows = [w_kq * sc[j] * (vel[:, :, j] * n_kq + kappa * dn_kq[:, :, j])
+                for j in range(d)]
+        if td:
+            rows.append(w_kq * sc[d] * n_kq)
+        csrc = -w_kq * n_kq * src
+        cu = w_kq * n_kq * dev(quad.react) if has_react else None
+    else:
+        B, dB, dA = dev(hard.B), dev(hard.dB), dev(hard.dA)
+        rows = [w_kq * sc[j] * B * (vel[:, :, j] * n_kq + kappa * dn_kq[:, :, j])
+                for j in range(d)]
+        if td:
+            rows.append(w_kq * sc[d] * B * n_kq)
+        vdb = sum(vel[:, :, j] * dB[:, :, j] for j in range(d))
+        kdbdn = sum(dB[:, :, j] * dn_kq[:, :, j] for j in range(d))
+        vda = sum(vel[:, :, j] * dA[:, :, j] for j in range(d))
+        kdadn = sum(dA[:, :, j] * dn_kq[:, :, j] for j in range(d))
+        cu_kq = vdb * n_kq + kappa * kdbdn
+        cs_kq = vda * n_kq + kappa * kdadn - src * n_kq
+        if td:
+            cu_kq = cu_kq + dev(hard.Bt) * n_kq
+            cs_kq = cs_kq + dev(hard.At) * n_kq
+        if has_react:
+            react = dev(quad.react)
+            cu_kq = cu_kq + react * B * n_kq
+            cs_kq = cs_kq + react * dev(hard.A) * n_kq
+        cu, csrc = w_kq * cu_kq, w_kq * cs_kq
+    rows += [torch.zeros_like(kappa)] * (n_in - len(rows))
+    return CoeffData(xs.reshape(k * nq, n_in).T.contiguous(),
+                     torch.stack([r.reshape(k * nq) for r in rows]).contiguous(),
+                     csrc.reshape(k * nq).contiguous(),
+                     None if cu is None else cu.reshape(k * nq).contiguous(),
+                     int(k), int(nq))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 
@@ -118,9 +216,12 @@ def _act_triple(activation):
                      "residual (tanh|sigmoid; sin comes with the SIREN port)")
 
 
-def _dir_coeffs(data: ResidualData):
+def _dir_coeffs(data):
     """Per-point direction c [n_in, P], u coefficient cu [P] (or None) and
-    source term csrc [P] — the math of ``_dir_coeffs``."""
+    source term csrc [P] — the math of ``_dir_coeffs``; a CoeffData (K4)
+    carries them precomputed."""
+    if isinstance(data, CoeffData):
+        return data.cdir, data.cu, data.csrc
     n_in, p = data.xs.shape
     d = data.d
     n_q = data.tab[:, 0].repeat(data.k)
@@ -174,9 +275,11 @@ def _forward_states(wts, bs, x0, t0, activation):
     return acts, pres
 
 
-def dir_residual_fwd_plain(params, data: ResidualData, activation: str = "tanh"):
+def dir_residual_fwd_plain(params, data, activation: str = "tanh"):
     """r [K] by plain PyTorch ops (any device); with ``data.bt`` the
-    Fourier-feature net (the plain version of K2-FF)."""
+    Fourier-feature net (the plain version of K2-FF), with a CoeffData the
+    precomputed coefficients (K4's plain version, the forward of
+    ``_dirp_fwd_kernel``: c = cdir, r_k = sum_q dd + csrc [+ cu u])."""
     _, act_p, _ = _act_triple(activation)
     wts, bs = _wt_layout(params)
     c, cu, csrc = _dir_coeffs(data)
@@ -189,11 +292,12 @@ def dir_residual_fwd_plain(params, data: ResidualData, activation: str = "tanh")
     return contrib.reshape(data.k, data.nq).sum(dim=1)
 
 
-def dir_residual_bwd_plain(params, data: ResidualData, activation: str, gr):
+def dir_residual_bwd_plain(params, data, activation: str, gr):
     """Closed-form parameter gradients for the cotangent gr [K]: a list of
     ``{'w', 'b'}`` in the parameters' layout.  Mirrors ``_dir_bwd_kernel``
     (with ``data.bt``: its Fourier-feature case, whose layer-0 weight gradient
-    is taken against the embedded pair)."""
+    is taken against the embedded pair; with a CoeffData: K4's
+    ``_dir_blocked_bwd``, c = cdir and the value cotangent gr * cu)."""
     _, act_p, act_pp = _act_triple(activation)
     wts, bs = _wt_layout(params)
     c, cu, _ = _dir_coeffs(data)
@@ -236,12 +340,17 @@ def load_library() -> ctypes.CDLL:
     lib.vr_dir_residual_fwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.vr_dir_residual_bwd_blocks.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.vr_dir_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 9 + [ptr]
+    lib.vr_dirp_residual_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.vr_dirp_residual_bwd_blocks.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.vr_dirp_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 7 + [ptr]
     lib.ff_n_params_c.argtypes = [i32] * 3
     lib.ff_res_fwd.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
     lib.ff_res_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.ff_res_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 10 + [ptr]
     for fn in (lib.vr_dir_residual_n_params, lib.vr_dir_residual_fwd,
-               lib.vr_dir_residual_bwd_blocks, lib.vr_dir_residual_bwd, lib.ff_n_params_c,
+               lib.vr_dir_residual_bwd_blocks, lib.vr_dir_residual_bwd,
+               lib.vr_dirp_residual_fwd, lib.vr_dirp_residual_bwd_blocks,
+               lib.vr_dirp_residual_bwd, lib.ff_n_params_c,
                lib.ff_res_fwd, lib.ff_res_bwd_blocks, lib.ff_res_bwd):
         fn.restype = i32
     return lib
@@ -268,8 +377,8 @@ def _offsets(hp: int, n_hidden: int):
 def _check_kernel_args(params, data: ResidualData, activation):
     _act_triple(activation)  # raises on what the kernel does not take
     n_in = data.xs.shape[0]
-    if n_in >= MAX_IN:
-        raise ValueError(f"the fused residual kernel takes n_in <= {MAX_IN - 1}, got {n_in}")
+    if not 1 <= n_in <= MAX_IN:
+        raise ValueError(f"the fused residual kernel takes 1 <= n_in <= {MAX_IN}, got {n_in}")
     if len(params) < 2 or params[-1]["w"].shape[1] != 1:
         raise ValueError("the fused residual kernel needs >= 1 hidden layer and 1 output")
     widest = max(layer["w"].shape[1] for layer in params[:-1])
@@ -395,6 +504,98 @@ def dir_residual_bwd(params, data: ResidualData, activation: str, gr):
 
 dir_residual_fwd.launches = 0
 dir_residual_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the precoeff residual (csrc/dir_residual.cu, precoeff mode)
+
+
+def _check_dirp_args(params, data: CoeffData, activation):
+    """Raise on what K4's kernels do not take."""
+    _act_triple(activation)
+    n_in = data.xs.shape[0]
+    if not 1 <= n_in <= MAX_IN:
+        raise ValueError(f"the precoeff residual kernel takes 1 <= n_in <= {MAX_IN}, got {n_in}")
+    if len(params) < 2 or params[-1]["w"].shape[1] != 1:
+        raise ValueError("the precoeff residual kernel needs >= 1 hidden layer and 1 output")
+    if params[0]["w"].shape[0] != n_in:
+        raise ValueError(f"layer 0 takes {params[0]['w'].shape[0]} inputs, not {n_in}")
+    widest = max(layer["w"].shape[1] for layer in params[:-1])
+    if widest > MAX_HIDDEN:
+        raise ValueError(
+            f"hidden width {widest} > {MAX_HIDDEN}: the precoeff residual (exact BC, "
+            "per-node test tables) has no CUDA kernel for it yet (ROADMAP Queue 3)")
+    tensors = [data.xs, data.cdir, data.csrc] + ([] if data.cu is None else [data.cu])
+    dev = data.xs.device
+    for t in tensors + [layer[k] for layer in params for k in ("w", "b")]:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("the precoeff residual kernel takes f32 tensors on one device")
+    p = data.k * data.nq
+    if (any(not t.is_contiguous() for t in tensors) or data.xs.shape[1] != p
+            or data.cdir.shape != data.xs.shape or any(t.shape != (p,) for t in tensors[2:])):
+        raise ValueError("the precoeff residual data must be contiguous [n_in, P] / [P] rows")
+
+
+def _dirp_args(data: CoeffData, params, activation, hp):
+    return [data.k, data.nq, data.xs.shape[0], int(data.cu is not None), len(params) - 1, hp,
+            ACTIVATIONS[activation]]
+
+
+def kernel_dirp_fwd(lib, params, data: CoeffData, activation: str, stream=None):
+    """Launch K4's forward of ``lib`` (no device dispatch).  Returns r [K]."""
+    hp, packed = _packed(lib, params)
+    r = torch.empty(data.k, dtype=torch.float32, device=data.xs.device)
+    build.raise_on(lib.vr_dirp_residual_fwd(
+        data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
+        packed.data_ptr(), r.data_ptr(), *_dirp_args(data, params, activation, hp), stream),
+        "dirp_residual_fwd")
+    return r
+
+
+def kernel_dirp_bwd(lib, params, data: CoeffData, activation: str, gr, stream=None):
+    """Launch K4's backward kernels of ``lib``.  Returns ``{'w', 'b'}`` grads."""
+    hp, packed = _packed(lib, params)
+    blocks = ctypes.c_int(0)
+    build.raise_on(lib.vr_dirp_residual_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
+                                                   ctypes.byref(blocks)),
+                   "dirp_residual_bwd_blocks")
+    dev = data.xs.device
+    partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
+    grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
+    gr = gr.detach().to(torch.float32).contiguous()
+    build.raise_on(lib.vr_dirp_residual_bwd(
+        data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
+        packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value, grad.data_ptr(),
+        *_dirp_args(data, params, activation, hp), stream), "dirp_residual_bwd")
+    return unpack_grads(grad, params, hp)
+
+
+def dirp_residual_fwd(params, data: CoeffData, activation: str = "tanh"):
+    """K4: r [K] from precomputed coefficients: the CUDA kernel for CUDA
+    tensors, the plain version for CPU ones."""
+    if _route(data) == "cpu":
+        return dir_residual_fwd_plain(params, data, activation)
+    _check_dirp_args(params, data, activation)
+    r = kernel_dirp_fwd(load_library(), params, data, activation,
+                        torch.cuda.current_stream(data.xs.device).cuda_stream)
+    dirp_residual_fwd.launches += 1
+    return r
+
+
+def dirp_residual_bwd(params, data: CoeffData, activation: str, gr):
+    """K4's parameter gradients for cotangent gr [K]; dispatch as
+    ``dirp_residual_fwd``."""
+    if _route(data) == "cpu":
+        return dir_residual_bwd_plain(params, data, activation, gr)
+    _check_dirp_args(params, data, activation)
+    grads = kernel_dirp_bwd(load_library(), params, data, activation, gr,
+                            torch.cuda.current_stream(data.xs.device).cuda_stream)
+    dirp_residual_bwd.launches += 1
+    return grads
+
+
+dirp_residual_fwd.launches = 0
+dirp_residual_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -589,31 +790,40 @@ def uses_ff_kernels(params, on_cuda: bool, embedded: bool) -> bool:
                         and max(layer["w"].shape[1] for layer in params[:-1]) > MAX_HIDDEN)
 
 
+def _residual_fns(params, data):
+    """(forward, backward) wrappers for ``data``: K4 for a CoeffData; K1/K2
+    for a plain net, K2-FF's kernels when ``data.bt`` is set or, on CUDA, a
+    plain net is wider than K1/K2 take."""
+    if isinstance(data, CoeffData):
+        return dirp_residual_fwd, dirp_residual_bwd
+    if uses_ff_kernels(params, data.xs.is_cuda, data.bt is not None):
+        return dir_residual_ff_fwd, dir_residual_ff_bwd
+    return dir_residual_fwd, dir_residual_bwd
+
+
 class DirResidualFn(torch.autograd.Function):
-    """r = residual(params); backward by the closed form (kernel or plain):
-    K1/K2 for a plain net, K2-FF's kernels when ``data.bt`` is set or a plain
-    net is wider than K1/K2 take."""
+    """r = residual(params); backward by the closed form (kernel or plain),
+    through the wrappers :func:`_residual_fns` picks."""
 
     @staticmethod
     def forward(ctx, data, activation, *flat):
         params = [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
         ctx.data, ctx.activation = data, activation
         ctx.save_for_backward(*flat)
-        ctx.ff = uses_ff_kernels(params, data.xs.is_cuda, data.bt is not None)
-        return (dir_residual_ff_fwd if ctx.ff else dir_residual_fwd)(params, data, activation)
+        fwd, ctx.bwd = _residual_fns(params, data)
+        return fwd(params, data, activation)
 
     @staticmethod
     def backward(ctx, gr):
         flat = ctx.saved_tensors
         params = [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
-        bwd = dir_residual_ff_bwd if ctx.ff else dir_residual_bwd
-        grads = bwd(params, ctx.data, ctx.activation, gr)
+        grads = ctx.bwd(params, ctx.data, ctx.activation, gr)
         return (None, None, *[g[k] for g in grads for k in ("w", "b")])
 
 
-def fused_residual(params, data: ResidualData, activation: str = "tanh"):
+def fused_residual(params, data, activation: str = "tanh"):
     """Weak residual r [K] through :class:`DirResidualFn`, differentiable in
-    ``params``; ``data`` from :func:`prepare_residual_data` (built once per
-    ``train`` call)."""
+    ``params``; ``data`` from :func:`prepare_residual_data` (K1/K2, K2-FF) or
+    :func:`prepare_residual_coeffs` (K4), built once per ``train`` call."""
     flat = [layer[k] for layer in params for k in ("w", "b")]
     return DirResidualFn.apply(data, activation, *flat)

@@ -1,8 +1,12 @@
 """Weak-form residual contraction (PyTorch counterpart of
-``varnet_tpu/ops/residual.py``, shared [nQ] test tables only):
+``varnet_tpu/ops/residual.py``):
 
     r_k = sum_q w_q * [ u_t N_q + (v . grad u) N_q + c u N_q
                         + kappa grad u . dN_q - s N_q ]
+
+Test tables come shared by every node ([nQ], order-1 hats on a uniform grid)
+or per node ([K, nQ]: the order-2 test space and adaptively refined hats),
+told apart by rank as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,9 +18,9 @@ import torch
 
 def weak_residual(
     grad_u: torch.Tensor,          # [K, nQ, d]  spatial gradient of the net
-    n: torch.Tensor,               # [nQ]        test-function values
-    dn: torch.Tensor,              # [nQ, d]     spatial test grads
-    w: torch.Tensor,               # [nQ]        Gauss weight x detJ
+    n: torch.Tensor,               # [nQ] or [K, nQ]        test-function values
+    dn: torch.Tensor,              # [nQ, d] or [K, nQ, d]  spatial test grads
+    w: torch.Tensor,               # [nQ] or [K, nQ]        Gauss weight x detJ
     kappa: torch.Tensor,           # [K, nQ]
     vel: torch.Tensor,             # [K, nQ, d]
     src: torch.Tensor,             # [K, nQ]
@@ -27,17 +31,28 @@ def weak_residual(
     """Per-test-function weak residual r_k -> [K].  Integration by parts is
     applied to the diffusion term only, so only first derivatives of the
     network appear."""
-    if n.ndim != 1:
-        raise ValueError("per-node test tables (test_order=2) are not ported yet")
-    n2 = n[None, :]
+    n2 = n if n.ndim == 2 else n[None, :]
     adv = torch.einsum("kqd,kqd->kq", vel, grad_u)
     integrand = (adv - src) * n2
     if u_t is not None:
         integrand = integrand + u_t * n2
     if react is not None and u is not None:
         integrand = integrand + react * u * n2
-    integrand = integrand + kappa * torch.einsum("kqd,qd->kq", grad_u, dn)
+    if dn.ndim == 3:
+        diff = kappa * torch.einsum("kqd,kqd->kq", grad_u, dn)
+    else:
+        diff = kappa * torch.einsum("kqd,qd->kq", grad_u, dn)
+    integrand = integrand + diff
+    if w.ndim == 2:
+        return torch.einsum("kq,kq->k", integrand, w)
     return torch.einsum("kq,q->k", integrand, w)
+
+
+def support_volume(w: torch.Tensor) -> torch.Tensor:
+    """Sum of the quadrature weights: the test-function support volume the
+    normalized residual divides by, per node for per-node tables [K, nQ]
+    (the JAX loss's ``vol``)."""
+    return torch.sum(w, dim=-1) if w.ndim == 2 else torch.sum(w)
 
 
 def masked_sum_sq(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """Levenberg-Marquardt refinement (matrix-free Gauss-Newton + CG): the PyTorch
-port of ``varnet_tpu/train/gauss_newton.py`` (penalty form, one device).
+port of ``varnet_tpu/train/gauss_newton.py`` (penalty and exact-BC forms, one
+device).
 
 The variational loss is a nonlinear least-squares problem,
 
     L(theta) = || r_full(theta) ||^2,
-    r_full = [ sqrt(w_int/K) r_k / vol,  sqrt(w_bc/N_bc) e_bc,  sqrt(w_ic/N_ic) e_ic ],
+    r_full = [ sqrt(w_int/K) r_k / vol_k,  sqrt(w_bc/N_bc) e_bc,  sqrt(w_ic/N_ic) e_ic ],
 
+(exact BC/IC, ``hard_mode``: the interior rows alone, of u = A + B n),
 so Gauss-Newton curvature J^T J is applied matrix-free: J v by forward mode
 (``torch.autograd.forward_ad`` dual tensors) and J^T w by a retained reverse
 pass, once each per CG iteration.  With ``value_and_jac`` from
@@ -28,11 +30,12 @@ import torch.autograd.forward_ad as fwAD
 from torch.utils.checkpoint import checkpoint
 
 from ..fem.assembly import ProblemStatic
+from ..fem.hardbc import hard_transform
 from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac
-from ..ops.residual import weak_residual
+from ..ops.residual import support_volume, weak_residual
 
 # make_residual_fn options of the JAX package that the port does not carry yet
-UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs", "neu", "nl_vec", "hard_mode")
+UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs", "neu", "nl_vec")
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
 
 
@@ -45,19 +48,22 @@ def make_residual_fn(
     device=None,
     input_scaling: bool = True,
     apply_fn: Callable = mlp_apply,
+    hard_mode: bool = False,
     **unported,
 ):
     """Weighted residual VECTOR ``residual_fn(theta, quad, bc, ic=None,
-    weights=(1, 1, 1, 0)) -> r_full`` with sum(r^2) == the total loss of
-    ``make_loss_fn`` (its normalized-residual convention).  Inputs are scaled
-    onto [-1, 1] as in the JAX package unless ``input_scaling`` is False;
-    ``apply_fn`` evaluates the net at the BC/IC points.
+    weights=(1, 1, 1, 0), hard=None) -> r_full`` with sum(r^2) == the total
+    loss of ``make_loss_fn`` (its normalized-residual convention).  Inputs
+    are scaled onto [-1, 1] as in the JAX package unless ``input_scaling``
+    is False; ``apply_fn`` evaluates the net at the BC/IC points.
 
     ``k_chunks > 1`` evaluates the interior over that many chunks of the
     test-function axis, each under ``torch.utils.checkpoint`` when a graph is
     being built, so a reverse pass recomputes one chunk at a time (the JAX
     package's ``lax.map`` over ``jax.checkpoint``); K must divide evenly
-    (pad with ``pad_quad``).
+    (pad with ``pad_quad``).  Per-node test tables and the exact-BC quad
+    tables (``hard``, a HardQuad of tensors; ``hard_mode``) are chunked with
+    their test functions; in hard mode the BC/IC rows drop out.
     """
     unknown = sorted(set(unported) - set(UNPORTED))
     if unknown:
@@ -75,40 +81,51 @@ def make_residual_fn(
     if input_scaling:
         scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
 
-    def interior(net, quad, coords, kappa, vel, src, react, mask):
+    def interior(net, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq):
         k, nq = coords.shape[0], coords.shape[1]
         u, du = value_and_jac(net, coords.reshape(k * nq, n_in), activation, scale, shift)
+        grad_u = du[:, :d].reshape(k, nq, d)
+        u_t = du[:, d].reshape(k, nq) if td else None
+        u = u.reshape(k, nq)
+        if hard_mode:
+            u, grad_u, u_t = hard_transform(u, grad_u, u_t, hq)
         r = weak_residual(
-            du[:, :d].reshape(k, nq, d), quad.N, quad.dN, quad.w, kappa, vel, src,
-            du[:, d].reshape(k, nq) if td else None,
-            u=u.reshape(k, nq) if has_react else None,
+            grad_u, n_tbl, dn_tbl, w_tbl, kappa, vel, src, u_t,
+            u=u if has_react else None,
             react=react if has_react else None,
         )
-        return (r / torch.sum(quad.w)) * mask
+        return (r / support_volume(w_tbl)) * mask
 
-    def residual_fn(theta, quad, bc, ic=None, weights=(1.0, 1.0, 1.0, 0.0)):
+    def residual_fn(theta, quad, bc, ic=None, weights=(1.0, 1.0, 1.0, 0.0), hard=None):
         fields = [getattr(quad, f) for f in _CHUNKED]
+        tables = (quad.N, quad.dN, quad.w)
         if k_chunks == 1:
-            r = interior(theta, quad, *fields)
+            r = interior(theta, *fields, *tables, hard)
         else:
             k = quad.coords.shape[0]
             if k % k_chunks:
                 raise ValueError(f"K={k} not divisible by k_chunks={k_chunks}")
             kc = k // k_chunks
+            per_node = quad.tables_per_node
             parts = []
             for c in range(k_chunks):
-                chunk = [a[c * kc:(c + 1) * kc] for a in fields]
+                sl = slice(c * kc, (c + 1) * kc)
+                chunk = [a[sl] for a in fields]
+                chunk += [a[sl] for a in tables] if per_node else list(tables)
+                chunk.append(None if hard is None
+                             else type(hard)(*(None if a is None else a[sl] for a in hard)))
                 if torch.is_grad_enabled():
-                    parts.append(checkpoint(interior, theta, quad, *chunk, use_reentrant=False))
+                    parts.append(checkpoint(interior, theta, *chunk, use_reentrant=False))
                 else:
-                    parts.append(interior(theta, quad, *chunk))
+                    parts.append(interior(theta, *chunk))
             r = torch.cat(parts)
         parts = [math.sqrt(weights[0] / n_k) * r]
-        u_bc = apply_fn(theta, bc.coords, activation, scale, shift)
-        parts.append(math.sqrt(weights[1] / n_bc) * (u_bc - bc.values) * bc.mask)
-        if ic is not None:
-            u_ic = apply_fn(theta, ic.coords, activation, scale, shift)
-            parts.append(math.sqrt(weights[2] / n_ic) * (u_ic - ic.values) * ic.mask)
+        if not hard_mode:
+            u_bc = apply_fn(theta, bc.coords, activation, scale, shift)
+            parts.append(math.sqrt(weights[1] / n_bc) * (u_bc - bc.values) * bc.mask)
+            if ic is not None:
+                u_ic = apply_fn(theta, ic.coords, activation, scale, shift)
+                parts.append(math.sqrt(weights[2] / n_ic) * (u_ic - ic.values) * ic.mask)
         return torch.cat(parts)
 
     return residual_fn
