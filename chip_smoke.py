@@ -65,18 +65,51 @@ is non-zero and no result line is printed):
 13. kernels-dirp -- K4 (precoeff residual) forward (rtol 1e-5) and backward (rtol 1e-4)
                against its plain version on that mesh with the hard fold, and at the 2-D
                order-2 mesh (disc 48, integ_p_num 3: per-node tables, 9,025 x 36 points)
-               with the hard fold; kernel and plain timed at the same shape.
+               with the hard fold, there at w48x2 and at w96x3 (K4 on ``ff_mlp.cu``, the
+               route of a net wider than 64); kernel and plain timed at the same shape.
 14. hard-train -- 20 Adam epochs of ``VarNet(hard_bc=True)`` at the 3-D transient mesh
                through K4 (launches rise every epoch, the loss falls); 20 epochs kernel vs
                plain at disc 8 / t_disc 6 (rtol 2e-4); 20 epochs of the order-2 2-D hard
                case through K4; a penalty 2-D net at disc 48 on K1/K2, one
-               ``refine_tests`` round, then epochs on K4.
+               ``refine_tests`` round, then epochs on K4; 20 epochs of the order-2 2-D
+               hard case at w96x3 through K4 on ``ff_mlp.cu``.
 15. hard-accuracy -- the pinned hard-BC thetas re-score on the card: 3-D transient
                < 3e-4, 2-D steady < 4.0e-5, 1-D transient < 5e-6.
 16. hard-lm -- 2 LM iterations (cg 10, k_chunks 16) from ``theta_hardbc_3dt.npz`` at the
                3-D transient mesh on K5 / K6: launches rise by >= steps x cg_iters, the
                loss does not rise, rel-L2 stays < 3e-4.  Kernel vs plain (rtol 2e-2) at
                disc 8 / t_disc 6.
+
+17. burgers-kernels -- K3 (the jacobian-panel residual, ``ff_mlp.cu``'s jacobian mode)
+               at the 2-D Burgers front recipe's mesh (``burgers_accuracy.py --two-d``:
+               disc 32 / t_disc 20 / b_disc 32, 18,259 test functions x 64 points, P =
+               1,168,576, n_in 3, w32x3, b = (1, 1)): forward (rtol 1e-5) and backward
+               (rtol 1e-4) against the plain version on a seeded net; at the pinned theta
+               the backward (rtol 1e-4) and the forward against an f64 evaluation of the
+               plain version (within 1e-3 of max |r|: there r cancels its terms to ~1e-3,
+               and the f32 plain version is itself ~2e-4 of max |r| from f64, both
+               printed); then with the nonlinear term off at the flagship bench shape
+               (d48/t32, w20x2, the layout of ``fused_directional=False``).  Kernel and
+               plain timed at each shape.
+18. burgers-train -- the slice's main path: 100 Adam epochs of ``burgers_2d_front(nu=0.1)``
+               at that mesh and width (lr 2e-3, weight (1, 10, 10)) through K3: its
+               launches rise every epoch, no other residual or value+jac kernel runs, the
+               loss falls; steps/s and quad-pt evals/s.  20 epochs kernel vs plain from
+               the seeded net (rtol 2e-4); 20 epochs of the 1-D traveling front with exact
+               BC (disc 48 / t_disc 32) on the general path through K5, where the loss
+               falls; then K5 / K6 against their plain versions at that run's inputs
+               (the trained net, n_in 2, the cotangent the hard loss hands K5).
+19. burgers-accuracy -- the five pinned Burgers thetas re-score under the bounds of
+               ``tests/test_accuracy_pin.py``: traveling front < 1e-4, steady shock <
+               8e-4, front_2d < 2e-4, traveling front hard < 2e-6, steady shock hard <
+               7e-4.
+20. burgers-lm -- K5 / K6 against their plain versions at the pinned front_2d theta on
+               one LM chunk of the mesh (the shape LM gives them, seeded cotangent and
+               tangent); 2 LM iterations (cg 20, k_chunks 16) from
+               ``theta_burgers_front_2d.npz`` at the recipe's mesh on K5 / K6 with the
+               nonlinear term: launches rise by >= steps x cg_iters, the loss does not
+               rise, rel-L2 stays < 2e-4; the same on the plain path, whose losses agree
+               within rtol 2e-2.
 
 Cuts: the contaminant recipe (``benchmarks/contaminant_causal.py``) runs 8000 Adam
 epochs per window and 12 LM iterations of cg 150; here 8 epochs per window and 2 LM
@@ -85,7 +118,9 @@ published).  The kernel-vs-plain runs use disc 16 / t_disc 10, since the plain
 versions' [P, 256] panels at the full mesh would not fit the card.  The flagship
 phases keep PR 1 and PR 2's depths.  The exact-BC recipe (``benchmarks/hardbc_tpu.py
 --case 3dt``: 24,000 Adam epochs, 50 LM iterations of cg 200) is cut to 20 epochs and
-2 LM iterations of cg 10 at its published mesh and width.  The bounds (``_bounds``) count the layer products
+2 LM iterations of cg 10 at its published mesh and width.  The Burgers front_2d
+recipe (12,000 Adam epochs, 40 LM iterations of cg 200) is cut to 100 epochs and 2 LM
+iterations of cg 20 (k_chunks 16), never in width or mesh.  The bounds (``_bounds``) count the layer products
 of each kernel's work at the timed shape.
 
 The line before last is the per-kernel JSON summary; the last line is
@@ -175,23 +210,30 @@ def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def phase_kernels(widths, seed=0):
-    """Kernel vs plain at the bench mesh for one width; returns the numbers."""
-    import torch
-
+def _bench_data(jacobian=False):
+    """The fused residual's data at the bench mesh (CUDA): the directional
+    layout, or the jacobian-panel one (K3, ``fused_directional=False``)."""
     from varnet_tpu_torch.fem.assembly import build_fixed_data
     from varnet_tpu_torch.models.mlp import make_input_scaling
     from varnet_tpu_torch.ops import fused_residual as fr
     from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     fd = build_fixed_data(transient_ad_2d()["pde"], BENCH["disc_num"],
                           b_disc_num=BENCH["b_disc_num"], t_disc_num=BENCH["t_disc_num"])
-    st = fd.static
-    scale, shift = make_input_scaling(st.input_lo, st.input_hi)
-    data = fr.prepare_residual_data(fd.quad, scale, shift, time_dependent=True,
-                                    has_react=False, device="cuda")
-    params, gen = _seeded_net(st.n_inputs, widths, seed)
+    scale, shift = make_input_scaling(fd.static.input_lo, fd.static.input_hi)
+    return fr.prepare_residual_data(fd.quad, scale, shift, time_dependent=True,
+                                    has_react=False, device="cuda", jacobian=jacobian)
+
+
+def phase_kernels(widths, seed=0):
+    """Kernel vs plain at the bench mesh for one width; returns the numbers."""
+    import torch
+
+    from varnet_tpu_torch.ops import fused_residual as fr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _bench_data()
+    params, gen = _seeded_net(data.xs.shape[0], widths, seed)
     gr = torch.randn(data.k, generator=gen).cuda()
 
     r_k = fr.dir_residual_fwd(params, data, "tanh")
@@ -311,14 +353,16 @@ def _bench_points():
     return xs_t, coords.shape[1]
 
 
-def _vj_compare(params, xs_t, seed, label, timed):
-    """K5 forward / backward and K6 against their plain versions on xs_t."""
+def _vj_compare(params, xs_t, seed, label, timed, g=None):
+    """K5 forward / backward and K6 against their plain versions on xs_t; the
+    backward's cotangent g [1 + n_in, P] is seeded unless given."""
     import torch
 
     from varnet_tpu_torch.ops import value_and_jac as vj
 
     gen = torch.Generator().manual_seed(seed)
-    g = torch.randn(xs_t.shape[0] + 1, xs_t.shape[1], generator=gen).cuda()
+    if g is None:
+        g = torch.randn(xs_t.shape[0] + 1, xs_t.shape[1], generator=gen).cuda()
     tangent = [{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}
                for layer in params]
     checks = {
@@ -647,25 +691,25 @@ def _lm_ff(mesh, use_pallas, theta):
     vn = _contaminant(mesh, use_pallas=use_pallas)
     vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
     with torch.no_grad():
-        start = _lm_loss(vn, theta)
+        start = _lm_loss(vn, theta, LM_FF["k_chunks"])
     t0 = time.perf_counter()
     res = vn.refine_lm(weight=WEIGHT, save_freq=1, verbose=False, **LM_FF)
     torch.cuda.synchronize()
     return vn, res, start, time.perf_counter() - t0
 
 
-def _lm_loss(vn, theta):
-    """sum r^2 of the LM residual at theta (plain path)."""
+def _lm_loss(vn, theta, k_chunks):
+    """sum r^2 of the (penalty-form) LM residual of ``vn`` at theta (plain path)."""
     import torch
 
     from varnet_tpu_torch.fem.assembly import pad_points, pad_quad
     from varnet_tpu_torch.train.gauss_newton import make_residual_fn
 
-    res_fn = make_residual_fn(vn.static, k_chunks=LM_FF["k_chunks"], device="cuda",
-                              has_react=vn.has_react, input_scaling=False,
+    res_fn = make_residual_fn(vn.static, k_chunks=k_chunks, device="cuda",
+                              has_react=vn.has_react, input_scaling=vn.input_scaling,
                               apply_fn=vn._apply_fn(),
-                              value_and_jac=vn._value_and_jac(False))
-    r = res_fn(theta, vn._to_device(pad_quad(vn.fixed.quad, LM_FF["k_chunks"])),
+                              value_and_jac=vn._value_and_jac(False), nl_vec=vn.nl_vec)
+    r = res_fn(theta, vn._to_device(pad_quad(vn.fixed.quad, k_chunks)),
                vn._to_device(pad_points(vn.fixed.bc, 1)), vn._to_device(pad_points(vn.fixed.ic, 1)),
                list(WEIGHT) + [0.0])
     return float(torch.dot(r, r))
@@ -716,6 +760,7 @@ HARD_3DT_SMALL = dict(disc_num=8, b_disc_num=24, t_disc_num=6)
 HARD_2D_O2 = dict(disc_num=48, b_disc_num=48, integ_p_num=3, test_order=2)
 HARD_ADAM = dict(lr=2e-3, decay_rate=0.1, decay_steps=6000)  # hardbc_tpu.py, 24,000 epochs
 HARD_LM = dict(steps=2, cg_iters=10, k_chunks=16)
+HARD_WIDE = (96, 96, 96)   # the obstacle case's hard-BC width: K4 on ff_mlp.cu
 
 
 def _hard_vn(factory, widths, mesh, **kw):
@@ -754,30 +799,34 @@ def phase_hard_tables():
     return vn, hq
 
 
-def _dirp_compare(params, data, gen, label, timed=True):
-    """K4 forward / backward against the plain version on ``data``."""
+def _residual_compare(params, data, gen, label, timed=True, kernels=None, plains=None,
+                      kinds=("fwd", "bwd")):
+    """A residual kernel pair's forward / backward against its plain version on
+    ``data`` (default: K4 against ``dir_residual_*_plain``)."""
     import torch
 
     from varnet_tpu_torch.ops import fused_residual as fr
 
+    fwd, bwd = kernels or (fr.dirp_residual_fwd, fr.dirp_residual_bwd)
+    fwd_p, bwd_p = plains or (fr.dir_residual_fwd_plain, fr.dir_residual_bwd_plain)
     gr = torch.randn(data.k, generator=gen).cuda()
     checks = {
-        "fwd": (lambda: [fr.dirp_residual_fwd(params, data, "tanh")],
-                lambda: [fr.dir_residual_fwd_plain(params, data, "tanh")], R_RTOL),
-        "bwd": (lambda: [g[k] for g in fr.dirp_residual_bwd(params, data, "tanh", gr)
-                         for k in ("w", "b")],
-                lambda: [g[k] for g in fr.dir_residual_bwd_plain(params, data, "tanh", gr)
-                         for k in ("w", "b")], G_RTOL),
+        "fwd": (lambda: [fwd(params, data, "tanh")], lambda: [fwd_p(params, data, "tanh")],
+                R_RTOL),
+        "bwd": (lambda: [g[k] for g in bwd(params, data, "tanh", gr) for k in ("w", "b")],
+                lambda: [g[k] for g in bwd_p(params, data, "tanh", gr) for k in ("w", "b")],
+                G_RTOL),
     }
     out = {}
-    for name, (kernel, plain, rtol) in checks.items():
+    for name in kinds:
+        kernel, plain, rtol = checks[name]
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         rel = max(_rel_err(a, b) for a, b in zip(got, ref))
         abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         if not (np.isfinite(rel) and rel <= rtol):
-            raise AssertionError(f"{label}: dirp_residual_{name} differs from plain by "
-                                 f"{rel:.3e} > {rtol}")
+            raise AssertionError(f"{label}: {(fwd, bwd)[name == 'bwd'].__name__} differs "
+                                 f"from plain by {rel:.3e} > {rtol}")
         del got, ref
         torch.cuda.empty_cache()
         out[name] = {"rel_err": rel, "abs_err": abs_err}
@@ -803,7 +852,7 @@ def phase_kernels_dirp(vn3, hq3):
                                       time_dependent=True, has_react=vn3.has_react, hard=hq3,
                                       device="cuda")
     params, gen = _seeded_net(4, (64, 64), 21)
-    full = _dirp_compare(params, data, gen, "kernels-dirp 3dt-hard w64x2")
+    full = _residual_compare(params, data, gen, "kernels-dirp 3dt-hard w64x2")
     del data
     torch.cuda.empty_cache()
     vn2 = _hard_vn("steady_ad_2d", (48, 48), HARD_2D_O2)
@@ -811,8 +860,16 @@ def phase_kernels_dirp(vn3, hq3):
                                        time_dependent=False, has_react=vn2.has_react,
                                        hard=vn2._hard_tables(vn2.fixed.quad), device="cuda")
     params2, gen2 = _seeded_net(2, (48, 48), 22)
-    _dirp_compare(params2, data2, gen2, "kernels-dirp 2d-o2-hard w48x2")
-    return full, data2.k * data2.nq
+    _residual_compare(params2, data2, gen2, "kernels-dirp 2d-o2-hard w48x2")
+    # K4 for a net wider than 64: ff_mlp.cu's precoeff mode, the route
+    # _residual_fns gives a w96x3 net (the obstacle case's hard-BC width)
+    params3, gen3 = _seeded_net(2, HARD_WIDE, 25)
+    wide_fns = fr._residual_fns(params3, data2)
+    if wide_fns != (fr.dirp_residual_ff_fwd, fr.dirp_residual_ff_bwd):
+        raise AssertionError(f"a w96x3 precoeff net routes to {wide_fns}, not ff_mlp.cu's K4")
+    wide = _residual_compare(params3, data2, gen3, "kernels-dirp 2d-o2-hard w96x3 (ff_mlp.cu)",
+                             kernels=wide_fns)
+    return full, wide, data2.k * data2.nq, data2.k
 
 
 def _losses(res):
@@ -887,9 +944,24 @@ def phase_hard_train(vn3):
     data_a = fr.prepare_residual_coeffs(pad_quad(va.fixed.quad, 1), va.scale, va.shift,
                                         time_dependent=False, has_react=va.has_react,
                                         device="cuda")
-    _dirp_compare(va.theta, data_a, torch.Generator().manual_seed(23),
-                  "kernels-dirp 2d-refined w48x2", timed=False)
-    return launches, res
+    _residual_compare(va.theta, data_a, torch.Generator().manual_seed(23),
+                      "kernels-dirp 2d-refined w48x2", timed=False)
+
+    # a precoeff net wider than 64 (order-2 2-D hard at w96x3) trains through
+    # ff_mlp.cu's precoeff mode every epoch
+    vw = _hard_vn("steady_ad_2d", HARD_WIDE, HARD_2D_O2)
+    fr.dirp_residual_ff_fwd.launches = fr.dirp_residual_ff_bwd.launches = 0
+    rw = vw.train(epoch_num=epochs, save_freq=epochs, verbose=False, error_disc=96)
+    torch.cuda.synchronize()
+    wide = {"fwd": fr.dirp_residual_ff_fwd.launches, "bwd": fr.dirp_residual_ff_bwd.launches}
+    if min(wide.values()) < epochs or not np.isfinite(rw.losses[-1]["loss"]):
+        raise AssertionError(f"the w96x3 order-2 hard run: K4-wide launches {wide}, "
+                             f"loss {rw.losses[-1]['loss']}")
+    log("hard-train order-2 2-D w96x3", mesh="d48 integ3", epochs=epochs,
+        dirp_ff_fwd=wide["fwd"], dirp_ff_bwd=wide["bwd"],
+        loss_end=f"{rw.losses[-1]['loss']:.6e}", rel_l2=f"{rw.errors[-1]:.4e}",
+        steps_per_sec=f"{rw.steps_per_sec:.4f}")
+    return launches, wide
 
 
 def phase_hard_accuracy():
@@ -987,6 +1059,282 @@ def phase_hard_lm(vn3):
 
 
 # ---------------------------------------------------------------------------
+# The viscous-Burgers slice (K3, the jacobian-panel residual)
+
+BURG_2D = dict(disc_num=32, b_disc_num=32, t_disc_num=20)   # P = 1,168,576 points
+BURG_1D = dict(disc_num=48, b_disc_num=48, t_disc_num=32)   # the 1-D recipe's mesh
+BURG_NET = (32, 32, 32)
+BURG_THETA = os.path.join(RESULTS, "theta_burgers_front_2d.npz")
+BURG_ADAM = dict(lr=2e-3, decay_rate=0.1, decay_steps=3000)  # burgers_accuracy.py, 12,000 epochs
+BURG_EPOCHS = 100
+BURG_LM = dict(steps=2, cg_iters=20, k_chunks=16)
+# K3's r at the pinned theta, relative to max |r| of an f64 evaluation: there r is a
+# ~1e-3 cancellation of its terms, and any f32 evaluation of it (the plain version's
+# too) carries ~2e-4 of max |r| of rounding; the 1e-5 gate is held on a seeded net
+PIN_R_RTOL = 1e-3
+# pin stem -> (problem factory, its keyword arguments, evaluation disc, rel-L2 bound):
+# tests/test_accuracy_pin.py::BURGERS_PINS
+BURG_PINS = {
+    "traveling_front": ("burgers_1d_transient", dict(nu=0.05, a=0.4, c=0.6), 256, 1e-4),
+    "steady_shock": ("burgers_1d_steady", dict(nu=0.07, a=1.0), 256, 8e-4),
+    "front_2d": ("burgers_2d_front", dict(nu=0.1), 96, 2e-4),
+    "traveling_front_hard": ("burgers_1d_transient", dict(nu=0.05, a=0.4, c=0.6), 256, 2e-6),
+    "steady_shock_hard": ("burgers_1d_steady", dict(nu=0.07, a=1.0), 256, 7e-4),
+}
+
+
+def _burgers_vn(factory="burgers_2d_front", kw=None, mesh=None, **vn_kw):
+    from varnet_tpu_torch import VarNet
+    from varnet_tpu_torch.problems import analytic
+    from varnet_tpu_torch.train.optim import OptimizerConfig
+
+    pde = getattr(analytic, factory)(**({"nu": 0.1} if kw is None else kw))["pde"]
+    return VarNet(pde, layer_width=BURG_NET, device="cuda",
+                  optimizer=OptimizerConfig(**BURG_ADAM), **{**(mesh or BURG_2D), **vn_kw})
+
+
+def _pinned_burgers():
+    from varnet_tpu_torch import load_theta_npz, params_from_jax
+
+    return params_from_jax(load_theta_npz(BURG_THETA), device="cuda")
+
+
+def phase_burgers_kernels():
+    """K3 against its plain version at the front_2d recipe's mesh (seeded net:
+    r 1e-5, grads 1e-4; the pinned theta: grads 1e-4, r against an f64
+    evaluation) and with the nonlinear term off at the flagship bench shape
+    (``fused_directional=False``); kernel and plain timed at each shape."""
+    import torch
+
+    from varnet_tpu_torch.ops import fused_residual as fr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jac = (fr.jac_residual_fwd, fr.jac_residual_bwd)
+    plain = (fr.jac_residual_fwd_plain, fr.jac_residual_bwd_plain)
+    vn = _burgers_vn()
+    if vn._fused_kind != "jac":
+        raise AssertionError(f"penalty Burgers routes to {vn._fused_kind}, not K3")
+    data = fr.prepare_residual_data(vn._to_device(vn.fixed.quad), vn.scale, vn.shift,
+                                    time_dependent=True, has_react=vn.has_react,
+                                    device="cuda", nl_vec=vn.nl_vec, jacobian=True)
+    if fr._residual_fns(vn.theta, data) != jac:
+        raise AssertionError("the front_2d data does not route to K3")
+    seeded, gen = _seeded_net(3, BURG_NET, 31)
+    out = _residual_compare(seeded, data, gen, "burgers-kernels front2d w32x3 seeded",
+                            kernels=jac, plains=plain)
+
+    pinned = _pinned_burgers()
+    r_k = fr.jac_residual_fwd(pinned, data, "tanh")
+    r_p = fr.jac_residual_fwd_plain(pinned, data, "tanh")
+    d64 = data._replace(xs=data.xs.double(), flds=data.flds.double(), tab=data.tab.double(),
+                        scale=data.scale.double(), nl=data.nl.double())
+    r64 = fr.jac_residual_fwd_plain([{k: v.double() for k, v in layer.items()}
+                                     for layer in pinned], d64, "tanh")
+    torch.cuda.synchronize()
+    err_k, err_p = _rel_err(r_k.double(), r64), _rel_err(r_p.double(), r64)
+    if not (np.isfinite(err_k) and err_k <= PIN_R_RTOL):
+        raise AssertionError(f"K3 r at the pinned theta is {err_k:.3e} of max |r| from f64 "
+                             f"(plain f32: {err_p:.3e})")
+    del d64, r64
+    torch.cuda.empty_cache()
+    pin = _residual_compare(pinned, data, gen, "burgers-kernels front2d w32x3 pinned bwd",
+                            timed=False, kernels=jac, plains=plain, kinds=("bwd",))
+    log("burgers-kernels front2d pinned fwd", max_abs_r=f"{float(r_k.abs().max()):.4e}",
+        kernel_vs_f64=f"{err_k:.4e}", plain_vs_f64=f"{err_p:.4e}",
+        kernel_vs_plain=f"{_rel_err(r_k, r_p):.4e}")
+
+    params_b, gen_b = _seeded_net(3, (20, 20), 32)
+    _residual_compare(params_b, _bench_data(jacobian=True), gen_b,
+                      "burgers-kernels bench-jac w20x2 (nl off)",
+                      kernels=jac, plains=plain)
+    return out, pin, data.k * data.nq, data.k
+
+
+def phase_burgers_train():
+    """The main path of the slice: Adam at the front_2d recipe's mesh and width
+    through K3 (launches rise every epoch, no other residual kernel runs, the
+    loss falls); 20 epochs kernel vs plain from the seeded net; 20 epochs of the
+    1-D traveling front with exact BC on the general path (K5)."""
+    import torch
+
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    others = (fr.dir_residual_fwd, fr.dir_residual_ff_fwd, fr.dirp_residual_fwd,
+              fr.dirp_residual_ff_fwd, vj.vj_fwd, vj.ff_vj_fwd)
+    vn = _burgers_vn()
+    first = vn.train(epoch_num=1, weight=WEIGHT, save_freq=1, verbose=False, error_disc=96)
+    fr.jac_residual_fwd.launches = fr.jac_residual_bwd.launches = 0
+    before = [f.launches for f in others]
+    res = vn.train(epoch_num=BURG_EPOCHS, weight=WEIGHT, save_freq=BURG_EPOCHS, verbose=False,
+                   error_disc=96)
+    torch.cuda.synchronize()
+    launches = {"fwd": fr.jac_residual_fwd.launches, "bwd": fr.jac_residual_bwd.launches}
+    if min(launches.values()) < BURG_EPOCHS:
+        raise AssertionError(f"K3 launches {launches} < 1 per epoch over {BURG_EPOCHS} epochs")
+    if [f.launches for f in others] != before:
+        raise AssertionError("another residual or value+jac kernel ran in the K3 Adam steps")
+    loss0, loss_end = first.losses[0]["loss"], res.losses[-1]["loss"]
+    if not (np.isfinite(loss_end) and loss_end < loss0):
+        raise AssertionError(f"Burgers front_2d loss did not fall: {loss0} -> {loss_end}")
+    log("burgers-train kernel", mesh="d32/t20/b32", epochs=BURG_EPOCHS,
+        points=vn.static.n_test * vn.static.n_quad_per_test, jac_fwd=launches["fwd"],
+        jac_bwd=launches["bwd"], loss_start=f"{loss0:.6e}", loss_end=f"{loss_end:.6e}",
+        rel_l2=f"{res.errors[-1]:.4e}", steps_per_sec=f"{res.steps_per_sec:.4f}",
+        quad_evals_per_sec=f"{res.quad_evals_per_sec:.6e}")
+
+    runs = {}
+    for fused in (True, False):
+        v = _burgers_vn(use_fused_residual=fused, use_pallas=fused)
+        runs[fused] = _losses(v.train(epoch_num=20, weight=WEIGHT, save_freq=1, verbose=False,
+                                      error_disc=32, error_times=2))
+    worst = float(np.max(np.abs(runs[True] - runs[False]) / np.abs(runs[False])))
+    if not worst <= 2e-4:
+        raise AssertionError(f"Burgers kernel vs plain 20-epoch trajectories differ by "
+                             f"{worst:.3e}")
+    log("burgers-train 20-epoch kernel vs plain", mesh="d32/t20/b32",
+        max_rel_diff=f"{worst:.3e}", loss_end_kernel=f"{runs[True][-1]:.6e}",
+        loss_end_plain=f"{runs[False][-1]:.6e}")
+
+    vh = _burgers_vn("burgers_1d_transient", dict(nu=0.05, a=0.4, c=0.6), BURG_1D,
+                     hard_bc=True)
+    if vh._fused_kind is not None:
+        raise AssertionError(f"hard BC + nl routes to {vh._fused_kind}, not the general path")
+    first = vh.train(epoch_num=1, save_freq=1, verbose=False, error_disc=256)
+    counts = lambda: (fr.jac_residual_fwd.launches, vj.vj_fwd.launches, vj.vj_bwd.launches)  # noqa: E731
+    c0 = counts()
+    rh = vh.train(epoch_num=20, save_freq=20, verbose=False, error_disc=256)
+    c1 = counts()
+    if not (c1[0] == c0[0] and min(c1[1] - c0[1], c1[2] - c0[2]) >= 20):
+        raise AssertionError(f"hard Burgers did not take the general path through K5: "
+                             f"{c0} -> {c1}")
+    if not rh.losses[-1]["loss"] < first.losses[0]["loss"]:
+        raise AssertionError(f"hard Burgers loss did not fall: {first.losses[0]['loss']} -> "
+                             f"{rh.losses[-1]['loss']}")
+    # K5 / K6 against their plain versions at the shape and inputs this run gave
+    # K5: the trained net, the scaled 1-D points (n_in 2) and, for the backward,
+    # the cotangent the hard loss (the nl term on the transformed u) hands it
+    xs_t, g = _hard_vj_inputs(vh)
+    hard_vj = _vj_compare(vh.theta, xs_t, 41, "kernels-vj burgers-hard1d w32x3", timed=True,
+                          g=g)
+    log("burgers-train hard 1-D general path", mesh="d48/t32", epochs=20,
+        vj_fwd=c1[1] - c0[1], vj_bwd=c1[2] - c0[2], loss_start=f"{first.losses[0]['loss']:.6e}",
+        loss_end=f"{rh.losses[-1]['loss']:.6e}", rel_l2=f"{rh.errors[-1]:.4e}",
+        steps_per_sec=f"{rh.steps_per_sec:.4f}", points=xs_t.shape[1],
+        **{f"k5k6_{k}_rel_err": f"{v['rel_err']:.4g}" for k, v in hard_vj.items()})
+    return launches
+
+
+def _hard_vj_inputs(vh):
+    """(xs_t [n_in, P], g [1 + n_in, P]): the scaled points K5 sees in
+    ``vh``'s hard-BC Adam step on the general path, and the cotangent of its
+    output rows that the loss at ``vh.theta`` hands K5's backward."""
+    from varnet_tpu_torch.fem.assembly import pad_points, pad_quad
+    from varnet_tpu_torch.fem.hardbc import tables_to
+    from varnet_tpu_torch.ops import value_and_jac as vj
+    from varnet_tpu_torch.train.loss import make_loss_fn
+
+    seen = {}
+
+    def value_and_jac(theta, x, activation, scale, shift):
+        # vj.value_and_jac's arithmetic, with K5's output as a leaf
+        xs_t = ((x - shift) * scale).T.contiguous()
+        out = vj.vj_fwd(theta, xs_t, activation).requires_grad_(True)
+        seen.update(xs_t=xs_t, out=out)
+        return out[0], (out[1:] * scale[:, None]).T
+
+    loss_fn = make_loss_fn(vh.static, activation=vh.activation, has_react=vh.has_react,
+                           device="cuda", value_and_jac=value_and_jac,
+                           apply_fn=vh._apply_fn(), hard_mode=True, nl_vec=vh.nl_vec)
+    quad_h = pad_quad(vh.fixed.quad, 1)
+    ic = None if vh.fixed.ic is None else vh._to_device(pad_points(vh.fixed.ic, 1))
+    total, _ = loss_fn(vh.theta, vh._to_device(quad_h), vh._to_device(pad_points(vh.fixed.bc, 1)),
+                       ic, (1.0, 1.0, 1.0), hard=tables_to(vh._hard_tables(quad_h), "cuda"))
+    total.backward()
+    return seen["xs_t"], seen["out"].grad
+
+
+def phase_burgers_accuracy():
+    """The five pinned Burgers thetas re-score under their bounds on the card."""
+    from varnet_tpu_torch import load_theta_npz
+
+    out = {}
+    for pin, (factory, kw, disc, bound) in BURG_PINS.items():
+        hard = pin.endswith("_hard")
+        mesh = dict(disc_num=8, t_disc_num=None if factory == "burgers_1d_steady" else 4)
+        theta = load_theta_npz(os.path.join(RESULTS, f"theta_burgers_{pin}.npz"))
+        err = _burgers_vn(factory, kw, mesh, hard_bc=hard).compute_error(theta, disc=disc,
+                                                                         n_times=5)
+        if not err < bound:
+            raise AssertionError(f"theta_burgers_{pin} re-scores {err:.4e} >= {bound:g}")
+        out[pin] = err
+    log("burgers-accuracy", **{f"{k}_rel_l2": f"{v:.6e}" for k, v in out.items()})
+
+
+def phase_burgers_lm():
+    """K5 / K6 vs plain on one LM chunk of the front_2d mesh; 2 LM iterations
+    from the pinned front_2d theta at the recipe's mesh on K5 / K6 with the
+    nonlinear term, and the same on the plain path."""
+    import torch
+
+    from varnet_tpu_torch.fem.assembly import pad_quad
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    theta = _pinned_burgers()
+    # K5 / K6 against their plain versions at the pinned theta on one LM chunk of
+    # the front_2d mesh: the shape (n_in 3, w32x3, K / k_chunks test functions)
+    # that refine_lm gives them below
+    vn = _burgers_vn()
+    quad_c = pad_quad(vn.fixed.quad, BURG_LM["k_chunks"])
+    kc = quad_c.coords.shape[0] // BURG_LM["k_chunks"]
+    coords = torch.from_numpy(np.array(quad_c.coords[:kc], dtype=np.float32)).cuda()
+    xs_t = ((coords.reshape(-1, coords.shape[-1]) - vn.shift) * vn.scale).T.contiguous()
+    chunk = _vj_compare(theta, xs_t, 42, "kernels-vj burgers-front2d-chunk w32x3", timed=True)
+    chunk_points = xs_t.shape[1]
+    del coords, xs_t, vn
+    torch.cuda.empty_cache()
+    runs = {}
+    for use_pallas in (True, False):
+        vn = _burgers_vn(use_pallas=use_pallas)
+        vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
+        if use_pallas:
+            with torch.no_grad():
+                start = _lm_loss(vn, theta, BURG_LM["k_chunks"])
+            vj.vj_fwd.launches = vj.vj_bwd.launches = vj.vj_jvp.launches = 0
+        t0 = time.perf_counter()
+        res = vn.refine_lm(weight=WEIGHT, save_freq=1, verbose=False, error_disc=96,
+                           error_times=5, **BURG_LM)
+        torch.cuda.synchronize()
+        runs[use_pallas] = (res, time.perf_counter() - t0)
+        if use_pallas:
+            launches = {"vj_fwd": vj.vj_fwd.launches, "vj_bwd": vj.vj_bwd.launches,
+                        "vj_jvp": vj.vj_jvp.launches}
+    rk, secs = runs[True]
+    need = BURG_LM["steps"] * BURG_LM["cg_iters"]
+    if min(launches.values()) < need:
+        raise AssertionError(f"Burgers LM kernel launches {launches} < steps x cg_iters = {need}")
+    lk, lp = _losses(rk), _losses(runs[False][0])
+    if not (np.all(np.isfinite(lk)) and lk[0] <= start * (1 + 1e-5) and np.all(np.diff(lk) <= 0)):
+        raise AssertionError(f"Burgers LM loss rose: start {start} -> {lk.tolist()}")
+    if not rk.errors[-1] < 2e-4:
+        raise AssertionError(f"Burgers LM rel-L2 {rk.errors[-1]:.4e} >= 2e-4")
+    worst = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+    if not worst <= 2e-2:
+        raise AssertionError(f"Burgers LM kernel vs plain losses differ by {worst:.3e}")
+    per_it = (rk.wall_times[-1] - rk.wall_times[0]) / (BURG_LM["steps"] - 1)
+    log("burgers-lm kernel", mesh="d32/t20/b32", **BURG_LM, loss_start=f"{start:.6e}",
+        losses=",".join(f"{v:.6e}" for v in lk), rel_l2=f"{rk.errors[-1]:.6e}",
+        s_per_iter=f"{per_it:.4f}", call_seconds=f"{secs:.3f}", **launches,
+        chunk_points=chunk_points,
+        **{f"chunk_{k}_{m}": f"{d[m]:.4g}" for k, d in chunk.items()
+           for m in ("rel_err", "ms", "plain_ms")})
+    log("burgers-lm plain", losses=",".join(f"{v:.6e}" for v in lp),
+        rel_l2=f"{runs[False][0].errors[-1]:.6e}", call_seconds=f"{runs[False][1]:.3f}",
+        max_rel_diff=f"{worst:.3e}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 
 PEAK_F32 = 67e12   # FLOP/s, f32 outside the tensor cores (H100 SXM data sheet)
@@ -999,16 +1347,19 @@ def _bound(flops, nbytes):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _flops(kind, widths, k0, panels, points):
+def _flops(kind, widths, k0, panels, points, first_panels=None):
     """FLOPs of the layer products (2 per multiply-add) over ``points`` for a
     net with layer-0 input width k0 and hidden widths ``widths``, pushing
     ``panels`` panels: the forward; the backward = recompute + weight gradients
     + the cotangents of the hidden layers; the JVP = W s, W ds and dW s at the
     hidden and output layers, W s and dW s at layer 0 (its input has no
-    tangent: the points and B are fixed).  The activations and the embedding's
-    sin / cos are not counted."""
+    tangent: the points and B are fixed).  ``first_panels``: the panels that
+    need layer 0's product (K3: the value panel only; a unit tangent's
+    layer-0 pre-activation is a column of W0).  The activations and the
+    embedding's sin / cos are not counted."""
     hidden = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    first, rest = 2 * panels * k0 * widths[0], 2 * panels * (hidden + widths[-1])
+    first = 2 * (panels if first_panels is None else first_panels) * k0 * widths[0]
+    rest = 2 * panels * (hidden + widths[-1])
     fwd = first + rest
     return points * {"fwd": fwd, "bwd": 2 * fwd + 2 * panels * hidden,
                      "jvp": 2 * first + 3 * rest}[kind]
@@ -1019,7 +1370,7 @@ def _n_params(widths, k0):
     return sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
-def _bounds(kind, widths, k0, panels, points, n_in, n_k=None, n_fields=4):
+def _bounds(kind, widths, k0, panels, points, n_in, n_k=None, n_fields=4, first_panels=None):
     """Bound of one kernel: a residual kernel (n_k test functions; reads the
     coordinates and n_fields field rows, writes r or reads its cotangent) or
     a value+jac kernel (reads the coordinates, writes or reads 1 + n_in rows);
@@ -1032,7 +1383,7 @@ def _bounds(kind, widths, k0, panels, points, n_in, n_k=None, n_fields=4):
         rows = 0 if kind == "bwd" else 1 + n_in
         nbytes = 4 * points * (n_in + rows + (1 + n_in if kind == "bwd" else 0))
         nbytes += params * 2
-    return _bound(_flops(kind, widths, k0, panels, points), nbytes)
+    return _bound(_flops(kind, widths, k0, panels, points, first_panels), nbytes)
 
 
 def _entry(name, source, replaces, launches, nums, bound):
@@ -1044,6 +1395,7 @@ def _entry(name, source, replaces, launches, nums, bound):
 def main():
     import torch
 
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     k20 = phase_kernels((20, 20))
@@ -1062,22 +1414,31 @@ def main():
     lm_ff_launches = phase_lm_ff()
     torch.cuda.empty_cache()
     vn3, hq3 = phase_hard_tables()
-    dirp, _ = phase_kernels_dirp(vn3, hq3)
+    dirp, dirp_wide, p_o2, k_o2 = phase_kernels_dirp(vn3, hq3)
     del hq3
-    dirp_launches, _ = phase_hard_train(vn3)
+    dirp_launches, wide_launches = phase_hard_train(vn3)
     phase_hard_accuracy()
     phase_hard_lm(vn3)
     p3, k3 = vn3.static.n_test * vn3.static.n_quad_per_test, vn3.static.n_test
+    del vn3
+    torch.cuda.empty_cache()
+    t_burgers = time.perf_counter()
+    jac, _, p_b, k_b = phase_burgers_kernels()
+    jac_launches = phase_burgers_train()
+    phase_burgers_accuracy()
+    phase_burgers_lm()
+    log("done", seconds=f"{time.perf_counter() - t0:.1f}",
+        burgers_seconds=f"{time.perf_counter() - t_burgers:.1f}")
 
     p_bench, k_bench = k20["points"], k20["k"]
     src = "varnet_tpu_torch/csrc/"
     res_py, mlp_py = "varnet_tpu/ops/pallas_residual.py", "varnet_tpu/ops/pallas_mlp.py"
     ff_net = dict(widths=(96, 96, 96), k0=256, n_in=3)
     kernels = [
-        _entry("dir_residual_fwd", src + "dir_residual.cu", res_py + ":788", launches["fwd"],
+        _entry("dir_residual_fwd", src + "dir_residual.cu", res_py + ":1015", launches["fwd"],
                {"abs_err": k20["r_abs_err"], "ms": k20["fwd_ms"], "plain_ms": k20["fwd_plain_ms"]},
                _bounds("fwd", (20, 20), 3, 2, p_bench, 3, n_k=k_bench)),
-        _entry("dir_residual_bwd", src + "dir_residual.cu", res_py + ":820", launches["bwd"],
+        _entry("dir_residual_bwd", src + "dir_residual.cu", res_py + ":1015", launches["bwd"],
                {"abs_err": k20["g_abs_err"], "ms": k20["bwd_ms"], "plain_ms": k20["bwd_plain_ms"]},
                _bounds("bwd", (20, 20), 3, 2, p_bench, 3, n_k=k_bench)),
     ] + [
@@ -1101,6 +1462,18 @@ def main():
         _entry(f"dirp_residual_{kind}", src + "dir_residual.cu", res_py + ":1340",
                dirp_launches[kind], dirp[kind],
                _bounds(kind, (64, 64), 4, 2, p3, 4, n_k=k3, n_fields=6))
+        for kind in ("fwd", "bwd")
+    ] + [
+        # K4 on ff_mlp.cu at the 2-D order-2 mesh: n_in 2, n_fields = n_in + 2
+        _entry(f"dirp_residual_ff_{kind}", src + "ff_mlp.cu", res_py + ":1340",
+               wide_launches[kind], dirp_wide[kind],
+               _bounds(kind, HARD_WIDE, 2, 2, p_o2, 2, n_k=k_o2, n_fields=4))
+        for kind in ("fwd", "bwd")
+    ] + [
+        # K3 pushes 1 + n_in panels and reads 2 + d field rows (kappa, vel, src)
+        _entry(f"jac_residual_{kind}", src + "ff_mlp.cu", res_py + ":611",
+               jac_launches[kind], jac[kind],
+               _bounds(kind, BURG_NET, 3, 4, p_b, 3, n_k=k_b, n_fields=4, first_panels=1))
         for kind in ("fwd", "bwd")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

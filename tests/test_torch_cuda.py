@@ -1,6 +1,6 @@
-"""The CUDA kernels (fused residual K1/K2, K2-FF and the precoeff residual K4;
-value + jacobian K5/K6 and K7/K8) against their plain PyTorch versions on the
-card.
+"""The CUDA kernels (fused residual K1/K2, K2-FF, the precoeff residual K4 and
+the jacobian-panel residual K3; value + jacobian K5/K6 and K7/K8) against their
+plain PyTorch versions on the card.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip.  The CUDA
 machine has no JAX, and tests/conftest.py imports it, so run them with
@@ -459,14 +459,12 @@ def test_dirp_backward_is_deterministic(cuda):
 
 
 def test_dirp_refuses_nets_wider_than_64(cuda):
+    """dir_residual.cu's precoeff mode takes widths <= 64; the routing sends a
+    wider net to ff_mlp.cu's (``_residual_fns``)."""
     data, params, _ = _dirp_case(cuda, *DIRP_CASES[0][1:], (72, 72))
-    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+    with pytest.raises(ValueError, match="dirp_residual_ff_fwd"):
         fr.dirp_residual_fwd(params, data, "tanh")
-    from varnet_tpu_torch.problems.analytic import steady_ad_2d
-
-    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
-        VarNet(steady_ad_2d()["pde"], layer_width=(72, 72), disc_num=6, b_disc_num=4,
-               device=cuda, hard_bc=True).train(epoch_num=1, verbose=False)
+    assert fr._residual_fns(params, data) == (fr.dirp_residual_ff_fwd, fr.dirp_residual_ff_bwd)
 
 
 @pytest.mark.parametrize("widths", [(20, 20), (64, 64)])
@@ -517,3 +515,161 @@ def test_training_on_cuda_goes_through_k4(cuda, kind):
         before = vj.vj_jvp.launches
         vns[0].refine_lm(steps=1, cg_iters=3, k_chunks=2, verbose=False, error_disc=8)
         assert vj.vj_jvp.launches - before >= 3
+
+
+# ---------------------------------------------------------------------------
+# K4 for nets wider than 64 (ff_mlp.cu, precoeff mode)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("widths", [(65, 65), (72, 72), (96, 96, 96), (128, 128), (20, 100)])
+@pytest.mark.parametrize("name,factory,kw,td,react,hard", DIRP_CASES,
+                         ids=[c[0] for c in DIRP_CASES])
+def test_dirp_wide_kernel_matches_plain(cuda, name, factory, kw, td, react, hard, widths,
+                                        activation):
+    data, params, gr = _dirp_case(cuda, factory, kw, td, react, hard, widths)
+    fwd, bwd = fr._residual_fns(params, data)
+    assert (fwd, bwd) == (fr.dirp_residual_ff_fwd, fr.dirp_residual_ff_bwd)
+    before = (fwd.launches, bwd.launches)
+    r = fwd(params, data, activation)
+    grads = bwd(params, data, activation, gr)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel(r, fr.dir_residual_fwd_plain(params, data, activation)) < 1e-5
+    for g, p in zip(grads, fr.dir_residual_bwd_plain(params, data, activation, gr)):
+        for k in ("w", "b"):
+            assert g[k].shape == p[k].shape
+            if p[k].abs().max() > 0:
+                assert _rel(g[k], p[k]) < 1e-4, (k, _rel(g[k], p[k]))
+
+
+def test_wide_hard_training_goes_through_k4_on_ff_mlp(cuda):
+    """A hard-BC net of width 72 trains on the card through ff_mlp.cu's
+    precoeff mode, every epoch, and takes the plain path's steps."""
+    from varnet_tpu_torch.problems.analytic import steady_ad_2d
+
+    kw = dict(layer_width=(72, 72), disc_num=6, b_disc_num=4, device=cuda, hard_bc=True)
+    train = dict(epoch_num=4, save_freq=1, verbose=False, error_disc=8)
+    before = (fr.dirp_residual_ff_fwd.launches, fr.dirp_residual_ff_bwd.launches)
+    res = VarNet(steady_ad_2d()["pde"], **kw).train(**train)
+    assert fr.dirp_residual_ff_fwd.launches - before[0] == 4
+    assert fr.dirp_residual_ff_bwd.launches - before[1] == 4
+    plain = VarNet(steady_ad_2d()["pde"], use_pallas=False, use_fused_residual=False,
+                   **kw).train(**train)
+    np.testing.assert_allclose([r["loss"] for r in res.losses],
+                               [r["loss"] for r in plain.losses], rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# K3, the jacobian-panel residual (ff_mlp.cu, jacobian mode): viscous Burgers
+
+
+def _burgers_react():
+    import dataclasses
+
+    from varnet_tpu_torch.problems.analytic import burgers_1d_steady
+
+    return {"pde": dataclasses.replace(burgers_1d_steady()["pde"], react=1.5)}
+
+
+def _f64(params):
+    return [{k: v.double() for k, v in layer.items()} for layer in params]
+
+
+def _f64_data(data):
+    return data._replace(xs=data.xs.double(), flds=data.flds.double(), tab=data.tab.double(),
+                         scale=data.scale.double(),
+                         nl=None if data.nl is None else data.nl.double())
+
+
+def _jac_case(cuda, factory, kw, td, react, widths, seed=0):
+    from varnet_tpu_torch.problems import analytic
+
+    pde = (factory if callable(factory) else getattr(analytic, factory))()["pde"]
+    fd = build_fixed_data(pde, **kw)
+    st = fd.static
+    scale, shift = make_input_scaling(st.input_lo, st.input_hi)
+    data = fr.prepare_residual_data(fd.quad, scale, shift, time_dependent=td, has_react=react,
+                                    device=cuda, nl_vec=pde.nl_adv, jacobian=True)
+    gen = torch.Generator().manual_seed(seed)
+    params = init_mlp(gen, st.n_inputs, widths, device=cuda)
+    for layer in params:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).to(cuda)
+    return data, params, torch.randn(data.k, generator=gen).to(cuda)
+
+
+# name, factory, assembly kwargs, time-dependent, reaction
+JAC_CASES = [
+    ("steady1d", "burgers_1d_steady", dict(disc_num=16), False, False),          # n_in 1
+    ("transient1d", "burgers_1d_transient", dict(disc_num=12, t_disc_num=6), True, False),
+    ("front2d", "burgers_2d_front", dict(disc_num=6, b_disc_num=4, t_disc_num=4), True,
+     False),                                                                   # n_in 3, b 2-D
+    ("react-nl", _burgers_react, dict(disc_num=16), False, True),
+    ("adr1d", "steady_adr_1d", dict(disc_num=16), False, True),                # nl off
+    ("3dt", "transient_ad_3d", dict(disc_num=3, b_disc_num=3, t_disc_num=2), True, False),
+    ("mor2d", "mor_steady_ad_2d", dict(disc_num=6, b_disc_num=4), False, False),
+]
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("widths", [(8, 8), (32, 32, 32), (13, 48, 7), (96, 96), (128, 128)])
+@pytest.mark.parametrize("name,factory,kw,td,react", JAC_CASES, ids=[c[0] for c in JAC_CASES])
+def test_jac_kernel_matches_plain(cuda, name, factory, kw, td, react, widths, activation):
+    data, params, gr = _jac_case(cuda, factory, kw, td, react, widths)
+    assert fr._residual_fns(params, data) == (fr.jac_residual_fwd, fr.jac_residual_bwd)
+    before = (fr.jac_residual_fwd.launches, fr.jac_residual_bwd.launches)
+    r = fr.jac_residual_fwd(params, data, activation)
+    grads = fr.jac_residual_bwd(params, data, activation, gr)
+    torch.cuda.synchronize()
+    assert (fr.jac_residual_fwd.launches, fr.jac_residual_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    # r against an f64 evaluation of the plain version: on the tiny 1-D meshes r
+    # cancels its terms, and the f32 plain version itself is up to 1.2e-5 of
+    # max |r| from f64 (steady1d, w96x2); the kernel may round as much, within 3x
+    r64 = fr.jac_residual_fwd_plain(_f64(params), _f64_data(data), activation)
+    plain_err = _rel(fr.jac_residual_fwd_plain(params, data, activation).double(), r64)
+    assert _rel(r.double(), r64) < max(1e-5, 3 * plain_err), (_rel(r.double(), r64), plain_err)
+    for g, p in zip(grads, fr.jac_residual_bwd_plain(params, data, activation, gr)):
+        for k in ("w", "b"):
+            assert g[k].shape == p[k].shape
+            if p[k].abs().max() > 0:
+                assert _rel(g[k], p[k]) < 1e-4, (k, _rel(g[k], p[k]))
+
+
+def test_jac_backward_is_deterministic(cuda):
+    data, params, gr = _jac_case(cuda, *JAC_CASES[2][1:], (32, 32, 32), seed=1)
+    g1 = fr.jac_residual_bwd(params, data, "tanh", gr)
+    g2 = fr.jac_residual_bwd(params, data, "tanh", gr)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+@pytest.mark.parametrize("hard", [False, True], ids=["penalty", "hard"])
+def test_burgers_training_on_cuda_goes_through_k3(cuda, hard):
+    """Penalty Burgers trains through K3 and nothing else for its interior
+    residual; exact BC with the nonlinear term takes the general path through K5,
+    as in the JAX package.  Both take the plain path's steps; LM runs on K5/K6."""
+    from varnet_tpu_torch.problems.analytic import burgers_1d_transient
+
+    kw = dict(layer_width=(16, 16), disc_num=12, t_disc_num=6, device=cuda, hard_bc=hard)
+    train = dict(epoch_num=4, weight=(1.0, 10.0, 10.0), save_freq=1, verbose=False,
+                 error_disc=16, error_times=2)
+    counters = (fr.jac_residual_fwd, fr.jac_residual_bwd, fr.dir_residual_fwd,
+                fr.dirp_residual_fwd, vj.vj_fwd, vj.vj_bwd)
+    before = [c.launches for c in counters]
+    vn = VarNet(burgers_1d_transient()["pde"], **kw)
+    assert vn._fused_kind == (None if hard else "jac")
+    res = vn.train(**train)
+    grown = [c.launches - b for c, b in zip(counters, before)]
+    if hard:
+        assert grown[:4] == [0, 0, 0, 0] and min(grown[4:]) >= 4
+    else:
+        assert grown == [4, 4, 0, 0, 0, 0]
+    plain = VarNet(burgers_1d_transient()["pde"], use_pallas=False, use_fused_residual=False,
+                   **kw).train(**train)
+    np.testing.assert_allclose([r["loss"] for r in res.losses],
+                               [r["loss"] for r in plain.losses], rtol=2e-4)
+    before = vj.vj_jvp.launches
+    vn.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=3, k_chunks=2, verbose=False,
+                 error_disc=16, error_times=2)
+    assert vj.vj_jvp.launches - before >= 3

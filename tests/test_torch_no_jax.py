@@ -1,7 +1,9 @@
 """The port imports no JAX, optax or orbax, directly or through varnet_tpu: not
 when imported, not through Adam training, not through LM refinement, not through
 the Fourier-feature causal curriculum and its LM polish, not through exact-BC
-Adam + LM, a test-space refinement and the obstacle CLI with ``--hard-bc``."""
+Adam + LM, a test-space refinement and the obstacle CLI with ``--hard-bc``, nor
+through viscous Burgers (Adam on K3's route, LM, ``test_residuals``) and the
+``burgers_1d`` CLI with ``--hard-bc``."""
 
 import os
 import subprocess
@@ -43,6 +45,17 @@ hv.train(epoch_num=1, save_freq=1, verbose=False, error_disc=4, error_times=2)
 from varnet_tpu_torch.examples import obstacle_2d
 obstacle_2d.main(["--hard-bc", "--width", "8", "--disc", "6", "--bdisc", "6", "--epochs", "2",
                   "--save-freq", "2", "--lm-steps", "1", "--lm-cg", "2", "--device", "cpu"])
+from varnet_tpu_torch.examples import burgers_1d
+from varnet_tpu_torch.problems.analytic import burgers_2d_front
+bv = VarNet(burgers_2d_front()["pde"], layer_width=(8, 8), disc_num=4, b_disc_num=4,
+            t_disc_num=3, device="cpu")
+bv.train(epoch_num=2, weight=(1.0, 10.0, 10.0), save_freq=2, verbose=False, error_disc=4,
+         error_times=2)
+bv.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=2, k_chunks=2, verbose=False,
+             error_disc=4, error_times=2)
+bv.test_residuals()
+burgers_1d.main(["--hard-bc", "--width", "8", "--disc", "6", "--tdisc", "4", "--epochs", "2",
+                 "--save-freq", "2", "--lm-steps", "1", "--lm-cg", "2", "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

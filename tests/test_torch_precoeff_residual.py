@@ -173,7 +173,7 @@ def test_kernel_refuses_what_it_does_not_take():
     """The argument checks of K4's wrappers (run before any launch on CUDA)."""
     fd, st, hq, raw, _, scale, shift = _setup(*CASES[1][1:3], True, (12, 12))
     data = _port_data(fd, st, hq, True, False, scale, shift)
-    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+    with pytest.raises(ValueError, match="dirp_residual_ff_fwd"):
         fr._check_dirp_args(params_from_jax(_setup(*CASES[1][1:3], True, (72, 8))[3]), data,
                             "tanh")
     with pytest.raises(ValueError, match="sin"):

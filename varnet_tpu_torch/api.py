@@ -8,7 +8,8 @@ fused residual's data layout is prepared once per ``train`` call.  On a CUDA
 device the Adam step's interior residual runs through the hand-written kernels
 of ``ops/fused_residual.py`` (K1/K2; K2-FF for a net behind a Fourier-feature
 embedding; K4, the precoeff residual, for exact BC/IC and per-node test
-tables), and the value + jacobian evaluation of the LM refinement and of the
+tables; K3, the jacobian-panel residual, for nonlinear advection: viscous
+Burgers, ``ADPDE(nl_adv=b)``), and the value + jacobian evaluation of the LM refinement and of the
 Adam general path through those of ``ops/value_and_jac.py`` (K5 forward and
 backward, K6 JVP; K7/K8 with the embedding); on the CPU through their plain
 versions.
@@ -98,6 +99,16 @@ class VarNet:
       fused_precoeff: the precoeff residual (K4) for shared [nQ] tables too;
                     it is selected anyway for exact BC and per-node tables
                     (order 2, adaptively refined hats)
+      fused_directional: the directional residual kernels (K1/K2, K2-FF, K4);
+                    False takes the jacobian-panel residual K3 (1 + n_in
+                    panels).  A nonlinear problem (``pde.nl_adv``) forces
+                    False unless ``fused_precoeff``: its term u (b . grad u)
+                    is bilinear in u and grad u, which one direction cannot
+                    carry.  Exact BC with nonlinear advection takes the
+                    general path, as in the JAX package.  The argument is
+                    kept for parity with the JAX constructor: for a linear
+                    problem False computes the same residual as True, on
+                    K3 in place of the directional kernels.
 
       use_fused_residual: interior residual through the fused residual
                     (kernel on CUDA, plain version on CPU); False takes the
@@ -131,14 +142,20 @@ class VarNet:
         fourier_b=None,
         hard_bc: bool = False,
         fused_precoeff: bool = False,
+        fused_directional: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VarNet(device='cuda'): no CUDA device is available")
-        if getattr(pde, "nl_adv", None) is not None:
-            raise NotImplementedError("nonlinear advection is not ported to "
-                                      "varnet_tpu_torch yet")
+        if fused_precoeff and not fused_directional:
+            raise ValueError("fused_precoeff=True requires fused_directional=True")
         self.pde = pde
+        # the constant Burgers direction b (None: a linear problem); its term is
+        # bilinear in (u, grad u), so only the jacobian-panel residual K3 carries it
+        self.nl_vec = getattr(pde, "nl_adv", None)
+        self.fused_directional = bool(fused_directional)
+        if self.nl_vec is not None and not fused_precoeff:
+            self.fused_directional = False
         self.layer_width = tuple(int(w) for w in layer_width)
         self.disc_num = disc_num
         self.b_disc_num = int(b_disc_num)
@@ -225,21 +242,38 @@ class VarNet:
     def _precoeff_selected(self) -> bool:
         """The precoeff residual (K4) is in play: asked for, exact BC (its
         coefficients absorb the affine ansatz), or per-node test tables of a
-        plain net (the table kernels K1/K2 take shared [nQ] tables only)."""
+        plain net on the directional layout of a linear problem (the table
+        kernels K1/K2 take shared [nQ] tables only)."""
         return (self.fused_precoeff or self.hard is not None
-                or (self._per_node_tables and self.fourier_b is None))
+                or (self._per_node_tables and self.fused_directional
+                    and self.fourier_b is None and self.nl_vec is None))
 
     @property
     def _fused_kind(self) -> Optional[str]:
         """The Adam step's interior residual: 'precoeff' (K4), 'dir' (K1/K2 or
-        K2-FF) or None (the general value + jacobian path), gated as the JAX
-        package's ``_fused_residual_hook``: a Fourier-feature net takes no
-        precoeff fold and no per-node tables."""
+        K2-FF), 'jac' (K3, the jacobian-panel layout: nonlinear advection or
+        ``fused_directional=False``) or None (the general value + jacobian
+        path), gated as the JAX package's ``_fused_residual_hook``: exact BC
+        folds into K4 only (directional, plain net, linear problem); the
+        nonlinear term rides K3 only (no embedding, no precoeff fold); a
+        Fourier-feature net takes the directional layout only, without the
+        precoeff fold or per-node tables; per-node tables need the fold."""
         if not self.use_fused_residual:
             return None
-        if self.fourier_b is not None and (self._precoeff_selected or self._per_node_tables):
+        precoeff = self._precoeff_selected
+        embedded = self.fourier_b is not None
+        if (self.hard is not None
+                and (not self.fused_directional or embedded or self.nl_vec is not None)):
             return None
-        return "precoeff" if self._precoeff_selected else "dir"
+        if self.nl_vec is not None and (embedded or precoeff):
+            return None
+        if embedded and (not self.fused_directional or precoeff or self._per_node_tables):
+            return None
+        if self._per_node_tables and not precoeff:
+            return None
+        if not self.fused_directional:
+            return "jac"
+        return "precoeff" if precoeff else "dir"
 
     def _hard_tables(self, quad_h) -> Optional[HardQuad]:
         """The exact-BC tables (host f64) at the coords of ``quad_h``, a
@@ -323,7 +357,8 @@ class VarNet:
                                has_react=self.has_react, fused=kind is not None,
                                device=self.device, input_scaling=self.input_scaling,
                                value_and_jac=self._value_and_jac(self.use_pallas),
-                               apply_fn=self._apply_fn(), hard_mode=self.hard is not None)
+                               apply_fn=self._apply_fn(), hard_mode=self.hard is not None,
+                               nl_vec=self.nl_vec)
         # one host f64 table build serves the K4 fold or the general path's tables
         hard_h = self._hard_tables(quad_h)
         if batch_num == 1:
@@ -342,6 +377,10 @@ class VarNet:
                 return prepare_residual_data(q, self.scale, self.shift, time_dependent=td,
                                              has_react=self.has_react, device=self.device,
                                              fourier_bt=self.fourier_bt)
+            if kind == "jac":
+                return prepare_residual_data(q, self.scale, self.shift, time_dependent=td,
+                                             has_react=self.has_react, device=self.device,
+                                             nl_vec=self.nl_vec, jacobian=True)
             return None
 
         def hard_tensors(hq):
@@ -458,8 +497,8 @@ class VarNet:
 
         On the kernel path (``use_pallas``) J v runs K6 and J^T w K5's
         backward (K8 and K7's backward with a Fourier-feature embedding), with
-        exact BC and per-node test tables too (the JAX package's LM takes the
-        value + jacobian kernels there as well).
+        exact BC, per-node test tables and nonlinear advection too (the JAX
+        package's LM takes the value + jacobian kernels there as well).
         Checkpointing and fault recovery (``folderpath``, ``resume``,
         ``max_retries``) are not ported yet (ROADMAP Queue 1 item 9).
         """
@@ -494,7 +533,7 @@ class VarNet:
             value_and_jac=self._value_and_jac(self.use_pallas),
             has_react=self.has_react, device=self.device,
             input_scaling=self.input_scaling, apply_fn=self._apply_fn(),
-            hard_mode=self.hard is not None)
+            hard_mode=self.hard is not None, nl_vec=self.nl_vec)
         theta0 = self._params(None)
         flat0, unravel = ravel_params(theta0)
 
@@ -639,6 +678,10 @@ class VarNet:
         net = self._params(theta)
         d, td, n_in = self.static.n_space, self.static.time_dependent, self.static.n_inputs
         vj_fn = self._value_and_jac(False)
+        need_u = self.has_react or self.nl_vec is not None
+        nl = (None if self.nl_vec is None
+              else torch.as_tensor(np.asarray(self.nl_vec), dtype=torch.float32,
+                                   device=self.device))
         per_node = quad.tables_per_node
         chunk = max(1, min(int(chunk), k_real))
         out = np.empty(k_real, dtype=np.float64)
@@ -662,8 +705,9 @@ class VarNet:
                     hq = tables_to(self.hard.tables(coords_c), self.device)
                     u, grad_u, u_t = hard_transform(u, grad_u, u_t, hq)
                 r = weak_residual(grad_u, *tbls, dev(quad.kappa[sl]), dev(quad.vel[sl]),
-                                  dev(quad.src[sl]), u_t, u=u if self.has_react else None,
-                                  react=dev(quad.react[sl]) if self.has_react else None)
+                                  dev(quad.src[sl]), u_t, u=u if need_u else None,
+                                  react=dev(quad.react[sl]) if self.has_react else None,
+                                  nl_vec=nl)
                 out[sl] = (r / support_volume(tbls[2])).double().cpu().numpy()
         return out
 

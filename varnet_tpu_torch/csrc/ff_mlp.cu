@@ -8,6 +8,10 @@
 //   ff_fwd_kernel (unit mode)     <- ops/pallas_mlp.py::_fwd_pallas_ff          K7 forward
 //   ff_bwd_kernel (unit mode)     <- ops/pallas_mlp.py::_bwd_pallas_ff          K7 backward
 //   ff_jvp_kernel                 <- ops/pallas_mlp.py::_jvp_pallas_ff          K8
+//   ff_fwd_kernel (jacobian mode) <- ops/pallas_residual.py::_fused_residual_fn,
+//                                    directional=False (_fused_fwd_kernel)       K3 forward
+//   ff_bwd_kernel (jacobian mode) <- the same, _fused_bwd_kernel                 K3 backward
+//   ff_fwd/bwd_kernel (precoeff)  <- ops/pallas_residual.py::_dirp_residual_fn   K4, width > 64
 //
 // All of them push a few point PANELS through one layer stack: the value panel and one
 // forward-mode tangent panel per direction.  K2-FF has one direction per point, the
@@ -19,6 +23,20 @@
 // Without bt (a null pointer) layer 0 takes the scaled coordinates themselves and, along
 // v, v (a plain MLP, padded to ke = 32 input rows): the same kernels then carry the
 // plain nets wider than value_and_jac.cu and dir_residual.cu take (hidden width 65..128).
+//
+// Residual modes (FfMode).  FF_DIR (K2-FF) forms the weak-form direction c, cu and csrc
+// from the shared tables per point; FF_PRE (K4 for nets wider than 64) reads them per
+// point, precomputed (ops/fused_residual.py::prepare_residual_coeffs: exact BC, per-node
+// tables); both push the value and the one tangent panel along c.  FF_JAC (K3) pushes the
+// value and the n_in unit panels, so the output is u and du/dxs themselves, and forms the
+// jacobian-panel integrand from them in an epilogue,
+//     contrib = csrc + sum_j c_j du_j + cu u + w N u (sum_{j<d} b_j s_j du_j),
+// the last term being viscous Burgers' nonlinear advection u (b . grad u) (b: nl, s: the
+// input scale; grad u in the original coordinates).  Its backward forms the point
+// cotangents of _fused_bwd_kernel from gr[k] and the recomputed u, du in a prologue,
+//     g_u = gr cu + gr w N (b . grad u),   g_du_j = gr c_j + gr w N u b_j s_j (j < d),
+// and hands them to the unit-mode backward.  The bilinear term is why K3 has no
+// directional form: u and grad u enter as a product.  Widths up to 128 (HP = 32..128).
 //
 // What bounds them: f32 FMA throughput.  At the contaminant net (F = 128, width 96 x 3)
 // the forward does about 87 k FMAs per point per panel, the backward (recompute, two
@@ -60,6 +78,10 @@
 #define FF_KS 32       // rows of a streamed K-slice
 #define FF_MAX_IN 4
 #define FF_MAX_T 32    // points per tile at the fewest (2) panels
+#define FF_NCF (3 + FF_MAX_IN)  // per-point coefficient rows: cu, csrc, w N, c_0..c_3
+
+// What a block computes per point: (u, du/dxs) (K7), or one of the weak residuals.
+enum FfMode { FF_UNIT = 0, FF_DIR = 1, FF_PRE = 2, FF_JAC = 3 };
 
 __host__ __device__ inline int ff_off_w(int hp, int ke, int l) {  // l >= 1; W0 is at 0
   return ke * hp + hp + (l - 1) * (hp * hp + hp);
@@ -76,8 +98,8 @@ __host__ __device__ inline int ff_n_params(int hp, int ke, int n_hidden) {
 // Shared memory (floats) of a block with nbuf panel buffers and tabf table floats.
 __host__ __device__ inline int ff_smem_floats(int hp, int nbuf, int ke, int tabf) {
   return FF_KS * hp + FF_KS * FF_LD + nbuf * hp * FF_LD + ke * FF_MAX_T + ke / 2 * 4 +
-         tabf + 4 + FF_MAX_IN * FF_MAX_T + FF_MAX_IN * FF_MAX_IN * FF_MAX_T + 2 * FF_MAX_T +
-         FF_C;
+         tabf + 8 + FF_MAX_IN * FF_MAX_T + FF_MAX_IN * FF_MAX_IN * FF_MAX_T +
+         FF_NCF * FF_MAX_T + FF_C;
 }
 
 // act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
@@ -95,18 +117,27 @@ struct FfProblem {
   const float* xs;     // [n_in][P] scaled coordinates
   const float* bt;     // [ke / 2][4] 2 pi B^T, features and n_in zero-padded; null: no
                        // embedding (layer 0 reads xs and the directions)
-  const float* flds;   // residual mode: [2 + d (+1)][P] kappa, vel, src[, react]; else null
-  const float* tab;    // residual mode: [nq][2 + d] N, w, dN_0..
-  const float* scale;  // residual mode: [n_in] input scale
+  const float* flds;   // FF_DIR / FF_JAC: [2 + d (+1)][P] kappa, vel, src[, react]
+  const float* tab;    // FF_DIR / FF_JAC: [nq][2 + d] N, w, dN_0..
+  const float* scale;  // FF_DIR / FF_JAC: [n_in] input scale
+  const float* nl;     // FF_JAC: [d] Burgers direction b, or null (no nonlinear term)
+  const float* cdir;   // FF_PRE: [n_in][P] direction c
+  const float* csrc;   // FF_PRE: [P] additive term
+  const float* cu;     // FF_PRE: [P] coefficient of u, or null
   long long P;
+  int mode;            // FfMode
   int n_in, np, T;     // np panels (value + np - 1 directions), T points per tile
   int ke, n_hidden, act;
-  int nq, d, td, has_react;
+  int nq, d, td, has_react;  // has_react: a cu term (reaction, or FF_PRE's cu)
 };
 
 struct FfSmem {
-  float *Ws, *In, *A, *Sin, *Cos, *bt, *tab, *scale, *X, *Dir, *Cf, *Go;
+  float *Ws, *In, *A, *Sin, *Cos, *bt, *tab, *scale, *nls, *X, *Dir, *Cf, *Go;
 };
+
+__host__ __device__ inline bool ff_tables(const FfProblem& pb) {
+  return pb.mode == FF_DIR || pb.mode == FF_JAC;
+}
 
 __device__ __forceinline__ FfSmem ff_smem(float* s, int hp, int nbuf, const FfProblem& pb,
                                           int tabf) {
@@ -120,9 +151,10 @@ __device__ __forceinline__ FfSmem ff_smem(float* s, int hp, int nbuf, const FfPr
   m.bt = s;    s += fp * 4;
   m.tab = s;   s += tabf;
   m.scale = s; s += 4;
+  m.nls = s;   s += 4;                               // b_j s_j of the nonlinear term
   m.X = s;     s += FF_MAX_IN * FF_MAX_T;          // [j][pt]
   m.Dir = s;   s += FF_MAX_IN * FF_MAX_IN * FF_MAX_T;  // [direction][j][pt]
-  m.Cf = s;    s += 2 * FF_MAX_T;                  // cu, csrc per point
+  m.Cf = s;    s += FF_NCF * FF_MAX_T;             // [FF_NCF][pt] cu, csrc, w N, c_j
   m.Go = s;                                        // [FF_C] outputs or output cotangents
   return m;
 }
@@ -130,15 +162,21 @@ __device__ __forceinline__ FfSmem ff_smem(float* s, int hp, int nbuf, const FfPr
 __device__ __forceinline__ void ff_load_consts(const FfProblem& pb, const FfSmem& sm) {
   if (pb.bt)
     for (int i = threadIdx.x; i < pb.ke / 2 * 4; i += FF_NT) sm.bt[i] = pb.bt[i];
-  if (pb.flds) {
+  if (ff_tables(pb)) {
     for (int i = threadIdx.x; i < pb.nq * (2 + pb.d); i += FF_NT) sm.tab[i] = pb.tab[i];
-    if (threadIdx.x < 4)
-      sm.scale[threadIdx.x] = (int)threadIdx.x < pb.n_in ? pb.scale[threadIdx.x] : 0.0f;
+    if (threadIdx.x < 4) {
+      const int j = threadIdx.x;
+      sm.scale[j] = j < pb.n_in ? pb.scale[j] : 0.0f;
+      // in the JAX kernel's order: (b_j s_j), then times du_j
+      sm.nls[j] = (pb.nl && j < pb.d) ? pb.nl[j] * sm.scale[j] : 0.0f;
+    }
   }
 }
 
-// The tile's coordinates, tangent directions and (residual mode) coefficients -- the
-// math of _dir_coeffs -- then sin / cos of every feature at every point.
+// The tile's coordinates, tangent directions and (residual modes) coefficients -- the
+// math of _dir_coeffs / _integrand_coeffs, or FF_PRE's precomputed ones -- then sin / cos
+// of every feature at every point.  FF_JAC keeps c in the coefficient rows and pushes the
+// unit directions, as unit mode does.
 __device__ void ff_tile_setup(const FfProblem& pb, const FfSmem& sm, long long tile) {
   const int tid = threadIdx.x, T = pb.T;
   __syncthreads();  // the previous tile is done with these arrays
@@ -151,10 +189,16 @@ __device__ void ff_tile_setup(const FfProblem& pb, const FfSmem& sm, long long t
       x[j] = (valid && j < pb.n_in) ? pb.xs[j * pb.P + p] : 0.0f;
       sm.X[j * FF_MAX_T + tid] = x[j];
     }
-    if (pb.flds) {
+    if (pb.mode != FF_UNIT) {
       float c[FF_MAX_IN] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float cu = 0.0f, csrc = 0.0f;
-      if (valid) {
+      float cu = 0.0f, csrc = 0.0f, wn = 0.0f;
+      if (valid && pb.mode == FF_PRE) {
+#pragma unroll
+        for (int j = 0; j < FF_MAX_IN; ++j)
+          if (j < pb.n_in) c[j] = pb.cdir[j * pb.P + p];
+        csrc = pb.csrc[p];
+        if (pb.cu) cu = pb.cu[p];
+      } else if (valid) {
         const float* row = sm.tab + (int)(p % pb.nq) * (2 + pb.d);
         const float n_q = row[0], w_q = row[1];
         const float kappa = pb.flds[p];
@@ -169,12 +213,18 @@ __device__ void ff_tile_setup(const FfProblem& pb, const FfSmem& sm, long long t
         }
         csrc = -w_q * n_q * pb.flds[(1 + pb.d) * pb.P + p];
         if (pb.has_react) cu = w_q * n_q * pb.flds[(2 + pb.d) * pb.P + p];
+        wn = w_q * n_q;
       }
 #pragma unroll
-      for (int j = 0; j < FF_MAX_IN; ++j) sm.Dir[j * FF_MAX_T + tid] = c[j];
+      for (int j = 0; j < FF_MAX_IN; ++j) {
+        if (pb.mode == FF_JAC) sm.Cf[(3 + j) * FF_MAX_T + tid] = c[j];
+        else sm.Dir[j * FF_MAX_T + tid] = c[j];
+      }
       sm.Cf[tid] = cu;
       sm.Cf[FF_MAX_T + tid] = csrc;
-    } else {
+      sm.Cf[2 * FF_MAX_T + tid] = wn;
+    }
+    if (pb.mode == FF_UNIT || pb.mode == FF_JAC) {
       for (int m = 0; m < pb.np - 1; ++m)
 #pragma unroll
         for (int j = 0; j < FF_MAX_IN; ++j)
@@ -378,21 +428,29 @@ __device__ float* ff_forward(const FfProblem& pb, const FfSmem& sm,
   return prev;
 }
 
-// ------------------------------------------------------------------------------------
-// Forward (K2-FF in residual mode, K7 in unit mode): one tile per block.
-//   residual mode: out [P] = dd + csrc + cu u per point (summed over q by ff_qsum_kernel)
-//   unit mode:     out [np][P] = (u, du/dxs_j)
+// K3's integrand at point pt of the tile from u = Go[pt] and du_j = Go[(1 + j) T + pt],
+// in the order of _fused_fwd_kernel.
+__device__ __forceinline__ float ff_jac_contrib(const FfProblem& pb, const FfSmem& sm, int pt) {
+  const int T = pb.T;
+  const float u = sm.Go[pt];
+  float contrib = sm.Cf[FF_MAX_T + pt];
+  for (int j = 0; j < pb.n_in; ++j)
+    contrib += sm.Cf[(3 + j) * FF_MAX_T + pt] * sm.Go[(1 + j) * T + pt];
+  if (pb.has_react) contrib += sm.Cf[pt] * u;
+  if (pb.nl) {
+    float dub = 0.0f;
+    for (int j = 0; j < pb.d; ++j) dub += sm.nls[j] * sm.Go[(1 + j) * T + pt];
+    contrib += sm.Cf[2 * FF_MAX_T + pt] * (u * dub);
+  }
+  return contrib;
+}
+
+// The tile's outputs (u, du/dxs_j) of every panel into Go[m T + pt], from the last hidden
+// layer's buffer A.
 template <int NI>
-__global__ void ff_fwd_kernel(FfProblem pb, const float* __restrict__ params,
-                              float* __restrict__ out, int tabf) {
-  extern __shared__ float4 ff_smem4[];
+__device__ __forceinline__ void ff_outputs(const FfProblem& pb, const FfSmem& sm,
+                                           const float* A, const float* __restrict__ wout) {
   constexpr int HP = 32 * NI;
-  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, 2, pb, tabf);
-  ff_load_consts(pb, sm);
-  const long long tile = blockIdx.x;
-  ff_tile_setup(pb, sm, tile);
-  const float* A = ff_forward<NI>(pb, sm, params, false);
-  const float* wout = params + ff_off_wout(HP, pb.ke, pb.n_hidden);
   const int tid = threadIdx.x, T = pb.T;
   if (tid < FF_C) {
     const int m = tid / T, pt = tid % T;
@@ -404,10 +462,32 @@ __global__ void ff_fwd_kernel(FfProblem pb, const float* __restrict__ params,
     sm.Go[tid] = s;
   }
   __syncthreads();
+}
+
+// ------------------------------------------------------------------------------------
+// Forward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode): one tile per
+// block.
+//   residual modes: out [P] = the integrand per point (summed over q by ff_qsum_kernel):
+//                   dd + csrc + cu u (FF_DIR, FF_PRE), ff_jac_contrib (FF_JAC)
+//   unit mode:      out [np][P] = (u, du/dxs_j)
+template <int NI>
+__global__ void ff_fwd_kernel(FfProblem pb, const float* __restrict__ params,
+                              float* __restrict__ out, int tabf) {
+  extern __shared__ float4 ff_smem4[];
+  constexpr int HP = 32 * NI;
+  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, 2, pb, tabf);
+  ff_load_consts(pb, sm);
+  const long long tile = blockIdx.x;
+  ff_tile_setup(pb, sm, tile);
+  const float* A = ff_forward<NI>(pb, sm, params, false);
+  ff_outputs<NI>(pb, sm, A, params + ff_off_wout(HP, pb.ke, pb.n_hidden));
+  const int tid = threadIdx.x, T = pb.T;
   if (tid < T) {
     const long long p = tile * T + tid;
     if (p < pb.P) {
-      if (pb.flds) {
+      if (pb.mode == FF_JAC) {
+        out[p] = ff_jac_contrib(pb, sm, tid);
+      } else if (pb.mode != FF_UNIT) {
         float contrib = sm.Go[T + tid] + sm.Cf[FF_MAX_T + tid];
         if (pb.has_react) contrib += sm.Cf[tid] * sm.Go[tid];
         out[p] = contrib;
@@ -429,9 +509,10 @@ __global__ void ff_qsum_kernel(const float* __restrict__ contrib, float* __restr
 }
 
 // ------------------------------------------------------------------------------------
-// Backward (K2-FF in residual mode, K7 in unit mode): persistent, one gradient partial
-// per block.  The output cotangent per point is (gr cu, gr) in residual mode (gr [K] per
-// test function), g [np][P] in unit mode.  Going down the layers, layer l's buffer
+// Backward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode): persistent, one
+// gradient partial per block.  The output cotangent per point is (gr cu, gr) in FF_DIR /
+// FF_PRE (gr [K] per test function), K3's (g_u, g_du_j) in FF_JAC (formed from gr and the
+// recomputed outputs), g [np][P] in unit mode.  Going down the layers, layer l's buffer
 // (a, pre) is overwritten in place with its cotangents (gz, gp); the cotangents passed
 // to the layer below, W_l^T (gz, gp), go to the extra buffer G.
 template <int NI>
@@ -455,12 +536,35 @@ __global__ void ff_bwd_kernel(FfProblem pb, const float* __restrict__ params,
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     ff_tile_setup(pb, sm, tile);
     const float* Alast = ff_forward<NI>(pb, sm, params, true);
-    if (tid < FF_C) {
+    if (pb.mode == FF_JAC) {
+      // the recomputed outputs, then in place (each thread its own point's column) the
+      // cotangents of _fused_bwd_kernel
+      ff_outputs<NI>(pb, sm, Alast, wout);
+      if (tid < T) {
+        const long long p = tile * T + tid;
+        float go[FF_MAX_IN + 1] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (p < pb.P) {
+          const float gr = g[p / pb.nq];
+          go[0] = pb.has_react ? gr * sm.Cf[tid] : 0.0f;
+          for (int j = 0; j < pb.n_in; ++j) go[1 + j] = gr * sm.Cf[(3 + j) * FF_MAX_T + tid];
+          if (pb.nl) {
+            const float gw = gr * sm.Cf[2 * FF_MAX_T + tid];
+            float dub = 0.0f;
+            for (int j = 0; j < pb.d; ++j) dub += sm.nls[j] * sm.Go[(1 + j) * T + tid];
+            go[0] += gw * dub;
+            const float gcu = gw * sm.Go[tid];
+            for (int j = 0; j < pb.d; ++j) go[1 + j] += sm.nls[j] * gcu;
+          }
+        }
+        for (int m = 0; m < np; ++m) sm.Go[m * T + tid] = go[m];
+      }
+      // columns past np T stay as ff_outputs left them: 0
+    } else if (tid < FF_C) {
       const int m = tid / T, pt = tid % T;
       const long long p = tile * T + pt;
       float go = 0.0f;
       if (m < np && p < pb.P) {
-        if (pb.flds) {
+        if (pb.mode != FF_UNIT) {
           const float gr = g[p / pb.nq];
           go = m == 0 ? (pb.has_react ? gr * sm.Cf[pt] : 0.0f) : gr;
         } else {
@@ -669,8 +773,10 @@ const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
 
 enum Kind { kFwd, kBwd, kJvp };
 
+// From the mode and shapes alone, so a blocks query (null pointers) sizes the block as
+// the launch does.
 int tab_floats(const FfProblem& pb) {
-  return pb.flds ? (pb.nq * (2 + pb.d) + 3) / 4 * 4 : 0;
+  return ff_tables(pb) ? (pb.nq * (2 + pb.d) + 3) / 4 * 4 : 0;
 }
 
 size_t smem_bytes(Kind kind, int hp, const FfProblem& pb) {
@@ -772,20 +878,40 @@ FfProblem vj_problem(const float* xs, const float* bt, long long P, int n_in, in
   return pb;
 }
 
+// A residual problem on the tables (FF_DIR: K2-FF; FF_JAC: K3, value + n_in unit panels).
 FfProblem res_problem(const float* xs, const float* flds, const float* tab, const float* scale,
                       const float* bt, int k, int nq, int n_in, int d, int td, int has_react,
-                      int ke, int n_hidden, int act) {
+                      int ke, int n_hidden, int act, int mode = FF_DIR) {
   FfProblem pb = {};
+  pb.mode = mode;
   pb.xs = xs; pb.bt = bt; pb.flds = flds; pb.tab = tab; pb.scale = scale;
-  pb.P = (long long)k * nq; pb.n_in = n_in; pb.np = 2; pb.T = FF_C / 2;
+  pb.P = (long long)k * nq; pb.n_in = n_in;
+  pb.np = mode == FF_JAC ? 1 + n_in : 2;
+  pb.T = FF_C / pb.np;
   pb.ke = ke; pb.n_hidden = n_hidden; pb.act = act;
   pb.nq = nq; pb.d = d; pb.td = td; pb.has_react = has_react;
+  return pb;
+}
+
+// K4 on a plain net (no embedding: ke = 32) from the precomputed coefficients.
+FfProblem pre_problem(const float* xs, const float* cdir, const float* csrc, const float* cu,
+                      int k, int nq, int n_in, int n_hidden, int act) {
+  FfProblem pb = {};
+  pb.mode = FF_PRE;
+  pb.xs = xs; pb.cdir = cdir; pb.csrc = csrc; pb.cu = cu;
+  pb.P = (long long)k * nq; pb.n_in = n_in; pb.np = 2; pb.T = FF_C / 2;
+  pb.ke = 32; pb.n_hidden = n_hidden; pb.act = act;
+  pb.nq = nq; pb.has_react = cu != nullptr;
   return pb;
 }
 
 bool bad(long long P, int n_in, int ke, int n_hidden, int act) {
   return P < 0 || n_in < 1 || n_in > FF_MAX_IN || ke < 32 || ke > 256 || ke % 32 ||
          n_hidden < 1 || act < 0 || act > 1;
+}
+
+bool bad_jac(int k, int nq, int n_in, int d, int n_hidden, int act) {
+  return bad((long long)k * nq, n_in, 32, n_hidden, act) || nq < 1 || d < 1 || d > n_in;
 }
 
 }  // namespace
@@ -872,6 +998,72 @@ int ff_res_bwd(const float* xs, const float* flds, const float* tab, const float
     return (int)cudaErrorInvalidValue;
   const FfProblem pb = res_problem(xs, flds, tab, scale, bt, k, nq, n_in, d, td, has_react, ke,
                                    n_hidden, act);
+  FF_DISPATCH(hp, launch_bwd<NI>(pb, params, gr, partials, n_blocks, grad,
+                                 (cudaStream_t)stream))
+}
+
+// K4 forward for a plain net of hidden width 65..128: r [k] from the precomputed
+// coefficients cdir [n_in][P], csrc [P] and cu [P] (or null); contrib is workspace of
+// k * nq floats.
+int ff_pre_fwd(const float* xs, const float* cdir, const float* csrc, const float* cu,
+               const float* params, float* contrib, float* r, int k, int nq, int n_in,
+               int n_hidden, int hp, int act, void* stream) {
+  if (bad((long long)k * nq, n_in, 32, n_hidden, act) || nq < 1)
+    return (int)cudaErrorInvalidValue;
+  if (k == 0) return 0;
+  const FfProblem pb = pre_problem(xs, cdir, csrc, cu, k, nq, n_in, n_hidden, act);
+  FF_DISPATCH(hp, launch_res_fwd<NI>(pb, params, contrib, r, (cudaStream_t)stream))
+}
+
+// Number of its backward blocks on the current device.
+int ff_pre_bwd_blocks(int k, int nq, int n_hidden, int hp, int* blocks) {
+  if (bad((long long)k * nq, 1, 32, n_hidden, 0)) return (int)cudaErrorInvalidValue;
+  const FfProblem pb = pre_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 1, n_hidden, 0);
+  FF_DISPATCH(hp, bwd_blocks<NI>(pb, blocks))
+}
+
+// Its backward: packed gradient grad for the cotangent gr [k] of r.
+int ff_pre_bwd(const float* xs, const float* cdir, const float* csrc, const float* cu,
+               const float* params, const float* gr, float* partials, int n_blocks, float* grad,
+               int k, int nq, int n_in, int n_hidden, int hp, int act, void* stream) {
+  if (bad((long long)k * nq, n_in, 32, n_hidden, act) || nq < 1)
+    return (int)cudaErrorInvalidValue;
+  const FfProblem pb = pre_problem(xs, cdir, csrc, cu, k, nq, n_in, n_hidden, act);
+  FF_DISPATCH(hp, launch_bwd<NI>(pb, params, gr, partials, n_blocks, grad,
+                                 (cudaStream_t)stream))
+}
+
+// K3 forward: r [k] of the jacobian-panel weak form of a plain net (nl [d]: the Burgers
+// direction, or null); contrib is workspace of k * nq floats.
+int ff_jac_fwd(const float* xs, const float* flds, const float* tab, const float* scale,
+               const float* nl, const float* params, float* contrib, float* r, int k, int nq,
+               int n_in, int d, int td, int has_react, int n_hidden, int hp, int act,
+               void* stream) {
+  if (bad_jac(k, nq, n_in, d, n_hidden, act)) return (int)cudaErrorInvalidValue;
+  if (k == 0) return 0;
+  FfProblem pb = res_problem(xs, flds, tab, scale, nullptr, k, nq, n_in, d, td, has_react, 32,
+                             n_hidden, act, FF_JAC);
+  pb.nl = nl;
+  FF_DISPATCH(hp, launch_res_fwd<NI>(pb, params, contrib, r, (cudaStream_t)stream))
+}
+
+// Number of K3 backward blocks on the current device.
+int ff_jac_bwd_blocks(int k, int nq, int n_in, int d, int n_hidden, int hp, int* blocks) {
+  if (bad_jac(k, nq, n_in, d, n_hidden, 0)) return (int)cudaErrorInvalidValue;
+  const FfProblem pb = res_problem(nullptr, nullptr, nullptr, nullptr, nullptr, k, nq, n_in, d,
+                                   0, 0, 32, n_hidden, 0, FF_JAC);
+  FF_DISPATCH(hp, bwd_blocks<NI>(pb, blocks))
+}
+
+// K3 backward: packed gradient grad for the cotangent gr [k] of r.
+int ff_jac_bwd(const float* xs, const float* flds, const float* tab, const float* scale,
+               const float* nl, const float* params, const float* gr, float* partials,
+               int n_blocks, float* grad, int k, int nq, int n_in, int d, int td, int has_react,
+               int n_hidden, int hp, int act, void* stream) {
+  if (bad_jac(k, nq, n_in, d, n_hidden, act)) return (int)cudaErrorInvalidValue;
+  FfProblem pb = res_problem(xs, flds, tab, scale, nullptr, k, nq, n_in, d, td, has_react, 32,
+                             n_hidden, act, FF_JAC);
+  pb.nl = nl;
   FF_DISPATCH(hp, launch_bwd<NI>(pb, params, gr, partials, n_blocks, grad,
                                  (cudaStream_t)stream))
 }

@@ -1,43 +1,51 @@
-"""Directional fused weak residual: plain PyTorch version + Hopper CUDA kernels.
+"""Fused weak residual: plain PyTorch versions + Hopper CUDA kernels.
 
-Counterpart of the JAX package's ``ops/pallas_residual.py`` directional kernels
-(``_dirq_residual_fn``, G > 1, and ``_fused_residual_fn(directional=True)``,
-G = 1, with ``n_ff = 0`` (K1/K2) or behind a Fourier-feature embedding, ``n_ff >
-0`` (K2-FF)) and of its precomputed-coefficient kernel ``_dirp_residual_fn``
-(K4).  For every test function k it computes
+Counterpart of the JAX package's ``ops/pallas_residual.py`` kernels: the
+directional ones (``_dirq_residual_fn``, G > 1, and
+``_fused_residual_fn(directional=True)``, G = 1, with ``n_ff = 0`` (K1/K2) or
+behind a Fourier-feature embedding, ``n_ff > 0`` (K2-FF)), the
+precomputed-coefficient kernel ``_dirp_residual_fn`` (K4) and the
+jacobian-panel kernel ``_fused_residual_fn(directional=False)`` (K3).  For every
+test function k they compute
 
-    r_k = sum_q [ c(k,q) . du/dxs + cu(k,q) u + csrc(k,q) ],
+    r_k = sum_q [ c(k,q) . du/dxs + cu(k,q) u + csrc(k,q) ]
+          (+ w_q N_q u (b . grad u), the nonlinear advection term, K3 only),
     c_j = w_q scale_j (vel_j N_q + kappa dN_qj)   (j < d),   c_t = w_q scale_t N_q,
     cu  = w_q N_q react,   csrc = -w_q N_q src,
 
-by pushing ONE directional tangent through the MLP beside the activations, and
-its closed-form parameter backward (gradients flow to the parameters only; the
-quadrature data is constant).  With Fourier features (``ResidualData.bt`` =
-2 pi B^T) layer 0 takes the embedding [sin | cos](bt xs) and its tangent along c
-(``_embed_dir``).  K4 takes c, cu and csrc per point from
-:func:`prepare_residual_coeffs` (:class:`CoeffData`), which folds into them the
-test tables (shared [nQ] or per-node [K, nQ]: order-2 test spaces, adaptively
-refined hats), the input scale and, for exact BC/IC, the ansatz u = A + B n.
+and the closed-form parameter backward (gradients flow to the parameters only;
+the quadrature data is constant).  The directional kernels push ONE tangent,
+along c, through the MLP beside the activations.  With Fourier features
+(``ResidualData.bt`` = 2 pi B^T) layer 0 takes the embedding [sin | cos](bt xs)
+and its tangent along c (``_embed_dir``).  K4 takes c, cu and csrc per point
+from :func:`prepare_residual_coeffs` (:class:`CoeffData`), which folds into
+them the test tables (shared [nQ] or per-node [K, nQ]: order-2 test spaces,
+adaptively refined hats), the input scale and, for exact BC/IC, the ansatz
+u = A + B n.  K3 (``ResidualData.jac``, set by ``jacobian``) pushes the value and
+all n_in unit-tangent panels, so the integrand sees u and grad u themselves:
+the Burgers term u (b . grad u), bilinear in them, has no single direction.
 
 Two implementations share one signature:
 
-* ``dir_residual_fwd_plain`` / ``dir_residual_bwd_plain``: straightforward
-  vectorised PyTorch for both nets.  The backward mirrors ``_dir_bwd_kernel``
-  step by step.
-* ``csrc/dir_residual.cu`` (K1/K2) and ``csrc/ff_mlp.cu`` (K2-FF): hand-written
-  CUDA for sm_90a, built with ``nvcc`` (``ops/build.py``, with every other
-  ``csrc/*.cu``) into a plain-C shared library at first use and called through
-  ``ctypes``.
+* ``*_plain``: straightforward vectorised PyTorch (``dir_residual_*_plain``
+  mirrors ``_dir_bwd_kernel`` step by step; ``jac_residual_*_plain`` is the
+  plain K5 forward / backward with K3's integrand and its point cotangents).
+* ``csrc/dir_residual.cu`` (K1/K2, K4) and ``csrc/ff_mlp.cu`` (K2-FF, K3, and
+  K4 for nets wider than 64): hand-written CUDA for sm_90a, built with
+  ``nvcc`` (``ops/build.py``, with every other ``csrc/*.cu``) into a plain-C
+  shared library at first use and called through ``ctypes``.
 
-``dir_residual_fwd`` / ``dir_residual_bwd`` (K1/K2), ``dir_residual_ff_fwd`` /
-``dir_residual_ff_bwd`` (K2-FF) and ``dirp_residual_fwd`` / ``dirp_residual_bwd``
-(K4, ``csrc/dir_residual.cu`` in precoeff mode) dispatch on the device of the data: CPU
-tensors take the plain version, CUDA tensors launch the kernel (or raise),
-anything else raises.  Each counts its kernel launches in ``.launches``.
-``DirResidualFn`` is the autograd glue for both nets, ``fused_residual`` the
-loss's entry.  ``csrc/ff_mlp.cu`` also runs without an embedding (``bt`` None:
-layer 0 reads the scaled coordinates): on CUDA a plain net wider than
-``dir_residual.cu`` takes (hidden width 65..128) goes through K2-FF's kernels.
+``dir_residual_fwd`` / ``_bwd`` (K1/K2), ``dir_residual_ff_fwd`` / ``_bwd``
+(K2-FF), ``dirp_residual_fwd`` / ``_bwd`` (K4), ``dirp_residual_ff_fwd`` /
+``_bwd`` (K4 on ``ff_mlp.cu``, hidden width 65..128) and ``jac_residual_fwd`` /
+``_bwd`` (K3) dispatch on the device of the data: CPU tensors take the plain
+version, CUDA tensors launch the kernel (or raise), anything else raises.
+Each counts its kernel launches in ``.launches``.  ``DirResidualFn`` is the
+autograd glue for all of them (:func:`_residual_fns` picks the pair),
+``fused_residual`` the loss's entry.  ``csrc/ff_mlp.cu`` also runs without an
+embedding (``bt`` None: layer 0 reads the scaled coordinates): on CUDA a plain
+net wider than ``dir_residual.cu`` takes (hidden width 65..128) goes through
+its kernels.
 """
 
 from __future__ import annotations
@@ -72,6 +80,8 @@ class ResidualData(NamedTuple):
     td: bool
     has_react: bool
     bt: Optional[torch.Tensor] = None  # [F, n_in] 2 pi B^T of a Fourier-feature net
+    nl: Optional[torch.Tensor] = None  # [d] f32 Burgers direction b (K3 only)
+    jac: bool = False                  # the jacobian-panel residual K3
 
 
 class CoeffData(NamedTuple):
@@ -100,18 +110,34 @@ def _as_f32(a, device):
 
 
 def prepare_residual_data(quad, scale, shift, *, time_dependent: bool,
-                          has_react: bool, device=None, fourier_bt=None) -> ResidualData:
+                          has_react: bool, device=None, fourier_bt=None, nl_vec=None,
+                          jacobian: bool = False) -> ResidualData:
     """The kernel layout of a QuadData (NumPy arrays or tensors) with shared
     [nQ] tables and input scaling ``scale``/``shift`` (arrays or tensors, or
     both None: raw coordinates and a unit scale column, as the JAX package
     does without input scaling).  Coordinates are cast to f32 BEFORE scaling,
     as on the general path, so both round identically.  ``fourier_bt`` (2 pi
-    B^T [F, n_in]) marks the data of a Fourier-feature net (kernel K2-FF)."""
+    B^T [F, n_in]) marks the data of a Fourier-feature net (kernel K2-FF).
+    ``jacobian`` marks the data of the jacobian-panel residual K3
+    (``_fused_residual_fn(directional=False)``), which takes no embedding;
+    ``nl_vec`` (the constant [d] Burgers direction b) supplies its nonlinear
+    term and needs ``jacobian=True``."""
     if quad.N.ndim != 1:
         raise ValueError("per-node test tables (test_order=2, refined hats) take the "
                          "precoeff residual: prepare_residual_coeffs")
     k, nq, n_in = quad.coords.shape
     d = quad.dN.shape[-1]
+    jac = bool(jacobian)
+    if nl_vec is not None and not jac:
+        raise ValueError("nl_vec rides the jacobian-panel residual only: pass jacobian=True")
+    if jac and fourier_bt is not None:
+        raise ValueError("the jacobian-panel residual takes no Fourier-feature embedding")
+    nl = None
+    if nl_vec is not None:
+        nl = torch.as_tensor(np.atleast_1d(np.asarray(nl_vec)), dtype=torch.float32,
+                             device=device).reshape(-1)
+        if nl.numel() != d:
+            raise ValueError(f"nl_vec has {nl.numel()} entries; d={d}")
     dev = functools.partial(_as_f32, device=device)
     xs = dev(quad.coords)
     if scale is None:
@@ -128,7 +154,7 @@ def prepare_residual_data(quad, scale, shift, *, time_dependent: bool,
     return ResidualData(xs, flds, tab.contiguous(), dev(scale).reshape(n_in).clone(),
                         int(k), int(nq), int(d),
                         bool(time_dependent), bool(has_react),
-                        None if fourier_bt is None else dev(fourier_bt).contiguous())
+                        None if fourier_bt is None else dev(fourier_bt).contiguous(), nl, jac)
 
 
 def prepare_residual_coeffs(quad, scale, shift, *, time_dependent: bool, has_react: bool,
@@ -347,11 +373,19 @@ def load_library() -> ctypes.CDLL:
     lib.ff_res_fwd.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
     lib.ff_res_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.ff_res_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 10 + [ptr]
+    lib.ff_pre_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.ff_pre_bwd_blocks.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ff_pre_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 6 + [ptr]
+    lib.ff_jac_fwd.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
+    lib.ff_jac_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    lib.ff_jac_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 9 + [ptr]
     for fn in (lib.vr_dir_residual_n_params, lib.vr_dir_residual_fwd,
                lib.vr_dir_residual_bwd_blocks, lib.vr_dir_residual_bwd,
                lib.vr_dirp_residual_fwd, lib.vr_dirp_residual_bwd_blocks,
                lib.vr_dirp_residual_bwd, lib.ff_n_params_c,
-               lib.ff_res_fwd, lib.ff_res_bwd_blocks, lib.ff_res_bwd):
+               lib.ff_res_fwd, lib.ff_res_bwd_blocks, lib.ff_res_bwd,
+               lib.ff_pre_fwd, lib.ff_pre_bwd_blocks, lib.ff_pre_bwd,
+               lib.ff_jac_fwd, lib.ff_jac_bwd_blocks, lib.ff_jac_bwd):
         fn.restype = i32
     return lib
 
@@ -523,17 +557,14 @@ def _check_dirp_args(params, data: CoeffData, activation):
     widest = max(layer["w"].shape[1] for layer in params[:-1])
     if widest > MAX_HIDDEN:
         raise ValueError(
-            f"hidden width {widest} > {MAX_HIDDEN}: the precoeff residual (exact BC, "
-            "per-node test tables) has no CUDA kernel for it yet (ROADMAP Queue 3)")
+            f"hidden width {widest} > {MAX_HIDDEN} is not supported by dir_residual.cu's "
+            "precoeff mode (wider nets take ff_mlp.cu's: dirp_residual_ff_fwd)")
     tensors = [data.xs, data.cdir, data.csrc] + ([] if data.cu is None else [data.cu])
     dev = data.xs.device
     for t in tensors + [layer[k] for layer in params for k in ("w", "b")]:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError("the precoeff residual kernel takes f32 tensors on one device")
-    p = data.k * data.nq
-    if (any(not t.is_contiguous() for t in tensors) or data.xs.shape[1] != p
-            or data.cdir.shape != data.xs.shape or any(t.shape != (p,) for t in tensors[2:])):
-        raise ValueError("the precoeff residual data must be contiguous [n_in, P] / [P] rows")
+    _check_coeff_data(data)
 
 
 def _dirp_args(data: CoeffData, params, activation, hp):
@@ -783,19 +814,246 @@ dir_residual_ff_fwd.launches = 0
 dir_residual_ff_bwd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K4 for nets wider than 64 (csrc/ff_mlp.cu, precoeff mode)
+
+
+def _check_coeff_data(data: CoeffData):
+    """Raise on a CoeffData whose rows are not contiguous [n_in, P] / [P]."""
+    tensors = [data.xs, data.cdir, data.csrc] + ([] if data.cu is None else [data.cu])
+    p = data.k * data.nq
+    if (any(not t.is_contiguous() for t in tensors) or data.xs.shape[1] != p
+            or data.cdir.shape != data.xs.shape or any(t.shape != (p,) for t in tensors[2:])):
+        raise ValueError("the precoeff residual data must be contiguous [n_in, P] / [P] rows")
+
+
+def _check_dirp_ff_args(params, data: CoeffData, activation):
+    """Raise on what ff_mlp.cu's precoeff mode does not take."""
+    check_ff_args(params, None, [data.xs, data.cdir, data.csrc]
+                  + ([] if data.cu is None else [data.cu]), activation)
+    _check_coeff_data(data)
+
+
+def _ff_pre_args(data: CoeffData, params, activation, hp):
+    return [data.k, data.nq, data.xs.shape[0], len(params) - 1, hp, ACTIVATIONS[activation]]
+
+
+def kernel_dirp_ff_fwd(lib, params, data: CoeffData, activation: str, stream=None):
+    """Launch ff_mlp.cu's precoeff forward (K4, wide nets) of ``lib``: r [K]."""
+    hp, _, packed = _ff_packed(lib, params, False)
+    dev = data.xs.device
+    contrib = torch.empty(data.k * data.nq, dtype=torch.float32, device=dev)
+    r = torch.empty(data.k, dtype=torch.float32, device=dev)
+    build.raise_on(lib.ff_pre_fwd(
+        data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
+        packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
+        *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_fwd")
+    return r
+
+
+def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream=None):
+    """Launch ff_mlp.cu's precoeff backward (K4, wide nets): ``{'w', 'b'}`` grads."""
+    hp, _, packed = _ff_packed(lib, params, False)
+    dev = data.xs.device
+    blocks = ctypes.c_int(0)
+    build.raise_on(lib.ff_pre_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
+                                         ctypes.byref(blocks)), "dirp_residual_ff_bwd_blocks")
+    partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
+    grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
+    gr = gr.detach().to(torch.float32).contiguous()
+    build.raise_on(lib.ff_pre_bwd(
+        data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
+        packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value, grad.data_ptr(),
+        *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_bwd")
+    return ff_unpack(grad, params, hp, 0)
+
+
+def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
+    """K4 for a plain net of hidden width 65..128 (csrc/ff_mlp.cu): the CUDA
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    if _route(data) == "cpu":
+        return dir_residual_fwd_plain(params, data, activation)
+    _check_dirp_ff_args(params, data, activation)
+    r = kernel_dirp_ff_fwd(load_library(), params, data, activation,
+                           torch.cuda.current_stream(data.xs.device).cuda_stream)
+    dirp_residual_ff_fwd.launches += 1
+    return r
+
+
+def dirp_residual_ff_bwd(params, data: CoeffData, activation: str, gr):
+    """Its parameter gradients for cotangent gr [K]; dispatch as
+    ``dirp_residual_ff_fwd``."""
+    if _route(data) == "cpu":
+        return dir_residual_bwd_plain(params, data, activation, gr)
+    _check_dirp_ff_args(params, data, activation)
+    grads = kernel_dirp_ff_bwd(load_library(), params, data, activation, gr,
+                               torch.cuda.current_stream(data.xs.device).cuda_stream)
+    dirp_residual_ff_bwd.launches += 1
+    return grads
+
+
+dirp_residual_ff_fwd.launches = 0
+dirp_residual_ff_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the jacobian-panel residual (csrc/ff_mlp.cu, jacobian mode)
+#
+# value_and_jac imports this module, so its plain K5 functions are imported
+# where they are called.
+
+
+def _nl_terms(data: ResidualData, du):
+    """(w_q N_q [P], b . grad u [P]) of the nonlinear term: grad u in the
+    original coordinates is du/dxs_j * scale_j, j < d (never the time row or a
+    MOR input)."""
+    wn = (data.tab[:, 1] * data.tab[:, 0]).repeat(data.k)
+    dub = None
+    for j in range(data.d):
+        term = (data.nl[j] * data.scale[j]) * du[j]
+        dub = term if dub is None else dub + term
+    return wn, dub
+
+
+def jac_residual_fwd_plain(params, data: ResidualData, activation: str = "tanh"):
+    """K3's plain version, r [K]: u and du/dxs by the plain K5 forward on the
+    scaled points, then the integrand of ``_fused_fwd_kernel`` (the
+    coefficients of ``_integrand_coeffs``, plus w N u (b . grad u) with
+    ``data.nl``), summed over q."""
+    from .value_and_jac import vj_fwd_plain
+
+    out = vj_fwd_plain(params, data.xs, activation)
+    u, du = out[0], out[1:]
+    c, cu, contrib = _dir_coeffs(data)
+    for j in range(c.shape[0]):
+        contrib = contrib + c[j] * du[j]
+    if cu is not None:
+        contrib = contrib + cu * u
+    if data.nl is not None:
+        wn, dub = _nl_terms(data, du)
+        contrib = contrib + wn * (u * dub)
+    return contrib.reshape(data.k, data.nq).sum(dim=1)
+
+
+def jac_residual_bwd_plain(params, data: ResidualData, activation: str, gr):
+    """K3's plain parameter gradients for the cotangent gr [K]: the point
+    cotangents of ``_fused_bwd_kernel``,
+        g_u    = gr cu + gr w N (b . grad u),
+        g_du_j = gr c_j + gr w N u b_j scale_j   (j < d; MOR rows get 0),
+    handed to the plain K5 backward."""
+    from .value_and_jac import vj_bwd_plain, vj_fwd_plain
+
+    c, cu, _ = _dir_coeffs(data)
+    g = gr.to(torch.float32).repeat_interleave(data.nq)
+    rows = [g * cu if cu is not None else torch.zeros_like(g)]
+    rows += [g * c[j] for j in range(c.shape[0])]
+    if data.nl is not None:
+        out = vj_fwd_plain(params, data.xs, activation)
+        wn, dub = _nl_terms(data, out[1:])
+        gw = g * wn
+        rows[0] = rows[0] + gw * dub
+        gcu = gw * out[0]
+        for j in range(data.d):
+            rows[1 + j] = rows[1 + j] + (data.nl[j] * data.scale[j]) * gcu
+    return vj_bwd_plain(params, data.xs, activation, torch.stack(rows))
+
+
+def _check_jac_data(params, data: ResidualData, activation):
+    """Raise on what ff_mlp.cu's jacobian mode does not take."""
+    extra = [] if data.nl is None else [data.nl]
+    check_ff_args(params, None, [data.xs, data.flds, data.tab, data.scale] + extra, activation)
+    if data.bt is not None:
+        raise ValueError("the jacobian-panel residual takes no Fourier-feature embedding")
+    if data.xs.shape[0] < data.d or (data.nl is not None and data.nl.shape != (data.d,)):
+        raise ValueError("the jacobian-panel residual needs n_in >= d and a [d] nl vector")
+
+
+def _ff_jac_args(data: ResidualData, params, activation, hp):
+    return [data.k, data.nq, data.xs.shape[0], data.d, int(data.td), int(data.has_react),
+            len(params) - 1, hp, ACTIVATIONS[activation]]
+
+
+def kernel_jac_fwd(lib, params, data: ResidualData, activation: str, stream=None):
+    """Launch K3's forward of ``lib`` (no device dispatch).  Returns r [K]."""
+    hp, _, packed = _ff_packed(lib, params, False)
+    dev = data.xs.device
+    contrib = torch.empty(data.k * data.nq, dtype=torch.float32, device=dev)
+    r = torch.empty(data.k, dtype=torch.float32, device=dev)
+    build.raise_on(lib.ff_jac_fwd(
+        data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
+        _ptr(data.nl), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
+        *_ff_jac_args(data, params, activation, hp), stream), "jac_residual_fwd")
+    return r
+
+
+def kernel_jac_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None):
+    """Launch K3's backward of ``lib``.  Returns ``{'w', 'b'}`` grads."""
+    hp, _, packed = _ff_packed(lib, params, False)
+    dev = data.xs.device
+    blocks = ctypes.c_int(0)
+    build.raise_on(lib.ff_jac_bwd_blocks(data.k, data.nq, data.xs.shape[0], data.d,
+                                         len(params) - 1, hp, ctypes.byref(blocks)),
+                   "jac_residual_bwd_blocks")
+    partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
+    grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
+    gr = gr.detach().to(torch.float32).contiguous()
+    build.raise_on(lib.ff_jac_bwd(
+        data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
+        _ptr(data.nl), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
+        grad.data_ptr(), *_ff_jac_args(data, params, activation, hp), stream),
+        "jac_residual_bwd")
+    return ff_unpack(grad, params, hp, 0)
+
+
+def jac_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
+    """K3: r [K] of the jacobian-panel residual (nonlinear advection with
+    ``data.nl``): the CUDA kernel for CUDA tensors, the plain version for CPU
+    ones."""
+    if _route(data) == "cpu":
+        return jac_residual_fwd_plain(params, data, activation)
+    _check_jac_data(params, data, activation)
+    r = kernel_jac_fwd(load_library(), params, data, activation,
+                       torch.cuda.current_stream(data.xs.device).cuda_stream)
+    jac_residual_fwd.launches += 1
+    return r
+
+
+def jac_residual_bwd(params, data: ResidualData, activation: str, gr):
+    """K3's parameter gradients for cotangent gr [K]; dispatch as
+    ``jac_residual_fwd``."""
+    if _route(data) == "cpu":
+        return jac_residual_bwd_plain(params, data, activation, gr)
+    _check_jac_data(params, data, activation)
+    grads = kernel_jac_bwd(load_library(), params, data, activation, gr,
+                           torch.cuda.current_stream(data.xs.device).cuda_stream)
+    jac_residual_bwd.launches += 1
+    return grads
+
+
+jac_residual_fwd.launches = 0
+jac_residual_bwd.launches = 0
+
+
 def uses_ff_kernels(params, on_cuda: bool, embedded: bool) -> bool:
     """Whether a net runs on csrc/ff_mlp.cu: a Fourier-feature net, or on
-    CUDA a plain net wider than dir_residual.cu / value_and_jac.cu take."""
+    CUDA a plain net wider than dir_residual.cu / value_and_jac.cu take
+    (the jacobian-panel residual K3 runs there at every width)."""
     return embedded or (on_cuda and len(params) > 1
                         and max(layer["w"].shape[1] for layer in params[:-1]) > MAX_HIDDEN)
 
 
 def _residual_fns(params, data):
-    """(forward, backward) wrappers for ``data``: K4 for a CoeffData; K1/K2
-    for a plain net, K2-FF's kernels when ``data.bt`` is set or, on CUDA, a
-    plain net is wider than K1/K2 take."""
+    """(forward, backward) wrappers for ``data``: K4 for a CoeffData (on CUDA
+    through ff_mlp.cu for a net wider than 64); K3 for the jacobian-panel
+    layout (``data.jac``, set by ``jacobian``); K1/K2 for a plain net, K2-FF's
+    kernels when ``data.bt`` is set or, on CUDA, a plain net is wider than
+    K1/K2 take."""
     if isinstance(data, CoeffData):
+        if uses_ff_kernels(params, data.xs.is_cuda, False):
+            return dirp_residual_ff_fwd, dirp_residual_ff_bwd
         return dirp_residual_fwd, dirp_residual_bwd
+    if data.jac:
+        return jac_residual_fwd, jac_residual_bwd
     if uses_ff_kernels(params, data.xs.is_cuda, data.bt is not None):
         return dir_residual_ff_fwd, dir_residual_ff_bwd
     return dir_residual_fwd, dir_residual_bwd
@@ -823,7 +1081,8 @@ class DirResidualFn(torch.autograd.Function):
 
 def fused_residual(params, data, activation: str = "tanh"):
     """Weak residual r [K] through :class:`DirResidualFn`, differentiable in
-    ``params``; ``data`` from :func:`prepare_residual_data` (K1/K2, K2-FF) or
-    :func:`prepare_residual_coeffs` (K4), built once per ``train`` call."""
+    ``params``; ``data`` from :func:`prepare_residual_data` (K1/K2, K2-FF;
+    K3 with ``jacobian``) or :func:`prepare_residual_coeffs`
+    (K4), built once per ``train`` call."""
     flat = [layer[k] for layer in params for k in ("w", "b")]
     return DirResidualFn.apply(data, activation, *flat)

@@ -1,8 +1,10 @@
 """Weak-form residual contraction (PyTorch counterpart of
 ``varnet_tpu/ops/residual.py``):
 
-    r_k = sum_q w_q * [ u_t N_q + (v . grad u) N_q + c u N_q
+    r_k = sum_q w_q * [ u_t N_q + (v . grad u) N_q + c u N_q + u (b . grad u) N_q
                         + kappa grad u . dN_q - s N_q ]
+
+(the u (b . grad u) term: nonlinear advection, the viscous-Burgers family)
 
 Test tables come shared by every node ([nQ], order-1 hats on a uniform grid)
 or per node ([K, nQ]: the order-2 test space and adaptively refined hats),
@@ -27,10 +29,12 @@ def weak_residual(
     u_t: Optional[torch.Tensor] = None,    # [K, nQ] (time-dependent only)
     u: Optional[torch.Tensor] = None,      # [K, nQ] net values (reaction)
     react: Optional[torch.Tensor] = None,  # [K, nQ] reaction coefficient
+    nl_vec: Optional[torch.Tensor] = None,  # [d] constant Burgers direction b
 ) -> torch.Tensor:
     """Per-test-function weak residual r_k -> [K].  Integration by parts is
     applied to the diffusion term only, so only first derivatives of the
-    network appear."""
+    network appear.  Reaction and the nonlinear advection term ``nl_vec``
+    both need ``u``."""
     n2 = n if n.ndim == 2 else n[None, :]
     adv = torch.einsum("kqd,kqd->kq", vel, grad_u)
     integrand = (adv - src) * n2
@@ -38,6 +42,8 @@ def weak_residual(
         integrand = integrand + u_t * n2
     if react is not None and u is not None:
         integrand = integrand + react * u * n2
+    if nl_vec is not None and u is not None:
+        integrand = integrand + u * torch.einsum("kqd,d->kq", grad_u, nl_vec) * n2
     if dn.ndim == 3:
         diff = kappa * torch.einsum("kqd,kqd->kq", grad_u, dn)
     else:

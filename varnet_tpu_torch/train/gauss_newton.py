@@ -35,7 +35,7 @@ from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac
 from ..ops.residual import support_volume, weak_residual
 
 # make_residual_fn options of the JAX package that the port does not carry yet
-UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs", "neu", "nl_vec")
+UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs", "neu")
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
 
 
@@ -49,6 +49,7 @@ def make_residual_fn(
     input_scaling: bool = True,
     apply_fn: Callable = mlp_apply,
     hard_mode: bool = False,
+    nl_vec=None,
     **unported,
 ):
     """Weighted residual VECTOR ``residual_fn(theta, quad, bc, ic=None,
@@ -64,6 +65,9 @@ def make_residual_fn(
     (pad with ``pad_quad``).  Per-node test tables and the exact-BC quad
     tables (``hard``, a HardQuad of tensors; ``hard_mode``) are chunked with
     their test functions; in hard mode the BC/IC rows drop out.
+    ``nl_vec`` (the constant [d] Burgers direction b) adds the nonlinear
+    advection term u (b . grad u), of the transformed u in hard mode; J v and
+    J^T w still run through ``value_and_jac`` (K6 and K5's backward).
     """
     unknown = sorted(set(unported) - set(UNPORTED))
     if unknown:
@@ -80,6 +84,9 @@ def make_residual_fn(
     scale = shift = None
     if input_scaling:
         scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
+    nl = (None if nl_vec is None
+          else torch.as_tensor(np.asarray(nl_vec), dtype=torch.float32, device=device))
+    need_u = has_react or nl is not None
 
     def interior(net, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq):
         k, nq = coords.shape[0], coords.shape[1]
@@ -91,8 +98,9 @@ def make_residual_fn(
             u, grad_u, u_t = hard_transform(u, grad_u, u_t, hq)
         r = weak_residual(
             grad_u, n_tbl, dn_tbl, w_tbl, kappa, vel, src, u_t,
-            u=u if has_react else None,
+            u=u if need_u else None,
             react=react if has_react else None,
+            nl_vec=nl,
         )
         return (r / support_volume(w_tbl)) * mask
 

@@ -11,13 +11,17 @@ input jacobian, then the weak-form contraction).  In hard mode the trial
 function is u = A + B n (``fem/hardbc.py``): BC and IC hold exactly, their
 rows drop out (reported as 0.0), and the interior residual is that of the
 transformed u, folded into K4's coefficients on the fused path and applied
-by ``hard_transform`` on the general path.
+by ``hard_transform`` on the general path.  Nonlinear advection (``nl_vec``,
+the viscous-Burgers term u (b . grad u)) rides the jacobian-panel residual K3 on
+the fused path (``prepare_residual_data(nl_vec=)``) and ``weak_residual`` on the
+general path, where in hard mode it takes the transformed u.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..fem.assembly import ProblemStatic
@@ -27,7 +31,7 @@ from ..ops.fused_residual import CoeffData, fused_residual
 from ..ops.residual import masked_mse, masked_sum_sq, support_volume, weak_residual
 
 # make_loss_fn options of the JAX package that the port does not carry yet
-UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs", "nl_vec")
+UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs")
 
 
 def make_loss_fn(
@@ -40,6 +44,7 @@ def make_loss_fn(
     value_and_jac: Callable = mlp_value_and_jac,
     apply_fn: Callable = mlp_apply,
     hard_mode: bool = False,
+    nl_vec=None,
     **unported,
 ):
     """Build ``loss_fn(theta, quad, bc, ic=None, weights=(1, 1, 1),
@@ -58,6 +63,9 @@ def make_loss_fn(
     ``hard_mode``: exact BC/IC.  ``hard`` is then the HardQuad of tensors at
     the quad coords (general path); the fused path needs ``prepared`` built
     with those tables folded in (``prepare_residual_coeffs(hard=)``).
+    ``nl_vec``: the constant [d] Burgers direction b of the nonlinear
+    advection term (None: a linear problem); the fused path needs
+    ``prepared`` built with it (``prepare_residual_data(nl_vec=)``, K3).
     Observation and flux rows are not ported (ROADMAP items 13 and 15).
     """
     unknown = sorted(set(unported) - set(UNPORTED))
@@ -74,6 +82,9 @@ def make_loss_fn(
     scale = shift = None
     if input_scaling:
         scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
+    nl = (None if nl_vec is None
+          else torch.as_tensor(np.asarray(nl_vec), dtype=torch.float32, device=device))
+    need_u = has_react or nl is not None
 
     def loss_fn(theta, quad, bc, ic=None, weights=(1.0, 1.0, 1.0), prepared=None,
                 hard=None):
@@ -82,6 +93,9 @@ def make_loss_fn(
             if hard_mode and not isinstance(prepared, CoeffData):
                 raise ValueError("hard_mode on the fused path needs the precoeff data "
                                  "with the exact-BC tables folded in (prepare_residual_coeffs)")
+            if nl is not None and getattr(prepared, "nl", None) is None:
+                raise ValueError("nl_vec on the fused path needs the jacobian-panel data "
+                                 "with the Burgers direction (prepare_residual_data(nl_vec=))")
             r = fused_residual(theta, prepared, activation)
         else:
             flat = quad.coords.reshape(k * nq, n_in)
@@ -93,8 +107,9 @@ def make_loss_fn(
                 u, grad_u, u_t = hard_transform(u, grad_u, u_t, hard)
             r = weak_residual(
                 grad_u, quad.N, quad.dN, quad.w, quad.kappa, quad.vel, quad.src, u_t,
-                u=u if has_react else None,
+                u=u if need_u else None,
                 react=quad.react if has_react else None,
+                nl_vec=nl,
             )
         # r_k scales with the test-function support volume (per node for
         # per-node tables); the mean over the real test-function count makes
