@@ -10,7 +10,7 @@ is non-zero and no result line is printed):
 2. build    -- builds every kernel of ``varnet_tpu_torch/csrc`` (one nvcc per source,
                started together, linked into one library); prints ptxas' report.
 3. kernels  -- at the bench shape (transient 2-D AD, disc 48 / t_disc 32, width
-               (20, 20)) and at width (48, 48, 48): the kernel's forward r and
+               (20, 20)) and at widths (48, 48) and (48, 48, 48): the kernel's forward r and
                backward gradients against the plain PyTorch version on the same
                inputs, and the time per call of each (CUDA events, median of 20).
 4. train    -- ``VarNet(...).train(200 epochs)`` at the bench shape on the kernel
@@ -19,8 +19,9 @@ is non-zero and no result line is printed):
                same theta: the loss trajectories agree within rtol 2e-4.
 5. accuracy -- the pinned flagship theta re-scores below 1.25e-4 rel-L2, and the
                kernel-path loss equals the plain-path loss there within rtol 1e-4.
-6. kernels-vj -- at the bench mesh (P = 4,382,656 points, n_in 3) for widths (20, 20)
-               and (48, 48, 48): the value+jacobian kernels K5 forward (against
+6. kernels-vj -- at the bench mesh (P = 4,382,656 points, n_in 3) for widths (20, 20),
+               (48, 48) (the time-to-1e-3 recipe's LM net) and (48, 48, 48): the
+               value+jacobian kernels K5 forward (against
                ``mlp_value_and_jac``, rtol 1e-5), K5 backward and K6 JVP (against their
                plain versions, rtol 1e-4; seeded cotangent and tangent), and the time
                per call of each kernel and plain version.
@@ -1399,11 +1400,13 @@ def main():
     phase_device()
     phase_build()
     k20 = phase_kernels((20, 20))
+    phase_kernels((48, 48))
     phase_kernels((48, 48, 48))
     launches = phase_train()
     phase_accuracy()
     xs_t, nq = _bench_points()
     phase_kernels_vj((20, 20), xs_t)
+    phase_kernels_vj((48, 48), xs_t)
     v48 = phase_kernels_vj((48, 48, 48), xs_t)
     lm_launches = phase_lm(xs_t, nq)
     del xs_t

@@ -128,6 +128,60 @@ def test_value_and_jac_kernels_match_plain(cuda, n_in, widths, activation):
             assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
+def _check_bwd_jvp(params, xs_t, g, tangent, activation):
+    """K5 backward and K6 (tensor cores, 3xTF32) against their plain versions
+    evaluated in f64: each gradient leaf and each output row within 1e-4 of its
+    max.  (On a row that cancels -- a deep sigmoid net's value row can be ~1%
+    of its terms -- the f32 plain version is itself up to 1e-4 from f64 as its
+    summation order changes, so it is no yardstick there.)"""
+    before = (vj.vj_bwd.launches, vj.vj_jvp.launches)
+    grads = vj.vj_bwd(params, xs_t, activation, g)
+    dout = vj.vj_jvp(params, xs_t, activation, tangent)
+    torch.cuda.synchronize()
+    assert (vj.vj_bwd.launches, vj.vj_jvp.launches) == (before[0] + 1, before[1] + 1)
+    dref = vj.vj_jvp_plain(_f64(params), xs_t.double(), activation, _f64(tangent))
+    assert max(_rel(a.double(), b) for a, b in zip(dout, dref)) < 1e-4
+    for a, b in zip(grads, vj.vj_bwd_plain(_f64(params), xs_t.double(), activation, g.double())):
+        for k in ("w", "b"):
+            assert a[k].shape == b[k].shape
+            assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("layers", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_in", [1, 2, 3, 4])
+@pytest.mark.parametrize("hp", [8, 16, 24, 32, 40, 48, 56, 64])
+def test_tensor_core_kernels_match_plain_at_every_width(cuda, hp, n_in, layers, activation):
+    params, xs_t, g, tangent = _vj_case(n_in, (hp,) * layers, p=777, seed=hp + n_in + layers)
+    _check_bwd_jvp(params, xs_t, g, tangent, activation)
+
+
+@pytest.mark.parametrize("p", [1, 15, 17, 63, 65, 1001])
+@pytest.mark.parametrize("widths", [(48, 48, 48), (20, 20)])
+def test_tensor_core_kernels_take_ragged_point_counts(cuda, widths, p):
+    """P not a multiple of the tile, and P smaller than one tile."""
+    params, xs_t, g, tangent = _vj_case(3, widths, p=p)
+    _check_bwd_jvp(params, xs_t, g, tangent, "tanh")
+
+
+def test_tensor_core_kernels_take_no_points(cuda):
+    params, xs_t, g, tangent = _vj_case(3, (48, 48, 48), p=0)
+    grads = vj.vj_bwd(params, xs_t, "tanh", g)
+    dout = vj.vj_jvp(params, xs_t, "tanh", tangent)
+    torch.cuda.synchronize()
+    assert dout.shape == (4, 0)
+    for a, b in zip(grads, params):
+        for k in ("w", "b"):
+            assert a[k].shape == b[k].shape and float(a[k].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("widths", [(48, 48), (48, 48, 48)])
+def test_tensor_core_kernels_at_the_lm_chunk_shape(cuda, widths):
+    """One LM chunk of the d48/t32 mesh: 4,382,656 points / k_chunks 16."""
+    params, xs_t, g, tangent = _vj_case(3, widths, p=273_916, seed=5)
+    _check_bwd_jvp(params, xs_t, g, tangent, "tanh")
+
+
 def test_value_and_jac_backward_is_deterministic(cuda):
     params, xs_t, g, _ = _vj_case(3, (48, 48, 48), p=20000)
     g1 = vj.vj_bwd(params, xs_t, "tanh", g)

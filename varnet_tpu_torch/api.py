@@ -175,11 +175,14 @@ class VarNet:
         )
         # exact BC/IC: the host-side transform builder; its tables are built at
         # the (padded) quad coords when a run needs them (_hard_tables)
+        # the flux penalty and the LM flux rows are not ported: refuse rather
+        # than train a problem without its Neumann/Robin conditions
+        if any(isinstance(g, (NeumannBC, RobinBC)) for g in pde.bcs):
+            raise NotImplementedError(
+                "Neumann/Robin flux rows are not ported to varnet_tpu_torch yet, in penalty "
+                "or hard_bc mode (ROADMAP Queue 1 item 3, old item 15)")
         self.hard = None
         if hard_bc:
-            if any(isinstance(g, (NeumannBC, RobinBC)) for g in pde.bcs):
-                raise NotImplementedError("hard_bc with Neumann/Robin flux rows is not "
-                                          "ported to varnet_tpu_torch yet (ROADMAP item 15)")
             self.hard = HardBC(pde)
         self._hard_cache = None
         self.hard_table_seconds = 0.0

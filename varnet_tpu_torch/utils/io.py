@@ -16,6 +16,12 @@ import torch
 CONTAMINANT_CAUSAL_FOURIER_B = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "contaminant_causal_fourier_b.npy")
 
+# The JAX package's seed-0 initial theta of the 2-D Burgers front recipe
+# (``benchmarks/burgers_accuracy.py --two-d``: n_in 3, w32x3), so the port's Adam stage can
+# start where the published run started.
+BURGERS_FRONT_2D_JAX_INIT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "burgers_front_2d_jax_init.npz")
+
 
 def save_theta_npz(path: str, theta, prefix: str = "") -> None:
     """Persist an MLP parameter list ``[{'w','b'}, ...]`` (NumPy arrays or
