@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K5 backward / K6 times and LM seconds per iteration of two checkouts of this
+"""K5 forward / backward, K6 times and LM seconds per iteration of two checkouts of this
 repository, alternated on one GPU, each run in a fresh process from its checkout's
 own ``chip_smoke.py`` (which builds that checkout's kernels on its first run).
 
@@ -9,9 +9,9 @@ Each run, at widths (48, 48) (the time-to-1e-3 recipe's LM net) and (48, 48, 48)
 (the pinned flagship thetas' net), n_in 3, on the flagship mesh (transient 2-D AD,
 disc 48 / t_disc 32: P = 4,382,656 points):
 
-* ``vj_bwd`` (K5 backward) and ``vj_jvp`` (K6) on a seeded net with a seeded
-  cotangent and tangent, over the full mesh and over one LM chunk (the first
-  1/16 of the test functions), CUDA events, median of 20;
+* ``vj_fwd`` (K5 forward), ``vj_bwd`` (K5 backward) and ``vj_jvp`` (K6) on a seeded net
+  with a seeded cotangent and tangent, over the full mesh and over one LM chunk (the
+  first 1/16 of the test functions), CUDA events, median of 20;
 * ``refine_lm`` at cg 20, k_chunks 16 for ``--lm-steps`` iterations (the w48x3 net
   from ``flagship_theta_8.3e-4.npz``, the w48x2 net from its seeded init): seconds
   per iteration over the iterations after the first.
@@ -50,6 +50,7 @@ for widths in ((48, 48), (48, 48, 48)):
         g = torch.randn(4, pts.shape[1], generator=gen).cuda()
         tangent = [{{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}}
                    for layer in params]
+        out[f"fwd_ms_{{tag}}_{{shape}}"] = cs._median_ms(lambda: vj.vj_fwd(params, pts, "tanh"))
         out[f"bwd_ms_{{tag}}_{{shape}}"] = cs._median_ms(lambda: vj.vj_bwd(params, pts, "tanh", g))
         out[f"jvp_ms_{{tag}}_{{shape}}"] = cs._median_ms(
             lambda: vj.vj_jvp(params, pts, "tanh", tangent))

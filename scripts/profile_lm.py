@@ -8,8 +8,12 @@
 For each width prints one JSON line: the profiled window's wall time and seconds per
 LM iteration, the device time summed over every kernel (the port's own, launched
 through ctypes, included: the profiler records the device's kernels), its share of the
-wall time (the device's busy share: the kernels run on one stream), the launches, and
-the kernels with the most device time.
+wall time (the device's busy share: the kernels run on one stream), the launches, the
+K5 / K6 launch counters over the window, and the kernels with the most device time.
+Then, at width (48, 48), one unprofiled LM iteration at cg 20 and one at the
+time-to-1e-3 recipe's ``--count-cg`` (200), k_chunks 16: their K5 / K6 launches give the
+launches per CG iteration (CG runs exactly ``cg_iters`` iterations, so an LM iteration
+launches a + b cg_iters).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--count-cg", type=int, default=200)
     args = ap.parse_args(argv)
 
     import torch
@@ -36,7 +41,13 @@ def main(argv=None):
 
     import chip_smoke as cs
     from varnet_tpu_torch import VarNet, load_theta_npz, params_from_jax
+    from varnet_tpu_torch.ops import value_and_jac as vj
     from varnet_tpu_torch.problems.analytic import transient_ad_2d
+
+    fns = {"vj_fwd": vj.vj_fwd, "vj_bwd": vj.vj_bwd, "vj_jvp": vj.vj_jvp}
+
+    def counts():
+        return {name: fn.launches for name, fn in fns.items()}
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_lm.py needs a CUDA device")
@@ -52,11 +63,13 @@ def main(argv=None):
         vn.refine_lm(**lm)  # warm-up: the kernel library, cuBLAS handles, allocator
         vn.theta = theta0
         torch.cuda.synchronize()
+        before = counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             res = vn.refine_lm(**lm)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        launched = {name: n - before[name] for name, n in counts().items()}
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                                    getattr(e, "self_cuda_time_total", 0.0))
@@ -66,10 +79,24 @@ def main(argv=None):
             "widths": list(widths), "steps": args.steps, "wall_s": wall,
             "s_per_iter": (res.wall_times[-1] - res.wall_times[0]) / max(args.steps - 1, 1),
             "device_kernel_s": busy, "device_busy_share": busy / wall,
-            "kernel_launches": sum(e.count for e in kernels),
+            "kernel_launches": sum(e.count for e in kernels), "counters": launched,
             "top": [{"name": e.key[:80], "calls": e.count, "ms": dev_us(e) * 1e-3}
                     for e in top],
         }), flush=True)
+    vn = VarNet(transient_ad_2d()["pde"], layer_width=(48, 48), device="cuda", **cs.BENCH)
+    per_lm = {}
+    for cg in (lm["cg_iters"], args.count_cg):
+        before = counts()
+        vn.refine_lm(**{**lm, "steps": 1, "cg_iters": cg})
+        torch.cuda.synchronize()
+        per_lm[cg] = {name: n - before[name] for name, n in counts().items()}
+    lo, hi = lm["cg_iters"], args.count_cg
+    per_cg = {name: (per_lm[hi][name] - per_lm[lo][name]) / (hi - lo) for name in fns}
+    print(json.dumps({"widths": [48, 48], "k_chunks": lm["k_chunks"],
+                      "launches_per_lm_iteration": {f"cg{cg}": v for cg, v in per_lm.items()},
+                      "launches_per_cg_iteration": per_cg,
+                      "launches_outside_cg": {name: per_lm[lo][name] - lo * per_cg[name]
+                                              for name in fns}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -128,6 +128,24 @@ def test_value_and_jac_kernels_match_plain(cuda, n_in, widths, activation):
             assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
+def _check_fwd(params, xs_t, activation):
+    """K5 forward (tensor cores, 3xTF32) against its plain version evaluated in f64,
+    per output row: within 1e-5 of the row's max.  On a row where the f32 plain version
+    is itself more than half of that from f64 (some deep sigmoid nets and the deepest
+    n_in 1 tanh net: a cancellation of the row's terms that no f32 evaluation avoids),
+    within 3x the f32 plain version's own distance instead."""
+    before = vj.vj_fwd.launches
+    out = vj.vj_fwd(params, xs_t, activation)
+    torch.cuda.synchronize()
+    assert vj.vj_fwd.launches == before + 1
+    ref = vj.vj_fwd_plain(_f64(params), xs_t.double(), activation)
+    plain = vj.vj_fwd_plain(params, xs_t, activation)
+    for row, (a, b, c) in enumerate(zip(out, ref, plain)):
+        own = _rel(c.double(), b)
+        assert _rel(a.double(), b) < (1e-5 if own <= 5e-6 else 3 * own), (
+            row, _rel(a.double(), b), own)
+
+
 def _check_bwd_jvp(params, xs_t, g, tangent, activation):
     """K5 backward and K6 (tensor cores, 3xTF32) against their plain versions
     evaluated in f64: each gradient leaf and each output row within 1e-4 of its
@@ -153,6 +171,7 @@ def _check_bwd_jvp(params, xs_t, g, tangent, activation):
 @pytest.mark.parametrize("hp", [8, 16, 24, 32, 40, 48, 56, 64])
 def test_tensor_core_kernels_match_plain_at_every_width(cuda, hp, n_in, layers, activation):
     params, xs_t, g, tangent = _vj_case(n_in, (hp,) * layers, p=777, seed=hp + n_in + layers)
+    _check_fwd(params, xs_t, activation)
     _check_bwd_jvp(params, xs_t, g, tangent, activation)
 
 
@@ -161,15 +180,17 @@ def test_tensor_core_kernels_match_plain_at_every_width(cuda, hp, n_in, layers, 
 def test_tensor_core_kernels_take_ragged_point_counts(cuda, widths, p):
     """P not a multiple of the tile, and P smaller than one tile."""
     params, xs_t, g, tangent = _vj_case(3, widths, p=p)
+    _check_fwd(params, xs_t, "tanh")
     _check_bwd_jvp(params, xs_t, g, tangent, "tanh")
 
 
 def test_tensor_core_kernels_take_no_points(cuda):
     params, xs_t, g, tangent = _vj_case(3, (48, 48, 48), p=0)
+    out = vj.vj_fwd(params, xs_t, "tanh")
     grads = vj.vj_bwd(params, xs_t, "tanh", g)
     dout = vj.vj_jvp(params, xs_t, "tanh", tangent)
     torch.cuda.synchronize()
-    assert dout.shape == (4, 0)
+    assert out.shape == dout.shape == (4, 0)
     for a, b in zip(grads, params):
         for k in ("w", "b"):
             assert a[k].shape == b[k].shape and float(a[k].abs().max()) == 0.0
@@ -179,6 +200,7 @@ def test_tensor_core_kernels_take_no_points(cuda):
 def test_tensor_core_kernels_at_the_lm_chunk_shape(cuda, widths):
     """One LM chunk of the d48/t32 mesh: 4,382,656 points / k_chunks 16."""
     params, xs_t, g, tangent = _vj_case(3, widths, p=273_916, seed=5)
+    _check_fwd(params, xs_t, "tanh")
     _check_bwd_jvp(params, xs_t, g, tangent, "tanh")
 
 
@@ -510,6 +532,104 @@ def test_dirp_backward_is_deterministic(cuda):
     g2 = fr.dirp_residual_bwd(params, data, "tanh", gr)
     for a, b in zip(g1, g2):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+# ---------------------------------------------------------------------------
+# The K1/K4 backward on the tensor cores (3xTF32 mma.sync, dW summed in registers or,
+# for the deepest nets, a shared-memory partial): every padded width, input count,
+# depth and activation, in table mode with and without reaction and in precoeff mode
+
+DIR_MODES = ["table", "table-react", "precoeff"]
+
+
+def _dir_synth(mode, n_in, widths, k=50, nq=9, seed=0, device="cuda"):
+    """A seeded net, seeded residual data and a cotangent gr [k].  Table mode: d = n_in
+    - 1 space dimensions and time (d = 1, steady, at n_in = 1), a random [nq, 2 + d]
+    table and field rows, reaction on or off; precoeff mode: random directions, source
+    and u coefficient."""
+    gen = torch.Generator().manual_seed(seed)
+    params = init_mlp(gen, n_in, widths, device=device)
+    for layer in params:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).to(device)
+    p = k * nq
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    xs = (2 * torch.rand((n_in, p), generator=gen) - 1).to(device)
+    if mode == "precoeff":
+        data = fr.CoeffData(xs=xs, cdir=(0.3 * rand(n_in, p)).to(device),
+                            csrc=(0.1 * rand(p)).to(device), cu=rand(p).to(device), k=k, nq=nq)
+    else:
+        td, react = n_in > 1, mode == "table-react"
+        d = n_in - 1 if td else 1
+        flds = torch.cat([1.0 + torch.rand((1, p), generator=gen), rand(d + 1, p)]
+                         + ([rand(1, p)] if react else []))
+        tab = torch.cat([torch.rand((nq, 2), generator=gen), rand(nq, d)], dim=1)
+        data = fr.ResidualData(xs=xs, flds=flds.to(device), tab=tab.to(device),
+                               scale=(1.0 + torch.rand(n_in, generator=gen)).to(device), k=k,
+                               nq=nq, d=d, td=td, has_react=react)
+    return params, data, rand(k).to(device)
+
+
+def _dir_f64(data):
+    if isinstance(data, fr.CoeffData):
+        return data._replace(xs=data.xs.double(), cdir=data.cdir.double(),
+                             csrc=data.csrc.double(), cu=data.cu.double())
+    return _f64_data(data)
+
+
+def _check_dir_bwd(mode, params, data, gr, activation):
+    """The K1 (table mode) or K4 (precoeff mode) backward against its plain version
+    evaluated in f64: each gradient leaf within 1e-4 of its max.  On a leaf where the
+    f32 plain version is itself more than half of that from f64 (a sum that cancels,
+    such as a seeded reaction case's output bias sum_p gr cu), within 3x the f32 plain
+    version's own distance."""
+    fn = fr.dirp_residual_bwd if mode == "precoeff" else fr.dir_residual_bwd
+    before = fn.launches
+    grads = fn(params, data, activation, gr)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = fr.dir_residual_bwd_plain(_f64(params), _dir_f64(data), activation, gr.double())
+    plain = fr.dir_residual_bwd_plain(params, data, activation, gr)
+    for g, p, q in zip(grads, ref, plain):
+        for k in ("w", "b"):
+            assert g[k].shape == p[k].shape
+            if p[k].abs().max() > 0:
+                own = _rel(q[k].double(), p[k])
+                err = _rel(g[k].double(), p[k])
+                assert err < (1e-4 if own <= 5e-5 else 3 * own), (k, err, own)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("layers", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_in", [1, 2, 3, 4])
+@pytest.mark.parametrize("hp", [8, 16, 24, 32, 40, 48, 56, 64])
+@pytest.mark.parametrize("mode", DIR_MODES)
+def test_dir_backward_matches_plain_at_every_width(cuda, mode, hp, n_in, layers, activation):
+    params, data, gr = _dir_synth(mode, n_in, (hp,) * layers, seed=hp + n_in + layers)
+    _check_dir_bwd(mode, params, data, gr, activation)
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 7, 111])
+@pytest.mark.parametrize("widths", [(20, 20), (48, 48, 48), (64, 64), (64,) * 6])
+@pytest.mark.parametrize("mode", DIR_MODES)
+def test_dir_backward_takes_ragged_and_empty_point_counts(cuda, mode, widths, k):
+    """P = k nq (nq 9): none, less than one tile, not a multiple of the tile; (64,) * 6
+    has more dW row blocks than 2 per warp, so it sums dW in the shared partial."""
+    params, data, gr = _dir_synth(mode, 3, widths, k=k)
+    if k:
+        _check_dir_bwd(mode, params, data, gr, "tanh")
+        return
+    fwd, bwd = ((fr.dirp_residual_fwd, fr.dirp_residual_bwd) if mode == "precoeff"
+                else (fr.dir_residual_fwd, fr.dir_residual_bwd))
+    r = fwd(params, data, "tanh")
+    grads = bwd(params, data, "tanh", gr)
+    torch.cuda.synchronize()
+    assert r.shape == (0,)
+    for a, b in zip(grads, params):
+        for key in ("w", "b"):
+            assert a[key].shape == b[key].shape and float(a[key].abs().max()) == 0.0
 
 
 def test_dirp_refuses_nets_wider_than_64(cuda):

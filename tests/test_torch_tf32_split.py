@@ -1,30 +1,41 @@
-"""Can K5's backward and K6 run their hidden-layer products on the tensor cores?
+"""Can the kernels run their hidden-layer products on the tensor cores?
 
-``csrc/value_and_jac.cu`` computes the hidden layers' products of K5 backward
-(forward recompute Z = S W^T, cotangents G W, weight gradient G^T S) and K6
-(Z = S W^T, DZ = DS W^T + S dW^T) with ``mma.sync ... tf32`` in 3xTF32: each
-operand x is split into x_hi = cvt.rna.tf32(x) and x_lo = cvt.rna.tf32(x - x_hi),
-and a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi, summed in f32.  Layer 0,
-the output layer and the activations stay in f32 on the CUDA cores.
+``csrc/value_and_jac.cu`` (K5 forward and backward, K6) and ``csrc/dir_residual.cu``
+(the K1/K4 backward) compute the hidden layers' products -- K5 forward: Z = S W^T;
+K5 backward and K1/K4 backward: recompute Z = S W^T, cotangents G W, weight gradient
+G^T S; K6: Z = S W^T, DZ = DS W^T + S dW^T -- with ``mma.sync.m16n8k8 ... tf32`` in
+3xTF32: each operand x is split into x_hi = cvt.rna.tf32(x) and x_lo = cvt.rna.tf32(x -
+x_hi), and a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi.  Layer 0, the output layer
+and the activations stay in f32 on the CUDA cores.
 
-This file emulates that arithmetic on the CPU, on seeded numpy inputs at the
-main path's widths (w48x2, w48x3, n_in 3), and holds it against an f64
-evaluation with the card tests' gates (each gradient leaf / output row within
-1e-4 of its max): 3xTF32 passes with room to spare, a single TF32 pass does not.
-The emulation rounds each product exactly (a tf32 x tf32 product fits an f32
-significand) and sums in f32 matmuls; the tensor core's own summation order is
-not modelled, which the headroom covers.
+This file emulates that arithmetic on the CPU in the kernels' product order
+(``mm_steps``): the contraction runs in k-steps of depth 8; an mma rounds its f32 sum
+toward zero (the tensor core's own sum truncates); each k-step's three products go to a
+fresh tile that is added to the running sum rounding to nearest.  On seeded numpy inputs
+at the main path's widths (w48x2, w48x3, n_in 3) it holds each kernel against an f64
+evaluation with the card gates (each gradient leaf / output row within 1e-4 of its max;
+K5 forward 1e-5): 3xTF32 with the fresh-tile sum passes with room to spare, a single
+TF32 pass does not, and neither does 3xTF32 with the running sum kept in the mma
+accumulator (truncated at every k-step) where the sum is long: the weight gradients,
+summed over every point.  The emulation sums each product exactly before it rounds
+(a tf32 x tf32 product fits an f32 significand); the order of the tensor core's
+internal sum is not modelled, which the headroom covers.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.ops import value_and_jac as vj
 from varnet_tpu_torch.ops.fused_residual import _act_triple
 
-GATE = 1e-4         # the card tests' K5 bwd / K6 gate
-HEADROOM = 10.0     # 3xTF32 must stay below GATE / HEADROOM
+GATE = 1e-4         # the card gates of K5 bwd, K6 and the K1/K4 gradients
+FWD_GATE = 1e-5     # K5 forward's
+HEADROOM = 10.0     # 3xTF32 must stay below its gate / HEADROOM ...
+FWD_HEADROOM = 2.0  # ... K5 forward's below FWD_GATE / 2: the f32 plain version itself
+                    # sits 1.3-4.4e-6 from f64 on a row here (sigmoid's value row is a
+                    # cancellation of its terms)
 P = 6000
 
 
@@ -35,14 +46,52 @@ def tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def rz(x):
+    """f64 -> f32 rounding toward zero: an mma's f32 sum."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mm_steps(a, b, split=True, fresh=True):
+    """a @ b as the kernels' mma.sync k-steps: depth-8 slices of the contraction, each
+    mma's sum rounded toward zero; ``split``: 3xTF32 (the small terms first), else a
+    single TF32 product; ``fresh``: each k-step's products summed in a fresh tile and
+    added to the running sum in f32 (round to nearest), else the running sum kept in
+    the mma accumulator."""
+    a, b = a.float(), b.float()
+    pad = -a.shape[1] % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ah, bh = tf32(a), tf32(b)
+    terms = [(tf32(a - ah), bh), (ah, tf32(b - bh)), (ah, bh)] if split else [(ah, bh)]
+    steps = a.shape[1] // 8
+    # the exact products of each k-step: [steps, M, N] per term
+    prods = [torch.bmm(x.double().reshape(-1, steps, 8).transpose(0, 1),
+                       y.double().reshape(steps, 8, -1)) for x, y in terms]
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    if fresh:
+        tile = torch.zeros_like(prods[0], dtype=torch.float32)
+        for pr in prods:
+            tile = rz(tile.double() + pr)
+        for k in range(steps):
+            acc = acc + tile[k]
+    else:
+        for k in range(steps):
+            for pr in prods:
+                acc = rz(acc.double() + pr[k])
+    return acc
+
+
 def mm_3xtf32(a, b):
-    a_hi, b_hi = tf32(a), tf32(b)
-    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    return mm_steps(a, b)
 
 
 def mm_tf32(a, b):
-    return tf32(a) @ tf32(b)
+    return mm_steps(a, b, split=False)
+
+
+def mm_trunc(a, b):
+    return mm_steps(a, b, fresh=False)
 
 
 def bwd(params, xs, g, act_name, mm):
@@ -121,6 +170,69 @@ def jvp(params, xs, tangent, act_name, mm):
     return torch.cat([doc[:1] + dbs[-1], doc[1:]], dim=0)
 
 
+def fwd(params, xs, act_name, mm):
+    """K5 forward as the kernel computes it: the value and n_in jacobian panels stacked,
+    the hidden-layer products through ``mm``."""
+    act, act_p, _ = _act_triple(act_name)
+    wts = [layer["w"].T for layer in params]
+    bs = [layer["b"][:, None] for layer in params]
+    n, p = xs.shape
+    a = act(wts[0] @ xs + bs[0])
+    s = torch.cat([a] + [act_p(a) * wts[0][:, k:k + 1] for k in range(n)], dim=1)
+    for wt, b in zip(wts[1:-1], bs[1:-1]):
+        z = mm(wt, s)
+        a = act(z[:, :p] + b)
+        s = torch.cat([a, act_p(a).repeat(1, n) * z[:, p:]], dim=1)
+    out = (wts[-1] @ s).reshape(1 + n, p)
+    return torch.cat([out[:1] + bs[-1], out[1:]], dim=0)
+
+
+def dir_bwd(params, xs, c, g_tan, cu, act_name, mm):
+    """The K1/K4 backward as the kernel computes it: two panels, the value a and the
+    directional tangent t = act'(a) W c, stacked [a | t]; the output cotangents g_val =
+    g_tan cu (zero without reaction: cu None) and g_tan per point; the hidden-layer
+    products through ``mm``; the act'' term (act''/act') gj t."""
+    act, act_p, _ = _act_triple(act_name)
+    ratio = (lambda a: -2.0 * a) if act_name == "tanh" else (lambda a: 1.0 - 2.0 * a)
+    wts = [layer["w"].T for layer in params]
+    bs = [layer["b"][:, None] for layer in params]
+    p = xs.shape[1]
+    lh = len(params) - 1
+    a = act(wts[0] @ xs + bs[0])
+    stacks = [torch.cat([a, act_p(a) * (wts[0] @ c)], dim=1)]
+    for l in range(1, lh):
+        z = mm(wts[l], stacks[-1])
+        a = act(z[:, :p] + bs[l])
+        stacks.append(torch.cat([a, act_p(a) * z[:, p:]], dim=1))
+    g_val = g_tan * cu if cu is not None else torch.zeros_like(g_tan)
+    go = torch.cat([g_val, g_tan])[None, :]
+    d_wts, d_bs = [None] * (lh + 1), [None] * (lh + 1)
+    d_wts[-1] = go @ stacks[-1].T
+    d_bs[-1] = g_val.sum()[None, None]
+    gs = wts[-1].T * go
+    for l in range(lh - 1, -1, -1):
+        a, t = stacks[l][:, :p], stacks[l][:, p:]
+        sp = act_p(a)
+        gz = sp * gs[:, :p] + ratio(a) * (gs[:, p:] * t)
+        gp = sp * gs[:, p:]
+        d_bs[l] = gz.sum(dim=1, keepdim=True)
+        if l == 0:
+            d_wts[0] = gz @ xs.T + gp @ c.T
+        else:
+            gzc = torch.cat([gz, gp], dim=1)
+            d_wts[l] = mm(gzc, stacks[l - 1].T)
+            gs = mm(wts[l].T, gzc)
+    return [t for dw, db in zip(d_wts, d_bs) for t in (dw.T, db[:, 0])]
+
+
+def dir_bwd_plain(params, xs, c, g_tan, cu, act_name):
+    """The K1/K4 backward's plain version: precomputed coefficients, one point per
+    test function (nq 1), so the cotangent is g_tan itself."""
+    data = fr.CoeffData(xs=xs, cdir=c, csrc=torch.zeros_like(g_tan), cu=cu, k=xs.shape[1],
+                        nq=1)
+    return vj._leaves(fr.dir_residual_bwd_plain(params, data, act_name, g_tan))
+
+
 def _case(widths, n_in=3, seed=0):
     rng = np.random.default_rng(seed)
     sizes = [n_in] + list(widths) + [1]
@@ -135,6 +247,15 @@ def _case(widths, n_in=3, seed=0):
     return params, tangent, xs, g
 
 
+def _dir_case(n_in=3, seed=1):
+    """The directional residual's per-point data: a direction c (a weighted velocity /
+    diffusion / time row per input), the tangent cotangent g_tan and the reaction
+    coefficient cu."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n_in, P)), rng.standard_normal(P),
+            rng.uniform(0.0, 2.0, P))
+
+
 def _as(tree, dtype):
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(tree).to(dtype)
@@ -145,21 +266,50 @@ def _worst(got, ref):
     return max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(got, ref))
 
 
+# kernel -> (its emulation (params, tangent, xs, g, c, g_tan, cu, mm), its plain version
+# (the same without mm), its card gate, the headroom 3xTF32 keeps below it)
+DIR_CASES = [(act, react) for act in ("tanh", "sigmoid") for react in (False, True)]
+KERNELS = {
+    "bwd": (lambda p, t, x, g, c, gt, cu, mm: bwd(p, x, g, "tanh", mm), None, GATE, HEADROOM),
+    "jvp": (lambda p, t, x, g, c, gt, cu, mm: jvp(p, x, t, "tanh", mm), None, GATE, HEADROOM),
+    **{f"fwd-{act}": ((lambda act: lambda p, t, x, g, c, gt, cu, mm: fwd(p, x, act, mm))(act),
+                      (lambda act: lambda p, t, x, g, c, gt, cu: vj.vj_fwd_plain(p, x, act))(act),
+                      FWD_GATE, FWD_HEADROOM)
+       for act in ("tanh", "sigmoid")},
+    **{f"dir_bwd-{act}{'-react' if react else ''}": (
+        (lambda act, react: lambda p, t, x, g, c, gt, cu, mm:
+         dir_bwd(p, x, c, gt, cu if react else None, act, mm))(act, react),
+        (lambda act, react: lambda p, t, x, g, c, gt, cu:
+         dir_bwd_plain(p, x, c, gt, cu if react else None, act))(act, react),
+        GATE, HEADROOM) for act, react in DIR_CASES},
+}
+MODES = (("f32", torch.matmul), ("3xtf32", mm_3xtf32), ("tf32", mm_tf32), ("trunc", mm_trunc))
+LONG_SUMS = ["bwd"] + [k for k in KERNELS if k.startswith("dir_bwd")]  # G^T S over all points
+
+
 @pytest.fixture(scope="module", params=[(48, 48), (48, 48, 48)], ids=["w48x2", "w48x3"])
 def errors(request):
     params, tangent, xs, g = _case(request.param)
-    f32 = [_as(t, torch.float32) for t in (params, tangent, xs, g)]
-    f64 = [_as(t, torch.float64) for t in (params, tangent, xs, g)]
+    c, g_tan, cu = _dir_case()
+    f32 = [_as(t, torch.float32) for t in (params, tangent, xs, g, c, g_tan, cu)]
+    f64 = [_as(t, torch.float64) for t in (params, tangent, xs, g, c, g_tan, cu)]
     out = {}
-    for name, fn in (("bwd", lambda p, t, x, gg, mm: bwd(p, x, gg, "tanh", mm)),
-                     ("jvp", lambda p, t, x, gg, mm: jvp(p, x, t, "tanh", mm))):
+    for name, (fn, _, gate, room) in KERNELS.items():
         ref = fn(*f64, torch.matmul)
-        out[name] = {mode: _worst(fn(*f32, mm), ref)
-                     for mode, mm in (("f32", torch.matmul), ("3xtf32", mm_3xtf32),
-                                      ("tf32", mm_tf32))}
-        out[name]["ref"] = ref
-    out["f64"] = f64
+        out[name] = {mode: _worst(fn(*f32, mm), ref) for mode, mm in MODES}
+        out[name].update(gate=gate, room=room)
     return out
+
+
+@pytest.mark.parametrize("kernel", [k for k in KERNELS if KERNELS[k][1] is not None])
+def test_new_emulations_are_the_plain_versions(kernel):
+    """The K5 forward and K1/K4 backward emulations' arithmetic, in f64 with exact
+    products, is the plain versions'."""
+    params, tangent, xs, g = (_as(t, torch.float64) for t in _case((20, 24, 16)))
+    c, g_tan, cu = (_as(t, torch.float64) for t in _dir_case())
+    fn, plain = KERNELS[kernel][:2]
+    args = (params, tangent, xs, g, c, g_tan, cu)
+    assert _worst(fn(*args, torch.matmul), plain(*args)) < 1e-12
 
 
 def test_emulated_arithmetic_is_the_plain_versions():
@@ -181,14 +331,36 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     assert float(tf32(x)[4]) == pytest.approx(3.0e-39, rel=2.0 ** -10)
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "jvp"])
+def test_mma_sum_rounds_toward_zero():
+    big = torch.tensor([1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30), 3.0], dtype=torch.float64)
+    assert rz(big).tolist() == [1.0, -1.0, 3.0]
+    a = torch.ones(1, 16)
+    b = torch.full((16, 1), 1.0 + 2.0 ** -20)   # not a tf32 value: the lo terms carry it
+    assert mm_3xtf32(a, b).item() == pytest.approx(16 * (1.0 + 2.0 ** -20), rel=1e-7)
+    assert mm_tf32(a, b).item() == 16.0
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
 def test_3xtf32_holds_the_card_gate(errors, kernel):
     e = errors[kernel]
-    assert e["3xtf32"] < GATE / HEADROOM, e
+    assert e["3xtf32"] < e["gate"] / e["room"], e
     # within a small factor of plain f32's own distance from f64
     assert e["3xtf32"] < 20 * max(e["f32"], 1e-7), e
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "jvp"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
 def test_single_tf32_breaks_the_card_gate(errors, kernel):
-    assert errors[kernel]["tf32"] > GATE, errors[kernel]
+    assert errors[kernel]["tf32"] > errors[kernel]["gate"], errors[kernel]
+
+
+@pytest.mark.parametrize("kernel", LONG_SUMS)
+def test_truncating_running_sum_loses_the_long_sums(errors, kernel):
+    """3xTF32 whose running sum stays in the mma accumulator, truncated at every k-step:
+    the weight gradient sums (1 + n) P rows (K5) or 2 P rows (K1/K4), and the truncation
+    biases that sum.  Here that puts K5 backward past the gate (1.4e-4-3.4e-4) and the
+    K1/K4 gradients at 3e-5-1.1e-4 of it, 14-50x farther from f64 than the fresh-tile sum.
+    (The forward and the JVP only sum H deep: there it costs ~1e-6.)"""
+    e = errors[kernel]
+    assert e["trunc"] > HEADROOM * e["3xtf32"], e
+    if kernel == "bwd":
+        assert e["trunc"] > e["gate"], e

@@ -1,4 +1,4 @@
-// Directional fused weak-residual kernels for Hopper (sm_90a), f32 on the CUDA cores.
+// Directional fused weak-residual kernels for Hopper (sm_90a).
 //
 // Replaces the TPU kernels ops/pallas_residual.py::_dirq_residual_fn (q-blocked, G > 1)
 // and ::_fused_residual_fn(directional=True) (G = 1, no Fourier features) of the JAX
@@ -16,17 +16,33 @@
 // (value, tangent) cotangents including the act'' term, and reduce the per-point
 // outer products into dW/db.
 //
-// What bounds it: f32 FMA throughput on the CUDA cores.  At width (20, 20) forward plus
-// backward is about 10 kFLOP per quadrature point against about 28 bytes read
-// (3 coordinates + 4 field values), so the kernel sits far above the memory roofline.
-// The design answers that by keeping every intermediate on chip: weights and the
-// gradient accumulator live in shared memory; each thread owns one quadrature point
-// and keeps its per-layer state (activation and tangent pre-activation, later that
-// layer's cotangents in the same slots) in its own shared-memory column; the q-sum of
-// the forward and the point-sum of the backward are reduced inside the block, the
-// latter as register-tiled outer products (2 FMAs per shared-memory load, not 0.5).
-// Nothing but r (forward) and one gradient partial per block (backward) is written to
+// What bounds it: arithmetic.  At width (20, 20) forward plus backward is about 10 kFLOP
+// per quadrature point against about 28 bytes read (3 coordinates + 4 field values), so
+// the kernels sit far above the memory roofline and keep every intermediate on chip:
+// nothing but r (forward) and one gradient partial per block (backward) is written to
 // device memory.
+//
+// Forward (vr_fwd_kernel): f32 on the CUDA cores, one thread per quadrature point, kpb =
+// blockDim.x / nq whole test functions per block, the thread's activation and tangent
+// pre-activation in its own shared-memory column, the q-sum reduced in shared memory in
+// a fixed order.
+//
+// Backward (vr_bwd_kernel): the hidden products on the tensor cores in 3xTF32, on
+// stacked panels (csrc/tc3xtf32.cuh, the design of K5's backward with one tangent
+// panel).  A block takes a tile of T points and stacks their value and directional-
+// tangent panels [a; t] as the M = 2T rows of one operand.  Per hidden layer: the
+// recompute Z = S W_l^T, the cotangents G_{l-1} = G_l W_l and the weight gradient
+// dW_l += G_l^T S_{l-1} (depth M) run as mma.sync.m16n8k8 tiles; layer 0 (n_in <= 4), the
+// output row, the activations and the epilogues gz = act' ga + (act''/act') gj t,
+// gp = act' gj stay on the CUDA cores.  Each warp owns R fixed dW units -- a row block
+// of 16 rows of dW_l over one of C chunks of the tile's rows, its A fragment split once
+// per k-step for all HP / 8 column tiles -- and keeps their sums in registers for the
+// block's whole walk over its tiles; the block writes one partial row per chunk (a net
+// too deep for 2 units per warp sums 16 x 8 tiles in a shared-memory partial instead,
+// R = 0, as K5's backward does).  The sums of the biases, layer 0's weights and the output
+// row ride the epilogues, each thread summing its column over its share of the points.
+// T, the threads per block and (R, C) come from the occupancy calculator (bwd_config,
+// dw_plan).
 //
 // Precoeff mode (K4) reads c, csrc and cu per point from device memory instead of
 // forming them from the field rows and the shared [nq] table: the host folded the test
@@ -35,10 +51,7 @@
 // (ops/fused_residual.py::prepare_residual_coeffs).  Only the point reader (vr_point)
 // differs; the forward and backward bodies are K1's.  It reads 2 n_in + 1 floats per
 // point (+ 1 for cu) against n_in + 2 + d (+ 1 for reaction) in table mode, still far
-// below the FMA work per point, so K4 is bound by operations like K1.
-//
-// The backward's block size is the one that keeps the most threads resident per SM
-// (occupancy calculator), since its per-point state grows with depth and width.
+// below the work per point, so K4 is bound by operations like K1.
 //
 // TPU -> Hopper translation.  The TPU grid runs in order and sums dW across grid steps
 // in place; here blocks run in no order, so the backward is persistent (each block
@@ -50,40 +63,12 @@
 //
 // Hidden widths are zero-padded to HP (a multiple of 8, at most 64): padded units carry
 // zero weights and biases, contribute exactly nothing, and get gradients that the
-// wrapper discards.  Packed parameter layout (floats, all offsets multiples of 4):
-//   W0 [HP][4] (n_in padded to 4) | b0 [HP] | (W_l [HP][HP] | b_l [HP]) for l = 1..Lh-1
-//   | w_out [HP] | b_out | pad to 4.      (W stored [fan_out][fan_in], i.e. w.T)
-// The gradient uses the same layout.  varnet_tpu_torch/ops/fused_residual.py mirrors it.
+// wrapper discards.  Packed parameter layout: see csrc/tc3xtf32.cuh; the gradient uses
+// the same layout.  varnet_tpu_torch/ops/fused_residual.py mirrors it.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tc3xtf32.cuh"
 
-#define VR_MAX_IN 4
-#define VR_MAX_SPLIT 8  // point chunks per tile in vr_block_outer
-
-__host__ __device__ inline int vr_off_w(int hp, int l) {  // l >= 1
-  return 5 * hp + (l - 1) * (hp * hp + hp);
-}
-__host__ __device__ inline int vr_off_b(int hp, int l) {
-  return l == 0 ? 4 * hp : vr_off_w(hp, l) + hp * hp;
-}
-__host__ __device__ inline int vr_off_wout(int hp, int n_hidden) {
-  return 5 * hp + (n_hidden - 1) * (hp * hp + hp);
-}
-__host__ __device__ inline int vr_n_params(int hp, int n_hidden) {
-  return (vr_off_wout(hp, n_hidden) + hp + 1 + 3) / 4 * 4;
-}
-
-// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
-__device__ __forceinline__ float vr_act(float z, int act) {
-  return act == 0 ? tanhf(z) : 1.0f / (1.0f + expf(-z));
-}
-__device__ __forceinline__ float vr_dact(float a, int act) {
-  return act == 0 ? 1.0f - a * a : a * (1.0f - a);
-}
-__device__ __forceinline__ float vr_ddact(float a, float sp, int act) {
-  return act == 0 ? -2.0f * a * sp : (1.0f - 2.0f * a) * sp;
-}
+#define VR_MAX_IN VJ_MAX_IN
 
 struct VrProblem {
   const float* xs;     // [n_in][P] scaled coordinates
@@ -102,11 +87,8 @@ __host__ __device__ inline int vr_tab_floats(const VrProblem& pb) {
   return pb.pre ? 0 : (pb.nq * (2 + pb.d) + 3) / 4 * 4;
 }
 
-// Cooperative load of the packed parameters, the quadrature table and the input scale.
-__device__ __forceinline__ void vr_load_consts(const VrProblem& pb, const float* params,
-                                               int npp, float* sW, float* sTab,
-                                               float* sScale) {
-  for (int i = threadIdx.x; i < npp; i += blockDim.x) sW[i] = params[i];
+// Cooperative load of the quadrature table and the input scale (table mode).
+__device__ __forceinline__ void vr_load_tab(const VrProblem& pb, float* sTab, float* sScale) {
   if (pb.pre) return;
   const int ntab = pb.nq * (2 + pb.d);
   for (int i = threadIdx.x; i < ntab; i += blockDim.x) sTab[i] = pb.tab[i];
@@ -114,11 +96,11 @@ __device__ __forceinline__ void vr_load_consts(const VrProblem& pb, const float*
     sScale[threadIdx.x] = threadIdx.x < pb.n_in ? pb.scale[threadIdx.x] : 0.0f;
 }
 
-// Scaled coordinates x, direction c and the u / source coefficients of point p: read
-// (precoeff mode) or formed from the fields and the table (the math of _dir_coeffs).
-// Invalid points (p >= P) get all zeros.
+// Scaled coordinates x, direction c and the u / source coefficients of point p = k nq +
+// q: read (precoeff mode) or formed from the fields and the table (the math of
+// _dir_coeffs).  Invalid points (p >= P) get all zeros.
 __device__ __forceinline__ void vr_point(const VrProblem& pb, const float* sTab,
-                                         const float* sScale, long long p, bool valid,
+                                         const float* sScale, long long p, int q, bool valid,
                                          float x[VR_MAX_IN], float c[VR_MAX_IN],
                                          float& cu, float& csrc) {
 #pragma unroll
@@ -138,7 +120,6 @@ __device__ __forceinline__ void vr_point(const VrProblem& pb, const float* sTab,
     if (pb.has_react) cu = pb.cu[p];
     return;
   }
-  const int q = (int)(p % pb.nq);
   const float* row = sTab + q * (2 + pb.d);
   const float n_q = row[0], w_q = row[1];
   const float kappa = pb.flds[p];
@@ -156,17 +137,16 @@ __device__ __forceinline__ void vr_point(const VrProblem& pb, const float* sTab,
   if (pb.has_react) cu = w_q * n_q * pb.flds[(2 + pb.d) * pb.P + p];
 }
 
-// Hidden layers of the 2-panel forward for this thread's point.  Layer l's activation
-// a and tangent PRE-activation pre (the tangent is act'(a) * pre) go to the thread's
-// column of sA / sP at offset l * layer_stride (row stride ld); layer_stride = 0 reuses
-// one buffer.
+// Hidden layers of the 2-panel forward for this thread's point: the last layer's
+// activation a and tangent PRE-activation pre (the tangent is act'(a) * pre) end in the
+// thread's column of sA / sP (row stride ld).
 template <int HP>
 __device__ __forceinline__ void vr_hidden_forward(const float* sW, int n_hidden, int act,
                                                   const float x[VR_MAX_IN],
                                                   const float c[VR_MAX_IN], float* sA,
-                                                  float* sP, int ld, int layer_stride) {
+                                                  float* sP, int ld) {
   const int tid = threadIdx.x;
-  const float* b0 = sW + vr_off_b(HP, 0);
+  const float* b0 = sW + vj_off_b(HP, 0);
   for (int j = 0; j < HP; ++j) {
     const float* w0 = sW + 4 * j;
     float z = b0[j], pre = 0.0f;
@@ -175,23 +155,19 @@ __device__ __forceinline__ void vr_hidden_forward(const float* sW, int n_hidden,
       z = fmaf(w0[i], x[i], z);
       pre = fmaf(w0[i], c[i], pre);
     }
-    sA[j * ld + tid] = vr_act(z, act);
+    sA[j * ld + tid] = vj_act(z, act);
     sP[j * ld + tid] = pre;
   }
   for (int l = 1; l < n_hidden; ++l) {
-    const float* aIn = sA + (l - 1) * layer_stride;
-    const float* pIn = sP + (l - 1) * layer_stride;
     float av[HP], tv[HP];
 #pragma unroll
     for (int i = 0; i < HP; ++i) {
-      const float a = aIn[i * ld + tid];
+      const float a = sA[i * ld + tid];
       av[i] = a;
-      tv[i] = vr_dact(a, act) * pIn[i * ld + tid];
+      tv[i] = vj_dact(a, act) * sP[i * ld + tid];
     }
-    const float* W = sW + vr_off_w(HP, l);
-    const float* b = sW + vr_off_b(HP, l);
-    float* aOut = sA + l * layer_stride;
-    float* pOut = sP + l * layer_stride;
+    const float* W = sW + vj_off_w(HP, l);
+    const float* b = sW + vj_off_b(HP, l);
     for (int j = 0; j < HP; ++j) {
       const float4* wr = reinterpret_cast<const float4*>(W + j * HP);
       float z0 = b[j], z1 = 0.0f, p0 = 0.0f, p1 = 0.0f;
@@ -207,8 +183,8 @@ __device__ __forceinline__ void vr_hidden_forward(const float* sW, int n_hidden,
         z1 = fmaf(w.w, av[4 * i4 + 3], z1);
         p1 = fmaf(w.w, tv[4 * i4 + 3], p1);
       }
-      aOut[j * ld + tid] = vr_act(z0 + z1, act);
-      pOut[j * ld + tid] = p0 + p1;
+      sA[j * ld + tid] = vj_act(z0 + z1, act);
+      sP[j * ld + tid] = p0 + p1;
     }
   }
 }
@@ -222,14 +198,15 @@ __global__ void vr_fwd_kernel(VrProblem pb, const float* __restrict__ params,
   extern __shared__ float4 vr_smem4[];
   float* smem = reinterpret_cast<float*>(vr_smem4);
   const int T = blockDim.x, tid = threadIdx.x;
-  const int npp = vr_n_params(HP, pb.n_hidden);
+  const int npp = vj_n_params(HP, pb.n_hidden);
   float* sW = smem;
   float* sTab = sW + npp;
   float* sScale = sTab + vr_tab_floats(pb);
   float* sA = sScale + VR_MAX_IN;
   float* sP = sA + HP * T;
   float* sRed = sP + HP * T;
-  vr_load_consts(pb, params, npp, sW, sTab, sScale);
+  for (int i = tid; i < npp; i += T) sW[i] = params[i];
+  vr_load_tab(pb, sTab, sScale);
   __syncthreads();
 
   const int kpb = T / pb.nq;
@@ -237,16 +214,16 @@ __global__ void vr_fwd_kernel(VrProblem pb, const float* __restrict__ params,
   const long long p = k * pb.nq + tid % pb.nq;
   const bool valid = k < pb.k;
   float x[VR_MAX_IN], c[VR_MAX_IN], cu, csrc;
-  vr_point(pb, sTab, sScale, p, valid, x, c, cu, csrc);
-  vr_hidden_forward<HP>(sW, pb.n_hidden, pb.act, x, c, sA, sP, T, 0);
+  vr_point(pb, sTab, sScale, p, tid % pb.nq, valid, x, c, cu, csrc);
+  vr_hidden_forward<HP>(sW, pb.n_hidden, pb.act, x, c, sA, sP, T);
 
-  const float* wout = sW + vr_off_wout(HP, pb.n_hidden);
+  const float* wout = sW + vj_off_wout(HP, pb.n_hidden);
   float u0 = wout[HP], u1 = 0.0f, dd0 = 0.0f, dd1 = 0.0f;
 #pragma unroll
   for (int i = 0; i < HP; i += 2) {
     const float a0 = sA[i * T + tid], a1 = sA[(i + 1) * T + tid];
-    const float t0 = vr_dact(a0, pb.act) * sP[i * T + tid];
-    const float t1 = vr_dact(a1, pb.act) * sP[(i + 1) * T + tid];
+    const float t0 = vj_dact(a0, pb.act) * sP[i * T + tid];
+    const float t1 = vj_dact(a1, pb.act) * sP[(i + 1) * T + tid];
     u0 = fmaf(wout[i], a0, u0);
     u1 = fmaf(wout[i + 1], a1, u1);
     dd0 = fmaf(wout[i], t0, dd0);
@@ -263,169 +240,232 @@ __global__ void vr_fwd_kernel(VrProblem pb, const float* __restrict__ params,
   }
 }
 
-// ------------------------------------------------------------------------------------
-// Backward helpers.
+// The backward's inputs of point p (zeros past P): coordinates x, direction c and the
+// output cotangents g_val = gr cu (0 without reaction) and g_tan = gr.
+struct VrIn {
+  float x[VR_MAX_IN], c[VR_MAX_IN], g_val, g_tan;
+};
 
-// Block-cooperative outer-product reduction over the block's T points:
-//   sG[off_w + i * Cpack + m] += sum_j GZ[i][j] inA[m][j] + GP[i][j] t[m][j]
-//   sG[off_b + i]             += sum_j GZ[i][j]
-// for rows i < R, columns m < C (multiples of 4; R = 1 for the output row), where
-// t = act'(inA) * inT when inT holds tangent PRE-activations (from_pre), else inT.
-// Each thread owns an RT x 4 register tile of outputs over one of S contiguous point
-// chunks, so each value loaded from shared memory feeds up to 4 FMAs; the chunks'
-// partial tiles are added to sG one chunk after another.  The order of every
-// sum is fixed: the result is deterministic.  Ends with __syncthreads().
-template <int RT>
-__device__ __forceinline__ void vr_block_outer(float* sG, int R, int C, int Cpack,
-                                               const float* GZ, const float* GP,
-                                               const float* inA, const float* inT,
-                                               bool from_pre, int act, int ld, int T,
-                                               int off_w, int off_b) {
-  const int n_col = C / 4;
-  const int n_tiles = (R / RT) * n_col;
-  int S = T / n_tiles;
-  S = S < 1 ? 1 : (S > VR_MAX_SPLIT ? VR_MAX_SPLIT : S);
-  const int chunk = (T + S - 1) / S;
-  for (int base = 0; base < n_tiles * S; base += blockDim.x) {
-    const int u = base + threadIdx.x;
-    const bool active = u < n_tiles * S;
-    const int tile = u % n_tiles, s = u / n_tiles;
-    const int i0 = (tile / n_col) * RT, m0 = (tile % n_col) * 4;
-    float acc[RT][4], bias[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      bias[r] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    }
-    if (active) {
-      const int j1 = (s + 1) * chunk < T ? (s + 1) * chunk : T;
-      for (int j = s * chunk; j < j1; ++j) {
-        float a[4], t[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          a[c] = inA[(m0 + c) * ld + j];
-          const float p = inT[(m0 + c) * ld + j];
-          t[c] = from_pre ? vr_dact(a[c], act) * p : p;
-        }
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          const float gz = GZ[(i0 + r) * ld + j], gp = GP[(i0 + r) * ld + j];
-          bias[r] += gz;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(gz, a[c], fmaf(gp, t[c], acc[r][c]));
-        }
-      }
-    }
-    for (int k = 0; k < S; ++k) {
-      if (active && s == k) {
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sG[off_w + (i0 + r) * Cpack + m0 + c] += acc[r][c];
-          if (m0 == 0) sG[off_b + i0 + r] += bias[r];
-        }
-      }
-      __syncthreads();
-    }
-  }
+__device__ __forceinline__ void vr_bwd_point(const VrProblem& pb, const float* sTab,
+                                             const float* sScale, const float* gr, long long p,
+                                             VrIn& in) {
+  const bool valid = p < pb.P;
+  const long long k = valid ? p / pb.nq : 0;
+  float cu, csrc;
+  vr_point(pb, sTab, sScale, p, (int)(p - k * pb.nq), valid, in.x, in.c, cu, csrc);
+  in.g_tan = valid ? gr[k] : 0.0f;
+  in.g_val = pb.has_react ? in.g_tan * cu : 0.0f;
 }
 
-// Persistent backward: block b walks point tiles b, b + gridDim.x, ... of blockDim.x
-// points each, accumulating its parameter-gradient partial in shared memory, and
-// writes the partial to partials[b] once.  Per point, shared memory holds each hidden
-// layer's activation a and tangent pre-activation pre; going down the layers, the
-// same slots are overwritten with that layer's cotangents (gz, gp), and then with the
-// cotangents (ga, gj) passed to the layer below.
-template <int HP>
-__global__ void vr_bwd_kernel(VrProblem pb, const float* __restrict__ params,
-                              const float* __restrict__ gr, float* __restrict__ partials,
-                              long long n_tiles) {
+// ------------------------------------------------------------------------------------
+// Backward, persistent over tiles of T points (a multiple of 16).  Shared memory:
+//   sGg  [G][small]         per epilogue group g: the partial of W0, the biases, w_out and
+//                           b_out (layout of vj_small_size)
+//   sGW  [Lh-1][HP][HP]     R == 0 only: the partial of the hidden W_l
+//   sSm, sW                 the small parameters and W_l (f32, [out][LD])
+//   sTab, sScale            table mode: the quadrature table and the input scale
+//   X, C [4][T], GO [2][T]  the tile's coordinates, directions and output cotangents
+//                           (g_val, g_tan)
+//   S    [Lh][2T][LD]       slot l: [a_l; t_l] (rows t, then T + t); going down
+//                           [gz_l; gp_l], then G_{l-1} = [ga; gj] of the layer below.
+// The epilogues run on G = blockDim / HP groups of HP threads, thread (g, i) on column i
+// of points t = g, g + G, ...; it sums its share of db_l, dW0, dw_out and b_out over the
+// whole walk (in registers, db_l in its group's shared partial), and the groups' sums
+// are added in group order at the end.  Each warp owns the dW units (layer l >= 1, row
+// block of 16 rows, chunk c of the tile's 2T rows) un = warp + k nwarp, k < R, of
+// the list over all hidden layers, and sums each unit's HP / 8 tiles in dw[k] over the
+// whole walk; the block writes one partial row per chunk.  Point tile j + 1's inputs are
+// read into registers while tile j is computed.
+template <int HP, int R>
+__global__ void __launch_bounds__(256, 2)
+    vr_bwd_kernel(VrProblem pb, const float* __restrict__ params,
+                  const float* __restrict__ gr, float* __restrict__ partials,
+                  long long n_tiles, int T, int chunks) {
+  constexpr int LD = kVjLd<HP>;
+  constexpr int NT = HP / 8, MT = (HP + 15) / 16;
+  constexpr int U = MT * NT;  // dW_l tiles per layer (R == 0)
   extern __shared__ float4 vr_smem4[];
   float* smem = reinterpret_cast<float*>(vr_smem4);
-  const int T = blockDim.x, tid = threadIdx.x, ld = T + 1;
   const int Lh = pb.n_hidden, act = pb.act;
-  const int npp = vr_n_params(HP, Lh);
-  float* sW = smem;
-  float* sG = sW + npp;
-  float* sTab = sG + npp;
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, nwarp = nthr >> 5;
+  const int lane = tid & 31, gq = lane >> 2, q = lane & 3;
+  const int rows = 2 * T, slot = rows * LD, nsm = vj_small_size(HP, Lh);
+  const int G = nthr / HP, eg = tid / HP, ei = tid % HP;
+  const bool ep = eg < G;  // this thread runs epilogue column ei of group eg
+  const int nw = R == 0 ? (Lh - 1) * HP * HP : 0;
+  float* sGg = smem;
+  float* sGW = sGg + G * nsm;
+  float* sSm = sGW + nw;
+  float* sW = sSm + nsm;
+  float* sTab = sW + (Lh - 1) * HP * LD;
   float* sScale = sTab + vr_tab_floats(pb);
-  float* sA = sScale + VR_MAX_IN;    // [Lh][HP][ld] a, then gz, then ga of the layer below
-  float* sP = sA + Lh * HP * ld;     // [Lh][HP][ld] pre, then gp, then gj of the layer below
-  float* sO = sP + Lh * HP * ld;     // [2][ld] output-row cotangents (value, tangent)
-  float* sX = sO + 2 * ld;           // [4][ld] scaled coordinates
-  float* sC = sX + VR_MAX_IN * ld;   // [4][ld] directions
-  const int lstride = HP * ld;
-  vr_load_consts(pb, params, npp, sW, sTab, sScale);
-  for (int i = tid; i < npp; i += T) sG[i] = 0.0f;
+  float* X = sScale + VR_MAX_IN;
+  float* C = X + VR_MAX_IN * T;
+  float* GO = C + VR_MAX_IN * T;
+  float* S = GO + 2 * T;
+  for (int u = tid; u < G * nsm + nw; u += nthr) sGg[u] = 0.0f;
+  vj_load_params<HP>(params, Lh, sSm, sW);
+  vr_load_tab(pb, sTab, sScale);
   __syncthreads();
-
-  const int off_wout = vr_off_wout(HP, Lh);
-  const float* wout = sW + off_wout;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long p = tile * T + tid;
-    const bool valid = p < pb.P;
-    float x[VR_MAX_IN], c[VR_MAX_IN], cu, csrc;
-    vr_point(pb, sTab, sScale, p, valid, x, c, cu, csrc);
+  const float* W0 = sSm;
+  const float* wout = sSm + 4 * HP + Lh * HP;
+  float dw[R > 0 ? R : 1][NT][4];
 #pragma unroll
-    for (int j = 0; j < VR_MAX_IN; ++j) {
-      sX[j * ld + tid] = x[j];
-      sC[j * ld + tid] = c[j];
+  for (int k = 0; k < (R > 0 ? R : 1); ++k) vj_zero<HP>(dw[k]);
+  float s_w0[VR_MAX_IN] = {0.0f, 0.0f, 0.0f, 0.0f}, s_wout = 0.0f, s_bout = 0.0f;
+  VrIn in;
+  if (tid < T) vr_bwd_point(pb, sTab, sScale, gr, (long long)blockIdx.x * T + tid, in);
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    if (tid < T) {
+#pragma unroll
+      for (int j = 0; j < VR_MAX_IN; ++j) {
+        X[j * T + tid] = in.x[j];
+        C[j * T + tid] = in.c[j];
+      }
+      GO[tid] = in.g_val;
+      GO[T + tid] = in.g_tan;
     }
-    const float g_tan = valid ? gr[p / pb.nq] : 0.0f;
-    const float g_val = pb.has_react ? g_tan * cu : 0.0f;
-    vr_hidden_forward<HP>(sW, Lh, act, x, c, sA, sP, ld, lstride);
-    sO[tid] = g_val;
-    sO[ld + tid] = g_tan;
     __syncthreads();
-    vr_block_outer<1>(sG, 1, HP, HP, sO, sO + ld, sA + (Lh - 1) * lstride,
-                      sP + (Lh - 1) * lstride, true, act, ld, T, off_wout, off_wout + HP);
+    if (tid < T) vr_bwd_point(pb, sTab, sScale, gr, (tile + gridDim.x) * T + tid, in);
+    // forward recompute, every layer's slot kept.  Layer 0 on the CUDA cores: a_0 =
+    // act(W0 x + b0), t_0 = act'(a_0) W0 c; the hidden layers on the tensor cores
+    for (int u = tid; u < T * HP; u += nthr) {
+      const int t = u / HP, i = u % HP;
+      float z = sSm[4 * HP + i], pre = 0.0f;
+#pragma unroll
+      for (int c = 0; c < VR_MAX_IN; ++c) {
+        z = fmaf(W0[i * 4 + c], X[c * T + t], z);
+        pre = fmaf(W0[i * 4 + c], C[c * T + t], pre);
+      }
+      const float a = vj_act(z, act);
+      S[t * LD + i] = a;
+      S[(T + t) * LD + i] = vj_dact(a, act) * pre;
+    }
+    __syncthreads();
+    for (int l = 1; l < Lh; ++l)
+      vj_stack_layer<HP>(S + (l - 1) * slot, S + l * slot, sW + (l - 1) * HP * LD,
+                         sSm + 4 * HP + l * HP, T, 2, act);
 
     for (int l = Lh - 1; l >= 0; --l) {
-      float* aL = sA + l * lstride;
-      float* pL = sP + l * lstride;
-      // pre-activation cotangents gz, gp of layer l, over a_l / pre_l (own column)
-      for (int i = 0; i < HP; ++i) {
-        const float a = aL[i * ld + tid], pre = pL[i * ld + tid];
-        const float sp = vr_dact(a, act);
-        const float spp = vr_ddact(a, sp, act);
-        const float ga = l == Lh - 1 ? wout[i] * g_val : aL[lstride + i * ld + tid];
-        const float gj = l == Lh - 1 ? wout[i] * g_tan : pL[lstride + i * ld + tid];
-        aL[i * ld + tid] = sp * ga + spp * (gj * pre);
-        pL[i * ld + tid] = sp * gj;
+      float* Sl = S + l * slot;
+      const float* Gin = S + (l + 1) * slot;  // G_l = [ga; gj]_l, below the top layer
+      const bool top = l == Lh - 1;
+      // epilogue on the CUDA cores, in place: [a; t]_l -> [gz; gp]_l with
+      // gz = act' ga + (act''/act') gj t and gp = act' gj; the sums of db_l (and at the
+      // top the output row's dw_out += g_val a + g_tan t, db_out += g_val; at layer 0
+      // dW0 += gz x^T + gp c^T)
+      if (ep) {
+        float db = 0.0f;
+        for (int t = eg; t < T; t += G) {
+          const int r = t * LD + ei;  // the value row; the tangent's T rows on
+          const float a = Sl[r], tt = Sl[r + T * LD];
+          const float sp = vj_dact(a, act);
+          float ga, gj;
+          if (top) {
+            const float gv = GO[t], gt = GO[T + t];
+            ga = wout[ei] * gv;
+            gj = wout[ei] * gt;
+            s_wout = fmaf(gv, a, fmaf(gt, tt, s_wout));
+            s_bout += gv;
+          } else {
+            ga = Gin[r];
+            gj = Gin[r + T * LD];
+          }
+          const float gz = fmaf(sp, ga, vj_ddact_ratio(a, act) * (gj * tt)), gp = sp * gj;
+          Sl[r] = gz;
+          Sl[r + T * LD] = gp;
+          db += gz;
+          if (l == 0) {
+#pragma unroll
+            for (int c = 0; c < VR_MAX_IN; ++c)
+              s_w0[c] = fmaf(gz, X[c * T + t], fmaf(gp, C[c * T + t], s_w0[c]));
+          }
+        }
+        sGg[eg * nsm + 4 * HP + l * HP + ei] += db;
       }
       __syncthreads();
-      if (l > 0)
-        vr_block_outer<4>(sG, HP, HP, HP, aL, pL, sA + (l - 1) * lstride,
-                          sP + (l - 1) * lstride, true, act, ld, T, vr_off_w(HP, l),
-                          vr_off_b(HP, l));
-      else
-        vr_block_outer<4>(sG, HP, VR_MAX_IN, VR_MAX_IN, aL, pL, sX, sC, false, act, ld, T,
-                          0, vr_off_b(HP, 0));
-      if (l > 0) {
-        // cotangents of the layer below, W_l^T gz and W_l^T gp, over layer l's column
-        float gz[HP], gp[HP];
+      if (l == 0) break;
+      // dW_l += G_l^T S_{l-1} on the tensor cores: a row block (16 rows of dW_l) over one
+      // of `chunks` chunks of the tile's rows per warp unit, or (R == 0) one 16 x 8 tile over
+      // all rows
+      const float* Sp = S + (l - 1) * slot;
+      if constexpr (R > 0) {
+        const int rc = rows / chunks;
 #pragma unroll
-        for (int i = 0; i < HP; ++i) {
-          gz[i] = aL[i * ld + tid];
-          gp[i] = pL[i * ld + tid];
-        }
-        const float* W = sW + vr_off_w(HP, l);
-        for (int m = 0; m < HP; ++m) {
-          float s0 = 0.0f, s1 = 0.0f;
+        for (int k = 0; k < R; ++k) {
+          const int un = warp + k * nwarp;
+          if (un / (MT * chunks) == l - 1) {
+            const int v = un % (MT * chunks), c = v % chunks;
+            float acc[NT][4];
+            vj_dw_rows<HP>(acc, Sl + c * rc * LD, Sp + c * rc * LD, rc, (v / chunks) * 16);
 #pragma unroll
-          for (int i = 0; i < HP; ++i) {
-            const float w = W[i * HP + m];
-            s0 = fmaf(w, gz[i], s0);
-            s1 = fmaf(w, gp[i], s1);
+            for (int nt = 0; nt < NT; ++nt) vj_add(dw[k][nt], acc[nt]);
           }
-          aL[m * ld + tid] = s0;
-          pL[m * ld + tid] = s1;
+        }
+      } else {
+        float* gw = sGW + (l - 1) * HP * HP;
+        for (int v = warp; v < U; v += nwarp) {
+          const int j0 = (v / NT) * 16, i0 = (v % NT) * 8;
+          float acc[4];
+          vj_dw_tile<HP>(acc, Sl, Sp, rows, j0, i0);
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int j = j0 + gq + (h & 2 ? 8 : 0), i = i0 + 2 * q + (h & 1);
+            if (j < HP) gw[j * HP + i] += acc[h];
+          }
         }
       }
+      __syncthreads();
+      // G_{l-1} = G_l W_l, in place in slot l
+      vj_cotangent_rows<HP>(Sl, sW + (l - 1) * HP * LD, rows);
     }
+    __syncthreads();
   }
-  for (int i = tid; i < npp; i += T) partials[(long long)blockIdx.x * npp + i] = sG[i];
+
+  // the block's partials, in the packed layout: rows chunks b + c, one per chunk c, each
+  // with chunk c's dW sums; row chunks b also with the groups' sums of the small
+  // parameters, in group order (the other rows hold zeros there)
+  if (ep) {
+    float* mine = sGg + eg * nsm;
+#pragma unroll
+    for (int c = 0; c < VR_MAX_IN; ++c) mine[ei * 4 + c] = s_w0[c];
+    mine[4 * HP + Lh * HP + ei] = s_wout;
+    if (ei == 0) mine[4 * HP + Lh * HP + HP] = s_bout;
+  }
+  __syncthreads();
+  const int npp = vj_n_params(HP, Lh), ow = vj_off_wout(HP, Lh);
+  float* out = partials + (long long)blockIdx.x * chunks * npp;
+  for (int c = 0; c < chunks; ++c) {
+    float* row = out + (long long)c * npp;
+    for (int e = tid; e <= 4 * HP + Lh * HP + HP; e += nthr) {
+      float v = 0.0f;
+      for (int g = 0; c == 0 && g < G; ++g) v += sGg[g * nsm + e];
+      const int b = e - 4 * HP;
+      row[e < 4 * HP ? e : (b < Lh * HP ? vj_off_b(HP, b / HP) + b % HP : ow + b - Lh * HP)] = v;
+    }
+    for (int u = ow + HP + 1 + tid; u < npp; u += nthr) row[u] = 0.0f;
+  }
+  if constexpr (R > 0) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int un = warp + k * nwarp;
+      if (un < MT * chunks * (Lh - 1)) {
+        const int l = 1 + un / (MT * chunks), v = un % (MT * chunks), j0 = (v / chunks) * 16;
+        float* row = out + (long long)(v % chunks) * npp + vj_off_w(HP, l);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int j = j0 + gq + (h & 2 ? 8 : 0), i = nt * 8 + 2 * q + (h & 1);
+            if (j < HP) row[j * HP + i] = dw[k][nt][h];
+          }
+      }
+    }
+  } else {
+    for (int u = tid; u < nw; u += nthr)
+      out[vj_off_w(HP, 1 + u / (HP * HP)) + u % (HP * HP)] = sGW[u];
+  }
 }
 
 // grad[i] = sum_b partials[b][i], in block order.
@@ -443,21 +483,42 @@ __global__ void vr_reduce_kernel(const float* __restrict__ partials, float* __re
 namespace {
 
 const int kFwdTargetThreads = 256;
-const int kBwdThreadChoices[] = {256, 224, 192, 160, 128, 96, 64, 32};
+const int kTileChoices[] = {64, 32, 16};  // points per backward tile
+const int kTileThreads[] = {256, 128};
 const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
 
-size_t consts_floats(int hp, const VrProblem& pb) {
-  return (size_t)vr_n_params(hp, pb.n_hidden) + vr_tab_floats(pb) + VR_MAX_IN;
-}
-
 size_t fwd_smem(int hp, const VrProblem& pb, int T) {
-  return sizeof(float) * (consts_floats(hp, pb) + 2 * (size_t)hp * T + T);
+  return sizeof(float) * ((size_t)vj_n_params(hp, pb.n_hidden) + vr_tab_floats(pb) +
+                          VR_MAX_IN + 2 * (size_t)hp * T + T);
 }
 
-size_t bwd_smem(int hp, const VrProblem& pb, int T) {
-  const size_t per_point = 2 * (size_t)pb.n_hidden * hp + 2 + 2 * VR_MAX_IN;
-  return sizeof(float) * (consts_floats(hp, pb) + vr_n_params(hp, pb.n_hidden) +
-                          per_point * (T + 1));
+// The backward's dW plan for a block of `threads` and a tile of T points: C chunks of the
+// tile's 2T rows (a power of two, >= 8 rows each), so that a layer's MT C row-block units
+// fill the warps, fewer when the hidden layers' units would exceed 2 per warp, and R
+// units per warp (1 or 2); or, when even C = 1 needs more, R = 0 and C = 1: 16 x 8 tiles
+// summed in a shared-memory partial.
+void dw_plan(int hp, int n_hidden, int threads, int T, int* R, int* C) {
+  const int warps = threads / 32, mt = (hp + 15) / 16;
+  int c = warps / mt > 1 ? warps / mt : 1;
+  if (c > 2 * T / 8) c = 2 * T / 8;
+  while (c > 1 && mt * c * (n_hidden - 1) > 2 * warps) c /= 2;
+  const int need = (mt * c * (n_hidden - 1) + warps - 1) / warps;
+  *R = need <= 1 ? 1 : (need <= 2 ? 2 : 0);
+  *C = *R ? c : 1;
+}
+
+size_t bwd_smem(int hp, const VrProblem& pb, int T, int threads, int R) {
+  const size_t Lh = pb.n_hidden, ld = hp + 4, small = vj_small_size(hp, pb.n_hidden);
+  const size_t part = (threads / hp) * small + (R == 0 ? (Lh - 1) * hp * hp : 0);
+  return sizeof(float) * (part + small + (Lh - 1) * hp * ld + vr_tab_floats(pb) +
+                          VR_MAX_IN + (2 * VR_MAX_IN + 2) * (size_t)T + Lh * 2 * T * ld);
+}
+
+template <int HP>
+const void* bwd_kernel(int R) {
+  if (R == 1) return (const void*)vr_bwd_kernel<HP, 1>;
+  if (R == 2) return (const void*)vr_bwd_kernel<HP, 2>;
+  return (const void*)vr_bwd_kernel<HP, 0>;
 }
 
 VrProblem make_problem(const float* xs, const float* flds, const float* tab,
@@ -484,6 +545,7 @@ VrProblem make_pre_problem(const float* xs, const float* cdir, const float* csrc
 
 template <int HP>
 int launch_fwd(const VrProblem& pb, const float* params, float* r, cudaStream_t stream) {
+  if (pb.k == 0) return 0;
   const int kpb = pb.nq >= kFwdTargetThreads ? 1 : kFwdTargetThreads / pb.nq;
   const int T = kpb * pb.nq;
   if (T > 1024) return (int)cudaErrorInvalidConfiguration;
@@ -498,54 +560,85 @@ int launch_fwd(const VrProblem& pb, const float* params, float* r, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-// Threads per block and grid of the persistent backward: the block size that keeps the
-// most threads resident per SM (shared memory and registers, from the occupancy
-// calculator), one wave of blocks, or fewer when there are fewer tiles.
+// The backward's (points per tile, threads) pair that keeps the most busy warps resident
+// per SM (a warp is busy when the tile has a 16-row stacked tile for it), on a tie the
+// one with more blocks per SM, then the larger tile, as value_and_jac.cu's tile_grid;
+// its dW plan (R, C); and the persistent grid: one wave of blocks, or fewer when there
+// are fewer tiles (at least one: P = 0 writes zero partials).
+struct BwdGrid {
+  int T, threads, R, C, blocks;
+  long long n_tiles;
+  size_t smem;
+};
+
 template <int HP>
-int bwd_config(const VrProblem& pb, int* threads, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(vr_bwd_kernel<HP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kMaxSmem);
-  if (err != cudaSuccess) return (int)err;
+int bwd_config(const VrProblem& pb, BwdGrid* out) {
+  int best = 0, per_sm_best = 0;
+  cudaError_t err;
+  for (int T : kTileChoices)
+    for (int threads : kTileThreads) {
+      int R = 0, C = 1;
+      dw_plan(HP, pb.n_hidden, threads, T, &R, &C);
+      const void* fn = bwd_kernel<HP>(R);
+      if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)kMaxSmem)) != cudaSuccess)
+        return (int)err;
+      const size_t smem = bwd_smem(HP, pb, T, threads, R);
+      if (smem > kMaxSmem) continue;
+      int per_sm = 0;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
+          cudaSuccess)
+        return (int)err;
+      const int warps = threads / 32, stacked = 2 * T / 16;
+      const int busy = per_sm * (warps < stacked ? warps : stacked);
+      if (busy > best || (busy == best && per_sm > per_sm_best)) {
+        best = busy;
+        per_sm_best = per_sm;
+        *out = BwdGrid{T, threads, R, C, 0, 0, smem};
+      }
+    }
+  if (best == 0) return (int)cudaErrorInvalidConfiguration;
   int dev = 0, n_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) !=
       cudaSuccess)
     return (int)err;
-  int best_T = 0, best_per_sm = 0;
-  for (int T : kBwdThreadChoices) {
-    const size_t smem = bwd_smem(HP, pb, T);
-    if (smem > kMaxSmem) continue;
-    int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vr_bwd_kernel<HP>, T,
-                                                             smem)) != cudaSuccess)
-      return (int)err;
-    if (per_sm * T > best_per_sm * best_T) {
-      best_T = T;
-      best_per_sm = per_sm;
-    }
-  }
-  if (best_T == 0) return (int)cudaErrorInvalidConfiguration;
-  const long long n_tiles = (pb.P + best_T - 1) / best_T;
-  const long long b = (long long)best_per_sm * n_sm;
-  *threads = best_T;
-  *blocks = (int)(b < n_tiles ? b : n_tiles);
+  out->n_tiles = (pb.P + out->T - 1) / out->T;
+  const long long b = (long long)per_sm_best * n_sm;
+  out->blocks = (int)(b < out->n_tiles ? b : (out->n_tiles > 0 ? out->n_tiles : 1));
+  return 0;
+}
+
+// Rows of the backward's partials buffer: C per block.
+template <int HP>
+int bwd_blocks(const VrProblem& pb, int* rows) {
+  BwdGrid cfg;
+  const int err = bwd_config<HP>(pb, &cfg);
+  if (err) return err;
+  *rows = cfg.blocks * cfg.C;
   return 0;
 }
 
 template <int HP>
 int launch_bwd(const VrProblem& pb, const float* params, const float* gr, float* partials,
-               int n_blocks, float* grad, cudaStream_t stream) {
-  int T = 0, want = 0;
-  int err = bwd_config<HP>(pb, &T, &want);
+               int n_rows, float* grad, cudaStream_t stream) {
+  BwdGrid cfg;
+  int err = bwd_config<HP>(pb, &cfg);
   if (err) return err;
-  if (n_blocks != want) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem(HP, pb, T);
-  const long long n_tiles = (pb.P + T - 1) / T;
-  vr_bwd_kernel<HP><<<n_blocks, T, smem, stream>>>(pb, params, gr, partials, n_tiles);
+  if (n_rows != cfg.blocks * cfg.C) return (int)cudaErrorInvalidValue;
+  const int nb = cfg.blocks;
+  if (cfg.R == 1)
+    vr_bwd_kernel<HP, 1><<<nb, cfg.threads, cfg.smem, stream>>>(pb, params, gr, partials,
+                                                               cfg.n_tiles, cfg.T, cfg.C);
+  else if (cfg.R == 2)
+    vr_bwd_kernel<HP, 2><<<nb, cfg.threads, cfg.smem, stream>>>(pb, params, gr, partials,
+                                                               cfg.n_tiles, cfg.T, cfg.C);
+  else
+    vr_bwd_kernel<HP, 0><<<nb, cfg.threads, cfg.smem, stream>>>(pb, params, gr, partials,
+                                                               cfg.n_tiles, cfg.T, cfg.C);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  const int npp = vr_n_params(HP, pb.n_hidden);
-  vr_reduce_kernel<<<(npp + 127) / 128, 128, 0, stream>>>(partials, grad, n_blocks, npp);
+  const int npp = vj_n_params(HP, pb.n_hidden);
+  vr_reduce_kernel<<<(npp + 127) / 128, 128, 0, stream>>>(partials, grad, n_rows, npp);
   return (int)cudaGetLastError();
 }
 
@@ -567,7 +660,7 @@ int launch_bwd(const VrProblem& pb, const float* params, const float* gr, float*
 extern "C" {
 
 // Packed parameter count (floats) for hidden width hp and n_hidden hidden layers.
-int vr_dir_residual_n_params(int hp, int n_hidden) { return vr_n_params(hp, n_hidden); }
+int vr_dir_residual_n_params(int hp, int n_hidden) { return vj_n_params(hp, n_hidden); }
 
 // Residual r [k] of the directional weak form.  Returns a cudaError_t value.
 int vr_dir_residual_fwd(const float* xs, const float* flds, const float* tab,
@@ -579,13 +672,11 @@ int vr_dir_residual_fwd(const float* xs, const float* flds, const float* tab,
   VR_DISPATCH(hp, launch_fwd<HP>(pb, params, r, (cudaStream_t)stream))
 }
 
-// Number of backward blocks (rows of the partials buffer) for this problem on the
-// current device.
+// Rows of the backward's partials buffer for this problem on the current device.
 int vr_dir_residual_bwd_blocks(int k, int nq, int d, int n_hidden, int hp, int* blocks) {
   const VrProblem pb = make_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 0, d, 0, 0,
                                     n_hidden, 0);
-  int threads = 0;
-  VR_DISPATCH(hp, bwd_config<HP>(pb, &threads, blocks))
+  VR_DISPATCH(hp, bwd_blocks<HP>(pb, blocks))
 }
 
 // Packed parameter gradient grad [n_params] for the cotangent gr [k].  partials is
@@ -611,12 +702,11 @@ int vr_dirp_residual_fwd(const float* xs, const float* cdir, const float* csrc,
   VR_DISPATCH(hp, launch_fwd<HP>(pb, params, r, (cudaStream_t)stream))
 }
 
-// Number of K4 backward blocks for this problem on the current device.
+// Rows of K4's backward partials buffer for this problem on the current device.
 int vr_dirp_residual_bwd_blocks(int k, int nq, int n_hidden, int hp, int* blocks) {
   const VrProblem pb = make_pre_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 0, 0,
                                         n_hidden, 0);
-  int threads = 0;
-  VR_DISPATCH(hp, bwd_config<HP>(pb, &threads, blocks))
+  VR_DISPATCH(hp, bwd_blocks<HP>(pb, blocks))
 }
 
 // K4's packed parameter gradient grad [n_params] for the cotangent gr [k]; partials as

@@ -1,0 +1,323 @@
+// 3xTF32 tensor-core tools for Hopper (sm_90a), and the stacked-panel layers built from
+// them, shared by csrc/value_and_jac.cu (K5 forward / backward, K6) and
+// csrc/dir_residual.cu (K1/K4 backward).
+//
+// Stacked panels.  As the TPU kernels pack the value panel and the tangent panels into
+// one [H, panels x T] operand for the MXU, a block here takes a tile of T points (a
+// multiple of 16) and stacks its panels as the rows of one operand, row r = k T + t
+// (panel k, point t; k = 0 the value a, k >= 1 a tangent J = act'(a) P), M = panels x T.
+// Each hidden layer is then a few [M x H] x [H x H] products of mma.sync.m16n8k8 tf32
+// tiles, one warp per 16-row tile for all H columns (its A fragments reused across them):
+//   forward            Z = [a; J]_{l-1} W_l^T         (vj_forward_tile, vj_stack_layer)
+//   cotangents         G_{l-1} = G_l W_l                              (vj_cotangent_rows)
+//   weight gradient    dW_l += G_l^T [a; J]_{l-1}, depth the M rows   (vj_dw_tile,
+//                                                                       vj_dw_rows)
+//
+// Precision: 3xTF32.  Each operand is split at fragment load, x_hi = cvt.rna.tf32(x),
+// x_lo = cvt.rna.tf32(x - x_hi), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi is summed
+// in f32: single TF32 keeps ~3 digits and misses the 1e-4 gates by 5-18x, 3xTF32 sits at
+// f32's own distance from f64 (tests/test_torch_tf32_split.py).  The tensor core's own
+// f32 sum truncates, so each k-step's products go to a fresh tile that is added to the
+// running sum on the CUDA cores, rounding to nearest (vj_add).
+//
+// Shared memory.  Weights are kept once, in f32, at row stride kVjLd (an odd multiple of
+// 4 floats, so the 8 rows x 4 columns of a fragment load hit 32 different banks; the
+// transposed reads of G W and G^T S conflict two-way); slots of stacked rows use the
+// same stride.
+//
+// Packed parameter layout (floats; ops/fused_residual.py::pack_params): hidden widths
+// zero-padded to HP (a multiple of 8, at most 64), n_in padded to 4:
+//   W0 [HP][4] | b0 [HP] | (W_l [HP][HP] | b_l [HP]) for l = 1..L-1 | w_out [HP] | b_out
+//   | pad to 4.         (W stored [fan_out][fan_in], i.e. w.T)
+// Gradients and parameter tangents use the same layout.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define VJ_MAX_IN 4
+
+__host__ __device__ inline int vj_off_w(int hp, int l) {  // l >= 1
+  return 5 * hp + (l - 1) * (hp * hp + hp);
+}
+__host__ __device__ inline int vj_off_b(int hp, int l) {
+  return l == 0 ? 4 * hp : vj_off_w(hp, l) + hp * hp;
+}
+__host__ __device__ inline int vj_off_wout(int hp, int n_hidden) {
+  return 5 * hp + (n_hidden - 1) * (hp * hp + hp);
+}
+__host__ __device__ inline int vj_n_params(int hp, int n_hidden) {
+  return (vj_off_wout(hp, n_hidden) + hp + 1 + 3) / 4 * 4;
+}
+
+// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
+__device__ __forceinline__ float vj_act(float z, int act) {
+  return act == 0 ? tanhf(z) : 1.0f / (1.0f + expf(-z));
+}
+__device__ __forceinline__ float vj_dact(float a, int act) {
+  return act == 0 ? 1.0f - a * a : a * (1.0f - a);
+}
+__device__ __forceinline__ float vj_ddact(float a, float sp, int act) {
+  return act == 0 ? -2.0f * a * sp : (1.0f - 2.0f * a) * sp;
+}
+// act''/act' as a function of a: -2a (tanh) or 1 - 2a (sigmoid).  The slots keep
+// J = act'(a) P, not the pre-activation P, and the backward's act'' term is
+// spp P = (act''/act') J, so every product reads its operand straight from a slot.
+__device__ __forceinline__ float vj_ddact_ratio(float a, int act) {
+  return act == 0 ? -2.0f * a : 1.0f - 2.0f * a;
+}
+
+// ------------------------------------------------------------------------------------
+// mma.sync.m16n8k8 tf32 on fragments split at load.
+//
+// Fragment layout (PTX ISA, m16n8k8 .tf32), lane = 4 gq + q:
+//   A [16 x 8]: a0 (gq, q), a1 (gq + 8, q), a2 (gq, q + 4), a3 (gq + 8, q + 4)
+//   B [8 x 8]:  b0 (k = q, n = gq), b1 (k = q + 4, n = gq)
+//   C [16 x 8]: c0 (gq, 2q), c1 (gq, 2q + 1), c2 (gq + 8, 2q), c3 (gq + 8, 2q + 1)
+
+__device__ __forceinline__ unsigned vj_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void vj_split(float x, unsigned& hi, unsigned& lo) {
+  hi = vj_tf32(x);
+  lo = vj_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void vj_mma(float c[4], const unsigned a[4], const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// t = a b, from a zero accumulator (no registers to clear).
+__device__ __forceinline__ void vj_mma0(float t[4], const unsigned a[4], const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
+
+// t += a b in 3xTF32, the small terms first; vj_mma3z: t = a b.
+__device__ __forceinline__ void vj_mma3(float t[4], const unsigned ah[4], const unsigned al[4],
+                                        const unsigned bh[2], const unsigned bl[2]) {
+  vj_mma(t, al, bh);
+  vj_mma(t, ah, bl);
+  vj_mma(t, ah, bh);
+}
+
+__device__ __forceinline__ void vj_mma3z(float t[4], const unsigned ah[4], const unsigned al[4],
+                                         const unsigned bh[2], const unsigned bl[2]) {
+  vj_mma0(t, al, bh);
+  vj_mma(t, ah, bl);
+  vj_mma(t, ah, bh);
+}
+
+// The tensor core's f32 sum truncates; a running sum kept in its accumulator would take
+// that truncation at every k-step, at the running sum's size (a deep sigmoid net's
+// cancelling JVP row missed the 1e-4 gate by that).  So each k-step's products are summed
+// in a fresh tile t (vj_mma3z) and added to the running sum c here, rounding to nearest.
+__device__ __forceinline__ void vj_add(float c[4], const float t[4]) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) c[h] += t[h];
+}
+
+// The A fragment of rows 0..15, columns k0..k0+7 of a(row, col), split.
+template <class LoadA>
+__device__ __forceinline__ void vj_frag_a(LoadA a, int k0, unsigned hi[4], unsigned lo[4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  vj_split(a(gq, k0 + q), hi[0], lo[0]);
+  vj_split(a(gq + 8, k0 + q), hi[1], lo[1]);
+  vj_split(a(gq, k0 + q + 4), hi[2], lo[2]);
+  vj_split(a(gq + 8, k0 + q + 4), hi[3], lo[3]);
+}
+
+// The B fragment of rows k0..k0+7, columns n0..n0+7 of b(k, n), split.
+template <class LoadB>
+__device__ __forceinline__ void vj_frag_b(LoadB b, int k0, int n0, unsigned hi[2],
+                                          unsigned lo[2]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  vj_split(b(k0 + q, n0 + gq), hi[0], lo[0]);
+  vj_split(b(k0 + q + 4, n0 + gq), hi[1], lo[1]);
+}
+
+// acc[nt] (16 x 8 tile nt of a 16 x HP product) += A [16 x HP] B [HP x HP].
+template <int HP, class LoadA, class LoadB>
+__device__ __forceinline__ void vj_rows_mma(float acc[HP / 8][4], LoadA a, LoadB b) {
+#pragma unroll
+  for (int k0 = 0; k0 < HP; k0 += 8) {
+    unsigned ah[4], al[4];
+    vj_frag_a(a, k0, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < HP / 8; ++nt) {
+      unsigned bh[2], bl[2];
+      vj_frag_b(b, k0, nt * 8, bh, bl);
+      float t[4];
+      vj_mma3z(t, ah, al, bh, bl);
+      vj_add(acc[nt], t);
+    }
+  }
+}
+
+// out(row, col, value) for every entry of the 16 x HP accumulator tile.
+template <int HP, class Store>
+__device__ __forceinline__ void vj_rows_store(const float acc[HP / 8][4], Store out) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < HP / 8; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) out(gq + (h & 2 ? 8 : 0), nt * 8 + 2 * q + (h & 1), acc[nt][h]);
+  }
+}
+
+template <int HP>
+__device__ __forceinline__ void vj_zero(float acc[HP / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < HP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+}
+
+// ------------------------------------------------------------------------------------
+// Parameters and stacked layers in shared memory.
+
+// Row stride (floats) of the weights and of the slots.
+template <int HP>
+constexpr int kVjLd = HP + 4;
+
+// The small parameters in shared memory: W0 [HP][4] | b_l [HP] for l = 0..Lh-1 | w_out
+// [HP] | b_out, padded to 4.
+__host__ __device__ inline int vj_small_size(int hp, int n_hidden) {
+  return (4 * hp + (n_hidden + 1) * hp + 1 + 3) / 4 * 4;
+}
+
+// Copy the small parameters and the hidden weights W_l (l = 1..Lh-1) of a packed buffer
+// into shared memory (sW: [(l - 1) HP + j][LD], W_l[j][i] at column i).
+template <int HP>
+__device__ void vj_load_params(const float* __restrict__ params, int Lh, float* sSm, float* sW) {
+  constexpr int LD = kVjLd<HP>;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  for (int u = tid; u < 5 * HP; u += nthr) sSm[u] = params[u];  // W0 | b0
+  for (int l = 1; l < Lh; ++l)
+    for (int i = tid; i < HP; i += nthr) sSm[4 * HP + l * HP + i] = params[vj_off_b(HP, l) + i];
+  const int ow = vj_off_wout(HP, Lh);
+  for (int i = tid; i <= HP; i += nthr) sSm[4 * HP + Lh * HP + i] = params[ow + i];
+  for (int u = tid; u < (Lh - 1) * HP * HP; u += nthr) {
+    const int l = 1 + u / (HP * HP), j = (u / HP) % HP, i = u % HP;
+    sW[((l - 1) * HP + j) * LD + i] = params[vj_off_w(HP, l) + j * HP + i];
+  }
+}
+
+// One 16-row tile of the stacked forward: Z = A W_l^T on the tensor cores (A: 16 rows of
+// layer l - 1's slot), stored to O as a = act(z + b) on a value tile; on a tangent tile as
+// J = act'(a) z when V, the value tile of the same 16 points, is given (a warp that
+// computed it itself), else as the pre-activation z.  O may be A: the tile's rows are all
+// read before any is written.
+template <int HP>
+__device__ __forceinline__ void vj_forward_tile(const float* A, float* O, const float* W,
+                                                const float* b, bool value, const float* V,
+                                                int act) {
+  constexpr int LD = kVjLd<HP>;
+  float acc[HP / 8][4];
+  vj_zero<HP>(acc);
+  vj_rows_mma<HP>(
+      acc, [&](int rr, int i) { return A[rr * LD + i]; },
+      [&](int i, int j) { return W[j * LD + i]; });
+  __syncwarp();
+  if (value)
+    vj_rows_store<HP>(acc, [&](int rr, int j, float v) { O[rr * LD + j] = vj_act(v + b[j], act); });
+  else if (V)
+    vj_rows_store<HP>(acc, [&](int rr, int j, float v) {
+      O[rr * LD + j] = vj_dact(V[rr * LD + j], act) * v;
+    });
+  else
+    vj_rows_store<HP>(acc, [&](int rr, int j, float v) { O[rr * LD + j] = v; });
+}
+
+// One hidden layer of the stacked forward over a tile of T points (rows k T + t), by the
+// whole block: the 16-row tiles spread over the warps (vj_forward_tile, tangent tiles
+// stored as z), then J = act'(a) z on the CUDA cores.  Ends with __syncthreads.
+template <int HP>
+__device__ __forceinline__ void vj_stack_layer(const float* Sin, float* Sout, const float* W,
+                                               const float* b, int T, int panels, int act) {
+  constexpr int LD = kVjLd<HP>;
+  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  for (int mt = warp; mt < panels * T / 16; mt += nwarp)
+    vj_forward_tile<HP>(Sin + mt * 16 * LD, Sout + mt * 16 * LD, W, b, mt * 16 < T, nullptr,
+                        act);
+  __syncthreads();
+  for (int u = threadIdx.x; u < T * HP; u += blockDim.x) {
+    const int t = u / HP, i = u % HP;
+    const float sp = vj_dact(Sout[t * LD + i], act);
+    for (int k = 1; k < panels; ++k) Sout[(k * T + t) * LD + i] *= sp;
+  }
+  __syncthreads();
+}
+
+// G_{l-1} = G_l W_l over the `rows` stacked rows of slot Sl, in place: each warp reads all
+// of its 16 rows before it writes them.  Ends with __syncthreads.
+template <int HP>
+__device__ __forceinline__ void vj_cotangent_rows(float* Sl, const float* W, int rows) {
+  constexpr int LD = kVjLd<HP>;
+  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  for (int mt = warp; mt < rows / 16; mt += nwarp) {
+    const int r0 = mt * 16;
+    float acc[HP / 8][4];
+    vj_zero<HP>(acc);
+    vj_rows_mma<HP>(
+        acc, [&](int rr, int j) { return Sl[(r0 + rr) * LD + j]; },
+        [&](int j, int i) { return W[j * LD + i]; });
+    __syncwarp();
+    vj_rows_store<HP>(acc, [&](int rr, int i, float v) { Sl[(r0 + rr) * LD + i] = v; });
+  }
+  __syncthreads();
+}
+
+// acc[nt] = the 16 x 8 tiles (rows j0.., columns 8 nt..) of G^T Sp summed over the `rows`
+// stacked rows of the slots G and Sp: a whole row block of dW_l, each k-step's A fragment
+// (G^T) split once for all HP / 8 column tiles.  Rows j >= HP read as zero.
+template <int HP>
+__device__ __forceinline__ void vj_dw_rows(float acc[HP / 8][4], const float* G, const float* Sp,
+                                           int rows, int j0) {
+  constexpr int LD = kVjLd<HP>;
+  vj_zero<HP>(acc);
+  for (int r0 = 0; r0 < rows; r0 += 8) {
+    unsigned ah[4], al[4];
+    vj_frag_a(
+        [&](int jj, int r) { return j0 + jj < HP ? G[(r0 + r) * LD + j0 + jj] : 0.0f; }, 0,
+        ah, al);
+#pragma unroll
+    for (int nt = 0; nt < HP / 8; ++nt) {
+      unsigned bh[2], bl[2];
+      vj_frag_b([&](int r, int i) { return Sp[(r0 + r) * LD + i]; }, 0, nt * 8, bh, bl);
+      float t[4];
+      vj_mma3z(t, ah, al, bh, bl);
+      vj_add(acc[nt], t);
+    }
+  }
+}
+
+// acc = the 16 x 8 tile (rows j0.., columns i0..) of G^T Sp summed over the `rows` stacked
+// rows of the slots G (the cotangents [gz; gp]_l) and Sp ([a; J]_{l-1}): the dW_l tile
+// of one warp unit.  Rows j >= HP (HP not a multiple of 16) read as zero.
+template <int HP>
+__device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const float* Sp,
+                                           int rows, int j0, int i0) {
+  constexpr int LD = kVjLd<HP>;
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
+  // the k-steps' fresh tiles are independent: unrolled, their loads and mma overlap (one
+  // warp's unit is otherwise one chain of dependent mma)
+#pragma unroll 2
+  for (int r0 = 0; r0 < rows; r0 += 8) {
+    unsigned ah[4], al[4], bh[2], bl[2];
+    vj_frag_a(
+        [&](int jj, int r) { return j0 + jj < HP ? G[(r0 + r) * LD + j0 + jj] : 0.0f; }, 0,
+        ah, al);
+    vj_frag_b([&](int r, int i) { return Sp[(r0 + r) * LD + i]; }, 0, i0, bh, bl);
+    float t[4];
+    vj_mma3z(t, ah, al, bh, bl);
+    vj_add(acc, t);
+  }
+}

@@ -398,7 +398,7 @@ def padded_width(params) -> int:
 
 def _offsets(hp: int, n_hidden: int):
     """(w offset, b offset) of each layer in the packed buffer (mirrors the
-    vr_off_* helpers of dir_residual.cu), and the padded total."""
+    vj_off_* helpers of csrc/tc3xtf32.cuh), and the padded total."""
     offs = [(0, 4 * hp)]
     for l in range(1, n_hidden):
         w = 5 * hp + (l - 1) * (hp * hp + hp)
@@ -430,7 +430,7 @@ def _check_kernel_args(params, data: ResidualData, activation):
 
 def pack_params(params, hp: int) -> torch.Tensor:
     """Zero-padded packed parameter buffer of the kernel (layout: see the
-    header of csrc/dir_residual.cu)."""
+    header of csrc/tc3xtf32.cuh)."""
     offs, total = _offsets(hp, len(params) - 1)
     buf = torch.zeros(total, dtype=torch.float32, device=params[0]["w"].device)
     for l, (layer, (ow, ob)) in enumerate(zip(params, offs)):

@@ -265,7 +265,7 @@ def load_library() -> ctypes.CDLL:
 def _pack_index(shapes, hp: int, device):
     """(dst, total): flat position in the kernel's packed buffer of every
     element of the leaves ``w_0, b_0, w_1, b_1, ...`` concatenated (``shapes``:
-    the w shapes), and the padded buffer size (layout: csrc/value_and_jac.cu,
+    the w shapes), and the padded buffer size (layout: csrc/tc3xtf32.cuh,
     fused_residual.pack_params)."""
     offs, total = _offsets(hp, len(shapes) - 1)
     parts = []
