@@ -13,6 +13,10 @@ is non-zero and no result line is printed):
                (20, 20)) and at widths (48, 48) and (48, 48, 48): the kernel's forward r and
                backward gradients against the plain PyTorch version on the same
                inputs, and the time per call of each (CUDA events, median of 20).
+               Then kernels-nq1296: K1 (table mode, order 1) and K4 (precoeff, exact BC,
+               order 2) forward (rtol 1e-5) and backward (rtol 1e-4) against their plain
+               versions on the 3-D transient problem with integ_p_num 3 (disc 3 / t_disc
+               3, w64x2: 1296 points per test function, 16 and 625 test functions), untimed.
 4. train    -- ``VarNet(...).train(200 epochs)`` at the bench shape on the kernel
                path; the launch counters must rise every epoch and the loss fall.
                Then 20 epochs on the kernel path and 20 on the plain path from the
@@ -873,6 +877,33 @@ def phase_kernels_dirp(vn3, hq3):
     return full, wide, data2.k * data2.nq, data2.k
 
 
+NQ1296 = dict(disc_num=3, b_disc_num=3, t_disc_num=3, integ_p_num=3)  # nq 1296, n_in 4
+
+
+def phase_kernels_nq1296():
+    """K1 (table mode, order 1) and K4 (precoeff, exact BC, order 2) forward and
+    backward against their plain versions on ``transient_ad_3d`` with integ_p_num 3:
+    1296 points per test function, more than the forward took before it tiled points
+    without regard to test functions."""
+    from varnet_tpu_torch.fem.assembly import build_fixed_data
+    from varnet_tpu_torch.models.mlp import make_input_scaling
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.problems.analytic import transient_ad_3d
+
+    fd = build_fixed_data(transient_ad_3d()["pde"], **NQ1296)
+    scale, shift = make_input_scaling(fd.static.input_lo, fd.static.input_hi)
+    data = fr.prepare_residual_data(fd.quad, scale, shift, time_dependent=True,
+                                    has_react=False, device="cuda")
+    params, gen = _seeded_net(4, (64, 64), 26)
+    _residual_compare(params, data, gen, "kernels-nq1296 K1 order-1 w64x2", timed=False,
+                      kernels=(fr.dir_residual_fwd, fr.dir_residual_bwd))
+    vn = _hard_vn("transient_ad_3d", (64, 64), dict(NQ1296, test_order=2))
+    data = fr.prepare_residual_coeffs(vn.fixed.quad, vn.scale, vn.shift, time_dependent=True,
+                                      has_react=vn.has_react,
+                                      hard=vn._hard_tables(vn.fixed.quad), device="cuda")
+    _residual_compare(params, data, gen, "kernels-nq1296 K4 hard order-2 w64x2", timed=False)
+
+
 def _losses(res):
     return np.array([r["loss"] for r in res.losses])
 
@@ -1402,6 +1433,7 @@ def main():
     k20 = phase_kernels((20, 20))
     phase_kernels((48, 48))
     phase_kernels((48, 48, 48))
+    phase_kernels_nq1296()
     launches = phase_train()
     phase_accuracy()
     xs_t, nq = _bench_points()

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Flagship Adam throughput and the residual backward kernels of two checkouts of this
-repository, alternated on one GPU, each run in a fresh process from its checkout's own
+"""Adam throughput and the residual kernels of two checkouts of this repository,
+alternated on one GPU, each run in a fresh process from its checkout's own
 ``chip_smoke.py`` (which builds that checkout's kernels on its first run).
 
     python3 scripts/ab_adam.py OTHER_CHECKOUT . --pairs 3
 
 Each run, CUDA events, median of 20 (10 for K4):
 
-* K1/K2 backward (``dir_residual_bwd``) at the flagship mesh (transient 2-D AD, disc 48 /
-  t_disc 32: 4,382,656 points) on a seeded net of widths (20, 20) (the bench shape) and
-  (48, 48) (the time-to-1e-3 recipe's net), with a seeded cotangent;
-* K4 backward (``dirp_residual_bwd``) at the exact-BC 3-D transient recipe's mesh (disc 16
-  / t_disc 10, w64x2, the hard fold: 7,776,000 points), as ``chip_smoke.py``'s
-  kernels-dirp phase builds it;
+* K1/K2 forward and backward (``dir_residual_fwd`` / ``_bwd``) at the flagship mesh
+  (transient 2-D AD, disc 48 / t_disc 32: 4,382,656 points) on a seeded net of widths
+  (20, 20) (the bench shape) and (48, 48) (the time-to-1e-3 recipe's net), with a seeded
+  cotangent;
+* K4 forward and backward (``dirp_residual_fwd`` / ``_bwd``) at the exact-BC 3-D
+  transient recipe's mesh (disc 16 / t_disc 10, w64x2, the hard fold: 7,776,000 points),
+  as ``chip_smoke.py``'s kernels-dirp phase builds it;
+* 20 (``--hard-epochs``) Adam epochs of that exact-BC VarNet through K4, after one
+  epoch from its seeded net, as ``chip_smoke.py``'s hard-train phase runs them: steps/s;
 * 200 (``--epochs``) Adam epochs at d48/t32, w20x2, through K1/K2, as ``chip_smoke.py``'s
   train phase runs them: steps/s and quad-pt evals/s.
 
@@ -44,7 +47,9 @@ data = cs._bench_data()
 for widths in ((20, 20), (48, 48)):
     params, gen = cs._seeded_net(data.xs.shape[0], widths, 0)
     gr = torch.randn(data.k, generator=gen).cuda()
-    out["k1_bwd_ms_w" + "x".join(map(str, widths))] = cs._median_ms(
+    tag = "x".join(map(str, widths))
+    out["k1_fwd_ms_w" + tag] = cs._median_ms(lambda: fr.dir_residual_fwd(params, data, "tanh"))
+    out["k1_bwd_ms_w" + tag] = cs._median_ms(
         lambda: fr.dir_residual_bwd(params, data, "tanh", gr))
 del data
 vn3 = cs._hard_vn("transient_ad_3d", (64, 64), cs.HARD_3DT)
@@ -54,9 +59,16 @@ data = fr.prepare_residual_coeffs(quad, vn3.scale, vn3.shift, time_dependent=Tru
                                   device="cuda")
 params, gen = cs._seeded_net(4, (64, 64), 21)
 gr = torch.randn(data.k, generator=gen).cuda()
+out["k4_fwd_ms_3dt_w64x2"] = cs._median_ms(
+    lambda: fr.dirp_residual_fwd(params, data, "tanh"), n=10)
 out["k4_bwd_ms_3dt_w64x2"] = cs._median_ms(
     lambda: fr.dirp_residual_bwd(params, data, "tanh", gr), n=10)
-del data, vn3, quad
+del data, quad
+torch.cuda.empty_cache()
+vn3.train(epoch_num=1, save_freq=1, verbose=False, error_disc=24)
+res = vn3.train(epoch_num={hard_epochs}, save_freq={hard_epochs}, verbose=False, error_disc=24)
+out["hard_3dt_steps_per_sec"] = res.steps_per_sec
+del vn3
 torch.cuda.empty_cache()
 _, res = cs._train((20, 20), None, {epochs}, {epochs}, True)
 out.update(steps_per_sec=res.steps_per_sec, quad_evals_per_sec=res.quad_evals_per_sec)
@@ -64,8 +76,9 @@ print(json.dumps(out))
 """
 
 
-def run(tree, epochs):
-    out = subprocess.run([sys.executable, "-c", CHILD.format(epochs=epochs)], cwd=tree,
+def run(tree, epochs, hard_epochs):
+    out = subprocess.run([sys.executable, "-c",
+                          CHILD.format(epochs=epochs, hard_epochs=hard_epochs)], cwd=tree,
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
@@ -79,6 +92,7 @@ def main(argv=None):
     ap.add_argument("tree_b")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--epochs", type=int, default=200)
+    ap.add_argument("--hard-epochs", type=int, default=20)
     args = ap.parse_args(argv)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,7 +101,7 @@ def main(argv=None):
     runs = {"a": [], "b": []}
     for _ in range(args.pairs):
         for key in ("a", "b", "b", "a"):
-            nums = run(trees[key], args.epochs)
+            nums = run(trees[key], args.epochs, args.hard_epochs)
             runs[key].append(nums)
             print(json.dumps({"tree": trees[key], **nums}), flush=True)
     print(json.dumps({key: {"tree": trees[key],

@@ -173,6 +173,10 @@ def test_tensor_core_kernels_match_plain_at_every_width(cuda, hp, n_in, layers, 
     params, xs_t, g, tangent = _vj_case(n_in, (hp,) * layers, p=777, seed=hp + n_in + layers)
     _check_fwd(params, xs_t, activation)
     _check_bwd_jvp(params, xs_t, g, tangent, activation)
+    # the K1/K4 forward: table mode with and without reaction, precoeff mode
+    for mode in DIR_MODES:
+        params, data, _ = _dir_synth(mode, n_in, (hp,) * layers, seed=hp + n_in + layers)
+        _check_dir_fwd(mode, params, data, activation)
 
 
 @pytest.mark.parametrize("p", [1, 15, 17, 63, 65, 1001])
@@ -535,9 +539,10 @@ def test_dirp_backward_is_deterministic(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The K1/K4 backward on the tensor cores (3xTF32 mma.sync, dW summed in registers or,
-# for the deepest nets, a shared-memory partial): every padded width, input count,
-# depth and activation, in table mode with and without reaction and in precoeff mode
+# The K1/K4 forward and backward on the tensor cores (3xTF32 mma.sync; the backward's dW
+# summed in registers or, for the deepest nets, a shared-memory partial): every padded
+# width, input count, depth and activation, in table mode with and without reaction and
+# in precoeff mode; any number of points per test function
 
 DIR_MODES = ["table", "table-react", "precoeff"]
 
@@ -599,6 +604,73 @@ def _check_dir_bwd(mode, params, data, gr, activation):
                 own = _rel(q[k].double(), p[k])
                 err = _rel(g[k].double(), p[k])
                 assert err < (1e-4 if own <= 5e-5 else 3 * own), (k, err, own)
+
+
+def _check_dir_fwd(mode, params, data, activation):
+    """The K1 (table mode) or K4 (precoeff mode) forward against its plain version
+    evaluated in f64: r within 1e-5 of max |r|, or within 3x the f32 plain version's own
+    distance from f64 where that exceeds half the gate (a q-sum that cancels).
+    Returns r."""
+    fn = fr.dirp_residual_fwd if mode == "precoeff" else fr.dir_residual_fwd
+    before = fn.launches
+    r = fn(params, data, activation)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and r.shape == (data.k,)
+    ref = fr.dir_residual_fwd_plain(_f64(params), _dir_f64(data), activation)
+    own = _rel(fr.dir_residual_fwd_plain(params, data, activation).double(), ref)
+    err = _rel(r.double(), ref)
+    assert err < (1e-5 if own <= 5e-6 else 3 * own), (err, own)
+    return r
+
+
+@pytest.mark.parametrize("k", [0, 1, 7])
+@pytest.mark.parametrize("nq", [1, 3, 16, 62, 64, 216, 257, 1296])
+@pytest.mark.parametrize("mode", DIR_MODES)
+def test_dir_forward_takes_any_point_count_per_test_function(cuda, mode, nq, k):
+    """The repair of the forward's nq limit (it refused nq > 1024, and fewer points at
+    the wider nets): any nq, including nq above and not a multiple of the 16-point
+    group or the 32-lane sum; forward and backward against the plain versions in f64."""
+    params, data, gr = _dir_synth(mode, 3, (48, 48), k=k, nq=nq, seed=nq + k)
+    if k:
+        _check_dir_fwd(mode, params, data, "tanh")
+        _check_dir_bwd(mode, params, data, gr, "tanh")
+        return
+    fn = fr.dirp_residual_fwd if mode == "precoeff" else fr.dir_residual_fwd
+    r = fn(params, data, "tanh")
+    torch.cuda.synchronize()
+    assert r.shape == (0,)
+
+
+@pytest.mark.parametrize("mode", DIR_MODES)
+def test_dir_forward_is_deterministic(cuda, mode):
+    """r is bit-identical across calls: fixed-order sums, no atomics."""
+    params, data, _ = _dir_synth(mode, 4, (64, 64), k=37, nq=1296, seed=3)
+    fn = fr.dirp_residual_fwd if mode == "precoeff" else fr.dir_residual_fwd
+    assert torch.equal(fn(params, data, "sigmoid"), fn(params, data, "sigmoid"))
+
+
+@pytest.mark.parametrize("kind", ["penalty", "hard-order2"])
+def test_training_at_1296_points_per_test_function(cuda, kind):
+    """``transient_ad_3d`` with integ_p_num 3 (nq 1296), which raised in the forward of
+    the first Adam step: order 1 with penalty BCs through K1, order 2 with exact BC
+    through K4; the launch counters rise every epoch and the losses follow the plain
+    path's."""
+    from varnet_tpu_torch.problems.analytic import transient_ad_3d
+
+    hard = kind != "penalty"
+    kw = dict(layer_width=(16, 16), disc_num=3, b_disc_num=3, t_disc_num=3, integ_p_num=3,
+              device=cuda, hard_bc=hard, test_order=2 if hard else 1)
+    train = dict(epoch_num=3, save_freq=1, verbose=False, error_disc=8, error_times=2)
+    vns = [VarNet(transient_ad_3d()["pde"], **kw),
+           VarNet(transient_ad_3d()["pde"], use_pallas=False, use_fused_residual=False, **kw)]
+    assert vns[0].static.n_quad_per_test == 1296
+    fwd, bwd = ((fr.dirp_residual_fwd, fr.dirp_residual_bwd) if hard
+                else (fr.dir_residual_fwd, fr.dir_residual_bwd))
+    before = (fwd.launches, bwd.launches)
+    res = vns[0].train(**train)
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (3, 3)
+    np.testing.assert_allclose([r["loss"] for r in res.losses],
+                               [r["loss"] for r in vns[1].train(**train).losses], rtol=2e-4)
 
 
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])

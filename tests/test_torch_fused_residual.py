@@ -19,7 +19,8 @@ from varnet_tpu.fem.assembly import build_fixed_data
 from varnet_tpu.models.mlp import make_input_scaling, mlp_value_and_jac
 from varnet_tpu.ops.pallas_residual import pallas_fused_residual
 from varnet_tpu.ops.residual import weak_residual
-from varnet_tpu.problems.analytic import steady_ad_1d, steady_adr_1d, transient_ad_2d
+from varnet_tpu.problems.analytic import (steady_ad_1d, steady_adr_1d, transient_ad_2d,
+                                         transient_ad_3d)
 from varnet_tpu_torch.models.mlp import params_from_jax
 from varnet_tpu_torch.ops import fused_residual as fr
 
@@ -28,6 +29,10 @@ CASES = [  # name, factory, assembly kwargs, time-dependent, reaction, widths
      (20, 20)),
     ("1d", steady_ad_1d, dict(disc_num=16), False, False, (8, 8, 8)),
     ("adr1d", steady_adr_1d, dict(disc_num=16), False, True, (8, 8, 8)),
+    # 16 test functions of 1296 points (integ_p_num 3, n_in 4): more than the old
+    # one-thread-per-point forward took on the card
+    ("3dt_nq1296", transient_ad_3d, dict(disc_num=3, b_disc_num=3, t_disc_num=3,
+                                         integ_p_num=3), True, False, (8, 8)),
 ]
 IDS = [c[0] for c in CASES]
 

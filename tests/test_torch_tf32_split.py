@@ -1,9 +1,10 @@
 """Can the kernels run their hidden-layer products on the tensor cores?
 
 ``csrc/value_and_jac.cu`` (K5 forward and backward, K6) and ``csrc/dir_residual.cu``
-(the K1/K4 backward) compute the hidden layers' products -- K5 forward: Z = S W^T;
-K5 backward and K1/K4 backward: recompute Z = S W^T, cotangents G W, weight gradient
-G^T S; K6: Z = S W^T, DZ = DS W^T + S dW^T -- with ``mma.sync.m16n8k8 ... tf32`` in
+(the K1/K4 forward and backward) compute the hidden layers' products -- K5 and K1/K4
+forward: Z = S W^T; K5 backward and K1/K4 backward: recompute Z = S W^T, cotangents
+G W, weight gradient G^T S; K6: Z = S W^T, DZ = DS W^T + S dW^T -- with
+``mma.sync.m16n8k8 ... tf32`` in
 3xTF32: each operand x is split into x_hi = cvt.rna.tf32(x) and x_lo = cvt.rna.tf32(x -
 x_hi), and a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi.  Layer 0, the output layer
 and the activations stay in f32 on the CUDA cores.
@@ -17,7 +18,9 @@ evaluation with the card gates (each gradient leaf / output row within 1e-4 of i
 K5 forward 1e-5): 3xTF32 with the fresh-tile sum passes with room to spare, a single
 TF32 pass does not, and neither does 3xTF32 with the running sum kept in the mma
 accumulator (truncated at every k-step) where the sum is long: the weight gradients,
-summed over every point.  The emulation sums each product exactly before it rounds
+summed over every point.  The K1/K4 forward's r sums each test function's nq point
+contributions as its second kernel does (``qsum``: 32 lanes, each summing every 32nd
+point in order, then a shuffle tree), checked also at nq 1296.  The emulation sums each product exactly before it rounds
 (a tf32 x tf32 product fits an f32 significand); the order of the tensor core's
 internal sum is not modelled, which the headroom covers.
 """
@@ -187,6 +190,50 @@ def fwd(params, xs, act_name, mm):
     return torch.cat([out[:1] + bs[-1], out[1:]], dim=0)
 
 
+def qsum(contrib, nq):
+    """r [K], K = P // nq: each test function's nq contributions summed as the K1/K4
+    forward's second kernel sums them: lane l of a warp adds q = l, l + 32, ... in order,
+    then a shuffle tree adds lane l + off into lane l for off = 16, 8, 4, 2, 1."""
+    k = contrib.shape[0] // nq
+    c = torch.nn.functional.pad(contrib[:k * nq].reshape(k, nq), (0, -nq % 32))
+    lanes = torch.zeros(k, 32, dtype=contrib.dtype)
+    for step in c.reshape(k, -1, 32).unbind(dim=1):
+        lanes = lanes + step
+    for off in (16, 8, 4, 2, 1):
+        lanes = torch.cat([lanes[:, :off] + lanes[:, off:2 * off], lanes[:, off:]], dim=1)
+    return lanes[:, 0]
+
+
+def dir_fwd(params, xs, c, csrc, cu, nq, act_name, mm):
+    """The K1/K4 forward as the kernel computes it: layer 0 and the output row in the
+    tensors' own precision, the stacked [a | t] through ``mm`` at each hidden layer, the
+    point contributions w_out . t + csrc (+ cu (w_out . a + b_out), cu None: no
+    reaction), then the test functions' sums (``qsum``)."""
+    act, act_p, _ = _act_triple(act_name)
+    wts = [layer["w"].T for layer in params]
+    bs = [layer["b"][:, None] for layer in params]
+    p = xs.shape[1]
+    a = act(wts[0] @ xs + bs[0])
+    s = torch.cat([a, act_p(a) * (wts[0] @ c)], dim=1)
+    for wt, b in zip(wts[1:-1], bs[1:-1]):
+        z = mm(wt, s)
+        a = act(z[:, :p] + b)
+        s = torch.cat([a, act_p(a) * z[:, p:]], dim=1)
+    out = (wts[-1] @ s)[0]
+    contrib = out[p:] + csrc
+    if cu is not None:
+        contrib = contrib + cu * (out[:p] + bs[-1][0])
+    return [qsum(contrib, nq)]
+
+
+def dir_fwd_plain(params, xs, c, csrc, cu, nq, act_name):
+    """The K1/K4 forward's plain version on the first P // nq test functions of nq points."""
+    n = xs.shape[1] // nq * nq
+    data = fr.CoeffData(xs=xs[:, :n], cdir=c[:, :n], csrc=csrc[:n],
+                        cu=None if cu is None else cu[:n], k=n // nq, nq=nq)
+    return [fr.dir_residual_fwd_plain(params, data, act_name)]
+
+
 def dir_bwd(params, xs, c, g_tan, cu, act_name, mm):
     """The K1/K4 backward as the kernel computes it: two panels, the value a and the
     directional tangent t = act'(a) W c, stacked [a | t]; the output cotangents g_val =
@@ -249,11 +296,11 @@ def _case(widths, n_in=3, seed=0):
 
 def _dir_case(n_in=3, seed=1):
     """The directional residual's per-point data: a direction c (a weighted velocity /
-    diffusion / time row per input), the tangent cotangent g_tan and the reaction
-    coefficient cu."""
+    diffusion / time row per input), the tangent cotangent g_tan, the reaction
+    coefficient cu and the source term csrc."""
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((n_in, P)), rng.standard_normal(P),
-            rng.uniform(0.0, 2.0, P))
+            rng.uniform(0.0, 2.0, P), 0.1 * rng.standard_normal(P))
 
 
 def _as(tree, dtype):
@@ -266,22 +313,34 @@ def _worst(got, ref):
     return max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(got, ref))
 
 
-# kernel -> (its emulation (params, tangent, xs, g, c, g_tan, cu, mm), its plain version
-# (the same without mm), its card gate, the headroom 3xTF32 keeps below it)
+# kernel -> (its emulation (params, tangent, xs, g, c, g_tan, cu, csrc, mm), its plain
+# version (the same without mm), its card gate, the headroom 3xTF32 keeps below it)
 DIR_CASES = [(act, react) for act in ("tanh", "sigmoid") for react in (False, True)]
+DIR_NQ = 60     # points per test function of the K1/K4 forward cases: K = P / 60 = 100
 KERNELS = {
-    "bwd": (lambda p, t, x, g, c, gt, cu, mm: bwd(p, x, g, "tanh", mm), None, GATE, HEADROOM),
-    "jvp": (lambda p, t, x, g, c, gt, cu, mm: jvp(p, x, t, "tanh", mm), None, GATE, HEADROOM),
-    **{f"fwd-{act}": ((lambda act: lambda p, t, x, g, c, gt, cu, mm: fwd(p, x, act, mm))(act),
-                      (lambda act: lambda p, t, x, g, c, gt, cu: vj.vj_fwd_plain(p, x, act))(act),
-                      FWD_GATE, FWD_HEADROOM)
-       for act in ("tanh", "sigmoid")},
+    "bwd": (lambda p, t, x, g, c, gt, cu, cs, mm: bwd(p, x, g, "tanh", mm), None, GATE,
+            HEADROOM),
+    "jvp": (lambda p, t, x, g, c, gt, cu, cs, mm: jvp(p, x, t, "tanh", mm), None, GATE,
+            HEADROOM),
+    **{f"fwd-{act}": (
+        (lambda act: lambda p, t, x, g, c, gt, cu, cs, mm: fwd(p, x, act, mm))(act),
+        (lambda act: lambda p, t, x, g, c, gt, cu, cs: vj.vj_fwd_plain(p, x, act))(act),
+        FWD_GATE, FWD_HEADROOM) for act in ("tanh", "sigmoid")},
     **{f"dir_bwd-{act}{'-react' if react else ''}": (
-        (lambda act, react: lambda p, t, x, g, c, gt, cu, mm:
+        (lambda act, react: lambda p, t, x, g, c, gt, cu, cs, mm:
          dir_bwd(p, x, c, gt, cu if react else None, act, mm))(act, react),
-        (lambda act, react: lambda p, t, x, g, c, gt, cu:
+        (lambda act, react: lambda p, t, x, g, c, gt, cu, cs:
          dir_bwd_plain(p, x, c, gt, cu if react else None, act))(act, react),
         GATE, HEADROOM) for act, react in DIR_CASES},
+    # the K1/K4 forward; "-nq1296": 4 test functions of 1296 points, a count the sum's
+    # 32-lane stride does not divide (1296 = 40 x 32 + 16)
+    **{f"dir_fwd-{act}{'-react' if react else ''}{'-nq1296' if nq == 1296 else ''}": (
+        (lambda act, react, nq: lambda p, t, x, g, c, gt, cu, cs, mm:
+         dir_fwd(p, x, c, cs, cu if react else None, nq, act, mm))(act, react, nq),
+        (lambda act, react, nq: lambda p, t, x, g, c, gt, cu, cs:
+         dir_fwd_plain(p, x, c, cs, cu if react else None, nq, act))(act, react, nq),
+        FWD_GATE, FWD_HEADROOM)
+       for act, react, nq in [(a, r, DIR_NQ) for a, r in DIR_CASES] + [("tanh", False, 1296)]},
 }
 MODES = (("f32", torch.matmul), ("3xtf32", mm_3xtf32), ("tf32", mm_tf32), ("trunc", mm_trunc))
 LONG_SUMS = ["bwd"] + [k for k in KERNELS if k.startswith("dir_bwd")]  # G^T S over all points
@@ -290,9 +349,9 @@ LONG_SUMS = ["bwd"] + [k for k in KERNELS if k.startswith("dir_bwd")]  # G^T S o
 @pytest.fixture(scope="module", params=[(48, 48), (48, 48, 48)], ids=["w48x2", "w48x3"])
 def errors(request):
     params, tangent, xs, g = _case(request.param)
-    c, g_tan, cu = _dir_case()
-    f32 = [_as(t, torch.float32) for t in (params, tangent, xs, g, c, g_tan, cu)]
-    f64 = [_as(t, torch.float64) for t in (params, tangent, xs, g, c, g_tan, cu)]
+    c, g_tan, cu, csrc = _dir_case()
+    f32 = [_as(t, torch.float32) for t in (params, tangent, xs, g, c, g_tan, cu, csrc)]
+    f64 = [_as(t, torch.float64) for t in (params, tangent, xs, g, c, g_tan, cu, csrc)]
     out = {}
     for name, (fn, _, gate, room) in KERNELS.items():
         ref = fn(*f64, torch.matmul)
@@ -303,12 +362,12 @@ def errors(request):
 
 @pytest.mark.parametrize("kernel", [k for k in KERNELS if KERNELS[k][1] is not None])
 def test_new_emulations_are_the_plain_versions(kernel):
-    """The K5 forward and K1/K4 backward emulations' arithmetic, in f64 with exact
-    products, is the plain versions'."""
+    """The K5 forward and K1/K4 forward and backward emulations' arithmetic, in f64 with
+    exact products, is the plain versions'."""
     params, tangent, xs, g = (_as(t, torch.float64) for t in _case((20, 24, 16)))
-    c, g_tan, cu = (_as(t, torch.float64) for t in _dir_case())
+    c, g_tan, cu, csrc = (_as(t, torch.float64) for t in _dir_case())
     fn, plain = KERNELS[kernel][:2]
-    args = (params, tangent, xs, g, c, g_tan, cu)
+    args = (params, tangent, xs, g, c, g_tan, cu, csrc)
     assert _worst(fn(*args, torch.matmul), plain(*args)) < 1e-12
 
 

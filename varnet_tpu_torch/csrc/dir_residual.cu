@@ -19,13 +19,18 @@
 // What bounds it: arithmetic.  At width (20, 20) forward plus backward is about 10 kFLOP
 // per quadrature point against about 28 bytes read (3 coordinates + 4 field values), so
 // the kernels sit far above the memory roofline and keep every intermediate on chip:
-// nothing but r (forward) and one gradient partial per block (backward) is written to
-// device memory.
+// nothing but one f32 per point and r (forward) and one gradient partial per block
+// (backward) is written to device memory.
 //
-// Forward (vr_fwd_kernel): f32 on the CUDA cores, one thread per quadrature point, kpb =
-// blockDim.x / nq whole test functions per block, the thread's activation and tangent
-// pre-activation in its own shared-memory column, the q-sum reduced in shared memory in
-// a fixed order.
+// Forward (vr_fwd_kernel): the hidden products on the tensor cores in 3xTF32, on stacked
+// panels (csrc/tc3xtf32.cuh), as K5's forward: one warp per group of 16 points stacks
+// their value and directional-tangent panels [a; t] as two 16-row tiles and pushes them
+// through the hidden layers in place, with no block-wide sync; layer 0, the activations
+// and the output row stay on the CUDA cores.  Points are tiled without regard to test
+// functions: the warp writes each point's contribution, and vr_qsum_kernel sums each test
+// function's nq of them, a warp per test function in a fixed order.  So the forward takes
+// any nq, and its launch depends on none (one f32 per point written and read again:
+// 35 MB at the flagship mesh, ~10 us of the card's memory time).
 //
 // Backward (vr_bwd_kernel): the hidden products on the tensor cores in 3xTF32, on
 // stacked panels (csrc/tc3xtf32.cuh, the design of K5's backward with one tangent
@@ -48,9 +53,9 @@
 // forming them from the field rows and the shared [nq] table: the host folded the test
 // tables (shared [nq] or per-node [K, nq]: order-2 test spaces, refined hats), the input
 // scale and, for exact BC/IC, the affine ansatz u = A + B n into them
-// (ops/fused_residual.py::prepare_residual_coeffs).  Only the point reader (vr_point)
-// differs; the forward and backward bodies are K1's.  It reads 2 n_in + 1 floats per
-// point (+ 1 for cu) against n_in + 2 + d (+ 1 for reaction) in table mode, still far
+// (ops/fused_residual.py::prepare_residual_coeffs).  Only the point reader (vr_load,
+// vr_form) differs; the forward and backward bodies are K1's.  It reads 2 n_in + 1 floats
+// per point (+ 1 for cu) against n_in + 2 + d (+ 1 for reaction) in table mode, still far
 // below the work per point, so K4 is bound by operations like K1.
 //
 // TPU -> Hopper translation.  The TPU grid runs in order and sums dW across grid steps
@@ -96,148 +101,187 @@ __device__ __forceinline__ void vr_load_tab(const VrProblem& pb, float* sTab, fl
     sScale[threadIdx.x] = threadIdx.x < pb.n_in ? pb.scale[threadIdx.x] : 0.0f;
 }
 
-// Scaled coordinates x, direction c and the u / source coefficients of point p = k nq +
-// q: read (precoeff mode) or formed from the fields and the table (the math of
-// _dir_coeffs).  Invalid points (p >= P) get all zeros.
-__device__ __forceinline__ void vr_point(const VrProblem& pb, const float* sTab,
-                                         const float* sScale, long long p, int q, bool valid,
-                                         float x[VR_MAX_IN], float c[VR_MAX_IN],
-                                         float& cu, float& csrc) {
+// The raw inputs of point p = k nq + q, zeros for an invalid point (p >= P): the scaled
+// coordinates x; in precoeff mode the direction v = cdir and f = (csrc, cu); in table mode
+// the velocity v and f = (kappa, src, react).  Only loads from device memory, so a
+// prefetch of the next tile's inputs does not wait for them.
+struct VrRaw {
+  float x[VR_MAX_IN], v[VR_MAX_IN], f[3];
+  int q;
+};
+
+__device__ __forceinline__ void vr_load(const VrProblem& pb, long long p, int q, bool valid,
+                                        VrRaw& in) {
 #pragma unroll
-  for (int j = 0; j < VR_MAX_IN; ++j) { x[j] = 0.0f; c[j] = 0.0f; }
-  cu = 0.0f;
-  csrc = 0.0f;
+  for (int j = 0; j < VR_MAX_IN; ++j) in.x[j] = in.v[j] = 0.0f;
+  in.f[0] = in.f[1] = in.f[2] = 0.0f;
+  in.q = valid ? q : 0;
   if (!valid) return;
+#pragma unroll
+  for (int j = 0; j < VR_MAX_IN; ++j)
+    if (j < pb.n_in) in.x[j] = pb.xs[j * pb.P + p];
   if (pb.pre) {
 #pragma unroll
-    for (int j = 0; j < VR_MAX_IN; ++j) {
-      if (j < pb.n_in) {
-        x[j] = pb.xs[j * pb.P + p];
-        c[j] = pb.cdir[j * pb.P + p];
-      }
-    }
-    csrc = pb.csrc[p];
-    if (pb.has_react) cu = pb.cu[p];
+    for (int j = 0; j < VR_MAX_IN; ++j)
+      if (j < pb.n_in) in.v[j] = pb.cdir[j * pb.P + p];
+    in.f[0] = pb.csrc[p];
+    if (pb.has_react) in.f[1] = pb.cu[p];
     return;
   }
-  const float* row = sTab + q * (2 + pb.d);
-  const float n_q = row[0], w_q = row[1];
-  const float kappa = pb.flds[p];
+  in.f[0] = pb.flds[p];
 #pragma unroll
-  for (int j = 0; j < VR_MAX_IN; ++j) {
-    if (j < pb.n_in) x[j] = pb.xs[j * pb.P + p];
-    if (j < pb.d) {
-      const float vel = pb.flds[(1 + j) * pb.P + p];
-      c[j] = w_q * sScale[j] * (vel * n_q + kappa * row[2 + j]);
-    } else if (j == pb.d && pb.td) {
-      c[j] = w_q * sScale[j] * n_q;
-    }
-  }
-  csrc = -w_q * n_q * pb.flds[(1 + pb.d) * pb.P + p];
-  if (pb.has_react) cu = w_q * n_q * pb.flds[(2 + pb.d) * pb.P + p];
+  for (int j = 0; j < VR_MAX_IN; ++j)
+    if (j < pb.d) in.v[j] = pb.flds[(1 + j) * pb.P + p];
+  in.f[1] = pb.flds[(1 + pb.d) * pb.P + p];
+  if (pb.has_react) in.f[2] = pb.flds[(2 + pb.d) * pb.P + p];
 }
 
-// Hidden layers of the 2-panel forward for this thread's point: the last layer's
-// activation a and tangent PRE-activation pre (the tangent is act'(a) * pre) end in the
-// thread's column of sA / sP (row stride ld).
-template <int HP>
-__device__ __forceinline__ void vr_hidden_forward(const float* sW, int n_hidden, int act,
-                                                  const float x[VR_MAX_IN],
-                                                  const float c[VR_MAX_IN], float* sA,
-                                                  float* sP, int ld) {
-  const int tid = threadIdx.x;
-  const float* b0 = sW + vj_off_b(HP, 0);
-  for (int j = 0; j < HP; ++j) {
-    const float* w0 = sW + 4 * j;
-    float z = b0[j], pre = 0.0f;
+// The direction c and the u / source coefficients of a point from its raw inputs: read
+// (precoeff mode) or formed from the fields and row q of the table (the math of
+// _dir_coeffs).
+__device__ __forceinline__ void vr_form(const VrProblem& pb, const float* sTab,
+                                        const float* sScale, const VrRaw& in,
+                                        float c[VR_MAX_IN], float& cu, float& csrc) {
+  if (pb.pre) {
 #pragma unroll
-    for (int i = 0; i < VR_MAX_IN; ++i) {
-      z = fmaf(w0[i], x[i], z);
-      pre = fmaf(w0[i], c[i], pre);
-    }
-    sA[j * ld + tid] = vj_act(z, act);
-    sP[j * ld + tid] = pre;
+    for (int j = 0; j < VR_MAX_IN; ++j) c[j] = in.v[j];
+    csrc = in.f[0];
+    cu = in.f[1];
+    return;
   }
-  for (int l = 1; l < n_hidden; ++l) {
-    float av[HP], tv[HP];
+  const float* row = sTab + in.q * (2 + pb.d);
+  const float n_q = row[0], w_q = row[1], kappa = in.f[0];
 #pragma unroll
-    for (int i = 0; i < HP; ++i) {
-      const float a = sA[i * ld + tid];
-      av[i] = a;
-      tv[i] = vj_dact(a, act) * sP[i * ld + tid];
-    }
-    const float* W = sW + vj_off_w(HP, l);
-    const float* b = sW + vj_off_b(HP, l);
-    for (int j = 0; j < HP; ++j) {
-      const float4* wr = reinterpret_cast<const float4*>(W + j * HP);
-      float z0 = b[j], z1 = 0.0f, p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-      for (int i4 = 0; i4 < HP / 4; ++i4) {
-        const float4 w = wr[i4];
-        z0 = fmaf(w.x, av[4 * i4 + 0], z0);
-        p0 = fmaf(w.x, tv[4 * i4 + 0], p0);
-        z1 = fmaf(w.y, av[4 * i4 + 1], z1);
-        p1 = fmaf(w.y, tv[4 * i4 + 1], p1);
-        z0 = fmaf(w.z, av[4 * i4 + 2], z0);
-        p0 = fmaf(w.z, tv[4 * i4 + 2], p0);
-        z1 = fmaf(w.w, av[4 * i4 + 3], z1);
-        p1 = fmaf(w.w, tv[4 * i4 + 3], p1);
-      }
-      sA[j * ld + tid] = vj_act(z0 + z1, act);
-      sP[j * ld + tid] = p0 + p1;
-    }
+  for (int j = 0; j < VR_MAX_IN; ++j) {
+    c[j] = 0.0f;
+    if (j < pb.d)
+      c[j] = w_q * sScale[j] * (in.v[j] * n_q + kappa * row[2 + j]);
+    else if (j == pb.d && pb.td)
+      c[j] = w_q * sScale[j] * n_q;
   }
+  csrc = -w_q * n_q * in.f[1];
+  cu = pb.has_react ? w_q * n_q * in.f[2] : 0.0f;
 }
 
 // ------------------------------------------------------------------------------------
-// Forward: one thread per quadrature point, kpb = blockDim.x / nq whole test functions
-// per block; the q-sum is reduced in shared memory in a fixed order.
+// Forward, persistent, one warp per group of 16 points (as K5's forward): the group's
+// value and directional-tangent tiles [a; t] (rows t, then 16 + t) in one slot of the
+// warp's own that every hidden layer overwrites in place (vj_forward_tile, the value tile
+// first: the tangent tile reads act'(a) from the value rows the same lanes wrote), no
+// block-wide sync after the parameters are loaded.  Shared memory: the small parameters,
+// W_l (f32, [out][LD]), and per warp the group's coordinates X [16][4], directions C
+// [16][4] and its slot [32][LD].  Lane t < 16 loads point t's raw inputs of group j + 1
+// into registers (vr_load) while group j is computed, and forms c from them with the
+// table row (vr_form; the table straight from device memory, cached: nothing here is
+// sized by nq) when its turn comes.  Output: lane r takes row r's dot product with w_out
+// in four chains added pairwise (u on the value rows, dd = w_out . t on the tangent rows),
+// and lane t writes contrib[p] = dd + csrc (+ cu u); vr_qsum_kernel sums each test
+// function's nq contributions.
 template <int HP>
-__global__ void vr_fwd_kernel(VrProblem pb, const float* __restrict__ params,
-                              float* __restrict__ r) {
+__global__ void __launch_bounds__(256)
+    vr_fwd_kernel(VrProblem pb, const float* __restrict__ params, float* __restrict__ contrib,
+                  long long n_groups) {
+  constexpr int LD = kVjLd<HP>;
   extern __shared__ float4 vr_smem4[];
   float* smem = reinterpret_cast<float*>(vr_smem4);
-  const int T = blockDim.x, tid = threadIdx.x;
-  const int npp = vj_n_params(HP, pb.n_hidden);
-  float* sW = smem;
-  float* sTab = sW + npp;
-  float* sScale = sTab + vr_tab_floats(pb);
-  float* sA = sScale + VR_MAX_IN;
-  float* sP = sA + HP * T;
-  float* sRed = sP + HP * T;
-  for (int i = tid; i < npp; i += T) sW[i] = params[i];
-  vr_load_tab(pb, sTab, sScale);
+  const int Lh = pb.n_hidden, act = pb.act;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  float* sSm = smem;
+  float* sW = sSm + vj_small_size(HP, Lh);
+  float4* X = reinterpret_cast<float4*>(sW + (Lh - 1) * HP * LD +
+                                        warp * (2 * VR_MAX_IN * 16 + 32 * LD));
+  float4* C = X + 16;
+  float* S = reinterpret_cast<float*>(C + 16);
+  vj_load_params<HP>(params, Lh, sSm, sW);
   __syncthreads();
-
-  const int kpb = T / pb.nq;
-  const long long k = (long long)blockIdx.x * kpb + tid / pb.nq;
-  const long long p = k * pb.nq + tid % pb.nq;
-  const bool valid = k < pb.k;
-  float x[VR_MAX_IN], c[VR_MAX_IN], cu, csrc;
-  vr_point(pb, sTab, sScale, p, tid % pb.nq, valid, x, c, cu, csrc);
-  vr_hidden_forward<HP>(sW, pb.n_hidden, pb.act, x, c, sA, sP, T);
-
-  const float* wout = sW + vj_off_wout(HP, pb.n_hidden);
-  float u0 = wout[HP], u1 = 0.0f, dd0 = 0.0f, dd1 = 0.0f;
+  const float4* W0 = reinterpret_cast<const float4*>(sSm);
+  const float4* wout4 = reinterpret_cast<const float4*>(sSm + 4 * HP + Lh * HP);
+  const float bout = sSm[4 * HP + Lh * HP + HP];
+  float scale[VR_MAX_IN];
 #pragma unroll
-  for (int i = 0; i < HP; i += 2) {
-    const float a0 = sA[i * T + tid], a1 = sA[(i + 1) * T + tid];
-    const float t0 = vj_dact(a0, pb.act) * sP[i * T + tid];
-    const float t1 = vj_dact(a1, pb.act) * sP[(i + 1) * T + tid];
-    u0 = fmaf(wout[i], a0, u0);
-    u1 = fmaf(wout[i + 1], a1, u1);
-    dd0 = fmaf(wout[i], t0, dd0);
-    dd1 = fmaf(wout[i + 1], t1, dd1);
+  for (int j = 0; j < VR_MAX_IN; ++j) scale[j] = !pb.pre && j < pb.n_in ? pb.scale[j] : 0.0f;
+  const long long stride = (long long)gridDim.x * nwarp;
+  VrRaw raw;
+  auto fetch = [&](long long grp) {
+    const long long p = grp * 16 + (lane & 15);
+    const bool valid = lane < 16 && p < pb.P;
+    const int q = valid && !pb.pre ? (int)(p % pb.nq) : 0;
+    vr_load(pb, p, q, valid, raw);
+  };
+  long long grp = (long long)blockIdx.x * nwarp + warp;
+  fetch(grp);
+  for (; grp < n_groups; grp += stride) {
+    float c[VR_MAX_IN], cu, csrc;
+    vr_form(pb, pb.tab, scale, raw, c, cu, csrc);
+    if (lane < 16) {
+      X[lane] = make_float4(raw.x[0], raw.x[1], raw.x[2], raw.x[3]);
+      C[lane] = make_float4(c[0], c[1], c[2], c[3]);
+    }
+    __syncwarp();
+    fetch(grp + stride);
+    // layer 0 on the CUDA cores: a_0 = act(W0 x + b0), t_0 = act'(a_0) W0 c
+    for (int e = lane; e < 16 * HP; e += 32) {
+      const int t = e / HP, i = e % HP;
+      const float4 w = W0[i], x = X[t], d = C[t];
+      float z = sSm[4 * HP + i], pre = 0.0f;
+      z = fmaf(w.x, x.x, z);
+      pre = fmaf(w.x, d.x, pre);
+      z = fmaf(w.y, x.y, z);
+      pre = fmaf(w.y, d.y, pre);
+      z = fmaf(w.z, x.z, z);
+      pre = fmaf(w.z, d.z, pre);
+      z = fmaf(w.w, x.w, z);
+      pre = fmaf(w.w, d.w, pre);
+      const float a = vj_act(z, act);
+      S[t * LD + i] = a;
+      S[(16 + t) * LD + i] = vj_dact(a, act) * pre;
+    }
+    __syncwarp();
+    for (int l = 1; l < Lh; ++l) {
+      const float* W = sW + (l - 1) * HP * LD;
+      const float* b = sSm + 4 * HP + l * HP;
+      vj_forward_tile<HP>(S, S, W, b, true, nullptr, act);
+      vj_forward_tile<HP>(S + 16 * LD, S + 16 * LD, W, b, false, S, act);
+    }
+    __syncwarp();
+    // the output row, four chains (a cancelling row shows one long chain's rounding);
+    // the 16-byte reads of the rows at stride LD are conflict-free
+    const float4* s4 = reinterpret_cast<const float4*>(S + lane * LD);
+    float as[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i4 = 0; i4 < HP / 4; ++i4) {
+      const float4 a = s4[i4], w = wout4[i4];
+      as[0] = fmaf(w.x, a.x, as[0]);
+      as[1] = fmaf(w.y, a.y, as[1]);
+      as[2] = fmaf(w.z, a.z, as[2]);
+      as[3] = fmaf(w.w, a.w, as[3]);
+    }
+    const float v = (as[0] + as[1]) + (as[2] + as[3]);
+    const float dd = __shfl_down_sync(0xffffffffu, v, 16);
+    const long long p = grp * 16 + lane;
+    if (lane < 16 && p < pb.P) {
+      float out = dd + csrc;
+      if (pb.has_react) out = fmaf(cu, v + bout, out);
+      contrib[p] = out;
+    }
+    __syncwarp();
   }
-  float contrib = (dd0 + dd1) + csrc;
-  if (pb.has_react) contrib = fmaf(cu, u0 + u1, contrib);
-  sRed[tid] = valid ? contrib : 0.0f;
-  __syncthreads();
-  if (valid && tid % pb.nq == 0) {
-    float s = 0.0f;
-    for (int q = 0; q < pb.nq; ++q) s += sRed[tid + q];
-    r[k] = s;
-  }
+}
+
+// r[k] = sum_q contrib[k nq + q]: one warp per test function, lane l summing q = l, l +
+// 32, ... in order, then a fixed shuffle tree (offsets 16, 8, 4, 2, 1).  Any nq >= 0; no
+// atomics, so r is the same on every run.
+__global__ void vr_qsum_kernel(const float* __restrict__ contrib, float* __restrict__ r,
+                               int k, int nq) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= k) return;  // the whole warp: w is the same on its 32 lanes
+  const float* c = contrib + w * nq;
+  float s = 0.0f;
+  for (int q = lane; q < nq; q += 32) s += c[q];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane == 0) r[w] = s;
 }
 
 // The backward's inputs of point p (zeros past P): coordinates x, direction c and the
@@ -251,8 +295,12 @@ __device__ __forceinline__ void vr_bwd_point(const VrProblem& pb, const float* s
                                              VrIn& in) {
   const bool valid = p < pb.P;
   const long long k = valid ? p / pb.nq : 0;
+  VrRaw raw;
+  vr_load(pb, p, (int)(p - k * pb.nq), valid, raw);
+#pragma unroll
+  for (int j = 0; j < VR_MAX_IN; ++j) in.x[j] = raw.x[j];
   float cu, csrc;
-  vr_point(pb, sTab, sScale, p, (int)(p - k * pb.nq), valid, in.x, in.c, cu, csrc);
+  vr_form(pb, sTab, sScale, raw, in.c, cu, csrc);
   in.g_tan = valid ? gr[k] : 0.0f;
   in.g_val = pb.has_react ? in.g_tan * cu : 0.0f;
 }
@@ -482,14 +530,15 @@ __global__ void vr_reduce_kernel(const float* __restrict__ partials, float* __re
 
 namespace {
 
-const int kFwdTargetThreads = 256;
 const int kTileChoices[] = {64, 32, 16};  // points per backward tile
 const int kTileThreads[] = {256, 128};
-const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
 
-size_t fwd_smem(int hp, const VrProblem& pb, int T) {
-  return sizeof(float) * ((size_t)vj_n_params(hp, pb.n_hidden) + vr_tab_floats(pb) +
-                          VR_MAX_IN + 2 * (size_t)hp * T + T);
+// The forward's shared memory for a block of `threads`: the small parameters, W_l, and
+// per warp X, C [16][4] and a slot of 32 stacked rows.
+size_t fwd_smem(int hp, int n_hidden, int threads) {
+  const size_t ld = hp + 4;
+  return sizeof(float) * (vj_small_size(hp, n_hidden) + (size_t)(n_hidden - 1) * hp * ld +
+                          (threads / 32) * (2 * VR_MAX_IN * 16 + 32 * ld));
 }
 
 // The backward's dW plan for a block of `threads` and a tile of T points: C chunks of the
@@ -543,20 +592,25 @@ VrProblem make_pre_problem(const float* xs, const float* cdir, const float* csrc
   return pb;
 }
 
+// Forward: one wave of persistent blocks (vj_group_grid), then the q-sums.  contrib is
+// workspace of P floats.
 template <int HP>
-int launch_fwd(const VrProblem& pb, const float* params, float* r, cudaStream_t stream) {
+int launch_fwd(const VrProblem& pb, const float* params, float* contrib, float* r,
+               cudaStream_t stream) {
   if (pb.k == 0) return 0;
-  const int kpb = pb.nq >= kFwdTargetThreads ? 1 : kFwdTargetThreads / pb.nq;
-  const int T = kpb * pb.nq;
-  if (T > 1024) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = fwd_smem(HP, pb, T);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(vr_fwd_kernel<HP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (pb.k + kpb - 1) / kpb;
-  vr_fwd_kernel<HP><<<grid, T, smem, stream>>>(pb, params, r);
+  if (pb.P > 0) {
+    const auto smem = [&](int th) { return fwd_smem(HP, pb.n_hidden, th); };
+    const long long n_groups = (pb.P + 15) / 16;
+    int threads = 0, blocks = 0;
+    const int err = vj_group_grid((const void*)vr_fwd_kernel<HP>, smem, n_groups,
+                                  &threads, &blocks);
+    if (err) return err;
+    vr_fwd_kernel<HP><<<blocks, threads, smem(threads), stream>>>(pb, params, contrib,
+                                                                  n_groups);
+    if (const int e = (int)cudaGetLastError()) return e;
+  }
+  vr_qsum_kernel<<<(int)(((long long)pb.k * 32 + 255) / 256), 256, 0, stream>>>(
+      contrib, r, pb.k, pb.nq);
   return (int)cudaGetLastError();
 }
 
@@ -581,10 +635,10 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
       dw_plan(HP, pb.n_hidden, threads, T, &R, &C);
       const void* fn = bwd_kernel<HP>(R);
       if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)kMaxSmem)) != cudaSuccess)
+                                      (int)kVjMaxSmem)) != cudaSuccess)
         return (int)err;
       const size_t smem = bwd_smem(HP, pb, T, threads, R);
-      if (smem > kMaxSmem) continue;
+      if (smem > kVjMaxSmem) continue;
       int per_sm = 0;
       if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
           cudaSuccess)
@@ -598,11 +652,8 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
       }
     }
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
-  int dev = 0, n_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
+  int n_sm = 0;
+  if (const int e = vj_sm_count(&n_sm)) return e;
   out->n_tiles = (pb.P + out->T - 1) / out->T;
   const long long b = (long long)per_sm_best * n_sm;
   out->blocks = (int)(b < out->n_tiles ? b : (out->n_tiles > 0 ? out->n_tiles : 1));
@@ -662,14 +713,15 @@ extern "C" {
 // Packed parameter count (floats) for hidden width hp and n_hidden hidden layers.
 int vr_dir_residual_n_params(int hp, int n_hidden) { return vj_n_params(hp, n_hidden); }
 
-// Residual r [k] of the directional weak form.  Returns a cudaError_t value.
+// Residual r [k] of the directional weak form; contrib is workspace of k * nq floats.
+// Returns a cudaError_t value.
 int vr_dir_residual_fwd(const float* xs, const float* flds, const float* tab,
-                        const float* scale, const float* params, float* r, int k, int nq,
-                        int n_in, int d, int td, int has_react, int n_hidden, int hp,
-                        int act, void* stream) {
+                        const float* scale, const float* params, float* contrib, float* r,
+                        int k, int nq, int n_in, int d, int td, int has_react, int n_hidden,
+                        int hp, int act, void* stream) {
   const VrProblem pb = make_problem(xs, flds, tab, scale, k, nq, n_in, d, td, has_react,
                                     n_hidden, act);
-  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, r, (cudaStream_t)stream))
+  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, contrib, r, (cudaStream_t)stream))
 }
 
 // Rows of the backward's partials buffer for this problem on the current device.
@@ -693,13 +745,15 @@ int vr_dir_residual_bwd(const float* xs, const float* flds, const float* tab,
 }
 
 // K4, precoeff mode: r [k] from the precomputed xs, cdir [n_in][P], csrc [P] and cu [P]
-// (read when has_cu; may be null otherwise).  Returns a cudaError_t value.
+// (read when has_cu; may be null otherwise); contrib is workspace of k * nq floats.
+// Returns a cudaError_t value.
 int vr_dirp_residual_fwd(const float* xs, const float* cdir, const float* csrc,
-                         const float* cu, const float* params, float* r, int k, int nq,
-                         int n_in, int has_cu, int n_hidden, int hp, int act, void* stream) {
+                         const float* cu, const float* params, float* contrib, float* r,
+                         int k, int nq, int n_in, int has_cu, int n_hidden, int hp, int act,
+                         void* stream) {
   const VrProblem pb = make_pre_problem(xs, cdir, csrc, cu, k, nq, n_in, has_cu, n_hidden,
                                         act);
-  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, r, (cudaStream_t)stream))
+  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, contrib, r, (cudaStream_t)stream))
 }
 
 // Rows of K4's backward partials buffer for this problem on the current device.

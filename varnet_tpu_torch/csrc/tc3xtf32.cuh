@@ -1,6 +1,7 @@
 // 3xTF32 tensor-core tools for Hopper (sm_90a), and the stacked-panel layers built from
 // them, shared by csrc/value_and_jac.cu (K5 forward / backward, K6) and
-// csrc/dir_residual.cu (K1/K4 backward).
+// csrc/dir_residual.cu (K1/K4 forward / backward); and the launch shape of their
+// warp-per-group forwards.
 //
 // Stacked panels.  As the TPU kernels pack the value panel and the tangent panels into
 // one [H, panels x T] operand for the MXU, a block here takes a tile of T points (a
@@ -320,4 +321,49 @@ __device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const f
     vj_mma3z(t, ah, al, bh, bl);
     vj_add(acc, t);
   }
+}
+
+// ------------------------------------------------------------------------------------
+// Host: launch shapes.
+
+constexpr size_t kVjMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
+
+inline int vj_sm_count(int* n_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+// A persistent kernel of one warp per group of 16 points (K5's and K1/K4's forwards), fn,
+// with smem(threads) bytes of shared memory per block: of 256, 128 and 64 threads the
+// block that keeps the most warps resident per SM, and one wave of blocks, or fewer when
+// there are fewer groups.
+template <class Smem>
+int vj_group_grid(const void* fn, Smem smem, long long n_groups, int* threads, int* blocks) {
+  const int choices[] = {256, 128, 64};
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kVjMaxSmem);
+  if (err != cudaSuccess) return (int)err;
+  int best = 0, per_sm_best = 0;
+  for (int th : choices) {
+    if (smem(th) > kVjMaxSmem) continue;
+    int per_sm = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, th, smem(th))) !=
+        cudaSuccess)
+      return (int)err;
+    if (per_sm * th > best) {
+      best = per_sm * th;
+      *threads = th;
+      per_sm_best = per_sm;
+    }
+  }
+  if (best == 0) return (int)cudaErrorInvalidConfiguration;
+  int n_sm = 0;
+  if (const int e = vj_sm_count(&n_sm)) return e;
+  const long long per_block = *threads / 32, want = (n_groups + per_block - 1) / per_block;
+  const long long b = (long long)per_sm_best * n_sm;
+  *blocks = (int)(b < want ? b : want);
+  return 0;
 }

@@ -447,8 +447,6 @@ namespace {
 
 const int kTileChoices[] = {64, 32, 16};  // points per tile (K5 backward, K6)
 const int kTileThreads[] = {256, 128};
-const int kFwdThreads[] = {256, 128, 64};  // K5 forward: warps per block x 32
-const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
 
 enum Kind { kFwd, kJvp, kBwd };
 
@@ -480,7 +478,7 @@ const void* kernel_of(Kind kind) {
 
 int allow_smem(const void* fn) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)kMaxSmem);
+                                   (int)kVjMaxSmem);
 }
 
 // K5 backward and K6: the (points per tile, threads) pair that keeps the most busy
@@ -504,7 +502,7 @@ int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
   for (int T : kTileChoices)
     for (int threads : kTileThreads) {
       const size_t smem = smem_bytes(kind, HP, pb.n_hidden, pb.n_in, T);
-      if (smem > kMaxSmem) continue;
+      if (smem > kVjMaxSmem) continue;
       int per_sm = 0;
       if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                                      smem)))
@@ -518,51 +516,23 @@ int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
       }
     }
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
-  int dev = 0, n_sm = 0;
-  cudaError_t cerr;
-  if ((cerr = cudaGetDevice(&dev)) != cudaSuccess) return (int)cerr;
-  if ((cerr = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)cerr;
+  int n_sm = 0;
+  if ((err = vj_sm_count(&n_sm))) return err;
   out->n_tiles = (pb.P + out->T - 1) / out->T;
   const long long b = (long long)per_sm_best * n_sm;
   out->blocks = (int)(b < out->n_tiles ? b : (out->n_tiles > 0 ? out->n_tiles : 1));
   return 0;
 }
 
-// K5 forward: the block size that keeps the most warps resident per SM, and one wave of
-// persistent blocks, or fewer when there are fewer groups of 16 points.
+// K5 forward: one wave of persistent blocks (vj_group_grid).
 template <int HP>
 int launch_fwd(const VjProblem& pb, const float* params, float* out, cudaStream_t stream) {
-  const void* fn = kernel_of<HP>(kFwd);
-  int err = allow_smem(fn);
+  const auto smem = [&](int th) { return smem_bytes(kFwd, HP, pb.n_hidden, pb.n_in, th); };
+  const long long n_groups = (pb.P + 15) / 16;
+  int threads = 0, blocks = 0;
+  const int err = vj_group_grid(kernel_of<HP>(kFwd), smem, n_groups, &threads, &blocks);
   if (err) return err;
-  int best = 0, threads = 0, per_sm_best = 0;
-  for (int th : kFwdThreads) {
-    const size_t smem = smem_bytes(kFwd, HP, pb.n_hidden, pb.n_in, th);
-    if (smem > kMaxSmem) continue;
-    int per_sm = 0;
-    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, th, smem)))
-      return err;
-    if (per_sm * th > best) {
-      best = per_sm * th;
-      threads = th;
-      per_sm_best = per_sm;
-    }
-  }
-  if (best == 0) return (int)cudaErrorInvalidConfiguration;
-  int dev = 0, n_sm = 0;
-  cudaError_t cerr;
-  if ((cerr = cudaGetDevice(&dev)) != cudaSuccess) return (int)cerr;
-  if ((cerr = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)cerr;
-  const long long n_groups = (pb.P + 15) / 16, per_block = threads / 32;
-  const long long want = (n_groups + per_block - 1) / per_block;
-  const long long b = (long long)per_sm_best * n_sm;
-  const int blocks = (int)(b < want ? b : want);
-  const size_t smem = smem_bytes(kFwd, HP, pb.n_hidden, pb.n_in, threads);
-  vj_fwd_kernel<HP><<<blocks, threads, smem, stream>>>(pb, params, out, n_groups);
+  vj_fwd_kernel<HP><<<blocks, threads, smem(threads), stream>>>(pb, params, out, n_groups);
   return (int)cudaGetLastError();
 }
 

@@ -363,10 +363,10 @@ def load_library() -> ctypes.CDLL:
     lib = build.load_library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vr_dir_residual_n_params.argtypes = [i32, i32]
-    lib.vr_dir_residual_fwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
+    lib.vr_dir_residual_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.vr_dir_residual_bwd_blocks.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.vr_dir_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 9 + [ptr]
-    lib.vr_dirp_residual_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.vr_dirp_residual_fwd.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
     lib.vr_dirp_residual_bwd_blocks.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
     lib.vr_dirp_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 7 + [ptr]
     lib.ff_n_params_c.argtypes = [i32] * 3
@@ -474,14 +474,21 @@ def _packed(lib, params):
     return hp, packed
 
 
+def _fwd_buffers(data):
+    """A residual forward's workspace, one contribution per point [K nq], and r [K]."""
+    dev = data.xs.device
+    return (torch.empty(data.k * data.nq, dtype=torch.float32, device=dev),
+            torch.empty(data.k, dtype=torch.float32, device=dev))
+
+
 def kernel_fwd(lib, params, data: ResidualData, activation: str, stream=None):
     """Launch the forward kernel of ``lib`` (no device dispatch; the caller
     guarantees the tensors suit it).  Returns r [K]."""
     hp, packed = _packed(lib, params)
-    r = torch.empty(data.k, dtype=torch.float32, device=data.xs.device)
+    contrib, r = _fwd_buffers(data)
     err = lib.vr_dir_residual_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(),
-        data.scale.data_ptr(), packed.data_ptr(), r.data_ptr(),
+        data.scale.data_ptr(), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_common_args(data, params, activation, hp), stream)
     build.raise_on(err, "dir_residual_fwd")
     return r
@@ -575,11 +582,11 @@ def _dirp_args(data: CoeffData, params, activation, hp):
 def kernel_dirp_fwd(lib, params, data: CoeffData, activation: str, stream=None):
     """Launch K4's forward of ``lib`` (no device dispatch).  Returns r [K]."""
     hp, packed = _packed(lib, params)
-    r = torch.empty(data.k, dtype=torch.float32, device=data.xs.device)
+    contrib, r = _fwd_buffers(data)
     build.raise_on(lib.vr_dirp_residual_fwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
-        packed.data_ptr(), r.data_ptr(), *_dirp_args(data, params, activation, hp), stream),
-        "dirp_residual_fwd")
+        packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
+        *_dirp_args(data, params, activation, hp), stream), "dirp_residual_fwd")
     return r
 
 
@@ -751,10 +758,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def kernel_ff_fwd(lib, params, data: ResidualData, activation: str, stream=None):
     """Launch K2-FF's forward of ``lib`` (no device dispatch).  Returns r [K]."""
     hp, fp, packed = _ff_packed(lib, params, data.bt is not None)
-    dev = data.xs.device
     bt = ff_bt(data.bt, fp)
-    contrib = torch.empty(data.k * data.nq, dtype=torch.float32, device=dev)
-    r = torch.empty(data.k, dtype=torch.float32, device=dev)
+    contrib, r = _fwd_buffers(data)
     build.raise_on(lib.ff_res_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(bt), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
@@ -841,9 +846,7 @@ def _ff_pre_args(data: CoeffData, params, activation, hp):
 def kernel_dirp_ff_fwd(lib, params, data: CoeffData, activation: str, stream=None):
     """Launch ff_mlp.cu's precoeff forward (K4, wide nets) of ``lib``: r [K]."""
     hp, _, packed = _ff_packed(lib, params, False)
-    dev = data.xs.device
-    contrib = torch.empty(data.k * data.nq, dtype=torch.float32, device=dev)
-    r = torch.empty(data.k, dtype=torch.float32, device=dev)
+    contrib, r = _fwd_buffers(data)
     build.raise_on(lib.ff_pre_fwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
         packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
@@ -976,9 +979,7 @@ def _ff_jac_args(data: ResidualData, params, activation, hp):
 def kernel_jac_fwd(lib, params, data: ResidualData, activation: str, stream=None):
     """Launch K3's forward of ``lib`` (no device dispatch).  Returns r [K]."""
     hp, _, packed = _ff_packed(lib, params, False)
-    dev = data.xs.device
-    contrib = torch.empty(data.k * data.nq, dtype=torch.float32, device=dev)
-    r = torch.empty(data.k, dtype=torch.float32, device=dev)
+    contrib, r = _fwd_buffers(data)
     build.raise_on(lib.ff_jac_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(data.nl), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
