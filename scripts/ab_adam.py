@@ -14,8 +14,11 @@ Each run, CUDA events, median of 20 (10 for K4):
 * K4 forward and backward (``dirp_residual_fwd`` / ``_bwd``) at the exact-BC 3-D
   transient recipe's mesh (disc 16 / t_disc 10, w64x2, the hard fold: 7,776,000 points),
   as ``chip_smoke.py``'s kernels-dirp phase builds it;
-* 20 (``--hard-epochs``) Adam epochs of that exact-BC VarNet through K4, after one
-  epoch from its seeded net, as ``chip_smoke.py``'s hard-train phase runs them: steps/s;
+* each of those three forwards split into its kernels (the tensor-core forward and the
+  per-test-function sum, or the one kernel of an older tree) under ``torch.profiler``:
+  each kernel's own device time, mean over 10 calls;
+* 20 Adam epochs of that exact-BC VarNet through K4, after one epoch from its seeded
+  net, as ``chip_smoke.py``'s hard-train phase runs them: steps/s;
 * 200 (``--epochs``) Adam epochs at d48/t32, w20x2, through K1/K2, as ``chip_smoke.py``'s
   train phase runs them: steps/s and quad-pt evals/s.
 
@@ -36,9 +39,25 @@ CHILD = """
 import json, sys
 sys.path.insert(0, ".")
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from varnet_tpu_torch.fem.assembly import pad_quad
 from varnet_tpu_torch.ops import fused_residual as fr
+
+
+
+def kernel_ms(fn, n=10):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    return {{e.key.split("(")[0]: dev_us(e) * 1e-3 / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}}
+
 
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.phase_build()
@@ -49,6 +68,7 @@ for widths in ((20, 20), (48, 48)):
     gr = torch.randn(data.k, generator=gen).cuda()
     tag = "x".join(map(str, widths))
     out["k1_fwd_ms_w" + tag] = cs._median_ms(lambda: fr.dir_residual_fwd(params, data, "tanh"))
+    out["k1_fwd_kernels_ms_w" + tag] = kernel_ms(lambda: fr.dir_residual_fwd(params, data, "tanh"))
     out["k1_bwd_ms_w" + tag] = cs._median_ms(
         lambda: fr.dir_residual_bwd(params, data, "tanh", gr))
 del data
@@ -61,12 +81,13 @@ params, gen = cs._seeded_net(4, (64, 64), 21)
 gr = torch.randn(data.k, generator=gen).cuda()
 out["k4_fwd_ms_3dt_w64x2"] = cs._median_ms(
     lambda: fr.dirp_residual_fwd(params, data, "tanh"), n=10)
+out["k4_fwd_kernels_ms_3dt_w64x2"] = kernel_ms(lambda: fr.dirp_residual_fwd(params, data, "tanh"))
 out["k4_bwd_ms_3dt_w64x2"] = cs._median_ms(
     lambda: fr.dirp_residual_bwd(params, data, "tanh", gr), n=10)
 del data, quad
 torch.cuda.empty_cache()
 vn3.train(epoch_num=1, save_freq=1, verbose=False, error_disc=24)
-res = vn3.train(epoch_num={hard_epochs}, save_freq={hard_epochs}, verbose=False, error_disc=24)
+res = vn3.train(epoch_num=20, save_freq=20, verbose=False, error_disc=24)
 out["hard_3dt_steps_per_sec"] = res.steps_per_sec
 del vn3
 torch.cuda.empty_cache()
@@ -76,9 +97,8 @@ print(json.dumps(out))
 """
 
 
-def run(tree, epochs, hard_epochs):
-    out = subprocess.run([sys.executable, "-c",
-                          CHILD.format(epochs=epochs, hard_epochs=hard_epochs)], cwd=tree,
+def run(tree, epochs):
+    out = subprocess.run([sys.executable, "-c", CHILD.format(epochs=epochs)], cwd=tree,
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
@@ -92,7 +112,6 @@ def main(argv=None):
     ap.add_argument("tree_b")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--epochs", type=int, default=200)
-    ap.add_argument("--hard-epochs", type=int, default=20)
     args = ap.parse_args(argv)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,7 +120,7 @@ def main(argv=None):
     runs = {"a": [], "b": []}
     for _ in range(args.pairs):
         for key in ("a", "b", "b", "a"):
-            nums = run(trees[key], args.epochs, args.hard_epochs)
+            nums = run(trees[key], args.epochs)
             runs[key].append(nums)
             print(json.dumps({"tree": trees[key], **nums}), flush=True)
     print(json.dumps({key: {"tree": trees[key],
