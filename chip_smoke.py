@@ -43,10 +43,11 @@ is non-zero and no result line is printed):
                9,906,624 points).  K2-FF forward (rtol 5e-5) and backward (rtol 1e-4)
                at the full mesh, the shape Adam gives it, against the plain version run
                over the 16 LM chunks of test functions (r concatenated, gradients
-               summed: the plain panels of the whole mesh would not fit the card).  K7
-               forward and backward and K8 (rtol 1e-4) on the first LM chunk (P =
-               619,200), the shape LM gives them.  Kernel and plain timed at the same
-               shape.
+               summed: the plain panels of the whole mesh would not fit the card); the
+               same on a seeded w128x3 net (the widest the kernels take).  K7 forward
+               and backward and K8 (rtol 1e-4) on the first LM chunk (P = 619,200), the
+               shape LM gives them.  Kernel and plain timed at the same shape; then the
+               launch shape of each (threads, blocks and warps resident per SM).
 9. causal   -- the slice's main path: ``train_causal`` over windows 0.25 / 0.5 / 0.75 /
                1.0 at the full mesh and width on the kernel path (Adam lr 2e-3, decay
                0.4 every epochs / 4, weight (1, 10, 10)); K2-FF launches rise by >= 1
@@ -586,6 +587,23 @@ def phase_kernels_ff():
                       lambda: list(vj.ff_vj_jvp_plain(theta, part.xs, bt, "tanh", tangent)),
                       FF_RTOL),
     }
+    # K2-FF at the widest hidden width the kernels take (HP 128), seeded, on the same mesh
+    wide, _ = _seeded_net(256, (128, 128, 128), 12)
+
+    def wide_bwd_plain():
+        total = None
+        for c, (k0, k1) in zip(chunks, bounds):
+            part_g = leaves(fr.dir_residual_bwd_plain(wide, c, "tanh", gr[k0:k1]))
+            total = part_g if total is None else [a + b for a, b in zip(total, part_g)]
+        return total
+
+    checks.update({
+        "ff_res_fwd_w128": (lambda: [fr.dir_residual_ff_fwd(wide, data, "tanh")],
+                            lambda: [torch.cat([fr.dir_residual_fwd_plain(wide, c, "tanh")
+                                                for c in chunks])], FF_R_RTOL),
+        "ff_res_bwd_w128": (lambda: leaves(fr.dir_residual_ff_bwd(wide, data, "tanh", gr)),
+                            wide_bwd_plain, FF_RTOL),
+    })
     out = {}
     for name, (kernel, plain, rtol) in checks.items():
         got, ref = kernel(), plain()
@@ -603,7 +621,15 @@ def phase_kernels_ff():
         torch.cuda.empty_cache()
     log("kernels-ff", points=data.k * data.nq, chunk_points=n,
         **{f"{k}_{m}": f"{v:.4g}" for k, d in out.items() for m, v in d.items()})
-    return out, data.k * data.nq, data.k, n
+    # the launch shape of every ff launch: blocks and warps resident per SM
+    p_full = data.k * data.nq
+    for name, (kind, panels, p, hp) in {
+            "ff_res_fwd": ("fwd", 2, p_full, 96), "ff_res_bwd": ("bwd", 2, p_full, 96),
+            "ff_res_fwd_w128": ("fwd", 2, p_full, 128), "ff_res_bwd_w128": ("bwd", 2, p_full, 128),
+            "ff_vj_fwd": ("fwd", 4, n, 96), "ff_vj_bwd": ("bwd", 4, n, 96),
+            "ff_vj_jvp": ("jvp", 4, n, 96)}.items():
+        log("kernels-ff launch", kernel=name, **fr.ff_launch_shape(kind, panels, p, 256, 3, hp))
+    return out, p_full, data.k, n
 
 
 def phase_causal():

@@ -335,16 +335,25 @@ def test_ff_value_and_jac_kernels_match_plain(cuda, n_in, widths, n_feat, activa
             assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
-def test_ff_backwards_are_deterministic(cuda):
-    params, bt, gen = _ff_params(128, (96, 96, 96))
-    data = _ff_data(cuda, bt)
-    gr = torch.randn(data.k, generator=gen).to(cuda)
-    g1 = fr.dir_residual_ff_bwd(params, data, "tanh", gr)
-    g2 = fr.dir_residual_ff_bwd(params, data, "tanh", gr)
-    g = torch.randn((4, data.xs.shape[1]), generator=gen).to(cuda)
-    v1 = vj.ff_vj_bwd(params, data.xs, bt, "tanh", g)
-    v2 = vj.ff_vj_bwd(params, data.xs, bt, "tanh", g)
-    for a, b in list(zip(g1, g2)) + list(zip(v1, v2)):
+@pytest.mark.parametrize("mode", ["dir", "unit", "pre", "jac"])
+def test_ff_backwards_are_deterministic(cuda, mode):
+    """Fixed-order sums, no atomics: every mode's gradient is bit-identical across
+    calls, which CG needs (K2-FF and K7 at the contaminant's w96x3 behind 128
+    features; wide K4 and K3 at w96x3)."""
+    if mode in ("dir", "unit"):
+        params, bt, gen = _ff_params(128, (96, 96, 96))
+        data = _ff_data(cuda, bt)
+        if mode == "dir":
+            gr = torch.randn(data.k, generator=gen).to(cuda)
+            run = lambda: fr.dir_residual_ff_bwd(params, data, "tanh", gr)         # noqa: E731
+        else:
+            g = torch.randn((4, data.xs.shape[1]), generator=gen).to(cuda)
+            run = lambda: vj.ff_vj_bwd(params, data.xs, bt, "tanh", g)            # noqa: E731
+    else:
+        params, _, data, gr = _ff_sweep_case(mode, None, 96, 3, 64, seed=5)
+        fn = fr.dirp_residual_ff_bwd if mode == "pre" else fr.jac_residual_bwd
+        run = lambda: fn(params, data, "tanh", gr)                                # noqa: E731
+    for a, b in zip(run(), run()):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
 
 
@@ -919,3 +928,121 @@ def test_burgers_training_on_cuda_goes_through_k3(cuda, hard):
     vn.refine_lm(steps=1, weight=(1.0, 10.0, 10.0), cg_iters=3, k_chunks=2, verbose=False,
                  error_disc=16, error_times=2)
     assert vj.vj_jvp.launches - before >= 3
+
+
+# ---------------------------------------------------------------------------
+# ff_mlp.cu's stacked kernels on the tensor cores (3xTF32 mma.sync): every mode (K2-FF,
+# K7, wide K4, K3), every padded hidden width, depths 1 and 3, without an embedding and
+# with 8 or 128 features, against the plain versions evaluated in f64
+
+FF_SWEEP_MODES = [("dir", None), ("dir", 8), ("dir", 128), ("unit", None), ("unit", 8),
+                  ("unit", 128), ("pre", None), ("jac", None)]
+FF_SWEEP_NQ = {1: 1001, 64: 23, 1296: 3}   # nq -> k: P = 1001 and 3888 are no multiple
+                                           # of any tile (16 .. 64 points); 64 nq always is
+
+
+def _ff_sweep_case(mode, n_feat, hp, depth, nq, seed, device="cuda"):
+    """A seeded net (hidden width hp: the padded width itself, or hp - 5 at the widest),
+    its data for ``mode`` (n_in 3 and d 2 with time; K3 with the Burgers direction b and
+    reaction) and the cotangent: gr [k] of a residual, or g [4, P] of K7."""
+    gen = torch.Generator().manual_seed(seed)
+    k = FF_SWEEP_NQ[nq]
+    p, n_in, d = k * nq, 3, 2
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    width = hp if hp < 128 else hp - 5
+    params = init_mlp(gen, n_in if n_feat is None else 2 * n_feat, (width,) * depth,
+                      device=device)
+    for layer in params:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).to(device)
+    bt = None
+    if n_feat is not None:
+        b_mat = torch.cat([0.5 * rand(n_in, n_feat - n_feat // 2), 2.0 * rand(n_in, n_feat // 2)],
+                          dim=1)
+        bt = ((2 * np.pi) * b_mat.T).contiguous().to(device)
+    # raw coordinates in [0, 2] as the contaminant's unscaled inputs, or scaled ones
+    xs = (torch.rand((n_in, p), generator=gen) * (2.0 if bt is not None else 1.0)
+          - (0.0 if bt is not None else 0.5)).to(device)
+    if mode == "unit":
+        return params, bt, xs, rand(1 + n_in, p).to(device)
+    if mode == "pre":
+        data = fr.CoeffData(xs=xs, cdir=(0.3 * rand(n_in, p)).to(device),
+                            csrc=(0.1 * rand(p)).to(device), cu=rand(p).to(device), k=k, nq=nq)
+        return params, bt, data, rand(k).to(device)
+    react = mode == "jac"
+    flds = torch.cat([1.0 + torch.rand((1, p), generator=gen), rand(d + 1, p)]
+                     + ([rand(1, p)] if react else []))
+    tab = torch.cat([torch.rand((nq, 2), generator=gen), rand(nq, d)], dim=1)
+    data = fr.ResidualData(xs=xs, flds=flds.to(device), tab=tab.to(device),
+                           scale=(1.0 + torch.rand(n_in, generator=gen)).to(device), k=k,
+                           nq=nq, d=d, td=True, has_react=react, bt=bt,
+                           nl=torch.tensor([1.0, -0.5], device=device) if react else None,
+                           jac=react)
+    return params, bt, data, rand(k).to(device)
+
+
+def _gate(err, own, gate):
+    """Within the gate of the f64 value, or within 3x the f32 plain version's own
+    distance from it where that exceeds half the gate (a sum that cancels)."""
+    return err < (gate if own <= gate / 2 else 3 * own)
+
+
+@pytest.mark.parametrize("nq", sorted(FF_SWEEP_NQ))
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("hp", [32, 64, 96, 128])
+@pytest.mark.parametrize("mode,n_feat", FF_SWEEP_MODES,
+                         ids=[f"{m}-F{f or 0}" for m, f in FF_SWEEP_MODES])
+def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activation, nq):
+    """Forward and backward of each mode against the plain version in f64: K2-FF r 5e-5
+    with an embedding (angles of tens of radians), wide K4 / K3 r 1e-5 (and K2-FF without
+    an embedding), K7 rows and every gradient leaf 1e-4."""
+    params, bt, data, g = _ff_sweep_case(mode, n_feat, hp, depth, nq, seed=hp + depth + nq)
+    p64 = _f64(params)
+    bt64 = None if bt is None else bt.double()
+    if mode == "unit":
+        fwd = lambda: vj.ff_vj_fwd(params, data, bt, activation)                     # noqa: E731
+        bwd = lambda: vj.ff_vj_bwd(params, data, bt, activation, g)                  # noqa: E731
+        plain_f = lambda p, x, b: vj.ff_vj_fwd_plain(p, x, b, activation)            # noqa: E731
+        plain_b = lambda p, x, b, gg: vj.ff_vj_bwd_plain(p, x, b, activation, gg)    # noqa: E731
+        args32, args64 = (data, bt), (data.double(), bt64)
+        counters, r_gate = (vj.ff_vj_fwd, vj.ff_vj_bwd), 1e-4
+    else:
+        fns = {"dir": (fr.dir_residual_ff_fwd, fr.dir_residual_ff_bwd),
+               "pre": (fr.dirp_residual_ff_fwd, fr.dirp_residual_ff_bwd),
+               "jac": (fr.jac_residual_fwd, fr.jac_residual_bwd)}[mode]
+        if mode == "jac" or (mode == "pre" and hp > 64):
+            assert fr._residual_fns(params, data) == fns
+        fwd = lambda: fns[0](params, data, activation)                               # noqa: E731
+        bwd = lambda: fns[1](params, data, activation, g)                            # noqa: E731
+        pf, pb = ((fr.jac_residual_fwd_plain, fr.jac_residual_bwd_plain) if mode == "jac"
+                  else (fr.dir_residual_fwd_plain, fr.dir_residual_bwd_plain))
+        plain_f = lambda p, dd, _b: pf(p, dd, activation)                            # noqa: E731
+        plain_b = lambda p, dd, _b, gg: pb(p, dd, activation, gg)                    # noqa: E731
+        d64 = (_dir_f64(data) if mode == "pre"
+               else _f64_data(data)._replace(bt=bt64))
+        args32, args64 = (data, bt), (d64, bt64)
+        counters, r_gate = fns, (5e-5 if bt is not None else 1e-5)
+    before = [c.launches for c in counters]
+    out = fwd()
+    grads = bwd()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    ref = plain_f(p64, *args64)
+    own = plain_f(params, *args32)
+    rows = list(out) if mode == "unit" else [out]
+    refs = list(ref) if mode == "unit" else [ref]
+    owns = list(own) if mode == "unit" else [own]
+    for a, b, c in zip(rows, refs, owns):
+        assert _gate(_rel(a.double(), b), _rel(c.double(), b), r_gate), (
+            _rel(a.double(), b), _rel(c.double(), b))
+    g64 = g.double()
+    for got, gr64, gr32 in zip(grads, plain_b(p64, *args64, g64), plain_b(params, *args32, g)):
+        for key in ("w", "b"):
+            assert got[key].shape == gr64[key].shape
+            if gr64[key].abs().max() > 0:
+                err, own = _rel(got[key].double(), gr64[key]), _rel(gr32[key].double(), gr64[key])
+                assert _gate(err, own, 1e-4), (key, err, own)
+

@@ -23,6 +23,14 @@ contributions as its second kernel does (``qsum``: 32 lanes, each summing every 
 point in order, then a shuffle tree), checked also at nq 1296.  The emulation sums each product exactly before it rounds
 (a tf32 x tf32 product fits an f32 significand); the order of the tensor core's
 internal sum is not modelled, which the headroom covers.
+
+``csrc/ff_mlp.cu`` (K2-FF, K7; K3 and wide K4 share its two kernels) runs every layer
+product on the tensor cores, layer 0's 256-deep sum against the Fourier embedding too:
+its emulations (``ff_*``, F 128, w96x3 as the contaminant net) take W0's rows in the
+kernel's slice order and sum the weight gradients tile by tile.  3xTF32 with fresh tiles
+holds K2-FF's r gate (5e-5) and the 1e-4 gates with the same headroom, single TF32 does
+not, and a truncating running sum loses the layer-0 sum itself
+(``test_truncating_running_sum_loses_the_layer0_sum``).
 """
 
 import numpy as np
@@ -40,6 +48,7 @@ FWD_HEADROOM = 2.0  # ... K5 forward's below FWD_GATE / 2: the f32 plain version
                     # sits 1.3-4.4e-6 from f64 on a row here (sigmoid's value row is a
                     # cancellation of its terms)
 P = 6000
+FF_R_GATE = 5e-5    # K2-FF r's card gate: raw-input angles of tens of radians
 
 
 def tf32(x):
@@ -61,6 +70,9 @@ def mm_steps(a, b, split=True, fresh=True):
     single TF32 product; ``fresh``: each k-step's products summed in a fresh tile and
     added to the running sum in f32 (round to nearest), else the running sum kept in
     the mma accumulator."""
+    if b.shape[1] > 1024:   # column blocks: the same sums in bounded memory
+        return torch.cat([mm_steps(a, b[:, j:j + 1024], split, fresh)
+                          for j in range(0, b.shape[1], 1024)], dim=1)
     a, b = a.float(), b.float()
     pad = -a.shape[1] % 8
     a = torch.nn.functional.pad(a, (0, pad))
@@ -280,6 +292,179 @@ def dir_bwd_plain(params, xs, c, g_tan, cu, act_name):
     return vj._leaves(fr.dir_residual_bwd_plain(params, data, act_name, g_tan))
 
 
+# ---------------------------------------------------------------------------
+# csrc/ff_mlp.cu's stacked kernels: the Fourier-feature net (F = 128 features, K = 256,
+# w96x3) of K2-FF (FF_DIR: value and directional panels) and K7 (FF_UNIT: value and n_in
+# unit panels).  Every layer product runs on the tensor cores, layer 0's too: its 256-deep
+# sum takes W0's rows in the kernel's slice order (8 sin rows, then the same 8 features'
+# cos rows), 32 k-steps of 8.  The weight gradients sum each tile's 128 stacked rows in
+# k-steps from zero, then the tiles in order (one tile per block at this size).
+
+FF_F, FF_WIDTHS, FF_P, FF_NQ = 128, (96, 96, 96), 1024, 16
+FF_TILE_ROWS = 128     # the stacked rows of a tile: 4 warp pairs x 32
+
+
+def ff_case(seed, dtype):
+    """A seeded contaminant-like case: 2 pi B^T [F, 3] (scales 0.5 and 2), raw points in
+    [0, 2] (angles of tens of radians), a w96x3 net behind [sin | cos], random tables
+    (d 2 and time), the cotangents gr [K] and g [4, P].  The f64 case holds the f32
+    case's values, so only the arithmetic differs."""
+    rng = np.random.default_rng(100 + seed)
+    n_in, d, k = 3, 2, FF_P // FF_NQ
+    b = np.concatenate([0.5 * rng.standard_normal((n_in, FF_F - FF_F // 2)),
+                        2.0 * rng.standard_normal((n_in, FF_F // 2))], axis=1)
+    sizes = [2 * FF_F] + list(FF_WIDTHS) + [1]
+    params = [{"w": np.sqrt(2.0 / (fi + fo)) * rng.standard_normal((fi, fo)),
+               "b": 0.1 * rng.standard_normal(fo)} for fi, fo in zip(sizes[:-1], sizes[1:])]
+    f32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dtype)  # noqa: E731
+    data = fr.ResidualData(
+        xs=f32(rng.uniform(0.0, 2.0, (n_in, FF_P))),
+        flds=f32(np.concatenate([1.0 + rng.uniform(size=(1, FF_P)),
+                                 rng.standard_normal((d + 1, FF_P))])),
+        tab=f32(np.concatenate([rng.uniform(size=(FF_NQ, 2)),
+                                rng.standard_normal((FF_NQ, d))], axis=1)),
+        scale=f32(1.0 + rng.uniform(size=n_in)), k=k, nq=FF_NQ, d=d, td=True,
+        has_react=False, bt=f32((2 * np.pi) * b.T))
+    return ([{key: f32(v) for key, v in layer.items()} for layer in params], data,
+            f32(rng.standard_normal(k)), f32(rng.standard_normal((1 + n_in, FF_P))))
+
+
+def ff_embed_rows():
+    """W0's rows (and the embedding's) in the kernel's k order: slice j of 16 holds the
+    sin rows 8 j.. 8 j + 7, then the cos rows F + 8 j.. F + 8 j + 7."""
+    j = torch.arange(FF_F).reshape(-1, 8)
+    return torch.cat([j, FF_F + j], dim=1).reshape(-1)
+
+
+def ff_stacks(params, data, dirs, act_name, mm):
+    """The stacked forward as the kernels compute it: S_0 = the embedding's value and
+    tangent panels [2F, np P] (pc = bt . v in the JAX kernels' order), layer 0 through
+    ``mm`` over W0's rows in the kernel's order, then each hidden layer; per layer the
+    slot [a | J_1 .. J_{np-1}] [H, np P].  Returns (S_0, slots)."""
+    act, act_p, _ = _act_triple(act_name)
+    wts = [layer["w"].T for layer in params]
+    bs = [layer["b"][:, None] for layer in params]
+    p = data.xs.shape[1]
+    ang = fr._small_k(data.bt, data.xs)
+    sn, cs = torch.sin(ang), torch.cos(ang)
+    panels = [torch.cat([sn, cs])]
+    for v in dirs:
+        pc = fr._small_k(data.bt, v)
+        panels.append(torch.cat([cs * pc, -sn * pc]))
+    s0 = torch.cat(panels, dim=1)
+    rows = ff_embed_rows()
+    s, slots = s0, []
+    for l, (wt, b) in enumerate(zip(wts[:-1], bs[:-1])):
+        z = mm(wt[:, rows], s[rows]) if l == 0 else mm(wt, s)
+        a = act(z[:, :p] + b)
+        s = torch.cat([a, act_p(a).repeat(1, len(dirs)) * z[:, p:]], dim=1)
+        slots.append(s)
+    return s0, slots
+
+
+def ff_outputs(params, slot, n_panels):
+    """The output row of every panel: (u, du_1, ..) [n_panels, P], in the tensors' own
+    precision (the kernels' four-chain dot products on the CUDA cores)."""
+    out = (params[-1]["w"].T @ slot).reshape(n_panels, -1)
+    return torch.cat([out[:1] + params[-1]["b"], out[1:]])
+
+
+def ff_tile_order(p, n_panels):
+    """The stacked rows of the kernels' tiles: groups of 32 rows, G = 32 / npad points
+    with their panels (panel-major), 4 groups a tile; padded panels are zero rows and add
+    nothing, so they are left out.  An index into the [np P] panel-major columns."""
+    npad = 2 if n_panels <= 2 else 4
+    g = 32 // npad
+    idx = torch.arange(p).reshape(-1, g)                         # [groups, G]
+    cols = torch.stack([idx + m * p for m in range(n_panels)], dim=1)
+    return cols.reshape(-1)
+
+
+def ff_mm_tiles(a, b, order, mm):
+    """a [M, R] @ b [R, N] over the R stacked rows as the backward sums dW: each tile's
+    FF_TILE_ROWS rows (in ``order``) through ``mm`` from zero, then the tiles added in
+    order, in f32."""
+    total = None
+    for t in range(0, len(order), FF_TILE_ROWS):
+        cols = order[t:t + FF_TILE_ROWS]
+        part = mm(a[:, cols], b[cols])
+        total = part if total is None else total + part
+    return total
+
+
+def ff_bwd(params, data, dirs, go, act_name, mm):
+    """The stacked backward as the kernels compute it: recompute (``ff_stacks``), the top
+    epilogue from G = w_out go, going down dW_l over the tiles' rows (``ff_mm_tiles``),
+    the cotangents G_{l-1} = [gz | gp]_l W_l^T through ``mm``, the epilogue gz = act' ga
+    + (act''/act') sum_m gj_m J_m, gp_m = act' gj_m; dW_0 against the embedding's
+    panels.  go [np, P]: the output cotangent of every panel."""
+    act, act_p, _ = _act_triple(act_name)
+    ratio = (lambda a: -2.0 * a) if act_name == "tanh" else (lambda a: 1.0 - 2.0 * a)
+    wts = [layer["w"].T for layer in params]
+    n_panels, p = go.shape
+    order = ff_tile_order(p, n_panels)
+    s0, slots = ff_stacks(params, data, dirs, act_name, mm)
+    lh = len(params) - 1
+    gor = go.reshape(1, -1)                                       # [1, np P]
+    d_wts, d_bs = [None] * (lh + 1), [None] * (lh + 1)
+    d_wts[-1] = gor @ slots[-1].T
+    d_bs[-1] = go[0].sum()[None, None]
+    g = wts[-1].T * gor                                           # [H, np P]
+    for l in range(lh - 1, -1, -1):
+        a, js = slots[l][:, :p], slots[l][:, p:]
+        sp = act_p(a)
+        gj = g[:, p:]
+        acc = sum(gj[:, m * p:(m + 1) * p] * js[:, m * p:(m + 1) * p]
+                  for m in range(n_panels - 1))
+        gz = sp * g[:, :p] + ratio(a) * acc
+        gzc = torch.cat([gz, sp.repeat(1, n_panels - 1) * gj], dim=1)
+        d_bs[l] = gz.sum(dim=1, keepdim=True)
+        s_in = s0 if l == 0 else slots[l - 1]
+        d_wts[l] = ff_mm_tiles(gzc, s_in.T, order, mm)
+        if l > 0:
+            g = mm(wts[l].T, gzc)
+    return [t for dw, db in zip(d_wts, d_bs) for t in (dw.T, db[:, 0])]
+
+
+def ff_unit_dirs(data):
+    eye = torch.eye(data.xs.shape[0], dtype=data.xs.dtype)
+    return [eye[:, j:j + 1].expand_as(data.xs) for j in range(data.xs.shape[0])]
+
+
+def ff_kernel(kind, act_name):
+    """(emulation, plain version) of ``kind`` on the seeded ff case of a fixture param
+    (its depth picks the seed): K2-FF forward (r, summed per test function as
+    vr_qsum_kernel does) and backward, K7 forward ([u, du]) and backward."""
+    def emul(p, t, x, g, c, gt, cu, cs, mm):
+        params, data, gr, gu = ff_case(len(p), x.dtype)
+        if kind == "dir_fwd":
+            c, _, csrc = fr._dir_coeffs(data)
+            out = ff_outputs(params, ff_stacks(params, data, [c], act_name, mm)[1][-1], 2)
+            return [qsum(out[1] + csrc, data.nq)]
+        if kind == "dir_bwd":
+            c = fr._dir_coeffs(data)[0]
+            g_tan = gr.repeat_interleave(data.nq)
+            return ff_bwd(params, data, [c], torch.stack([torch.zeros_like(g_tan), g_tan]),
+                          act_name, mm)
+        dirs = ff_unit_dirs(data)
+        if kind == "unit_fwd":
+            return list(ff_outputs(params, ff_stacks(params, data, dirs, act_name, mm)[1][-1],
+                                   1 + len(dirs)))
+        return ff_bwd(params, data, dirs, gu, act_name, mm)
+
+    def plain(p, t, x, g, c, gt, cu, cs):
+        params, data, gr, gu = ff_case(len(p), x.dtype)
+        if kind == "dir_fwd":
+            return [fr.dir_residual_fwd_plain(params, data, act_name)]
+        if kind == "dir_bwd":
+            return vj._leaves(fr.dir_residual_bwd_plain(params, data, act_name, gr))
+        if kind == "unit_fwd":
+            return list(vj.ff_vj_fwd_plain(params, data.xs, data.bt, act_name))
+        return vj._leaves(vj.ff_vj_bwd_plain(params, data.xs, data.bt, act_name, gu))
+
+    return emul, plain
+
+
 def _case(widths, n_in=3, seed=0):
     rng = np.random.default_rng(seed)
     sizes = [n_in] + list(widths) + [1]
@@ -341,6 +526,11 @@ KERNELS = {
          dir_fwd_plain(p, x, c, cs, cu if react else None, nq, act))(act, react, nq),
         FWD_GATE, FWD_HEADROOM)
        for act, react, nq in [(a, r, DIR_NQ) for a, r in DIR_CASES] + [("tanh", False, 1296)]},
+    # csrc/ff_mlp.cu at F 128, w96x3: K2-FF r (5e-5) and gradients, K7 rows and gradients
+    **{f"ff_{kind}-{act}": (*ff_kernel(kind, act), gate, room)
+       for kind, gate, room in (("dir_fwd", FF_R_GATE, HEADROOM), ("dir_bwd", GATE, HEADROOM),
+                                ("unit_fwd", GATE, HEADROOM), ("unit_bwd", GATE, HEADROOM))
+       for act in ("tanh", "sigmoid")},
 }
 MODES = (("f32", torch.matmul), ("3xtf32", mm_3xtf32), ("tf32", mm_tf32), ("trunc", mm_trunc))
 LONG_SUMS = ["bwd"] + [k for k in KERNELS if k.startswith("dir_bwd")]  # G^T S over all points
@@ -423,3 +613,25 @@ def test_truncating_running_sum_loses_the_long_sums(errors, kernel):
     assert e["trunc"] > HEADROOM * e["3xtf32"], e
     if kernel == "bwd":
         assert e["trunc"] > e["gate"], e
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_truncating_running_sum_loses_the_layer0_sum(seed):
+    """Layer 0 of the ff kernels sums 256 deep (32 k-steps of three mma each).  On the
+    same f32 inputs against f64, a running sum kept in the truncating mma accumulator
+    errs 11x as much as the fresh-tile sum (rms; 7x at the max) and 6x as much as plain
+    f32 (rms): the fresh tiles keep the layer-0 sum at f32's own rounding or better.
+    (Through the layers and the output rows the other f32 roundings come on top: there
+    the truncating sum is 1.1-2.2x farther from f64, inside the gates.)"""
+    params, data, _, _ = ff_case(seed, torch.float32)
+    s0, _ = ff_stacks(params, data, ff_unit_dirs(data), "tanh", torch.matmul)
+    rows = ff_embed_rows()
+    w, e = params[0]["w"].T[:, rows], s0[rows]
+    ref = w.double() @ e.double()
+    err = {}
+    for mode, mm in MODES:
+        rel = (mm(w, e).double() - ref) / ref.abs().amax(dim=1, keepdim=True)
+        err[mode] = (float(rel.pow(2).mean().sqrt()), float(rel.abs().max()))
+    assert err["trunc"][0] > 5 * err["3xtf32"][0] and err["trunc"][1] > 5 * err["3xtf32"][1], err
+    assert err["trunc"][0] > 3 * err["f32"][0], err
+    assert err["3xtf32"][0] < err["f32"][0], err

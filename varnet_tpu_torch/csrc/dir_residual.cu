@@ -28,7 +28,7 @@
 // through the hidden layers in place, with no block-wide sync; layer 0, the activations
 // and the output row stay on the CUDA cores.  Points are tiled without regard to test
 // functions: the warp writes each point's contribution, and vr_qsum_kernel sums each test
-// function's nq of them, a warp per test function in a fixed order.  So the forward takes
+// function's nq of them (csrc/tc3xtf32.cuh), a warp per test function in a fixed order.  So the forward takes
 // any nq, and its launch depends on none (one f32 per point written and read again:
 // 35 MB at the flagship mesh, ~10 us of the card's memory time).
 //
@@ -266,22 +266,6 @@ __global__ void __launch_bounds__(256)
     }
     __syncwarp();
   }
-}
-
-// r[k] = sum_q contrib[k nq + q]: one warp per test function, lane l summing q = l, l +
-// 32, ... in order, then a fixed shuffle tree (offsets 16, 8, 4, 2, 1).  Any nq >= 0; no
-// atomics, so r is the same on every run.
-__global__ void vr_qsum_kernel(const float* __restrict__ contrib, float* __restrict__ r,
-                               int k, int nq) {
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (w >= k) return;  // the whole warp: w is the same on its 32 lanes
-  const float* c = contrib + w * nq;
-  float s = 0.0f;
-  for (int q = lane; q < nq; q += 32) s += c[q];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if (lane == 0) r[w] = s;
 }
 
 // The backward's inputs of point p (zeros past P): coordinates x, direction c and the
@@ -609,9 +593,7 @@ int launch_fwd(const VrProblem& pb, const float* params, float* contrib, float* 
                                                                   n_groups);
     if (const int e = (int)cudaGetLastError()) return e;
   }
-  vr_qsum_kernel<<<(int)(((long long)pb.k * 32 + 255) / 256), 256, 0, stream>>>(
-      contrib, r, pb.k, pb.nq);
-  return (int)cudaGetLastError();
+  return vr_qsum(contrib, r, pb.k, pb.nq, stream);
 }
 
 // The backward's (points per tile, threads) pair that keeps the most busy warps resident

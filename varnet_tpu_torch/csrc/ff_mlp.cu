@@ -1,4 +1,5 @@
-// Fourier-feature MLP kernels for Hopper (sm_90a), f32 on the CUDA cores.
+// Fourier-feature MLP kernels for Hopper (sm_90a): the residual and value + jacobian
+// kernels on the tensor cores (3xTF32 mma.sync, csrc/tc3xtf32.cuh), K8 on the CUDA cores.
 //
 // Replace the TPU kernels of the JAX package that run the trial net
 // u = MLP([sin | cos](2 pi B^T xs)) with a fixed B:
@@ -21,8 +22,8 @@
 // embedding E = [sin | cos](ang), ang = bt xs (bt = 2 pi B^T [F][n_in]), and along a
 // direction v its tangent [cos | -sin](ang) * (bt v).  B is fixed: nothing flows to it.
 // Without bt (a null pointer) layer 0 takes the scaled coordinates themselves and, along
-// v, v (a plain MLP, padded to ke = 32 input rows): the same kernels then carry the
-// plain nets wider than value_and_jac.cu and dir_residual.cu take (hidden width 65..128).
+// v, v (a plain MLP): the same kernels then carry the plain nets wider than
+// value_and_jac.cu and dir_residual.cu take (hidden width 65..128).
 //
 // Residual modes (FfMode).  FF_DIR (K2-FF) forms the weak-form direction c, cu and csrc
 // from the shared tables per point; FF_PRE (K4 for nets wider than 64) reads them per
@@ -33,52 +34,87 @@
 //     contrib = csrc + sum_j c_j du_j + cu u + w N u (sum_{j<d} b_j s_j du_j),
 // the last term being viscous Burgers' nonlinear advection u (b . grad u) (b: nl, s: the
 // input scale; grad u in the original coordinates).  Its backward forms the point
-// cotangents of _fused_bwd_kernel from gr[k] and the recomputed u, du in a prologue,
+// cotangents of _fused_bwd_kernel from gr[k] and the recomputed u, du,
 //     g_u = gr cu + gr w N (b . grad u),   g_du_j = gr c_j + gr w N u b_j s_j (j < d),
 // and hands them to the unit-mode backward.  The bilinear term is why K3 has no
 // directional form: u and grad u enter as a product.  Widths up to 128 (HP = 32..128).
+// The residual forwards write one integrand per point; vr_qsum_kernel (tc3xtf32.cuh, the
+// K1/K4 forward's) sums each test function's nq of them.
 //
-// What bounds them: f32 FMA throughput.  At the contaminant net (F = 128, width 96 x 3)
-// the forward does about 87 k FMAs per point per panel, the backward (recompute, two
-// panels of cotangents, the dW outer products) about three times that, against tens of
-// bytes read per point.  The per-point state does not fit the one-point-per-thread
-// design of dir_residual.cu / value_and_jac.cu (a point's backward state is over 4 KB
-// and W0 alone 96 KB), so here a block of FF_NT threads owns a tile of points, and
-// every layer is a block-wide register-tiled product
-//     Out [HP][panels x T] = W [HP][K] x In [K][panels x T],
-// the weights streamed through shared memory in K-slices of FF_KS rows, each thread
-// holding a 4 x 4 output tile per 32 rows.  The panels of every layer stay in shared
-// memory; the embedding is stored as sin / cos per feature and point, and the layer-0
-// input slices are formed from it as they are streamed.  The parameter gradient is a
-// second block product (dW [K][HP] += sum over the tile's columns) added into the
-// block's own partial in device memory (L2 resident); a second kernel sums the
-// partials in block order.  No atomics: the gradient is bit-reproducible, which CG needs.
+// What bounds them: operations.  At the contaminant net (F = 128, width 96 x 3) a panel
+// row takes 43 k multiply-adds per layer stack (24.6 k of them layer 0's, K = 256), the
+// backward (recompute, cotangents, dW) about 2.4 times the forward, against tens of bytes
+// read per point.
+//
+// Design (ff_fwd_kernel, ff_bwd_kernel).  A block of ng warp pairs (ng <= 4) walks tiles
+// of points, persistent.  Each pair owns a group of 32 stacked rows: G = 32 / npad points
+// of the tile with their npad panels (np padded to 2, 4 or 8 with zero rows), row
+// m G + t for panel m of point t, so one lane's mma accumulator holds the value and the
+// tangent rows of the same points and columns (npad 8: lane and lane ^ 16), and the layer
+// epilogues a = act(z + b), J = act'(a) z run on them in registers.  Every layer product
+// -- layer 0 against the embedding (depth KE = 2 FP), the hidden layers, the cotangents
+// G_{l-1} = G_l W_l^T and the weight gradients dW_l = S_{l-1}^T G_l, dW_0 = E^T G_0 --
+// is mma.sync.m16n8k8 tf32 in 3xTF32 with a fresh tile per k-step added on the CUDA cores
+// (csrc/tc3xtf32.cuh: the same split, product order and rounding as the other kernels).
+// A warp takes its pair's 32 rows (two 16-row tiles) for half of the HP / 8 output tiles:
+// each B fragment is split once for both row tiles, each A fragment once for the half.
+//
+// Weights stream, they do not stay.  Kept in f32 in shared memory the contaminant net's
+// weights take 172 KB, which would leave one block of 4 warps per SM beside the
+// backward's L stacked slots; instead each product streams its weights through a double
+// buffer of FF_SLICE-row K-slices with cp.async (ff_stage), the next slice -- across
+// layers, and into the block's next tile -- loading while the current one is summed, one
+// block barrier per slice.  Layer 0's slices take W0's sin and cos rows of the same 8
+// features, so one sincosf per point and feature forms the embedding slice of every
+// panel (ff_form_emb; full range reduction: angles reach ~76 rad at the contaminant's
+// unscaled inputs, formed in the JAX kernels' order, bt[f][0] x_0 + bt[f][1] x_1 + ...).
+// Each block fetches the weights once per tile of 32 ng rows (64 points of K2-FF at ng 4).
+//
+// Shared memory (floats; ff_tc_smem_floats), and the occupancy it allows at the
+// contaminant shape (HP 96, KE 256, three layers) and at HP 128:
+//   weight slices 2 x 16 (HP + 8) (backward: 2 x max(16 (HP + 8), 20 HP): the cotangent
+//   slices are transposed, [HP][FF_ELD]); embedding slices 2 x 32 ng x FF_ELD; slots
+//   (forward 1, backward L) x 32 ng x (HP + 4); biases, w_out, bt, the tile's point data;
+//   the backward's per-epilogue-group sums.
+//   forward  HP 96:  ng 4: 93.3 KB -> 2 blocks, 16 warps per SM
+//            HP 128: ng 4: 111.8 KB -> 2 blocks, 16 warps
+//   backward HP 96:  ng 4: 196.3 KB -> 1 block, 8 warps per SM
+//            HP 128: ng 3: 193 KB -> 1 block, 6 warps (ng 4 needs 257 KB)
+// The launcher takes, of ng 4, 3, 2, 1, the one that keeps the most warps resident
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; on a tie the larger block: more points
+// per fetch of the weights); ff_launch_shape reports it.
+//
+// The weight gradient.  At the contaminant shape dW is 43,104 floats (172 KB): it does not
+// fit in shared memory beside the slots, nor in the registers of 8 warps (168 a thread)
+// beside the products.  So each warp sums its dW units -- a row block of 16 rows of dW_l
+// (or 16 embedding columns of dW_0) over a quarter of the HP columns, depth the tile's
+// 32 ng rows, the K1/K4 backward's row-block units (ff_dw_rows) -- in registers over the
+// tile and adds them to the block's partial in device memory (L2-resident) once per tile,
+// each element by one fixed lane: 2 x 172 KB of L2 traffic per tile.  The small sums (biases,
+// w_out, b_out) ride the epilogues, thread (group e, column j) summing its share of the
+// points over the whole walk in shared memory, added in group order at the end.  A
+// second kernel sums the blocks' partials in block order.  No atomics: the gradient is
+// bit-identical from call to call, which CG needs.
 //
 // TPU -> Hopper: the TPU grid ran point tiles in order and summed dW in place; here the
-// backward is persistent (block b walks tiles b, b + gridDim.x, ...).  The TPU's whole
-// [2F, T] embedding panels in VMEM become sin / cos columns in shared memory.
-//
-// Angles reach ~76 rad at the contaminant's unscaled inputs: sincosf keeps full range
-// reduction (no __sinf, no fast math), and the angle is formed from bt as the JAX
-// kernels form it (bt[f][0] x_0 + bt[f][1] x_1 + ...).
+// kernels are persistent (block b walks tiles b, b + gridDim.x, ...).  The TPU's whole
+// [2F, T] embedding panels in VMEM become 16-column embedding slices formed per weight
+// slice.
 //
 // Packed parameter layout (floats; ops/fused_residual.py::ff_pack_index mirrors it):
 // hidden widths zero-padded to HP (a multiple of 32, at most 128), the features to FP (a
-// multiple of 16), KE = 2 FP; weights stored [fan_in][fan_out] (as w in the JAX layout):
+// multiple of 16), KE = 2 FP; weights stored [fan_in][fan_out] (as w in the JAX layout;
+// the fragment loaders read it as B [k][n] in the forward, transposed in the cotangents):
 //   W0 [KE][HP] (rows f: sin f, FP + f: cos f) | b0 [HP] | (W_l [HP][HP] | b_l [HP])
 //   for l = 1..L-1 | w_out [HP] | b_out | pad to 4.
-// Gradients and parameter tangents use the same layout.
+// Without an embedding KE = 32, rows 0..n_in-1 used.  Gradients and parameter tangents
+// use the same layout.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tc3xtf32.cuh"
 
-#define FF_NT 128      // threads per block
-#define FF_C 64        // panel columns of a tile: panels x points
-#define FF_LD 68       // row stride of a panel buffer (float4 rows, odd in 16-byte units)
-#define FF_KS 32       // rows of a streamed K-slice
 #define FF_MAX_IN 4
-#define FF_MAX_T 32    // points per tile at the fewest (2) panels
 #define FF_NCF (3 + FF_MAX_IN)  // per-point coefficient rows: cu, csrc, w N, c_0..c_3
+#define FF_MAX_NG 4             // warp pairs (groups of 32 stacked rows) per block
 
 // What a block computes per point: (u, du/dxs) (K7), or one of the weak residuals.
 enum FfMode { FF_UNIT = 0, FF_DIR = 1, FF_PRE = 2, FF_JAC = 3 };
@@ -95,23 +131,6 @@ __host__ __device__ inline int ff_off_wout(int hp, int ke, int n_hidden) {
 __host__ __device__ inline int ff_n_params(int hp, int ke, int n_hidden) {
   return (ff_off_wout(hp, ke, n_hidden) + hp + 1 + 3) / 4 * 4;
 }
-// Shared memory (floats) of a block with nbuf panel buffers and tabf table floats.
-__host__ __device__ inline int ff_smem_floats(int hp, int nbuf, int ke, int tabf) {
-  return FF_KS * hp + FF_KS * FF_LD + nbuf * hp * FF_LD + ke * FF_MAX_T + ke / 2 * 4 +
-         tabf + 8 + FF_MAX_IN * FF_MAX_T + FF_MAX_IN * FF_MAX_IN * FF_MAX_T +
-         FF_NCF * FF_MAX_T + FF_C;
-}
-
-// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
-__device__ __forceinline__ float ff_act(float z, int act) {
-  return act == 0 ? tanhf(z) : 1.0f / (1.0f + expf(-z));
-}
-__device__ __forceinline__ float ff_dact(float a, int act) {
-  return act == 0 ? 1.0f - a * a : a * (1.0f - a);
-}
-__device__ __forceinline__ float ff_ddact(float a, float sp, int act) {
-  return act == 0 ? -2.0f * a * sp : (1.0f - 2.0f * a) * sp;
-}
 
 struct FfProblem {
   const float* xs;     // [n_in][P] scaled coordinates
@@ -126,110 +145,705 @@ struct FfProblem {
   const float* cu;     // FF_PRE: [P] coefficient of u, or null
   long long P;
   int mode;            // FfMode
-  int n_in, np, T;     // np panels (value + np - 1 directions), T points per tile
+  int n_in, np, T;     // np panels (value + np - 1 directions); T: K8's points per tile
   int ke, n_hidden, act;
   int nq, d, td, has_react;  // has_react: a cu term (reaction, or FF_PRE's cu)
 };
 
-struct FfSmem {
-  float *Ws, *In, *A, *Sin, *Cos, *bt, *tab, *scale, *nls, *X, *Dir, *Cf, *Go;
+// ------------------------------------------------------------------------------------
+// The stacked tensor-core kernels (K2-FF, K7, K3, wide K4).
+
+__host__ __device__ inline int ff_npad(int np) { return np <= 2 ? 2 : (np <= 4 ? 4 : 8); }
+// Floats of one weight-slice buffer: [FF_SLICE][HP + 8] (forward products), in the
+// backward also the transposed cotangent slices [HP][FF_ELD].
+__host__ __device__ inline int ff_wbuf(int hp, bool bwd) {
+  const int a = FF_SLICE * (hp + 8), b = hp * FF_ELD;
+  return bwd && b > a ? b : a;
+}
+// Floats of one epilogue group's sums: the biases of every layer, w_out, b_out (pad 4).
+__host__ __device__ inline int ff_acc_floats(int hp, int n_hidden) {
+  return (n_hidden + 1) * hp + 4;
+}
+__host__ __device__ inline int ff_egroups(int nthr, int hp) { return nthr >= hp ? nthr / hp : 1; }
+// Shared memory (floats) of a block of ng warp pairs (the order of ff_tc_carve).
+__host__ __device__ inline int ff_tc_smem_floats(int hp, int ng, int ke, int n_hidden, int np,
+                                                 bool bwd) {
+  const int R = 32 * ng, TP = R / ff_npad(np);
+  int f = 2 * ff_wbuf(hp, bwd) + 2 * R * FF_ELD + (bwd ? n_hidden : 1) * R * (hp + 4) +
+          n_hidden * hp + hp + 4 + ke / 2 * 4 + 8 + (2 * FF_MAX_IN + FF_NCF) * TP + 2 * R;
+  if (bwd) f += ff_egroups(64 * ng, hp) * ff_acc_floats(hp, n_hidden);
+  return f;
+}
+
+struct FfTc {
+  float *W, *E, *S, *bias, *wout, *bt, *scale, *nls, *X, *Dir, *Cf, *Go, *Out, *Acc;
+  int npad, G, TP, R, fp, n0, nh, Q, wb, cnt;  // cnt: slices consumed (buffer parity)
+  bool has_next;                               // the block has another tile
 };
 
-__host__ __device__ inline bool ff_tables(const FfProblem& pb) {
-  return pb.mode == FF_DIR || pb.mode == FF_JAC;
+// The block's shared memory: W, the weight-slice double buffer; E, the embedding-slice
+// double buffer [2][R][FF_ELD]; S, the layer slots [nslot][R][HP + 4] (rows 32 g.. of a
+// slot are group g's); bias [L][HP]; wout [HP] | b_out; bt [FP][4]; scale, nls (b_j s_j)
+// [4]; the tile's point data X, Dir [4][TP], Cf [FF_NCF][TP]; per stacked row the output
+// cotangent Go [R] and output Out [R]; the backward's epilogue sums Acc.
+__device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb, bool bwd) {
+  FfTc t;
+  t.npad = ff_npad(pb.np);
+  t.G = 32 / t.npad;
+  t.R = 32 * ng;
+  t.TP = t.R / t.npad;
+  t.fp = pb.bt ? pb.ke / 2 : 0;
+  t.n0 = t.fp ? t.fp / 8 : 1;
+  t.nh = hp / FF_SLICE;
+  t.Q = t.n0 + (bwd ? 2 : 1) * (pb.n_hidden - 1) * t.nh;
+  t.wb = ff_wbuf(hp, bwd);
+  t.W = s;      s += 2 * t.wb;
+  t.E = s;      s += 2 * t.R * FF_ELD;
+  t.S = s;      s += (bwd ? pb.n_hidden : 1) * t.R * (hp + 4);
+  t.bias = s;   s += pb.n_hidden * hp;
+  t.wout = s;   s += hp + 4;
+  t.bt = s;     s += pb.ke / 2 * 4;
+  t.scale = s;  s += 4;
+  t.nls = s;    s += 4;
+  t.X = s;      s += FF_MAX_IN * t.TP;
+  t.Dir = s;    s += FF_MAX_IN * t.TP;
+  t.Cf = s;     s += FF_NCF * t.TP;
+  t.Go = s;     s += t.R;
+  t.Out = s;    s += t.R;
+  t.Acc = s;
+  t.cnt = 0;
+  t.has_next = false;
+  return t;
 }
 
-__device__ __forceinline__ FfSmem ff_smem(float* s, int hp, int nbuf, const FfProblem& pb,
-                                          int tabf) {
-  FfSmem m;
-  const int fp = pb.ke / 2;
-  m.Ws = s;    s += FF_KS * hp;                    // [FF_KS][hp] weight slice
-  m.In = s;    s += FF_KS * FF_LD;                 // [FF_KS][FF_LD] input slice
-  m.A = s;     s += nbuf * hp * FF_LD;             // nbuf x [hp][FF_LD] panel buffers
-  m.Sin = s;   s += fp * FF_MAX_T;                 // [fp][FF_MAX_T]
-  m.Cos = s;   s += fp * FF_MAX_T;
-  m.bt = s;    s += fp * 4;
-  m.tab = s;   s += tabf;
-  m.scale = s; s += 4;
-  m.nls = s;   s += 4;                               // b_j s_j of the nonlinear term
-  m.X = s;     s += FF_MAX_IN * FF_MAX_T;          // [j][pt]
-  m.Dir = s;   s += FF_MAX_IN * FF_MAX_IN * FF_MAX_T;  // [direction][j][pt]
-  m.Cf = s;    s += FF_NCF * FF_MAX_T;             // [FF_NCF][pt] cu, csrc, w N, c_j
-  m.Go = s;                                        // [FF_C] outputs or output cotangents
-  return m;
-}
-
-__device__ __forceinline__ void ff_load_consts(const FfProblem& pb, const FfSmem& sm) {
+__device__ void ff_tc_load_consts(const FfProblem& pb, const float* __restrict__ params,
+                                  const FfTc& t, int hp) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  for (int i = tid; i < pb.n_hidden * hp; i += nthr)
+    t.bias[i] = params[ff_off_b(hp, pb.ke, i / hp) + i % hp];
+  const int ow = ff_off_wout(hp, pb.ke, pb.n_hidden);
+  for (int i = tid; i <= hp; i += nthr) t.wout[i] = params[ow + i];
   if (pb.bt)
-    for (int i = threadIdx.x; i < pb.ke / 2 * 4; i += FF_NT) sm.bt[i] = pb.bt[i];
-  if (ff_tables(pb)) {
-    for (int i = threadIdx.x; i < pb.nq * (2 + pb.d); i += FF_NT) sm.tab[i] = pb.tab[i];
-    if (threadIdx.x < 4) {
-      const int j = threadIdx.x;
-      sm.scale[j] = j < pb.n_in ? pb.scale[j] : 0.0f;
-      // in the JAX kernel's order: (b_j s_j), then times du_j
-      sm.nls[j] = (pb.nl && j < pb.d) ? pb.nl[j] * sm.scale[j] : 0.0f;
+    for (int i = tid; i < pb.ke / 2 * 4; i += nthr) t.bt[i] = pb.bt[i];
+  if (tid < 4) {
+    const int j = tid;
+    const bool tables = pb.mode == FF_DIR || pb.mode == FF_JAC;
+    t.scale[j] = tables && j < pb.n_in ? pb.scale[j] : 0.0f;
+    // in the JAX kernel's order: (b_j s_j), then times du_j
+    t.nls[j] = (pb.nl && j < pb.d) ? pb.nl[j] * t.scale[j] : 0.0f;
+  }
+}
+
+// The tile's point data (thread tp < TP: point tile TP + tp, zeros past P): coordinates
+// X, the direction Dir (FF_DIR, FF_PRE), the coefficient rows Cf (cu, csrc, w N; FF_JAC's
+// c_j) -- the math of _dir_coeffs / _integrand_coeffs, the table read through the cache
+// (nothing here is sized by nq) -- and, with g (a backward of FF_UNIT, FF_DIR, FF_PRE),
+// the output cotangent of every stacked row, Go.
+__device__ void ff_tc_setup(const FfProblem& pb, const FfTc& t, long long tile,
+                            const float* __restrict__ g) {
+  const int tp = threadIdx.x, TP = t.TP;
+  if (tp >= TP) return;
+  const long long p = tile * TP + tp;
+  const bool valid = p < pb.P;
+#pragma unroll
+  for (int j = 0; j < FF_MAX_IN; ++j)
+    t.X[j * TP + tp] = (valid && j < pb.n_in) ? pb.xs[j * pb.P + p] : 0.0f;
+  float cu = 0.0f;
+  if (pb.mode != FF_UNIT) {
+    float c[FF_MAX_IN] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float csrc = 0.0f, wn = 0.0f;
+    if (valid && pb.mode == FF_PRE) {
+#pragma unroll
+      for (int j = 0; j < FF_MAX_IN; ++j)
+        if (j < pb.n_in) c[j] = pb.cdir[j * pb.P + p];
+      csrc = pb.csrc[p];
+      if (pb.cu) cu = pb.cu[p];
+    } else if (valid) {
+      const float* row = pb.tab + (int)(p % pb.nq) * (2 + pb.d);
+      const float n_q = __ldg(row), w_q = __ldg(row + 1);
+      const float kappa = pb.flds[p];
+#pragma unroll
+      for (int j = 0; j < FF_MAX_IN; ++j) {
+        if (j < pb.d) {
+          const float vel = pb.flds[(1 + j) * pb.P + p];
+          c[j] = w_q * t.scale[j] * (vel * n_q + kappa * __ldg(row + 2 + j));
+        } else if (j == pb.d && pb.td) {
+          c[j] = w_q * t.scale[j] * n_q;
+        }
+      }
+      csrc = -w_q * n_q * pb.flds[(1 + pb.d) * pb.P + p];
+      if (pb.has_react) cu = w_q * n_q * pb.flds[(2 + pb.d) * pb.P + p];
+      wn = w_q * n_q;
+    }
+#pragma unroll
+    for (int j = 0; j < FF_MAX_IN; ++j) {
+      if (pb.mode == FF_JAC) t.Cf[(3 + j) * TP + tp] = c[j];
+      else t.Dir[j * TP + tp] = c[j];
+    }
+    t.Cf[tp] = cu;
+    t.Cf[TP + tp] = csrc;
+    t.Cf[2 * TP + tp] = wn;
+  }
+  if (g) {
+    const int r0 = 32 * (tp / t.G) + tp % t.G;
+    const float gr = valid && pb.mode != FF_UNIT ? g[p / pb.nq] : 0.0f;
+    for (int m = 0; m < t.npad; ++m) {
+      float go = 0.0f;
+      if (valid && m < pb.np) {
+        if (pb.mode == FF_UNIT) go = g[m * pb.P + p];
+        else go = m == 0 ? (pb.has_react ? gr * cu : 0.0f) : gr;
+      }
+      t.Go[r0 + m * t.G] = go;
     }
   }
 }
 
-// The tile's coordinates, tangent directions and (residual modes) coefficients -- the
-// math of _dir_coeffs / _integrand_coeffs, or FF_PRE's precomputed ones -- then sin / cos
-// of every feature at every point.  FF_JAC keeps c in the coefficient rows and pushes the
-// unit directions, as unit mode does.
+// cp.async of slice q of a tile's weight schedule into buf, one commit group: q < n0,
+// layer 0's rows (with an embedding the 8 sin rows 8 q.. then the 8 cos rows FP + 8 q..;
+// without, rows 0..15); then the n_hidden - 1 hidden layers, nh slices of FF_SLICE rows
+// each, as [k][HP + 8]; then (the backward's cotangents) the hidden layers from the top
+// down, transposed: W_l[i][16 s..16 s + 15] as [i][FF_ELD].
+template <int HP>
+__device__ void ff_stage(const FfProblem& pb, const float* __restrict__ params, const FfTc& t,
+                         int q, float* buf) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int nf = t.n0 + (pb.n_hidden - 1) * t.nh;
+  if (q < nf) {
+    const bool l0 = q < t.n0;
+    const int s = l0 ? q : (q - t.n0) % t.nh;
+    const float* w = params + (l0 ? 0 : ff_off_w(HP, pb.ke, 1 + (q - t.n0) / t.nh));
+    for (int c = tid; c < FF_SLICE * HP / 4; c += nthr) {
+      const int kk = c / (HP / 4), c4 = c % (HP / 4);
+      int row = FF_SLICE * s + kk;
+      if (l0) row = !t.fp ? kk : (kk < 8 ? 8 * s + kk : t.fp + 8 * s + kk - 8);
+      ff_cp_async16(buf + kk * (HP + 8) + 4 * c4, w + row * HP + 4 * c4);
+    }
+  } else {
+    const int idx = q - nf, l = pb.n_hidden - 1 - idx / t.nh, s = idx % t.nh;
+    const float* w = params + ff_off_w(HP, pb.ke, l) + FF_SLICE * s;
+    for (int c = tid; c < HP * 4; c += nthr) {
+      const int i = c >> 2, c4 = c & 3;
+      ff_cp_async16(buf + i * FF_ELD + 4 * c4, w + i * HP + 4 * c4);
+    }
+  }
+  ff_cp_async_commit();
+}
+
+// Slice j of the tile's stacked layer-0 input into E [R][FF_ELD], every row.  With an
+// embedding, columns 0..7 the sin rows and 8..15 the cos rows of features 8 j.. 8 j + 7
+// (the order ff_stage loads W0's rows in): the value row [sin | cos](ang), a tangent row
+// along v [cos | -sin](ang) (bt_f . v), padded panels zero.  Without, the coordinates or
+// the direction (zero past n_in).
+__device__ void ff_form_emb(const FfProblem& pb, const FfTc& t, int j, float* E) {
+  const int tid = threadIdx.x, nthr = blockDim.x, TP = t.TP, G = t.G, np = pb.np;
+  const bool unit = pb.mode == FF_UNIT || pb.mode == FF_JAC;
+  if (t.fp) {
+    for (int it = tid; it < TP * 8; it += nthr) {
+      const int tp = it >> 3, ff = it & 7;
+      const float* b = t.bt + 4 * (8 * j + ff);
+      const float* x = t.X + tp;
+      float ang = b[0] * x[0];
+#pragma unroll
+      for (int k = 1; k < FF_MAX_IN; ++k) ang += b[k] * x[k * TP];
+      float s, c;
+      sincosf(ang, &s, &c);
+      float* row = E + (32 * (tp / G) + tp % G) * FF_ELD + ff;
+      row[0] = s;
+      row[8] = c;
+      for (int m = 1; m < t.npad; ++m) {
+        float pc = 0.0f;
+        if (m < np) {
+          if (unit) {
+            pc = b[m - 1];
+          } else {
+            const float* v = t.Dir + tp;
+            pc = b[0] * v[0];
+#pragma unroll
+            for (int k = 1; k < FF_MAX_IN; ++k) pc += b[k] * v[k * TP];
+          }
+        }
+        row[m * G * FF_ELD] = c * pc;
+        row[m * G * FF_ELD + 8] = -s * pc;
+      }
+    }
+  } else {
+    for (int it = tid; it < TP * FF_SLICE; it += nthr) {
+      const int tp = it / FF_SLICE, k = it % FF_SLICE;
+      const bool in = k < FF_MAX_IN;
+      float* row = E + (32 * (tp / G) + tp % G) * FF_ELD + k;
+      row[0] = in ? t.X[k * TP + tp] : 0.0f;
+      for (int m = 1; m < t.npad; ++m) {
+        float v = 0.0f;
+        if (in && m < np) v = unit ? (k == m - 1 ? 1.0f : 0.0f) : t.Dir[k * TP + tp];
+        row[m * G * FF_ELD] = v;
+      }
+    }
+  }
+}
+
+// The next slice of the schedule after q: the tile's next, the first of the block's next
+// tile, or none (-1).
+__device__ __forceinline__ int ff_next(const FfTc& t, int q) {
+  return q + 1 < t.Q ? q + 1 : (t.has_next ? 0 : -1);
+}
+
+// The two warps of group g (threads 64 g .. 64 g + 63) meet.
+__device__ __forceinline__ void ff_pair_sync() {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + (threadIdx.x >> 6)) : "memory");
+}
+
+// One stacked product over n slices of the weight schedule from slice q0: warp (g, hf) =
+// (warp / 2, warp % 2) sums rows 32 g.. of the tile for the output tiles hf NTH .., acc =
+// A B with A(r, k) = a(r, s, k) (row r < 32 of the group, k < FF_SLICE of slice s) and B
+// the slice, read b(k, n) = W[k][n] (forward layout) or W[n][k] (transposed).  While
+// slice s is summed the next slice of the schedule loads (and, with emb, the embedding
+// slice s + 1 is formed); one block barrier per slice.
+template <int NI, class LoadA>
+__device__ void ff_product(const FfProblem& pb, const float* __restrict__ params, FfTc& t,
+                           int q0, int n, bool transposed, bool emb, LoadA a,
+                           float (&acc)[2][2 * NI][4]) {
+  constexpr int HP = 32 * NI, NTH = 2 * NI;
+  const int n0 = 8 * NTH * ((threadIdx.x >> 5) & 1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+  for (int s = 0; s < n; ++s) {
+    ff_cp_async_wait_all();
+    __syncthreads();
+    const float* W = t.W + (t.cnt & 1) * t.wb;
+    const int next = ff_next(t, q0 + s);
+    if (next >= 0) ff_stage<HP>(pb, params, t, next, t.W + ((t.cnt + 1) & 1) * t.wb);
+    if (emb && s + 1 < n) ff_form_emb(pb, t, s + 1, t.E + ((s + 1) & 1) * t.R * FF_ELD);
+    if (transposed)
+      ff_rows2_slice<NTH>(acc, [&](int r, int k) { return a(r, s, k); },
+                          [&](int k, int nn) { return W[(n0 + nn) * FF_ELD + k]; });
+    else
+      ff_rows2_slice<NTH>(acc, [&](int r, int k) { return a(r, s, k); },
+                          [&](int k, int nn) { return W[k * (HP + 8) + n0 + nn]; });
+    ++t.cnt;
+  }
+}
+
+// A forward layer's epilogue, stored to the group's rows of slot O: a = act(z + b) on the
+// value rows, J = act'(a) z on a tangent row, with a of the same point and column, which
+// this lane holds (npad 2: tile 0, same register; npad 4: tile 0, register h & 1) or lane
+// & 15 does (npad 8: the group's 4 value rows are rows 0..3 of tile 0, lanes 0..15).
+template <int NI>
+__device__ void ff_store_fwd(float (&acc)[2][2 * NI][4], const float* b, float* O,
+                             const FfTc& t, int act) {
+  constexpr int HP = 32 * NI, NTH = 2 * NI, LD = HP + 4;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  const int g = threadIdx.x >> 6, n0 = 8 * NTH * ((threadIdx.x >> 5) & 1), G = t.G;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      if ((gq + 8 * (h >> 1)) / G == 0)
+        acc[0][nt][h] = vj_act(acc[0][nt][h] + b[n0 + 8 * nt + 2 * q + (h & 1)], act);
+    float va[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) va[h] = t.npad == 2 ? acc[0][nt][h] : acc[0][nt][h & 1];
+    if (t.npad == 8) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) va[h] = __shfl_sync(0xffffffffu, va[h], lane & 15);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int row = 16 * mt + gq + 8 * (h >> 1);
+        if (row / G != 0) acc[mt][nt][h] *= vj_dact(va[h], act);
+        O[(32 * g + row) * LD + n0 + 8 * nt + 2 * q + (h & 1)] = acc[mt][nt][h];
+      }
+  }
+}
+
+// The accumulator as it is, to the group's rows of slot O (the cotangents G_{l-1}).
+template <int NI>
+__device__ void ff_store_raw(const float (&acc)[2][2 * NI][4], float* O) {
+  constexpr int HP = 32 * NI, NTH = 2 * NI, LD = HP + 4;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  const int g = threadIdx.x >> 6, n0 = 8 * NTH * ((threadIdx.x >> 5) & 1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        O[(32 * g + 16 * mt + gq + 8 * (h >> 1)) * LD + n0 + 8 * nt + 2 * q + (h & 1)] =
+            acc[mt][nt][h];
+}
+
+// Out[r] = w_out . S[r] for the R stacked rows of slot S (b_out not added): two threads a
+// row (blockDim = 2 R), each half the columns in four chains, then added.
+template <int NI>
+__device__ void ff_outputs(const FfTc& t, const float* S) {
+  constexpr int HP = 32 * NI, LD = HP + 4;
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const float4* s4 = reinterpret_cast<const float4*>(S + r * LD + half * (HP / 2));
+  const float4* w4 = reinterpret_cast<const float4*>(t.wout + half * (HP / 2));
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < HP / 8; ++i) {
+    const float4 a = s4[i], w = w4[i];
+    c[0] = fmaf(w.x, a.x, c[0]);
+    c[1] = fmaf(w.y, a.y, c[1]);
+    c[2] = fmaf(w.z, a.z, c[2]);
+    c[3] = fmaf(w.w, a.w, c[3]);
+  }
+  float v = (c[0] + c[1]) + (c[2] + c[3]);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  if (half == 0) t.Out[r] = v;
+}
+
+// The forward's per-point results from Out (thread tp < TP): (u, du/dxs) to out [np][P]
+// (FF_UNIT), or the integrand to out [P] in the order of the JAX kernels: dd + csrc
+// (+ cu u) (FF_DIR, FF_PRE), _fused_fwd_kernel's (FF_JAC).
+__device__ void ff_point_out(const FfProblem& pb, const FfTc& t, long long tile, int hp,
+                             float* __restrict__ out) {
+  const int tp = threadIdx.x, TP = t.TP, G = t.G;
+  if (tp >= TP) return;
+  const long long p = tile * TP + tp;
+  if (p >= pb.P) return;
+  const int r0 = 32 * (tp / G) + tp % G;
+  const float u = t.Out[r0] + t.wout[hp];
+  if (pb.mode == FF_UNIT) {
+    out[p] = u;
+    for (int m = 1; m < pb.np; ++m) out[m * pb.P + p] = t.Out[r0 + m * G];
+  } else if (pb.mode == FF_JAC) {
+    float contrib = t.Cf[TP + tp];
+    for (int j = 0; j < pb.n_in; ++j) contrib += t.Cf[(3 + j) * TP + tp] * t.Out[r0 + (1 + j) * G];
+    if (pb.has_react) contrib += t.Cf[tp] * u;
+    if (pb.nl) {
+      float dub = 0.0f;
+      for (int j = 0; j < pb.d; ++j) dub += t.nls[j] * t.Out[r0 + (1 + j) * G];
+      contrib += t.Cf[2 * TP + tp] * (u * dub);
+    }
+    out[p] = contrib;
+  } else {
+    float contrib = t.Out[r0 + G] + t.Cf[TP + tp];
+    if (pb.has_react) contrib += t.Cf[tp] * u;
+    out[p] = contrib;
+  }
+}
+
+// K3's point cotangents (thread tp < TP) from gr and the recomputed outputs, in the order
+// of _fused_bwd_kernel, to every stacked row of the point in Go.
+__device__ void ff_jac_seeds(const FfProblem& pb, const FfTc& t, long long tile, int hp,
+                             const float* __restrict__ g) {
+  const int tp = threadIdx.x, TP = t.TP, G = t.G;
+  if (tp >= TP) return;
+  const long long p = tile * TP + tp;
+  const int r0 = 32 * (tp / G) + tp % G;
+  float go[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (p < pb.P) {
+    const float gr = g[p / pb.nq];
+    go[0] = pb.has_react ? gr * t.Cf[tp] : 0.0f;
+    for (int j = 0; j < pb.n_in; ++j) go[1 + j] = gr * t.Cf[(3 + j) * TP + tp];
+    if (pb.nl) {
+      const float gw = gr * t.Cf[2 * TP + tp];
+      float dub = 0.0f;
+      for (int j = 0; j < pb.d; ++j) dub += t.nls[j] * t.Out[r0 + (1 + j) * G];
+      go[0] += gw * dub;
+      const float gcu = gw * (t.Out[r0] + t.wout[hp]);
+      for (int j = 0; j < pb.d; ++j) go[1 + j] += t.nls[j] * gcu;
+    }
+  }
+  for (int m = 0; m < t.npad; ++m) t.Go[r0 + m * G] = go[m];
+}
+
+// [a; J]_l -> [gz; gp]_l in place in slot l, over the tile's points: gz = act' ga +
+// (act''/act') sum_m gj_m J_m, gp_m = act' gj_m, (ga, gj) the rows of G_l in slot Gs, or at
+// the top (Gs null) w_out go.  Thread (group e, column j) takes column j of points e,
+// e + EG, ...; it adds its gz to db_l and, at the top, go . S to dw_out and go to b_out,
+// in group e's sums (Acc), which no other thread writes.
+template <int NI>
+__device__ void ff_epilogue(const FfProblem& pb, const FfTc& t, int l, const float* Gs) {
+  constexpr int HP = 32 * NI, LD = HP + 4;
+  const int nthr = blockDim.x, np = pb.np, act = pb.act, G = t.G, L = pb.n_hidden;
+  const int EG = ff_egroups(nthr, HP), na = ff_acc_floats(HP, L);
+  float* Sl = t.S + l * t.R * LD;
+  const bool top = Gs == nullptr;
+  for (int c = threadIdx.x; c < EG * HP; c += nthr) {
+    const int e = c / HP, j = c % HP;
+    const float w = t.wout[j];
+    float db = 0.0f, dwo = 0.0f, dbo = 0.0f;
+    for (int tp = e; tp < t.TP; tp += EG) {
+      const int r0 = 32 * (tp / G) + tp % G;
+      float* s = Sl + r0 * LD + j;
+      const float a = s[0], sp = vj_dact(a, act);
+      float ga, sum = 0.0f;
+      if (top) {
+        const float go = t.Go[r0];
+        ga = w * go;
+        dwo = fmaf(go, a, dwo);
+        dbo += go;
+      } else {
+        ga = Gs[r0 * LD + j];
+      }
+      for (int m = 1; m < np; ++m) {
+        float* sj = s + m * G * LD;
+        const float J = *sj;
+        float gj;
+        if (top) {
+          const float go = t.Go[r0 + m * G];
+          gj = w * go;
+          dwo = fmaf(go, J, dwo);
+        } else {
+          gj = Gs[(r0 + m * G) * LD + j];
+        }
+        sum = fmaf(gj, J, sum);
+        *sj = sp * gj;
+      }
+      const float gz = fmaf(sp, ga, vj_ddact_ratio(a, act) * sum);
+      s[0] = gz;
+      db += gz;
+    }
+    float* acc = t.Acc + e * na;
+    acc[l * HP + j] += db;
+    if (top) {
+      acc[L * HP + j] += dwo;
+      if (j == 0) acc[(L + 1) * HP] += dbo;
+    }
+  }
+}
+
+// ------------------------------------------------------------------------------------
+// Forward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode), persistent:
+//   residual modes: out [P] = the integrand per point (summed over q by vr_qsum_kernel)
+//   unit mode:      out [np][P] = (u, du/dxs_j)
+// Per tile: the point data, layer 0 against the embedding slices, the hidden layers in
+// place in the one slot (the pair meets before it overwrites the rows it read), the
+// output row, the per-point results.
+template <int NI>
+__global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
+    ff_fwd_kernel(FfProblem pb, const float* __restrict__ params, float* __restrict__ out,
+                  long long n_tiles, int ng) {
+  extern __shared__ float4 ff_smem4[];
+  constexpr int HP = 32 * NI, LD = HP + 4;
+  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, false);
+  const int L = pb.n_hidden, act = pb.act, g = threadIdx.x >> 6;
+  ff_tc_load_consts(pb, params, t, HP);
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) ff_stage<HP>(pb, params, t, 0, t.W);
+  const float* Eg = t.E + 32 * g * FF_ELD;
+  const float* Sg = t.S + 32 * g * LD;
+  for (; tile < n_tiles; tile += gridDim.x) {
+    t.has_next = tile + gridDim.x < n_tiles;
+    __syncthreads();  // the previous tile is done with the point data
+    ff_tc_setup(pb, t, tile, nullptr);
+    __syncthreads();
+    ff_form_emb(pb, t, 0, t.E);
+    float acc[2][2 * NI][4];
+    ff_product<NI>(pb, params, t, 0, t.n0, false, true,
+                   [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
+                   acc);
+    ff_store_fwd<NI>(acc, t.bias, t.S, t, act);
+    for (int l = 1; l < L; ++l) {
+      ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false,
+                     [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; }, acc);
+      ff_pair_sync();
+      ff_store_fwd<NI>(acc, t.bias + l * HP, t.S, t, act);
+    }
+    __syncthreads();
+    ff_outputs<NI>(t, t.S);
+    __syncthreads();
+    ff_point_out(pb, t, tile, HP, out);
+  }
+}
+
+// ------------------------------------------------------------------------------------
+// Backward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode): persistent, one
+// gradient partial per block.  The output cotangent per stacked row is (gr cu, gr) in
+// FF_DIR / FF_PRE (gr [K] per test function), K3's (g_u, g_du_j) in FF_JAC (formed from
+// gr and the recomputed outputs), g [np][P] in unit mode.  Per tile: the forward with
+// every layer's slot kept; the top epilogue; going down, dW_l += S_{l-1}^T [gz; gp]_l
+// (units in registers, added to the partial), G_{l-1} = [gz; gp]_l W_l^T in place in slot
+// l, the epilogue into slot l - 1; last dW_0 += E^T [gz; gp]_0 over the embedding slices,
+// formed again (one sincosf per point and feature).
+template <int NI>
+__global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
+    ff_bwd_kernel(FfProblem pb, const float* __restrict__ params, const float* __restrict__ g,
+                  float* __restrict__ partials, long long n_tiles, int ng) {
+  extern __shared__ float4 ff_smem4[];
+  constexpr int HP = 32 * NI, LD = HP + 4, NTH = 2 * NI;
+  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, true);
+  const int L = pb.n_hidden, act = pb.act, tid = threadIdx.x, nthr = blockDim.x;
+  const int grp = tid >> 6, warp = tid >> 5, nwarp = nthr >> 5;
+  const int lane = tid & 31, gq = lane >> 2, q = lane & 3;
+  const int slot = t.R * LD, npp = ff_n_params(HP, pb.ke, L);
+  const int EG = ff_egroups(nthr, HP), na = ff_acc_floats(HP, L);
+  const int nf = t.n0 + (L - 1) * t.nh;
+  float* part = partials + (long long)blockIdx.x * npp;
+  for (int i = tid; i < npp; i += nthr) part[i] = 0.0f;
+  for (int i = tid; i < EG * na; i += nthr) t.Acc[i] = 0.0f;
+  ff_tc_load_consts(pb, params, t, HP);
+  if (blockIdx.x < n_tiles) ff_stage<HP>(pb, params, t, 0, t.W);
+  const float* Eg = t.E + 32 * grp * FF_ELD;
+  float acc[2][NTH][4];
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    t.has_next = tile + gridDim.x < n_tiles;
+    __syncthreads();  // the previous tile is done with the point data and E
+    ff_tc_setup(pb, t, tile, pb.mode == FF_JAC ? nullptr : g);
+    __syncthreads();
+    ff_form_emb(pb, t, 0, t.E);
+    ff_product<NI>(pb, params, t, 0, t.n0, false, true,
+                   [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
+                   acc);
+    ff_store_fwd<NI>(acc, t.bias, t.S, t, act);
+    for (int l = 1; l < L; ++l) {
+      const float* Sp = t.S + (l - 1) * slot + 32 * grp * LD;
+      ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false,
+                     [&](int r, int s, int k) { return Sp[r * LD + FF_SLICE * s + k]; }, acc);
+      ff_store_fwd<NI>(acc, t.bias + l * HP, t.S + l * slot, t, act);
+    }
+    __syncthreads();
+    if (pb.mode == FF_JAC) {
+      ff_outputs<NI>(t, t.S + (L - 1) * slot);
+      __syncthreads();
+      ff_jac_seeds(pb, t, tile, HP, g);
+      __syncthreads();
+    }
+    ff_epilogue<NI>(pb, t, L - 1, nullptr);
+    __syncthreads();
+
+    for (int l = L - 1; l >= 1; --l) {
+      float* Sl = t.S + l * slot;
+      const float* Sp = Sl - slot;
+      // dW_l += S_{l-1}^T [gz; gp]_l: unit u = (row block u / 4 of 16 rows, column quarter
+      // u % 4), each element added to the partial by one fixed lane
+      for (int u = warp; u < HP / 16 * 4; u += nwarp) {
+        const int rb = u >> 2, cq = u & 3;
+        float dw[NI][4];
+        ff_dw_rows<NI>(dw, Sp + 16 * rb, LD, Sl + 8 * NI * cq, LD, t.R);
+        float* dst = part + ff_off_w(HP, pb.ke, l) + (16 * rb + gq) * HP + 8 * NI * cq + 2 * q;
+#pragma unroll
+        for (int nt = 0; nt < NI; ++nt)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) dst[8 * (h >> 1) * HP + 8 * nt + (h & 1)] += dw[nt][h];
+      }
+      // G_{l-1} = [gz; gp]_l W_l^T, in place in slot l once the pair has read its rows
+      const float* Sg = Sl + 32 * grp * LD;
+      ff_product<NI>(pb, params, t, nf + (L - 1 - l) * t.nh, t.nh, true, false,
+                     [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; }, acc);
+      ff_pair_sync();
+      ff_store_raw<NI>(acc, Sl);
+      __syncthreads();
+      ff_epilogue<NI>(pb, t, l - 1, Sl);
+      __syncthreads();
+    }
+
+    // dW_0 += E^T [gz; gp]_0: two embedding slices at a time, unit u = (slice u / 4,
+    // column quarter u % 4); a slice's 16 columns are W0's rows 8 j.. (sin) and FP + 8 j..
+    // (cos), or rows 0..15 without an embedding
+    for (int j0 = 0; j0 < t.n0; j0 += 2) {
+      const int nb = t.n0 - j0 < 2 ? 1 : 2;
+      for (int b = 0; b < nb; ++b) ff_form_emb(pb, t, j0 + b, t.E + b * t.R * FF_ELD);
+      __syncthreads();
+      for (int u = warp; u < 4 * nb; u += nwarp) {
+        const int b = u >> 2, cq = u & 3, f0 = 8 * (j0 + b);
+        float dw[NI][4];
+        ff_dw_rows<NI>(dw, t.E + b * t.R * FF_ELD, FF_ELD, t.S + 8 * NI * cq, LD, t.R);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int ii = gq + 8 * (h >> 1);
+          const int row = !t.fp ? ii : (ii < 8 ? f0 + ii : t.fp + f0 + ii - 8);
+          float* dst = part + row * HP + 8 * NI * cq + 2 * q + (h & 1);
+#pragma unroll
+          for (int nt = 0; nt < NI; ++nt) dst[8 * nt] += dw[nt][h];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // the small sums, in epilogue-group order, to their places in the partial
+  __syncthreads();
+  const int ow = ff_off_wout(HP, pb.ke, L);
+  for (int e = tid; e <= (L + 1) * HP; e += nthr) {
+    float v = 0.0f;
+    for (int k = 0; k < EG; ++k) v += t.Acc[k * na + e];
+    part[e < L * HP ? ff_off_b(HP, pb.ke, e / HP) + e % HP : ow + e - L * HP] = v;
+  }
+}
+
+// grad[i] = sum_b partials[b][i], in block order.
+__global__ void ff_reduce_kernel(const float* __restrict__ partials, float* __restrict__ grad,
+                                 int n_blocks, int npp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npp) return;
+  float s = 0.0f;
+  for (int b = 0; b < n_blocks; ++b) s += partials[(long long)b * npp + i];
+  grad[i] = s;
+}
+
+// ------------------------------------------------------------------------------------
+// K8 on the CUDA cores: a block of FF_NT threads owns a tile of T points, every layer a
+// block-wide register-tiled f32 product Out [HP][panels x T] = W [HP][K] x In [K][panels
+// x T], the weights streamed through shared memory in K-slices of FF_KS rows, each thread
+// holding a 4 x 4 output tile per 32 rows; the embedding is stored as sin / cos per
+// feature and point, and the layer-0 input slices are formed from it as they are
+// streamed.
+
+#define FF_NT 128      // threads per block
+#define FF_C 64        // panel columns of a tile: panels x points
+#define FF_LD 68       // row stride of a panel buffer (float4 rows, odd in 16-byte units)
+#define FF_KS 32       // rows of a streamed K-slice
+#define FF_MAX_T 32    // points per tile at the fewest (2) panels
+
+// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
+__device__ __forceinline__ float ff_act(float z, int act) {
+  return act == 0 ? tanhf(z) : 1.0f / (1.0f + expf(-z));
+}
+__device__ __forceinline__ float ff_dact(float a, int act) {
+  return act == 0 ? 1.0f - a * a : a * (1.0f - a);
+}
+__device__ __forceinline__ float ff_ddact(float a, float sp, int act) {
+  return act == 0 ? -2.0f * a * sp : (1.0f - 2.0f * a) * sp;
+}
+
+// Shared memory (floats) of a K8 block.
+__host__ __device__ inline int ff_smem_floats(int hp, int ke) {
+  return FF_KS * hp + FF_KS * FF_LD + 2 * hp * FF_LD + ke * FF_MAX_T + ke / 2 * 4 +
+         FF_MAX_IN * FF_MAX_T + FF_MAX_IN * FF_MAX_IN * FF_MAX_T;
+}
+
+struct FfSmem {
+  float *Ws, *In, *A, *Sin, *Cos, *bt, *X, *Dir;
+};
+
+__device__ __forceinline__ FfSmem ff_smem(float* s, int hp, const FfProblem& pb) {
+  FfSmem m;
+  const int fp = pb.ke / 2;
+  m.Ws = s;    s += FF_KS * hp;                    // [FF_KS][hp] weight slice
+  m.In = s;    s += FF_KS * FF_LD;                 // [FF_KS][FF_LD] input slice
+  m.A = s;     s += 2 * hp * FF_LD;                // 2 x [hp][FF_LD] panel buffers
+  m.Sin = s;   s += fp * FF_MAX_T;                 // [fp][FF_MAX_T]
+  m.Cos = s;   s += fp * FF_MAX_T;
+  m.bt = s;    s += fp * 4;
+  m.X = s;     s += FF_MAX_IN * FF_MAX_T;          // [j][pt]
+  m.Dir = s;                                       // [direction][j][pt]
+  return m;
+}
+
+// The tile's coordinates and unit directions, then sin / cos of every feature at every
+// point.
 __device__ void ff_tile_setup(const FfProblem& pb, const FfSmem& sm, long long tile) {
   const int tid = threadIdx.x, T = pb.T;
   __syncthreads();  // the previous tile is done with these arrays
   if (tid < T) {
     const long long p = tile * T + tid;
     const bool valid = p < pb.P;
-    float x[FF_MAX_IN];
 #pragma unroll
-    for (int j = 0; j < FF_MAX_IN; ++j) {
-      x[j] = (valid && j < pb.n_in) ? pb.xs[j * pb.P + p] : 0.0f;
-      sm.X[j * FF_MAX_T + tid] = x[j];
-    }
-    if (pb.mode != FF_UNIT) {
-      float c[FF_MAX_IN] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float cu = 0.0f, csrc = 0.0f, wn = 0.0f;
-      if (valid && pb.mode == FF_PRE) {
+    for (int j = 0; j < FF_MAX_IN; ++j)
+      sm.X[j * FF_MAX_T + tid] = (valid && j < pb.n_in) ? pb.xs[j * pb.P + p] : 0.0f;
+    for (int m = 0; m < pb.np - 1; ++m)
 #pragma unroll
-        for (int j = 0; j < FF_MAX_IN; ++j)
-          if (j < pb.n_in) c[j] = pb.cdir[j * pb.P + p];
-        csrc = pb.csrc[p];
-        if (pb.cu) cu = pb.cu[p];
-      } else if (valid) {
-        const float* row = sm.tab + (int)(p % pb.nq) * (2 + pb.d);
-        const float n_q = row[0], w_q = row[1];
-        const float kappa = pb.flds[p];
-#pragma unroll
-        for (int j = 0; j < FF_MAX_IN; ++j) {
-          if (j < pb.d) {
-            const float vel = pb.flds[(1 + j) * pb.P + p];
-            c[j] = w_q * sm.scale[j] * (vel * n_q + kappa * row[2 + j]);
-          } else if (j == pb.d && pb.td) {
-            c[j] = w_q * sm.scale[j] * n_q;
-          }
-        }
-        csrc = -w_q * n_q * pb.flds[(1 + pb.d) * pb.P + p];
-        if (pb.has_react) cu = w_q * n_q * pb.flds[(2 + pb.d) * pb.P + p];
-        wn = w_q * n_q;
-      }
-#pragma unroll
-      for (int j = 0; j < FF_MAX_IN; ++j) {
-        if (pb.mode == FF_JAC) sm.Cf[(3 + j) * FF_MAX_T + tid] = c[j];
-        else sm.Dir[j * FF_MAX_T + tid] = c[j];
-      }
-      sm.Cf[tid] = cu;
-      sm.Cf[FF_MAX_T + tid] = csrc;
-      sm.Cf[2 * FF_MAX_T + tid] = wn;
-    }
-    if (pb.mode == FF_UNIT || pb.mode == FF_JAC) {
-      for (int m = 0; m < pb.np - 1; ++m)
-#pragma unroll
-        for (int j = 0; j < FF_MAX_IN; ++j)
-          sm.Dir[(m * FF_MAX_IN + j) * FF_MAX_T + tid] = j == m ? 1.0f : 0.0f;
-    }
+      for (int j = 0; j < FF_MAX_IN; ++j)
+        sm.Dir[(m * FF_MAX_IN + j) * FF_MAX_T + tid] = j == m ? 1.0f : 0.0f;
   }
   __syncthreads();
   const int fp = pb.bt ? pb.ke / 2 : 0;
@@ -267,19 +881,11 @@ __device__ __forceinline__ float ff_emb(const FfSmem& sm, int fp, int k, int m, 
   return second ? -s * pc : c * pc;
 }
 
-// Row k of a hidden layer's output panel m at column col = m T + pt of a buffer that
-// holds the activation a (panel 0) and the tangent PRE-activations (panels >= 1).
-__device__ __forceinline__ float ff_hid(const float* A, int k, int m, int col, int pt,
-                                        int act) {
-  const float a = A[k * FF_LD + pt];
-  return m == 0 ? a : ff_dact(a, act) * A[k * FF_LD + col];
-}
-
 // acc[i][r][c] += sum_{k < K} W(32 i + 4 rg + r, k) In(k, c0 + c), rg = tid / 16,
-// c0 = 4 (tid % 16).  W streams through sWs in FF_KS-row slices: TRANS = false reads
-// W(r, k) = w[k HP + r] (a weight in the packed layout), TRANS = true W(r, k) = w[r HP + k]
-// (its transpose).  fill(k0, sIn) stages In(k0 + kk, c) at sIn[kk FF_LD + c].
-template <int NI, bool TRANS, class Fill>
+// c0 = 4 (tid % 16).  W streams through sWs in FF_KS-row slices, W(r, k) = w[k HP + r]
+// (a weight in the packed layout).  fill(k0, sIn) stages In(k0 + kk, c) at
+// sIn[kk FF_LD + c].
+template <int NI, class Fill>
 __device__ void ff_mm(float (&acc)[NI][4][4], const float* __restrict__ w, int K, float* sWs,
                       float* sIn, Fill fill) {
   constexpr int HP = 32 * NI;
@@ -287,13 +893,8 @@ __device__ void ff_mm(float (&acc)[NI][4][4], const float* __restrict__ w, int K
   for (int k0 = 0; k0 < K; k0 += FF_KS) {
     __syncthreads();
     for (int i = tid; i < FF_KS * HP; i += FF_NT) {
-      if (TRANS) {
-        const int kk = i % FF_KS, r = i / FF_KS;
-        sWs[kk * HP + r] = w[r * HP + k0 + kk];
-      } else {
-        const int r = i % HP, kk = i / HP;
-        sWs[kk * HP + r] = w[(k0 + kk) * HP + r];
-      }
+      const int r = i % HP, kk = i / HP;
+      sWs[kk * HP + r] = w[(k0 + kk) * HP + r];
     }
     fill(k0, sIn);
     __syncthreads();
@@ -325,344 +926,6 @@ __device__ __forceinline__ void ff_zero(float (&acc)[NI][4][4]) {
       for (int c = 0; c < 4; ++c) acc[i][r][c] = 0.0f;
 }
 
-// part[off + k HP + r] += sum_{c < FF_C} G[r][c] In(k, c) for r < HP, k < K: the weight
-// gradient against the layer input.  Lane = row (conflict-free G reads), each warp 8 of
-// the FF_KS staged input rows (broadcast reads).  Each (r, k) has one owner thread and
-// a fixed summation order.
-template <int NI, class Fill>
-__device__ void ff_outer(float* __restrict__ part, int off, int K, const float* G,
-                         float* sIn, Fill fill) {
-  constexpr int HP = 32 * NI;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int k0 = 0; k0 < K; k0 += FF_KS) {
-    __syncthreads();
-    fill(k0, sIn);
-    __syncthreads();
-    float acc[NI][8];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) acc[i][kk] = 0.0f;
-    for (int c = 0; c < FF_C; c += 4) {
-      float4 g[NI];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-        g[i] = *reinterpret_cast<const float4*>(G + (lane + 32 * i) * FF_LD + c);
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const float4 x = *reinterpret_cast<const float4*>(sIn + (8 * warp + kk) * FF_LD + c);
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          float a = acc[i][kk];
-          a = fmaf(g[i].x, x.x, a);
-          a = fmaf(g[i].y, x.y, a);
-          a = fmaf(g[i].z, x.z, a);
-          acc[i][kk] = fmaf(g[i].w, x.w, a);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        part[off + (k0 + 8 * warp + kk) * HP + lane + 32 * i] += acc[i][kk];
-  }
-  __syncthreads();
-}
-
-// Stores a layer's product: panel 0 -> act(acc + b), the other panels the raw
-// tangent pre-activations; columns of no panel get 0.
-template <int NI>
-__device__ __forceinline__ void ff_store(const float (&acc)[NI][4][4],
-                                         const float* __restrict__ b, float* Aout, int np,
-                                         int T, int act) {
-  const int tid = threadIdx.x, rg = tid / 16, c0 = (tid % 16) * 4;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 32 * i + 4 * rg + r;
-      const float bias = b[row];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c0 + c, m = col / T;
-        const float v = acc[i][r][c];
-        Aout[row * FF_LD + col] = m >= np ? 0.0f : (m == 0 ? ff_act(v + bias, act) : v);
-      }
-    }
-}
-
-// Hidden layers of the tile: layer l's (a, pre) panels go to buffer
-// A + (keep ? l : l & 1) * HP * FF_LD.  Returns the last layer's buffer.
-template <int NI>
-__device__ float* ff_forward(const FfProblem& pb, const FfSmem& sm,
-                             const float* __restrict__ params, bool keep) {
-  constexpr int HP = 32 * NI;
-  const int np = pb.np, T = pb.T, act = pb.act, fp = pb.bt ? pb.ke / 2 : 0;
-  float acc[NI][4][4];
-  float* prev = nullptr;
-  for (int l = 0; l < pb.n_hidden; ++l) {
-    float* out = sm.A + (keep ? l : (l & 1)) * HP * FF_LD;
-    ff_zero<NI>(acc);
-    if (l == 0) {
-      ff_mm<NI, false>(acc, params, pb.ke, sm.Ws, sm.In, [&](int k0, float* sIn) {
-        for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-          const int kk = i / FF_C, c = i % FF_C, m = c / T;
-          sIn[kk * FF_LD + c] = m < np ? ff_emb(sm, fp, k0 + kk, m, c % T) : 0.0f;
-        }
-      });
-    } else {
-      const float* in = prev;
-      ff_mm<NI, false>(acc, params + ff_off_w(HP, pb.ke, l), HP, sm.Ws, sm.In,
-                       [&](int k0, float* sIn) {
-        for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-          const int kk = i / FF_C, c = i % FF_C, m = c / T;
-          sIn[kk * FF_LD + c] = m < np ? ff_hid(in, k0 + kk, m, c, c % T, act) : 0.0f;
-        }
-      });
-    }
-    ff_store<NI>(acc, params + ff_off_b(HP, pb.ke, l), out, np, T, act);
-    prev = out;
-  }
-  __syncthreads();
-  return prev;
-}
-
-// K3's integrand at point pt of the tile from u = Go[pt] and du_j = Go[(1 + j) T + pt],
-// in the order of _fused_fwd_kernel.
-__device__ __forceinline__ float ff_jac_contrib(const FfProblem& pb, const FfSmem& sm, int pt) {
-  const int T = pb.T;
-  const float u = sm.Go[pt];
-  float contrib = sm.Cf[FF_MAX_T + pt];
-  for (int j = 0; j < pb.n_in; ++j)
-    contrib += sm.Cf[(3 + j) * FF_MAX_T + pt] * sm.Go[(1 + j) * T + pt];
-  if (pb.has_react) contrib += sm.Cf[pt] * u;
-  if (pb.nl) {
-    float dub = 0.0f;
-    for (int j = 0; j < pb.d; ++j) dub += sm.nls[j] * sm.Go[(1 + j) * T + pt];
-    contrib += sm.Cf[2 * FF_MAX_T + pt] * (u * dub);
-  }
-  return contrib;
-}
-
-// The tile's outputs (u, du/dxs_j) of every panel into Go[m T + pt], from the last hidden
-// layer's buffer A.
-template <int NI>
-__device__ __forceinline__ void ff_outputs(const FfProblem& pb, const FfSmem& sm,
-                                           const float* A, const float* __restrict__ wout) {
-  constexpr int HP = 32 * NI;
-  const int tid = threadIdx.x, T = pb.T;
-  if (tid < FF_C) {
-    const int m = tid / T, pt = tid % T;
-    float s = 0.0f;
-    if (m < pb.np) {
-      for (int k = 0; k < HP; ++k) s = fmaf(wout[k], ff_hid(A, k, m, tid, pt, pb.act), s);
-      if (m == 0) s += wout[HP];
-    }
-    sm.Go[tid] = s;
-  }
-  __syncthreads();
-}
-
-// ------------------------------------------------------------------------------------
-// Forward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode): one tile per
-// block.
-//   residual modes: out [P] = the integrand per point (summed over q by ff_qsum_kernel):
-//                   dd + csrc + cu u (FF_DIR, FF_PRE), ff_jac_contrib (FF_JAC)
-//   unit mode:      out [np][P] = (u, du/dxs_j)
-template <int NI>
-__global__ void ff_fwd_kernel(FfProblem pb, const float* __restrict__ params,
-                              float* __restrict__ out, int tabf) {
-  extern __shared__ float4 ff_smem4[];
-  constexpr int HP = 32 * NI;
-  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, 2, pb, tabf);
-  ff_load_consts(pb, sm);
-  const long long tile = blockIdx.x;
-  ff_tile_setup(pb, sm, tile);
-  const float* A = ff_forward<NI>(pb, sm, params, false);
-  ff_outputs<NI>(pb, sm, A, params + ff_off_wout(HP, pb.ke, pb.n_hidden));
-  const int tid = threadIdx.x, T = pb.T;
-  if (tid < T) {
-    const long long p = tile * T + tid;
-    if (p < pb.P) {
-      if (pb.mode == FF_JAC) {
-        out[p] = ff_jac_contrib(pb, sm, tid);
-      } else if (pb.mode != FF_UNIT) {
-        float contrib = sm.Go[T + tid] + sm.Cf[FF_MAX_T + tid];
-        if (pb.has_react) contrib += sm.Cf[tid] * sm.Go[tid];
-        out[p] = contrib;
-      } else {
-        for (int m = 0; m < pb.np; ++m) out[m * pb.P + p] = sm.Go[m * T + tid];
-      }
-    }
-  }
-}
-
-// r[k] = sum_q contrib[k nq + q], in q order.
-__global__ void ff_qsum_kernel(const float* __restrict__ contrib, float* __restrict__ r, int k,
-                               int nq) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  float s = 0.0f;
-  for (int q = 0; q < nq; ++q) s += contrib[(long long)i * nq + q];
-  r[i] = s;
-}
-
-// ------------------------------------------------------------------------------------
-// Backward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode): persistent, one
-// gradient partial per block.  The output cotangent per point is (gr cu, gr) in FF_DIR /
-// FF_PRE (gr [K] per test function), K3's (g_u, g_du_j) in FF_JAC (formed from gr and the
-// recomputed outputs), g [np][P] in unit mode.  Going down the layers, layer l's buffer
-// (a, pre) is overwritten in place with its cotangents (gz, gp); the cotangents passed
-// to the layer below, W_l^T (gz, gp), go to the extra buffer G.
-template <int NI>
-__global__ void ff_bwd_kernel(FfProblem pb, const float* __restrict__ params,
-                              const float* __restrict__ g, float* __restrict__ partials,
-                              long long n_tiles, int tabf) {
-  extern __shared__ float4 ff_smem4[];
-  constexpr int HP = 32 * NI;
-  const int L = pb.n_hidden, np = pb.np, T = pb.T, act = pb.act, fp = pb.bt ? pb.ke / 2 : 0;
-  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, L + 1, pb, tabf);
-  const int npp = ff_n_params(HP, pb.ke, L);
-  const int tid = threadIdx.x;
-  float* part = partials + (long long)blockIdx.x * npp;
-  for (int i = tid; i < npp; i += FF_NT) part[i] = 0.0f;
-  ff_load_consts(pb, sm);
-  const int off_wout = ff_off_wout(HP, pb.ke, L);
-  const float* wout = params + off_wout;
-  float* G = sm.A + L * HP * FF_LD;
-  float acc[NI][4][4];
-
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    ff_tile_setup(pb, sm, tile);
-    const float* Alast = ff_forward<NI>(pb, sm, params, true);
-    if (pb.mode == FF_JAC) {
-      // the recomputed outputs, then in place (each thread its own point's column) the
-      // cotangents of _fused_bwd_kernel
-      ff_outputs<NI>(pb, sm, Alast, wout);
-      if (tid < T) {
-        const long long p = tile * T + tid;
-        float go[FF_MAX_IN + 1] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if (p < pb.P) {
-          const float gr = g[p / pb.nq];
-          go[0] = pb.has_react ? gr * sm.Cf[tid] : 0.0f;
-          for (int j = 0; j < pb.n_in; ++j) go[1 + j] = gr * sm.Cf[(3 + j) * FF_MAX_T + tid];
-          if (pb.nl) {
-            const float gw = gr * sm.Cf[2 * FF_MAX_T + tid];
-            float dub = 0.0f;
-            for (int j = 0; j < pb.d; ++j) dub += sm.nls[j] * sm.Go[(1 + j) * T + tid];
-            go[0] += gw * dub;
-            const float gcu = gw * sm.Go[tid];
-            for (int j = 0; j < pb.d; ++j) go[1 + j] += sm.nls[j] * gcu;
-          }
-        }
-        for (int m = 0; m < np; ++m) sm.Go[m * T + tid] = go[m];
-      }
-      // columns past np T stay as ff_outputs left them: 0
-    } else if (tid < FF_C) {
-      const int m = tid / T, pt = tid % T;
-      const long long p = tile * T + pt;
-      float go = 0.0f;
-      if (m < np && p < pb.P) {
-        if (pb.mode != FF_UNIT) {
-          const float gr = g[p / pb.nq];
-          go = m == 0 ? (pb.has_react ? gr * sm.Cf[pt] : 0.0f) : gr;
-        } else {
-          go = g[m * pb.P + p];
-        }
-      }
-      sm.Go[tid] = go;
-    }
-    __syncthreads();
-    // output layer: dw_out[k] += sum_c go(c) x(k, c), db_out += sum over the value panel
-    for (int k = tid; k < HP; k += FF_NT) {
-      float s = 0.0f;
-      for (int c = 0; c < np * T; ++c)
-        s = fmaf(sm.Go[c], ff_hid(Alast, k, c / T, c, c % T, act), s);
-      part[off_wout + k] += s;
-    }
-    if (tid == 0) {
-      float s = 0.0f;
-      for (int pt = 0; pt < T; ++pt) s += sm.Go[pt];
-      part[off_wout + HP] += s;
-    }
-    for (int i = tid; i < HP * FF_C; i += FF_NT) {
-      const int r = i / FF_C, c = i % FF_C;
-      G[r * FF_LD + c] = wout[r] * sm.Go[c];
-    }
-    __syncthreads();
-
-    for (int l = L - 1; l >= 0; --l) {
-      float* Al = sm.A + l * HP * FF_LD;
-      // gz = sp ga + spp sum_m gJ_m pre_m, gp_m = sp gJ_m, in place of (a, pre_m)
-      for (int i = tid; i < HP * T; i += FF_NT) {
-        const int r = i / T, pt = i % T;
-        float* row = Al + r * FF_LD;
-        const float* grow = G + r * FF_LD;
-        const float a = row[pt];
-        const float sp = ff_dact(a, act), spp = ff_ddact(a, sp, act);
-        float s = 0.0f;
-        for (int m = 1; m < np; ++m) {
-          const float gj = grow[m * T + pt];
-          s = fmaf(gj, row[m * T + pt], s);
-          row[m * T + pt] = sp * gj;
-        }
-        row[pt] = fmaf(sp, grow[pt], spp * s);
-      }
-      __syncthreads();
-      for (int r = tid; r < HP; r += FF_NT) {
-        float s = 0.0f;
-        for (int pt = 0; pt < T; ++pt) s += Al[r * FF_LD + pt];
-        part[ff_off_b(HP, pb.ke, l) + r] += s;
-      }
-      if (l == 0) {
-        ff_outer<NI>(part, 0, pb.ke, Al, sm.In, [&](int k0, float* sIn) {
-          for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-            const int kk = i / FF_C, c = i % FF_C, m = c / T;
-            sIn[kk * FF_LD + c] = m < np ? ff_emb(sm, fp, k0 + kk, m, c % T) : 0.0f;
-          }
-        });
-      } else {
-        const float* in = sm.A + (l - 1) * HP * FF_LD;
-        ff_outer<NI>(part, ff_off_w(HP, pb.ke, l), HP, Al, sm.In, [&](int k0, float* sIn) {
-          for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-            const int kk = i / FF_C, c = i % FF_C, m = c / T;
-            sIn[kk * FF_LD + c] = m < np ? ff_hid(in, k0 + kk, m, c, c % T, act) : 0.0f;
-          }
-        });
-        ff_zero<NI>(acc);
-        ff_mm<NI, true>(acc, params + ff_off_w(HP, pb.ke, l), HP, sm.Ws, sm.In,
-                        [&](int k0, float* sIn) {
-          for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-            const int kk = i / FF_C, c = i % FF_C;
-            sIn[kk * FF_LD + c] = Al[(k0 + kk) * FF_LD + c];
-          }
-        });
-        const int rg = tid / 16, c0 = (tid % 16) * 4;
-#pragma unroll
-        for (int i = 0; i < NI; ++i)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              G[(32 * i + 4 * rg + r) * FF_LD + c0 + c] = acc[i][r][c];
-        __syncthreads();
-      }
-    }
-  }
-}
-
-// grad[i] = sum_b partials[b][i], in block order.
-__global__ void ff_reduce_kernel(const float* __restrict__ partials, float* __restrict__ grad,
-                                 int n_blocks, int npp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npp) return;
-  float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[(long long)b * npp + i];
-  grad[i] = s;
-}
-
-// ------------------------------------------------------------------------------------
 // K8: tangent of out = (u, du/dxs) along the packed parameter tangent dparams.  2 np
 // column panels: s panels (a, pre_j) then ds panels (dz, dpre_j) of the current layer,
 // stored raw; the layer inputs are s = (a, sp pre_j), ds = (sp dz, spp dz pre_j +
@@ -708,8 +971,9 @@ __global__ void ff_jvp_kernel(FfProblem pb, const float* __restrict__ params,
   extern __shared__ float4 ff_smem4[];
   constexpr int HP = 32 * NI;
   const int np = pb.np, T = pb.T, act = pb.act, fp = pb.bt ? pb.ke / 2 : 0;
-  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, 2, pb, 0);
-  ff_load_consts(pb, sm);
+  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, pb);
+  if (pb.bt)
+    for (int i = threadIdx.x; i < pb.ke / 2 * 4; i += FF_NT) sm.bt[i] = pb.bt[i];
   const long long tile = blockIdx.x;
   ff_tile_setup(pb, sm, tile);
   float acc[NI][4][4];
@@ -721,7 +985,7 @@ __global__ void ff_jvp_kernel(FfProblem pb, const float* __restrict__ params,
     const float* in = prev;
     ff_zero<NI>(acc);
     // W [s | ds]
-    ff_mm<NI, false>(acc, params + ow, K, sm.Ws, sm.In, [&](int k0, float* sIn) {
+    ff_mm<NI>(acc, params + ow, K, sm.Ws, sm.In, [&](int k0, float* sIn) {
       for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
         const int kk = i / FF_C, c = i % FF_C, m2 = c / T, pt = c % T;
         float v = 0.0f;
@@ -734,7 +998,7 @@ __global__ void ff_jvp_kernel(FfProblem pb, const float* __restrict__ params,
       }
     });
     // + dW [0 | s]
-    ff_mm<NI, false>(acc, dparams + ow, K, sm.Ws, sm.In, [&](int k0, float* sIn) {
+    ff_mm<NI>(acc, dparams + ow, K, sm.Ws, sm.In, [&](int k0, float* sIn) {
       for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
         const int kk = i / FF_C, c = i % FF_C, m2 = c / T, pt = c % T;
         float v = 0.0f;
@@ -771,104 +1035,138 @@ namespace {
 
 const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
 
-enum Kind { kFwd, kBwd, kJvp };
-
-// From the mode and shapes alone, so a blocks query (null pointers) sizes the block as
-// the launch does.
-int tab_floats(const FfProblem& pb) {
-  return ff_tables(pb) ? (pb.nq * (2 + pb.d) + 3) / 4 * 4 : 0;
-}
-
-size_t smem_bytes(Kind kind, int hp, const FfProblem& pb) {
-  const int nbuf = kind == kBwd ? pb.n_hidden + 1 : 2;
-  return sizeof(float) * (size_t)ff_smem_floats(hp, nbuf, pb.ke, tab_floats(pb));
-}
+// The launch shape of a stacked kernel: ng warp pairs per block, blocks resident per SM,
+// the persistent grid and the tiles it walks.
+struct TcShape {
+  int ng, threads, per_sm, blocks;
+  long long n_tiles;
+  size_t smem;
+};
 
 template <int NI>
-const void* kernel_of(Kind kind) {
-  switch (kind) {
-    case kFwd: return (const void*)ff_fwd_kernel<NI>;
-    case kJvp: return (const void*)ff_jvp_kernel<NI>;
-    default: return (const void*)ff_bwd_kernel<NI>;
+const void* tc_kernel(bool bwd) {
+  return bwd ? (const void*)ff_bwd_kernel<NI> : (const void*)ff_fwd_kernel<NI>;
+}
+
+// Of 4, 3, 2 and 1 warp pairs per block, the one that keeps the most warps resident per
+// SM, on a tie the larger block (more points per fetch of the weights); one wave of
+// persistent blocks, or fewer when there are fewer tiles (at least one: a backward with
+// P = 0 writes a zero partial).  From the mode and shapes alone, so a blocks query (null
+// pointers) sizes the grid as the launch does.
+template <int NI>
+int tc_shape(bool bwd, const FfProblem& pb, TcShape* out) {
+  const void* fn = tc_kernel<NI>(bwd);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (err != cudaSuccess) return (int)err;
+  int best = 0;
+  for (int ng = FF_MAX_NG; ng >= 1; --ng) {
+    const size_t smem =
+        sizeof(float) * (size_t)ff_tc_smem_floats(32 * NI, ng, pb.ke, pb.n_hidden, pb.np, bwd);
+    if (smem > kMaxSmem) continue;
+    int per_sm = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 64 * ng, smem)) !=
+        cudaSuccess)
+      return (int)err;
+    if (per_sm * 2 * ng > best) {
+      best = per_sm * 2 * ng;
+      *out = TcShape{ng, 64 * ng, per_sm, 0, 0, smem};
+    }
   }
+  if (best == 0) return (int)cudaErrorInvalidConfiguration;
+  int n_sm = 0;
+  if (const int e = vj_sm_count(&n_sm)) return e;
+  const long long tp = 32 * out->ng / ff_npad(pb.np);
+  out->n_tiles = (pb.P + tp - 1) / tp;
+  const long long b = (long long)out->per_sm * n_sm;
+  out->blocks = (int)(b < out->n_tiles ? b : (out->n_tiles > 0 ? out->n_tiles : 1));
+  return 0;
 }
 
 template <int NI>
-int prepare(Kind kind, const FfProblem& pb, size_t* smem) {
-  *smem = smem_bytes(kind, 32 * NI, pb);
-  if (*smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  return (int)cudaFuncSetAttribute(kernel_of<NI>(kind),
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-}
-
-long long n_tiles(const FfProblem& pb) { return (pb.P + pb.T - 1) / pb.T; }
-
-template <int NI>
-int launch_pointwise(Kind kind, const FfProblem& pb, const float* params,
-                     const float* dparams, float* out, cudaStream_t stream) {
-  size_t smem = 0;
-  int err = prepare<NI>(kind, pb, &smem);
+int launch_fwd(const FfProblem& pb, const float* params, float* out, cudaStream_t stream) {
+  if (pb.P == 0) return 0;
+  TcShape sh;
+  const int err = tc_shape<NI>(false, pb, &sh);
   if (err) return err;
-  const long long grid = n_tiles(pb);
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (kind == kFwd)
-    ff_fwd_kernel<NI><<<(unsigned)grid, FF_NT, smem, stream>>>(pb, params, out,
-                                                              tab_floats(pb));
-  else
-    ff_jvp_kernel<NI><<<(unsigned)grid, FF_NT, smem, stream>>>(pb, params, dparams, out);
+  ff_fwd_kernel<NI><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, out, sh.n_tiles,
+                                                                sh.ng);
   return (int)cudaGetLastError();
 }
 
-// Blocks of the persistent backward: as many as are resident at once, or fewer when
-// there are fewer tiles.
+// The residual forwards: the per-point contributions, then their q-sums per test function.
+template <int NI>
+int launch_res_fwd(const FfProblem& pb, const float* params, float* contrib, float* r,
+                   cudaStream_t stream) {
+  const int err = launch_fwd<NI>(pb, params, contrib, stream);
+  if (err) return err;
+  return vr_qsum(contrib, r, (int)(pb.P / pb.nq), pb.nq, stream);
+}
+
+// Rows of the backward's partials buffer: one per block.
 template <int NI>
 int bwd_blocks(const FfProblem& pb, int* blocks) {
-  size_t smem = 0;
-  int err = prepare<NI>(kBwd, pb, &smem);
+  TcShape sh;
+  const int err = tc_shape<NI>(true, pb, &sh);
   if (err) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t cerr;
-  if ((cerr = cudaGetDevice(&dev)) != cudaSuccess) return (int)cerr;
-  if ((cerr = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)cerr;
-  if ((cerr = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ff_bwd_kernel<NI>, FF_NT,
-                                                            smem)) != cudaSuccess)
-    return (int)cerr;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long b = (long long)per_sm * n_sm, t = n_tiles(pb);
-  *blocks = (int)(b < t ? b : (t > 0 ? t : 1));
+  *blocks = sh.blocks;
   return 0;
 }
 
 template <int NI>
 int launch_bwd(const FfProblem& pb, const float* params, const float* g, float* partials,
                int n_blocks, float* grad, cudaStream_t stream) {
-  int want = 0;
-  int err = bwd_blocks<NI>(pb, &want);
+  TcShape sh;
+  int err = tc_shape<NI>(true, pb, &sh);
   if (err) return err;
-  if (n_blocks != want) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(kBwd, 32 * NI, pb);
-  ff_bwd_kernel<NI><<<n_blocks, FF_NT, smem, stream>>>(pb, params, g, partials, n_tiles(pb),
-                                                       tab_floats(pb));
+  if (n_blocks != sh.blocks) return (int)cudaErrorInvalidValue;
+  ff_bwd_kernel<NI><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, g, partials,
+                                                                sh.n_tiles, sh.ng);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   const int npp = ff_n_params(32 * NI, pb.ke, pb.n_hidden);
   ff_reduce_kernel<<<(npp + 127) / 128, 128, 0, stream>>>(partials, grad, n_blocks, npp);
   return (int)cudaGetLastError();
 }
 
-// K2-FF forward: the per-point contributions, then their q-sums per test function.
 template <int NI>
-int launch_res_fwd(const FfProblem& pb, const float* params, float* contrib, float* r,
-                   cudaStream_t stream) {
-  int err = launch_pointwise<NI>(kFwd, pb, params, nullptr, contrib, stream);
+int shape_of(bool bwd, const FfProblem& pb, int* threads, int* per_sm, int* blocks) {
+  TcShape sh;
+  const int err = tc_shape<NI>(bwd, pb, &sh);
   if (err) return err;
-  const int k = (int)(pb.P / pb.nq);
-  ff_qsum_kernel<<<(k + 127) / 128, 128, 0, stream>>>(contrib, r, k, pb.nq);
+  *threads = sh.threads;
+  *per_sm = sh.per_sm;
+  *blocks = sh.blocks;
+  return 0;
+}
+
+// K8: one tile of T points per block.
+template <int NI>
+int jvp_shape(const FfProblem& pb, int* threads, int* per_sm, int* blocks) {
+  const size_t smem = sizeof(float) * (size_t)ff_smem_floats(32 * NI, pb.ke);
+  cudaError_t e = cudaFuncSetAttribute((const void*)ff_jvp_kernel<NI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, ff_jvp_kernel<NI>, FF_NT, smem);
+  *threads = FF_NT;
+  *blocks = (int)((pb.P + pb.T - 1) / pb.T);
+  return (int)e;
+}
+
+template <int NI>
+int launch_jvp(const FfProblem& pb, const float* params, const float* dparams, float* out,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)ff_smem_floats(32 * NI, pb.ke);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t e = cudaFuncSetAttribute(
+      (const void*)ff_jvp_kernel<NI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long grid = (pb.P + pb.T - 1) / pb.T;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  ff_jvp_kernel<NI><<<(unsigned)grid, FF_NT, smem, stream>>>(pb, params, dparams, out);
   return (int)cudaGetLastError();
 }
 
-// Unit-mode (value + jacobian) problem; jvp doubles the column panels.
+// Unit-mode (value + jacobian) problem; jvp doubles K8's column panels.
 FfProblem vj_problem(const float* xs, const float* bt, long long P, int n_in, int ke,
                      int n_hidden, int act, bool jvp) {
   FfProblem pb = {};
@@ -887,7 +1185,6 @@ FfProblem res_problem(const float* xs, const float* flds, const float* tab, cons
   pb.xs = xs; pb.bt = bt; pb.flds = flds; pb.tab = tab; pb.scale = scale;
   pb.P = (long long)k * nq; pb.n_in = n_in;
   pb.np = mode == FF_JAC ? 1 + n_in : 2;
-  pb.T = FF_C / pb.np;
   pb.ke = ke; pb.n_hidden = n_hidden; pb.act = act;
   pb.nq = nq; pb.d = d; pb.td = td; pb.has_react = has_react;
   return pb;
@@ -899,7 +1196,7 @@ FfProblem pre_problem(const float* xs, const float* cdir, const float* csrc, con
   FfProblem pb = {};
   pb.mode = FF_PRE;
   pb.xs = xs; pb.cdir = cdir; pb.csrc = csrc; pb.cu = cu;
-  pb.P = (long long)k * nq; pb.n_in = n_in; pb.np = 2; pb.T = FF_C / 2;
+  pb.P = (long long)k * nq; pb.n_in = n_in; pb.np = 2;
   pb.ke = 32; pb.n_hidden = n_hidden; pb.act = act;
   pb.nq = nq; pb.has_react = cu != nullptr;
   return pb;
@@ -930,6 +1227,22 @@ extern "C" {
 // Packed parameter count (floats): hidden width hp, embedding width ke, n_hidden layers.
 int ff_n_params_c(int hp, int ke, int n_hidden) { return ff_n_params(hp, ke, n_hidden); }
 
+// The launch shape of the stacked forward (kind 0) or backward (kind 1) for np panels
+// (K2-FF, wide K4: 2; K7, K3: 1 + n_in), or of K8 (kind 2, np = 1 + n_in), on the
+// current device: threads per block, blocks resident per SM, blocks of the launch.
+int ff_launch_shape(int kind, int np, long long P, int ke, int n_hidden, int hp, int* threads,
+                    int* per_sm, int* blocks) {
+  if (kind < 0 || kind > 2 || np < 2 || np > 1 + FF_MAX_IN || bad(P, 1, ke, n_hidden, 0))
+    return (int)cudaErrorInvalidValue;
+  FfProblem pb = {};
+  pb.np = np; pb.P = P; pb.ke = ke; pb.n_hidden = n_hidden;
+  if (kind == 2) {
+    pb.T = FF_C / (2 * np);
+    FF_DISPATCH(hp, jvp_shape<NI>(pb, threads, per_sm, blocks))
+  }
+  FF_DISPATCH(hp, shape_of<NI>(kind == 1, pb, threads, per_sm, blocks))
+}
+
 // K7 forward: out [1 + n_in][P] = (u, du/dxs) at the scaled points xs [n_in][P].
 // Returns a cudaError_t value.
 int ff_vj_fwd(const float* xs, const float* bt, const float* params, float* out, long long P,
@@ -937,7 +1250,7 @@ int ff_vj_fwd(const float* xs, const float* bt, const float* params, float* out,
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act, false);
-  FF_DISPATCH(hp, launch_pointwise<NI>(kFwd, pb, params, nullptr, out, (cudaStream_t)stream))
+  FF_DISPATCH(hp, launch_fwd<NI>(pb, params, out, (cudaStream_t)stream))
 }
 
 // K8: dout [1 + n_in][P], the tangent of out along the packed parameter tangent dparams.
@@ -947,7 +1260,7 @@ int ff_vj_jvp(const float* xs, const float* bt, const float* params, const float
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act, true);
-  FF_DISPATCH(hp, launch_pointwise<NI>(kJvp, pb, params, dparams, dout, (cudaStream_t)stream))
+  FF_DISPATCH(hp, launch_jvp<NI>(pb, params, dparams, dout, (cudaStream_t)stream))
 }
 
 // Number of K7 backward blocks (rows of the partials buffer) on the current device.

@@ -1,7 +1,8 @@
 // 3xTF32 tensor-core tools for Hopper (sm_90a), and the stacked-panel layers built from
-// them, shared by csrc/value_and_jac.cu (K5 forward / backward, K6) and
-// csrc/dir_residual.cu (K1/K4 forward / backward); and the launch shape of their
-// warp-per-group forwards.
+// them, shared by csrc/value_and_jac.cu (K5 forward / backward, K6),
+// csrc/dir_residual.cu (K1/K4 forward / backward) and csrc/ff_mlp.cu (K2-FF, K7, K3 and
+// K4 for widths 65..128: the "ff" tools below); the launch shape of their warp-per-group
+// forwards; and the per-test-function sum of every residual forward (vr_qsum_kernel).
 //
 // Stacked panels.  As the TPU kernels pack the value panel and the tangent panels into
 // one [H, panels x T] operand for the MXU, a block here takes a tile of T points (a
@@ -30,7 +31,9 @@
 // zero-padded to HP (a multiple of 8, at most 64), n_in padded to 4:
 //   W0 [HP][4] | b0 [HP] | (W_l [HP][HP] | b_l [HP]) for l = 1..L-1 | w_out [HP] | b_out
 //   | pad to 4.         (W stored [fan_out][fan_in], i.e. w.T)
-// Gradients and parameter tangents use the same layout.
+// Gradients and parameter tangents use the same layout.  (csrc/ff_mlp.cu keeps its own
+// packed layout, W [fan_in][fan_out]; its tools below read weights through the same
+// fragment loaders, whose lambdas name the layout.)
 
 #pragma once
 
@@ -276,28 +279,39 @@ __device__ __forceinline__ void vj_cotangent_rows(float* Sl, const float* W, int
   __syncthreads();
 }
 
-// acc[nt] = the 16 x 8 tiles (rows j0.., columns 8 nt..) of G^T Sp summed over the `rows`
-// stacked rows of the slots G and Sp: a whole row block of dW_l, each k-step's A fragment
-// (G^T) split once for all HP / 8 column tiles.  Rows j >= HP read as zero.
-template <int HP>
-__device__ __forceinline__ void vj_dw_rows(float acc[HP / 8][4], const float* G, const float* Sp,
-                                           int rows, int j0) {
-  constexpr int LD = kVjLd<HP>;
-  vj_zero<HP>(acc);
+// acc[nt] (16 x 8 tile nt of a 16 x 8 NTU row block) = A^T B summed over `rows` stacked
+// rows: A [rows][lda] read at columns i < 16 (columns i >= imax read as zero), B
+// [rows][ldb] at columns 0..8 NTU-1 (both pre-offset to the block's columns); each k-step's
+// A fragment split once for all NTU column tiles.
+template <int NTU>
+__device__ __forceinline__ void ff_dw_rows(float (&acc)[NTU][4], const float* A, int lda,
+                                           const float* B, int ldb, int rows, int imax = 16) {
+#pragma unroll
+  for (int nt = 0; nt < NTU; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll 2
   for (int r0 = 0; r0 < rows; r0 += 8) {
     unsigned ah[4], al[4];
-    vj_frag_a(
-        [&](int jj, int r) { return j0 + jj < HP ? G[(r0 + r) * LD + j0 + jj] : 0.0f; }, 0,
-        ah, al);
+    vj_frag_a([&](int i, int r) { return i < imax ? A[(r0 + r) * lda + i] : 0.0f; }, 0, ah,
+              al);
 #pragma unroll
-    for (int nt = 0; nt < HP / 8; ++nt) {
+    for (int nt = 0; nt < NTU; ++nt) {
       unsigned bh[2], bl[2];
-      vj_frag_b([&](int r, int i) { return Sp[(r0 + r) * LD + i]; }, 0, nt * 8, bh, bl);
+      vj_frag_b([&](int r, int j) { return B[(r0 + r) * ldb + j]; }, 0, nt * 8, bh, bl);
       float t[4];
       vj_mma3z(t, ah, al, bh, bl);
       vj_add(acc[nt], t);
     }
   }
+}
+
+// acc[nt] = the 16 x 8 tiles (rows j0.., columns 8 nt..) of G^T Sp summed over the `rows`
+// stacked rows of the slots G and Sp: a whole row block of dW_l.  Rows j >= HP read as
+// zero.
+template <int HP>
+__device__ __forceinline__ void vj_dw_rows(float acc[HP / 8][4], const float* G, const float* Sp,
+                                           int rows, int j0) {
+  ff_dw_rows<HP / 8>(*reinterpret_cast<float(*)[HP / 8][4]>(acc), G + j0, kVjLd<HP>, Sp,
+                     kVjLd<HP>, rows, HP - j0);
 }
 
 // acc = the 16 x 8 tile (rows j0.., columns i0..) of G^T Sp summed over the `rows` stacked
@@ -321,6 +335,77 @@ __device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const f
     vj_mma3z(t, ah, al, bh, bl);
     vj_add(acc, t);
   }
+}
+
+// ------------------------------------------------------------------------------------
+// The "ff" tools (csrc/ff_mlp.cu): hidden widths HP = 32..128 and layer-0 depths up to 256,
+// so the weights do not stay in shared memory: they stream through it in K-slices of
+// FF_SLICE rows (cp.async, double-buffered), and a warp takes 2 x 16 stacked rows of the
+// tile for half of the HP / 8 output tiles (its A fragments split once for them, each B
+// fragment once for both 16-row tiles).  The dW row blocks are ff_dw_rows, above.
+
+#define FF_SLICE 16            // weight rows (the product's k) per streamed K-slice
+#define FF_ELD (FF_SLICE + 4)  // row stride of an embedding slice and of a transposed slice
+
+__device__ __forceinline__ void ff_cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void ff_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void ff_cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// acc[mt][nt] (16 x 8 tile nt of 16-row tile mt) += sum over the FF_SLICE / 8 k-steps of a
+// slice of A [32 x FF_SLICE] B [FF_SLICE x 8 NTH]: a(r, k), r < 32; b(k, n), n < 8 NTH.
+// Each k-step's three products go to a fresh tile (vj_mma3z) added on the CUDA cores.
+template <int NTH, class LoadA, class LoadB>
+__device__ __forceinline__ void ff_rows2_slice(float (&acc)[2][NTH][4], LoadA a, LoadB b) {
+#pragma unroll
+  for (int k0 = 0; k0 < FF_SLICE; k0 += 8) {
+    unsigned ah[2][4], al[2][4];
+    vj_frag_a(a, k0, ah[0], al[0]);
+    vj_frag_a([&](int r, int k) { return a(16 + r, k); }, k0, ah[1], al[1]);
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt) {
+      unsigned bh[2], bl[2];
+      vj_frag_b(b, k0, nt * 8, bh, bl);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float t[4];
+        vj_mma3z(t, ah[mt], al[mt], bh, bl);
+        vj_add(acc[mt][nt], t);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------------------
+// r[k] = sum_q contrib[k nq + q], the second kernel of every residual forward (K1/K4 in
+// csrc/dir_residual.cu; K2-FF, K3 and wide K4 in csrc/ff_mlp.cu): one warp per test
+// function, lane l summing q = l, l + 32, ... in order, then a fixed shuffle tree (offsets
+// 16, 8, 4, 2, 1).  Any nq >= 0; no atomics, so r is the same on every run.  (static: each
+// source that includes this header launches its own copy.)
+static __global__ void vr_qsum_kernel(const float* __restrict__ contrib, float* __restrict__ r,
+                                      int k, int nq) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= k) return;  // the whole warp: w is the same on its 32 lanes
+  const float* c = contrib + w * nq;
+  float s = 0.0f;
+  for (int q = lane; q < nq; q += 32) s += c[q];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane == 0) r[w] = s;
+}
+
+// Launches vr_qsum_kernel on r [k] from contrib [k nq].
+static inline int vr_qsum(const float* contrib, float* r, int k, int nq, cudaStream_t stream) {
+  if (k == 0) return 0;
+  vr_qsum_kernel<<<(int)(((long long)k * 32 + 255) / 256), 256, 0, stream>>>(contrib, r, k, nq);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------------------------

@@ -379,13 +379,15 @@ def load_library() -> ctypes.CDLL:
     lib.ff_jac_fwd.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
     lib.ff_jac_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.ff_jac_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 9 + [ptr]
+    lib.ff_launch_shape.argtypes = ([i32, i32, ctypes.c_int64] + [i32] * 3
+                                    + [ctypes.POINTER(i32)] * 3)
     for fn in (lib.vr_dir_residual_n_params, lib.vr_dir_residual_fwd,
                lib.vr_dir_residual_bwd_blocks, lib.vr_dir_residual_bwd,
                lib.vr_dirp_residual_fwd, lib.vr_dirp_residual_bwd_blocks,
                lib.vr_dirp_residual_bwd, lib.ff_n_params_c,
                lib.ff_res_fwd, lib.ff_res_bwd_blocks, lib.ff_res_bwd,
                lib.ff_pre_fwd, lib.ff_pre_bwd_blocks, lib.ff_pre_bwd,
-               lib.ff_jac_fwd, lib.ff_jac_bwd_blocks, lib.ff_jac_bwd):
+               lib.ff_jac_fwd, lib.ff_jac_bwd_blocks, lib.ff_jac_bwd, lib.ff_launch_shape):
         fn.restype = i32
     return lib
 
@@ -744,6 +746,21 @@ def _ff_packed(lib, params, embedded: bool = True):
     if packed.numel() != lib.ff_n_params_c(hp, ff_ke(fp), len(params) - 1):
         raise RuntimeError("packed parameter layout differs from ff_mlp.cu's")
     return hp, fp, packed
+
+
+def ff_launch_shape(kind: str, panels: int, p: int, ke: int, n_hidden: int, hp: int) -> dict:
+    """The launch shape csrc/ff_mlp.cu takes on the current card for its stacked
+    forward (``kind`` "fwd") or backward ("bwd") over ``panels`` panels (K2-FF and
+    wide K4: 2; K7 and K3: 1 + n_in), or for K8 ("jvp", panels 1 + n_in): threads
+    per block, blocks resident per SM and blocks of the grid."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    build.raise_on(load_library().ff_launch_shape(
+        ("fwd", "bwd", "jvp").index(kind), panels, p, ke, n_hidden, hp,
+        *map(ctypes.byref, out)),
+        "ff_launch_shape")
+    threads, per_sm, blocks = (v.value for v in out)
+    return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
+            "blocks": blocks}
 
 
 def _ff_res_args(data: ResidualData, params, activation, hp, fp):
