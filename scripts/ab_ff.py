@@ -6,8 +6,8 @@ first run).
 
     python3 scripts/ab_ff.py OTHER_CHECKOUT . --pairs 3
 
-Each run, CUDA events, median of ``--reps`` (default 10; 5 at the full contaminant
-mesh), at the shapes ``chip_smoke.py`` gives them:
+Each run, CUDA events, median of 10 (5 at the full contaminant mesh), at the shapes
+``chip_smoke.py`` gives them:
 
 * K2-FF forward and backward (``dir_residual_ff_fwd`` / ``_bwd``) at the full contaminant
   mesh (disc 64 / t_disc 40 / bdisc 64: P = 9,906,624) on the pinned w96x3 net behind 128
@@ -20,12 +20,11 @@ mesh), at the shapes ``chip_smoke.py`` gives them:
   mesh (disc 48, per-node tables, P = 324,900) at w96x3, seeded;
 * each of those split into its kernels' own device time under ``torch.profiler``
   (mean over a few calls);
-* the blocks (and warps) resident per SM of each launch, and ptxas' registers and
-  spills of the ff kernels from the build log (a tree that has no
-  ``fused_residual.ff_launch_shape``: the backward's from its persistent grid, the
-  forward's from its shared-memory formula and registers);
-* contaminant Adam at the full window (the seeded net, ``--cont-epochs`` epochs after
-  one) and Burgers front_2d Adam (``--burgers-epochs`` after one): steps/s.
+* the blocks (and warps) resident per SM of each launch
+  (``fused_residual.ff_launch_shape``), and ptxas' registers and spills of the ff
+  kernels from the build log;
+* contaminant Adam at the full window (the seeded net, 10 epochs after one) and
+  Burgers front_2d Adam (100 epochs after one): steps/s.
 
 Runs A, B, B, A for each pair, so a drift of the shared host over the call falls on
 both trees alike.  Prints the card's name and power limit, one JSON line per run and
@@ -41,7 +40,7 @@ import subprocess
 import sys
 
 CHILD = """
-import json, math, re, sys
+import json, re, sys
 sys.path.insert(0, ".")
 import torch
 from torch.autograd import DeviceType
@@ -51,7 +50,7 @@ from varnet_tpu_torch.ops import build
 from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.ops import value_and_jac as vj
 
-REPS = {reps}
+REPS = 10
 
 
 def kernel_ms(fn, n=3):
@@ -62,79 +61,35 @@ def kernel_ms(fn, n=3):
             fn()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    return {{e.key.split("(")[0]: dev_us(e) * 1e-3 / n
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}}
+    return {e.key.split("(")[0]: dev_us(e) * 1e-3 / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def ptxas():
     # registers and spill bytes of every ff_mlp.cu kernel instantiation
-    out, name = {{}}, None
+    out, name = {}, None
     for line in (build.build_dir() / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '_Z\\d+(ff_\\w+?_kernel)(?:ILi(\\d)E)?", line)
         if m:
-            name = m.group(1) + (f"<{{m.group(2)}}>" if m.group(2) else "")
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             continue
         if name is None:
             continue
         m = re.search(r"(\\d+) bytes spill stores, (\\d+) bytes spill loads", line)
         if m:
-            out.setdefault(name, {{}})["spill_loads"] = int(m.group(2))
+            out.setdefault(name, {})["spill_loads"] = int(m.group(2))
         m = re.search(r"Used (\\d+) registers", line)
         if m:
-            out.setdefault(name, {{}})["registers"] = int(m.group(1))
+            out.setdefault(name, {})["registers"] = int(m.group(1))
             name = None
     return out
 
 
-N_SM = torch.cuda.get_device_properties(0).multi_processor_count
-
-
-def occupancy(threads, regs, smem):
-    # blocks per SM of an H100 from the limits: 2048 threads, 32 blocks, 64 K registers
-    # (whole warps, 8-register steps), 228 KB of shared memory (1 KB reserved a block)
-    warps = threads // 32
-    per_warp = 32 * int(math.ceil(regs / 8) * 8)
-    by_regs = 65536 // (warps * per_warp)
-    by_smem = 233472 // (smem + 1024)
-    return min(32, 2048 // threads, by_regs, by_smem)
-
-
-def shapes(regs, kernels):
-    # kind, panels, points, ke, n_hidden, hp, nq, d, blocks query -> blocks / warps per SM
-    out = {{}}
-    for name, (kind, panels, p, ke, nh, hp, nq, d, query) in kernels.items():
-        if hasattr(fr, "ff_launch_shape"):
-            out[name] = fr.ff_launch_shape(kind, panels, p, ke, nh, hp)
-            continue
-        # the CUDA-core design: 128 threads, panels x points = 64 columns per tile
-        if kind == "bwd":
-            blocks = query()
-            out[name] = {{"threads": 128, "blocks_per_sm": blocks // N_SM,
-                          "warps_per_sm": 4 * (blocks // N_SM), "blocks": blocks}}
-        else:
-            tabf = (nq * (2 + d) + 3) // 4 * 4 if d else 0
-            smem = 4 * (32 * hp + 32 * 68 + 2 * hp * 68 + ke * 32 + ke // 2 * 4 + tabf + 8
-                        + 4 * 32 + 16 * 32 + 7 * 32 + 64)
-            per = occupancy(128, regs[f"ff_fwd_kernel<{{hp // 32}}>"]["registers"], smem)
-            out[name] = {{"threads": 128, "blocks_per_sm": per, "warps_per_sm": 4 * per,
-                          "blocks": -(-p // (64 // panels))}}
-    return out
-
-
-def blocks_query(fn, *args):
-    def q():
-        n = __import__("ctypes").c_int(0)
-        build.raise_on(fn(*args, __import__("ctypes").byref(n)), "blocks")
-        return n.value
-    return q
-
-
+# name -> launch shape: kind, panels, points, ke, n_hidden, hp
+launch = {}
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.phase_build()
-lib = fr.load_library()
-regs = ptxas()
-out = {{"ptxas": regs}}
-launch = {{}}
+out = {"ptxas": ptxas()}
 
 # K2-FF at the full contaminant mesh, K7 / K8 on its first LM chunk
 vn = cs._contaminant(cs.CONT_FULL)
@@ -148,27 +103,22 @@ part = cs._chunk(data, 0, kc)
 bt = vn.fourier_bt
 n = part.xs.shape[1]
 g = torch.randn((4, n), generator=gen).cuda()
-tangent = [{{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}}
+tangent = [{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}
            for layer in theta]
 p_full = data.k * data.nq
-calls = {{
+calls = {
     "k2ff_fwd": (lambda: fr.dir_residual_ff_fwd(theta, data, "tanh"), 5),
     "k2ff_bwd": (lambda: fr.dir_residual_ff_bwd(theta, data, "tanh", gr), 5),
     "k7_fwd": (lambda: vj.ff_vj_fwd(theta, part.xs, bt, "tanh"), REPS),
     "k7_bwd": (lambda: vj.ff_vj_bwd(theta, part.xs, bt, "tanh", g), REPS),
     "k8": (lambda: vj.ff_vj_jvp(theta, part.xs, bt, "tanh", tangent), REPS),
-}}
+}
 for name, (fn, reps) in calls.items():
     out[name + "_ms"] = cs._median_ms(fn, n=reps, warmup=1)
     out[name + "_kernels_ms"] = kernel_ms(fn, n=2 if name.startswith("k2ff") else 3)
-launch.update({{
-    "k2ff_fwd": ("fwd", 2, p_full, 256, 3, 96, data.nq, data.d, None),
-    "k2ff_bwd": ("bwd", 2, p_full, 256, 3, 96, data.nq, data.d,
-                 blocks_query(lib.ff_res_bwd_blocks, data.k, data.nq, data.d, 256, 3, 96)),
-    "k7_fwd": ("fwd", 4, n, 256, 3, 96, 0, 0, None),
-    "k7_bwd": ("bwd", 4, n, 256, 3, 96, 0, 0,
-               blocks_query(lib.ff_vj_bwd_blocks, n, 3, 256, 3, 96)),
-}})
+launch.update({"k2ff_fwd": ("fwd", 2, p_full, 256, 3, 96),
+               "k2ff_bwd": ("bwd", 2, p_full, 256, 3, 96),
+               "k7_fwd": ("fwd", 4, n, 256, 3, 96), "k7_bwd": ("bwd", 4, n, 256, 3, 96)})
 del data, part, g, gr
 torch.cuda.empty_cache()
 
@@ -184,11 +134,7 @@ for name, fn in (("k3_fwd", lambda: fr.jac_residual_fwd(seeded, bdata, "tanh")),
     out[name + "_ms"] = cs._median_ms(fn, n=REPS, warmup=1)
     out[name + "_kernels_ms"] = kernel_ms(fn)
 pb = bdata.k * bdata.nq
-launch.update({{
-    "k3_fwd": ("fwd", 4, pb, 32, 3, 32, bdata.nq, bdata.d, None),
-    "k3_bwd": ("bwd", 4, pb, 32, 3, 32, bdata.nq, bdata.d,
-               blocks_query(lib.ff_jac_bwd_blocks, bdata.k, bdata.nq, 3, bdata.d, 3, 32)),
-}})
+launch.update({"k3_fwd": ("fwd", 4, pb, 32, 3, 32), "k3_bwd": ("bwd", 4, pb, 32, 3, 32)})
 del bdata
 torch.cuda.empty_cache()
 
@@ -204,33 +150,26 @@ for name, fn in (("k4w_fwd", lambda: fr.dirp_residual_ff_fwd(params3, data2, "ta
     out[name + "_ms"] = cs._median_ms(fn, n=REPS, warmup=1)
     out[name + "_kernels_ms"] = kernel_ms(fn)
 p2 = data2.k * data2.nq
-launch.update({{
-    "k4w_fwd": ("fwd", 2, p2, 32, 3, 96, 0, 0, None),
-    "k4w_bwd": ("bwd", 2, p2, 32, 3, 96, 0, 0,
-                blocks_query(lib.ff_pre_bwd_blocks, data2.k, data2.nq, 3, 96)),
-}})
+launch.update({"k4w_fwd": ("fwd", 2, p2, 32, 3, 96), "k4w_bwd": ("bwd", 2, p2, 32, 3, 96)})
 del data2, vn2
 torch.cuda.empty_cache()
-out["launch_shape"] = shapes(regs, launch)
+out["launch_shape"] = {name: fr.ff_launch_shape(*shape) for name, shape in launch.items()}
 
 # Adam: contaminant at the full window (K2-FF), Burgers front_2d (K3)
 vn.train(epoch_num=1, weight=cs.WEIGHT, save_freq=1, verbose=False)
-res = vn.train(epoch_num={cont_epochs}, weight=cs.WEIGHT, save_freq={cont_epochs}, verbose=False)
+res = vn.train(epoch_num=10, weight=cs.WEIGHT, save_freq=10, verbose=False)
 out["contaminant_adam_steps_per_sec"] = res.steps_per_sec
 del vn
 torch.cuda.empty_cache()
 vb.train(epoch_num=1, weight=cs.WEIGHT, save_freq=1, verbose=False, error_disc=32)
-res = vb.train(epoch_num={burgers_epochs}, weight=cs.WEIGHT, save_freq={burgers_epochs},
-               verbose=False, error_disc=32)
+res = vb.train(epoch_num=100, weight=cs.WEIGHT, save_freq=100, verbose=False, error_disc=32)
 out["burgers_adam_steps_per_sec"] = res.steps_per_sec
 print(json.dumps(out))
 """
 
 
-def run(tree, args):
-    child = CHILD.format(reps=args.reps, cont_epochs=args.cont_epochs,
-                         burgers_epochs=args.burgers_epochs)
-    out = subprocess.run([sys.executable, "-c", child], cwd=tree, capture_output=True,
+def run(tree):
+    out = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
                          text=True)
     if out.returncode != 0:
         raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
@@ -243,9 +182,6 @@ def main(argv=None):
     ap.add_argument("tree_a")
     ap.add_argument("tree_b")
     ap.add_argument("--pairs", type=int, default=3)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--cont-epochs", type=int, default=10)
-    ap.add_argument("--burgers-epochs", type=int, default=100)
     args = ap.parse_args(argv)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -254,7 +190,7 @@ def main(argv=None):
     runs = {"a": [], "b": []}
     for _ in range(args.pairs):
         for key in ("a", "b", "b", "a"):
-            nums = run(trees[key], args)
+            nums = run(trees[key])
             runs[key].append(nums)
             print(json.dumps({"tree": trees[key], **nums}), flush=True)
     print(json.dumps({key: {"tree": trees[key],

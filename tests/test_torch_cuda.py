@@ -7,6 +7,8 @@ machine has no JAX, and tests/conftest.py imports it, so run them with
 ``python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py``.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -995,10 +997,13 @@ def _gate(err, own, gate):
 @pytest.mark.parametrize("hp", [32, 64, 96, 128])
 @pytest.mark.parametrize("mode,n_feat", FF_SWEEP_MODES,
                          ids=[f"{m}-F{f or 0}" for m, f in FF_SWEEP_MODES])
-def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activation, nq):
+def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activation, nq,
+                                            request):
     """Forward and backward of each mode against the plain version in f64: K2-FF r 5e-5
     with an embedding (angles of tens of radians), wide K4 / K3 r 1e-5 (and K2-FF without
-    an embedding), K7 rows and every gradient leaf 1e-4."""
+    an embedding), K7 rows and every gradient leaf 1e-4.  Every comparison (output row or
+    leaf, error against f64, the f32 plain version's, gate) is kept as the user property
+    ``gates`` (``--junitxml`` writes it; ``scripts/gate_report.py`` counts the fallbacks)."""
     params, bt, data, g = _ff_sweep_case(mode, n_feat, hp, depth, nq, seed=hp + depth + nq)
     p64 = _f64(params)
     bt64 = None if bt is None else bt.double()
@@ -1035,14 +1040,17 @@ def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activ
     rows = list(out) if mode == "unit" else [out]
     refs = list(ref) if mode == "unit" else [ref]
     owns = list(own) if mode == "unit" else [own]
-    for a, b, c in zip(rows, refs, owns):
-        assert _gate(_rel(a.double(), b), _rel(c.double(), b), r_gate), (
-            _rel(a.double(), b), _rel(c.double(), b))
+    checks = [(f"r{i}", _rel(a.double(), b), _rel(c.double(), b), r_gate)
+              for i, (a, b, c) in enumerate(zip(rows, refs, owns))]
     g64 = g.double()
-    for got, gr64, gr32 in zip(grads, plain_b(p64, *args64, g64), plain_b(params, *args32, g)):
+    for li, (got, gr64, gr32) in enumerate(zip(grads, plain_b(p64, *args64, g64),
+                                               plain_b(params, *args32, g))):
         for key in ("w", "b"):
             assert got[key].shape == gr64[key].shape
             if gr64[key].abs().max() > 0:
-                err, own = _rel(got[key].double(), gr64[key]), _rel(gr32[key].double(), gr64[key])
-                assert _gate(err, own, 1e-4), (key, err, own)
+                checks.append((f"{key}{li}", _rel(got[key].double(), gr64[key]),
+                               _rel(gr32[key].double(), gr64[key]), 1e-4))
+    request.node.user_properties.append(("gates", json.dumps(checks)))
+    for what, err, own, gate in checks:
+        assert _gate(err, own, gate), (what, err, own)
 

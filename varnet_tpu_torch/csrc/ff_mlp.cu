@@ -90,11 +90,13 @@
 // (or 16 embedding columns of dW_0) over a quarter of the HP columns, depth the tile's
 // 32 ng rows, the K1/K4 backward's row-block units (ff_dw_rows) -- in registers over the
 // tile and adds them to the block's partial in device memory (L2-resident) once per tile,
-// each element by one fixed lane: 2 x 172 KB of L2 traffic per tile.  The small sums (biases,
-// w_out, b_out) ride the epilogues, thread (group e, column j) summing its share of the
-// points over the whole walk in shared memory, added in group order at the end.  A
-// second kernel sums the blocks' partials in block order.  No atomics: the gradient is
-// bit-identical from call to call, which CG needs.
+// each element by one fixed lane: 2 x 172 KB of L2 traffic per tile (scripts/ff_costs.py
+// times what these adds and dW_0's second pass over the embedding cost, with the
+// measurement builds below).  The small sums (biases, w_out, b_out) ride the epilogues,
+// thread (group e, column j) summing its share of the points over the whole walk in
+// shared memory, added in group order at the end.  A second kernel sums the blocks'
+// partials in block order.  No atomics: the gradient is bit-identical from call to call,
+// which CG needs.
 //
 // TPU -> Hopper: the TPU grid ran point tiles in order and summed dW in place; here the
 // kernels are persistent (block b walks tiles b, b + gridDim.x, ...).  The TPU's whole
@@ -115,6 +117,39 @@
 #define FF_MAX_IN 4
 #define FF_NCF (3 + FF_MAX_IN)  // per-point coefficient rows: cu, csrc, w N, c_0..c_3
 #define FF_MAX_NG 4             // warp pairs (groups of 32 stacked rows) per block
+
+// Measurement builds, never the default (scripts/ff_costs.py builds them with -D):
+//   FF_PHASE_CLOCK         thread 0 of every block of ff_fwd_kernel / ff_bwd_kernel adds
+//                          the clock64() cycles of each phase of its walk (FF_MARK) to
+//                          ff_phase_ticks [fwd, bwd][FF_NPHASE], read by ff_phase_ticks_read;
+//                          the results are unchanged.
+//   FF_DW_NO_PARTIAL_ADDS  the backward adds its dW units into one register instead of the
+//                          block's partial: what the per-tile adds cost.
+//   FF_DW0_STALE_EMB       dW_0 reads the embedding slices left in E instead of forming them
+//                          again: what re-forming costs.  Both give a wrong gradient.
+#ifdef FF_PHASE_CLOCK
+#define FF_NPHASE 12
+__device__ unsigned long long ff_phase_ticks[2][FF_NPHASE];
+#define FF_CLOCK_START                                \
+  __shared__ unsigned long long ff_ph[FF_NPHASE];     \
+  if (threadIdx.x < FF_NPHASE) ff_ph[threadIdx.x] = 0; \
+  long long ff_t0 = clock64();
+#define FF_MARK(i)                                                    \
+  do {                                                                \
+    const long long ff_t1 = clock64();                                \
+    if (threadIdx.x == 0) ff_ph[i] += (unsigned long long)(ff_t1 - ff_t0); \
+    ff_t0 = ff_t1;                                                    \
+  } while (0)
+#define FF_CLOCK_END(k)                                               \
+  __syncthreads();                                                    \
+  if (threadIdx.x < FF_NPHASE) atomicAdd(&ff_phase_ticks[k][threadIdx.x], ff_ph[threadIdx.x]);
+#define FF_STATIC_SMEM (FF_NPHASE * 8)  // ff_ph, beside the dynamic shared memory
+#else
+#define FF_STATIC_SMEM 0
+#define FF_CLOCK_START
+#define FF_MARK(i) ((void)0)
+#define FF_CLOCK_END(k)
+#endif
 
 // What a block computes per point: (u, du/dxs) (K7), or one of the weak residuals.
 enum FfMode { FF_UNIT = 0, FF_DIR = 1, FF_PRE = 2, FF_JAC = 3 };
@@ -625,6 +660,7 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
   constexpr int HP = 32 * NI, LD = HP + 4;
   FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, false);
   const int L = pb.n_hidden, act = pb.act, g = threadIdx.x >> 6;
+  FF_CLOCK_START
   ff_tc_load_consts(pb, params, t, HP);
   long long tile = blockIdx.x;
   if (tile < n_tiles) ff_stage<HP>(pb, params, t, 0, t.W);
@@ -635,12 +671,14 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
     __syncthreads();  // the previous tile is done with the point data
     ff_tc_setup(pb, t, tile, nullptr);
     __syncthreads();
+    FF_MARK(0);
     ff_form_emb(pb, t, 0, t.E);
     float acc[2][2 * NI][4];
     ff_product<NI>(pb, params, t, 0, t.n0, false, true,
                    [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
                    acc);
     ff_store_fwd<NI>(acc, t.bias, t.S, t, act);
+    FF_MARK(1);
     for (int l = 1; l < L; ++l) {
       ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false,
                      [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; }, acc);
@@ -648,10 +686,13 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
       ff_store_fwd<NI>(acc, t.bias + l * HP, t.S, t, act);
     }
     __syncthreads();
+    FF_MARK(2);
     ff_outputs<NI>(t, t.S);
     __syncthreads();
     ff_point_out(pb, t, tile, HP, out);
+    FF_MARK(3);
   }
+  FF_CLOCK_END(0)
 }
 
 // ------------------------------------------------------------------------------------
@@ -676,6 +717,7 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
   const int slot = t.R * LD, npp = ff_n_params(HP, pb.ke, L);
   const int EG = ff_egroups(nthr, HP), na = ff_acc_floats(HP, L);
   const int nf = t.n0 + (L - 1) * t.nh;
+  FF_CLOCK_START
   float* part = partials + (long long)blockIdx.x * npp;
   for (int i = tid; i < npp; i += nthr) part[i] = 0.0f;
   for (int i = tid; i < EG * na; i += nthr) t.Acc[i] = 0.0f;
@@ -683,17 +725,25 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
   if (blockIdx.x < n_tiles) ff_stage<HP>(pb, params, t, 0, t.W);
   const float* Eg = t.E + 32 * grp * FF_ELD;
   float acc[2][NTH][4];
+#ifdef FF_DW_NO_PARTIAL_ADDS
+  float dw_sink = 0.0f;
+#define FF_DW_ADD(dst, v) ((void)&(dst), dw_sink += (v))
+#else
+#define FF_DW_ADD(dst, v) ((dst) += (v))
+#endif
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     t.has_next = tile + gridDim.x < n_tiles;
     __syncthreads();  // the previous tile is done with the point data and E
     ff_tc_setup(pb, t, tile, pb.mode == FF_JAC ? nullptr : g);
     __syncthreads();
+    FF_MARK(0);
     ff_form_emb(pb, t, 0, t.E);
     ff_product<NI>(pb, params, t, 0, t.n0, false, true,
                    [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
                    acc);
     ff_store_fwd<NI>(acc, t.bias, t.S, t, act);
+    FF_MARK(1);
     for (int l = 1; l < L; ++l) {
       const float* Sp = t.S + (l - 1) * slot + 32 * grp * LD;
       ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false,
@@ -701,6 +751,7 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
       ff_store_fwd<NI>(acc, t.bias + l * HP, t.S + l * slot, t, act);
     }
     __syncthreads();
+    FF_MARK(2);
     if (pb.mode == FF_JAC) {
       ff_outputs<NI>(t, t.S + (L - 1) * slot);
       __syncthreads();
@@ -709,6 +760,7 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
     }
     ff_epilogue<NI>(pb, t, L - 1, nullptr);
     __syncthreads();
+    FF_MARK(3);
 
     for (int l = L - 1; l >= 1; --l) {
       float* Sl = t.S + l * slot;
@@ -719,11 +771,14 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
         const int rb = u >> 2, cq = u & 3;
         float dw[NI][4];
         ff_dw_rows<NI>(dw, Sp + 16 * rb, LD, Sl + 8 * NI * cq, LD, t.R);
+        FF_MARK(4);
         float* dst = part + ff_off_w(HP, pb.ke, l) + (16 * rb + gq) * HP + 8 * NI * cq + 2 * q;
 #pragma unroll
         for (int nt = 0; nt < NI; ++nt)
 #pragma unroll
-          for (int h = 0; h < 4; ++h) dst[8 * (h >> 1) * HP + 8 * nt + (h & 1)] += dw[nt][h];
+          for (int h = 0; h < 4; ++h)
+            FF_DW_ADD(dst[8 * (h >> 1) * HP + 8 * nt + (h & 1)], dw[nt][h]);
+        FF_MARK(5);
       }
       // G_{l-1} = [gz; gp]_l W_l^T, in place in slot l once the pair has read its rows
       const float* Sg = Sl + 32 * grp * LD;
@@ -732,8 +787,10 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
       ff_pair_sync();
       ff_store_raw<NI>(acc, Sl);
       __syncthreads();
+      FF_MARK(6);
       ff_epilogue<NI>(pb, t, l - 1, Sl);
       __syncthreads();
+      FF_MARK(7);
     }
 
     // dW_0 += E^T [gz; gp]_0: two embedding slices at a time, unit u = (slice u / 4,
@@ -741,24 +798,34 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
     // (cos), or rows 0..15 without an embedding
     for (int j0 = 0; j0 < t.n0; j0 += 2) {
       const int nb = t.n0 - j0 < 2 ? 1 : 2;
+#ifndef FF_DW0_STALE_EMB
       for (int b = 0; b < nb; ++b) ff_form_emb(pb, t, j0 + b, t.E + b * t.R * FF_ELD);
+#endif
       __syncthreads();
+      FF_MARK(8);
       for (int u = warp; u < 4 * nb; u += nwarp) {
         const int b = u >> 2, cq = u & 3, f0 = 8 * (j0 + b);
         float dw[NI][4];
         ff_dw_rows<NI>(dw, t.E + b * t.R * FF_ELD, FF_ELD, t.S + 8 * NI * cq, LD, t.R);
+        FF_MARK(9);
 #pragma unroll
         for (int h = 0; h < 4; ++h) {
           const int ii = gq + 8 * (h >> 1);
           const int row = !t.fp ? ii : (ii < 8 ? f0 + ii : t.fp + f0 + ii - 8);
           float* dst = part + row * HP + 8 * NI * cq + 2 * q + (h & 1);
 #pragma unroll
-          for (int nt = 0; nt < NI; ++nt) dst[8 * nt] += dw[nt][h];
+          for (int nt = 0; nt < NI; ++nt) FF_DW_ADD(dst[8 * nt], dw[nt][h]);
         }
+        FF_MARK(10);
       }
       __syncthreads();
+      FF_MARK(9);
     }
   }
+#ifdef FF_DW_NO_PARTIAL_ADDS
+  part[tid] += dw_sink;  // keeps the dW units' sums alive
+#endif
+#undef FF_DW_ADD
 
   // the small sums, in epilogue-group order, to their places in the partial
   __syncthreads();
@@ -768,6 +835,8 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
     for (int k = 0; k < EG; ++k) v += t.Acc[k * na + e];
     part[e < L * HP ? ff_off_b(HP, pb.ke, e / HP) + e % HP : ow + e - L * HP] = v;
   }
+  FF_MARK(11);
+  FF_CLOCK_END(1)
 }
 
 // grad[i] = sum_b partials[b][i], in block order.
@@ -1033,7 +1102,7 @@ __global__ void ff_jvp_kernel(FfProblem pb, const float* __restrict__ params,
 
 namespace {
 
-const size_t kMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
+const size_t kMaxSmem = 227 * 1024 - FF_STATIC_SMEM;  // a block's dynamic shared memory, sm_90
 
 // The launch shape of a stacked kernel: ng warp pairs per block, blocks resident per SM,
 // the persistent grid and the tiles it walks.
@@ -1226,6 +1295,19 @@ extern "C" {
 
 // Packed parameter count (floats): hidden width hp, embedding width ke, n_hidden layers.
 int ff_n_params_c(int hp, int ke, int n_hidden) { return ff_n_params(hp, ke, n_hidden); }
+
+#ifdef FF_PHASE_CLOCK
+// The phase cycles summed since the last call (out [2][FF_NPHASE]: forward, backward),
+// then zeroed; n_phase receives FF_NPHASE.
+int ff_phase_ticks_read(unsigned long long* out, int* n_phase) {
+  *n_phase = FF_NPHASE;
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, ff_phase_ticks, sizeof(ff_phase_ticks));
+  static const unsigned long long zero[2][FF_NPHASE] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(ff_phase_ticks, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 // The launch shape of the stacked forward (kind 0) or backward (kind 1) for np panels
 // (K2-FF, wide K4: 2; K7, K3: 1 + n_in), or of K8 (kind 2, np = 1 + n_in), on the

@@ -3,7 +3,9 @@ own ``nvcc``, all started together, and linked into ONE shared library with a
 plain C interface, loaded with ctypes.
 
 The library is built at first use into ``build/varnet_tpu_torch/<source hash>/``
-(git-ignored) and reused while the sources and flags are unchanged.  The build
+(git-ignored) and reused while the sources and flags are unchanged; a measurement
+build (``defines``: preprocessor macros such as ``csrc/ff_mlp.cu``'s ``FF_PHASE_CLOCK``)
+gets a directory of its own.  The build
 log, with ptxas' register and spill report for every kernel, sits beside it
 (``build.log``).  Each ``ops`` module declares the C signatures of its own
 entry points on the shared handle.
@@ -31,17 +33,21 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
+def _flags(defines: tuple) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def source_hash(defines: tuple = ()) -> str:
     h = hashlib.sha256()
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def build_dir() -> Path:
-    return BUILD_DIR / source_hash()
+def build_dir(defines: tuple = ()) -> Path:
+    return BUILD_DIR / source_hash(defines)
 
 
 def _nvcc() -> str:
@@ -53,11 +59,11 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build every ``csrc/*.cu`` (once per source hash) and load the library.
-    ``load_library.build_seconds`` is the nvcc time of this process's build
-    (0.0 when the library was already built)."""
-    out_dir = build_dir()
+def load_library(defines: tuple = ()) -> ctypes.CDLL:
+    """Build every ``csrc/*.cu`` (once per source hash and ``defines``) and load
+    the library.  ``load_library.build_seconds`` is the nvcc time of this process's
+    last build (0.0 when the library was already built)."""
+    out_dir = build_dir(defines)
     lib_path = out_dir / LIB_NAME
     load_library.build_seconds = 0.0
     if not lib_path.exists():
@@ -66,7 +72,7 @@ def load_library() -> ctypes.CDLL:
         nvcc = _nvcc()
         objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        procs = [subprocess.Popen([nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(sources(), objs)]
         logs = [proc.communicate()[0] for proc in procs]

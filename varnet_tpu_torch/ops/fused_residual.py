@@ -357,10 +357,10 @@ def dir_residual_bwd_plain(params, data, activation: str, gr):
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernel library (every ``csrc/*.cu``, built once by ``ops/build.py``)
-    with this module's entry points declared."""
-    lib = build.load_library()
+def load_library(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernel library (every ``csrc/*.cu``, built once by ``ops/build.py``;
+    ``defines``: a measurement build) with this module's entry points declared."""
+    lib = build.load_library(defines)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vr_dir_residual_n_params.argtypes = [i32, i32]
     lib.vr_dir_residual_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
