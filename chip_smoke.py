@@ -44,9 +44,10 @@ is non-zero and no result line is printed):
                at the full mesh, the shape Adam gives it, against the plain version run
                over the 16 LM chunks of test functions (r concatenated, gradients
                summed: the plain panels of the whole mesh would not fit the card); the
-               same on a seeded w128x3 net (the widest the kernels take).  K7 forward
-               and backward and K8 (rtol 1e-4) on the first LM chunk (P = 619,200), the
-               shape LM gives them.  Kernel and plain timed at the same shape; then the
+               same on seeded w128x3 and w256x3 nets (256: the widest the kernels take,
+               warp groups of four).  K7 forward and backward and K8 (rtol 1e-4) on the
+               first LM chunk (P = 619,200), the shape LM gives them, on the pinned net and
+               the seeded w256x3 one.  Kernel and plain timed at the same shape; then the
                launch shape of each (threads, blocks and warps resident per SM).
 9. causal   -- the slice's main path: ``train_causal`` over windows 0.25 / 0.5 / 0.75 /
                1.0 at the full mesh and width on the kernel path (Adam lr 2e-3, decay
@@ -587,22 +588,38 @@ def phase_kernels_ff():
                       lambda: list(vj.ff_vj_jvp_plain(theta, part.xs, bt, "tanh", tangent)),
                       FF_RTOL),
     }
-    # K2-FF at the widest hidden width the kernels take (HP 128), seeded, on the same mesh
-    wide, _ = _seeded_net(256, (128, 128, 128), 12)
+    # K2-FF on seeded nets at HP 128 and at the widest hidden width the kernels take (HP
+    # 256, warp groups of four) on the same mesh; K7 and K8 at HP 256 on the LM chunk
 
-    def wide_bwd_plain():
+    def wide_bwd_plain(wide):
         total = None
         for c, (k0, k1) in zip(chunks, bounds):
             part_g = leaves(fr.dir_residual_bwd_plain(wide, c, "tanh", gr[k0:k1]))
             total = part_g if total is None else [a + b for a, b in zip(total, part_g)]
         return total
 
+    for hp, seed in ((128, 12), (256, 13)):
+        wide, wgen = _seeded_net(256, (hp,) * 3, seed)
+        checks.update({
+            f"ff_res_fwd_w{hp}": (
+                (lambda w: lambda: [fr.dir_residual_ff_fwd(w, data, "tanh")])(wide),
+                (lambda w: lambda: [torch.cat([fr.dir_residual_fwd_plain(w, c, "tanh")
+                                               for c in chunks])])(wide), FF_R_RTOL),
+            f"ff_res_bwd_w{hp}": (
+                (lambda w: lambda: leaves(fr.dir_residual_ff_bwd(w, data, "tanh", gr)))(wide),
+                (lambda w: lambda: wide_bwd_plain(w))(wide), FF_RTOL),
+        })
+    wtan = [{k: torch.randn(v.shape, generator=wgen).cuda() for k, v in layer.items()}
+            for layer in wide]
     checks.update({
-        "ff_res_fwd_w128": (lambda: [fr.dir_residual_ff_fwd(wide, data, "tanh")],
-                            lambda: [torch.cat([fr.dir_residual_fwd_plain(wide, c, "tanh")
-                                                for c in chunks])], FF_R_RTOL),
-        "ff_res_bwd_w128": (lambda: leaves(fr.dir_residual_ff_bwd(wide, data, "tanh", gr)),
-                            wide_bwd_plain, FF_RTOL),
+        "ff_vj_fwd_w256": (lambda: list(vj.ff_vj_fwd(wide, part.xs, bt, "tanh")),
+                           lambda: list(vj.ff_vj_fwd_plain(wide, part.xs, bt, "tanh")), FF_RTOL),
+        "ff_vj_bwd_w256": (lambda: leaves(vj.ff_vj_bwd(wide, part.xs, bt, "tanh", g)),
+                           lambda: leaves(vj.ff_vj_bwd_plain(wide, part.xs, bt, "tanh", g)),
+                           FF_RTOL),
+        "ff_vj_jvp_w256": (lambda: list(vj.ff_vj_jvp(wide, part.xs, bt, "tanh", wtan)),
+                           lambda: list(vj.ff_vj_jvp_plain(wide, part.xs, bt, "tanh", wtan)),
+                           FF_RTOL),
     })
     out = {}
     for name, (kernel, plain, rtol) in checks.items():
@@ -626,8 +643,10 @@ def phase_kernels_ff():
     for name, (kind, panels, p, hp) in {
             "ff_res_fwd": ("fwd", 2, p_full, 96), "ff_res_bwd": ("bwd", 2, p_full, 96),
             "ff_res_fwd_w128": ("fwd", 2, p_full, 128), "ff_res_bwd_w128": ("bwd", 2, p_full, 128),
+            "ff_res_fwd_w256": ("fwd", 2, p_full, 256), "ff_res_bwd_w256": ("bwd", 2, p_full, 256),
             "ff_vj_fwd": ("fwd", 4, n, 96), "ff_vj_bwd": ("bwd", 4, n, 96),
-            "ff_vj_jvp": ("jvp", 4, n, 96)}.items():
+            "ff_vj_jvp": ("jvp", 4, n, 96), "ff_vj_fwd_w256": ("fwd", 4, n, 256),
+            "ff_vj_bwd_w256": ("bwd", 4, n, 256), "ff_vj_jvp_w256": ("jvp", 4, n, 256)}.items():
         log("kernels-ff launch", kernel=name, **fr.ff_launch_shape(kind, panels, p, 256, 3, hp))
     return out, p_full, data.k, n
 

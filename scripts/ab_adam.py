@@ -29,46 +29,28 @@ last a JSON summary with each tree's numbers in run order.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
-import sys
+from ab_common import main as ab_main
 
 CHILD = """
 import json, sys
-sys.path.insert(0, ".")
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
+from ab_common import kernel_ms
 from varnet_tpu_torch.fem.assembly import pad_quad
 from varnet_tpu_torch.ops import fused_residual as fr
 
-
-
-def kernel_ms(fn, n=10):
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    return {{e.key.split("(")[0]: dev_us(e) * 1e-3 / n
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}}
-
-
+epochs = json.loads(sys.argv[1])["epochs"]
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.phase_build()
-out = {{}}
+out = {}
 data = cs._bench_data()
 for widths in ((20, 20), (48, 48)):
     params, gen = cs._seeded_net(data.xs.shape[0], widths, 0)
     gr = torch.randn(data.k, generator=gen).cuda()
     tag = "x".join(map(str, widths))
     out["k1_fwd_ms_w" + tag] = cs._median_ms(lambda: fr.dir_residual_fwd(params, data, "tanh"))
-    out["k1_fwd_kernels_ms_w" + tag] = kernel_ms(lambda: fr.dir_residual_fwd(params, data, "tanh"))
+    out["k1_fwd_kernels_ms_w" + tag] = kernel_ms(
+        lambda: fr.dir_residual_fwd(params, data, "tanh"), n=10)
     out["k1_bwd_ms_w" + tag] = cs._median_ms(
         lambda: fr.dir_residual_bwd(params, data, "tanh", gr))
 del data
@@ -81,7 +63,8 @@ params, gen = cs._seeded_net(4, (64, 64), 21)
 gr = torch.randn(data.k, generator=gen).cuda()
 out["k4_fwd_ms_3dt_w64x2"] = cs._median_ms(
     lambda: fr.dirp_residual_fwd(params, data, "tanh"), n=10)
-out["k4_fwd_kernels_ms_3dt_w64x2"] = kernel_ms(lambda: fr.dirp_residual_fwd(params, data, "tanh"))
+out["k4_fwd_kernels_ms_3dt_w64x2"] = kernel_ms(
+    lambda: fr.dirp_residual_fwd(params, data, "tanh"), n=10)
 out["k4_bwd_ms_3dt_w64x2"] = cs._median_ms(
     lambda: fr.dirp_residual_bwd(params, data, "tanh", gr), n=10)
 del data, quad
@@ -91,41 +74,14 @@ res = vn3.train(epoch_num=20, save_freq=20, verbose=False, error_disc=24)
 out["hard_3dt_steps_per_sec"] = res.steps_per_sec
 del vn3
 torch.cuda.empty_cache()
-_, res = cs._train((20, 20), None, {epochs}, {epochs}, True)
+_, res = cs._train((20, 20), None, epochs, epochs, True)
 out.update(steps_per_sec=res.steps_per_sec, quad_evals_per_sec=res.quad_evals_per_sec)
 print(json.dumps(out))
 """
 
 
-def run(tree, epochs):
-    out = subprocess.run([sys.executable, "-c", CHILD.format(epochs=epochs)], cwd=tree,
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
-                         f"{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
 def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("tree_a")
-    ap.add_argument("tree_b")
-    ap.add_argument("--pairs", type=int, default=3)
-    ap.add_argument("--epochs", type=int, default=200)
-    args = ap.parse_args(argv)
-
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    trees = {"a": os.path.abspath(args.tree_a), "b": os.path.abspath(args.tree_b)}
-    runs = {"a": [], "b": []}
-    for _ in range(args.pairs):
-        for key in ("a", "b", "b", "a"):
-            nums = run(trees[key], args.epochs)
-            runs[key].append(nums)
-            print(json.dumps({"tree": trees[key], **nums}), flush=True)
-    print(json.dumps({key: {"tree": trees[key],
-                            **{name: [r[name] for r in runs[key]] for name in runs[key][0]}}
-                      for key in runs}), flush=True)
+    ab_main(CHILD, argv, [("--epochs", int, 200)])
 
 
 if __name__ == "__main__":

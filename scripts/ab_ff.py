@@ -13,7 +13,7 @@ Each run, CUDA events, median of 10 (5 at the full contaminant mesh), at the sha
   mesh (disc 64 / t_disc 40 / bdisc 64: P = 9,906,624) on the pinned w96x3 net behind 128
   features, seeded cotangent;
 * K7 forward and backward and K8 (``ff_vj_fwd`` / ``_bwd`` / ``_jvp``) on the first of
-  the 16 LM chunks of that mesh (P = 619,200);
+  the 16 LM chunks of that mesh (P = 619,200), seeded cotangent and tangent;
 * K3 forward and backward (``jac_residual_fwd`` / ``_bwd``) at the Burgers front_2d
   recipe's mesh (d32/t20/b32, P = 1,168,576, w32x3, seeded);
 * K4 on ``ff_mlp.cu`` (``dirp_residual_ff_fwd`` / ``_bwd``) at the hard 2-D order-2
@@ -23,46 +23,28 @@ Each run, CUDA events, median of 10 (5 at the full contaminant mesh), at the sha
 * the blocks (and warps) resident per SM of each launch
   (``fused_residual.ff_launch_shape``), and ptxas' registers and spills of the ff
   kernels from the build log;
-* contaminant Adam at the full window (the seeded net, 10 epochs after one) and
-  Burgers front_2d Adam (100 epochs after one): steps/s.
+* one contaminant LM iteration at the full mesh from the pinned theta (cg 10, k_chunks
+  16, as ``chip_smoke.py``'s lm-ff phase: 2 iterations, the second timed): seconds;
+* contaminant Adam at the full window (10 epochs after one) and Burgers front_2d Adam
+  (100 epochs after one): steps/s.
 
-Runs A, B, B, A for each pair, so a drift of the shared host over the call falls on
-both trees alike.  Prints the card's name and power limit, one JSON line per run and
-last a JSON summary with each tree's numbers in run order.
+The A B B A runner is ``scripts/ab_common.py``'s.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
-import sys
+from ab_common import main as ab_main
 
 CHILD = """
-import json, re, sys
-sys.path.insert(0, ".")
+import json, re
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
+from ab_common import kernel_ms
 from varnet_tpu_torch.ops import build
 from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.ops import value_and_jac as vj
 
 REPS = 10
-
-
-def kernel_ms(fn, n=3):
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    return {e.key.split("(")[0]: dev_us(e) * 1e-3 / n
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def ptxas():
@@ -118,7 +100,8 @@ for name, (fn, reps) in calls.items():
     out[name + "_kernels_ms"] = kernel_ms(fn, n=2 if name.startswith("k2ff") else 3)
 launch.update({"k2ff_fwd": ("fwd", 2, p_full, 256, 3, 96),
                "k2ff_bwd": ("bwd", 2, p_full, 256, 3, 96),
-               "k7_fwd": ("fwd", 4, n, 256, 3, 96), "k7_bwd": ("bwd", 4, n, 256, 3, 96)})
+               "k7_fwd": ("fwd", 4, n, 256, 3, 96), "k7_bwd": ("bwd", 4, n, 256, 3, 96),
+               "k8": ("jvp", 4, n, 256, 3, 96)})
 del data, part, g, gr
 torch.cuda.empty_cache()
 
@@ -155,6 +138,14 @@ del data2, vn2
 torch.cuda.empty_cache()
 out["launch_shape"] = {name: fr.ff_launch_shape(*shape) for name, shape in launch.items()}
 
+# LM at the full contaminant mesh from the pinned theta (K7 / K8): the second iteration
+vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
+res = vn.refine_lm(weight=cs.WEIGHT, save_freq=1, verbose=False, **cs.LM_FF)
+torch.cuda.synchronize()
+out["contaminant_lm_s_per_iter"] = ((res.wall_times[-1] - res.wall_times[0])
+                                    / (cs.LM_FF["steps"] - 1))
+torch.cuda.empty_cache()
+
 # Adam: contaminant at the full window (K2-FF), Burgers front_2d (K3)
 vn.train(epoch_num=1, weight=cs.WEIGHT, save_freq=1, verbose=False)
 res = vn.train(epoch_num=10, weight=cs.WEIGHT, save_freq=10, verbose=False)
@@ -168,34 +159,8 @@ print(json.dumps(out))
 """
 
 
-def run(tree):
-    out = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
-                         text=True)
-    if out.returncode != 0:
-        raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
-                         f"{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
 def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("tree_a")
-    ap.add_argument("tree_b")
-    ap.add_argument("--pairs", type=int, default=3)
-    args = ap.parse_args(argv)
-
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    trees = {"a": os.path.abspath(args.tree_a), "b": os.path.abspath(args.tree_b)}
-    runs = {"a": [], "b": []}
-    for _ in range(args.pairs):
-        for key in ("a", "b", "b", "a"):
-            nums = run(trees[key])
-            runs[key].append(nums)
-            print(json.dumps({"tree": trees[key], **nums}), flush=True)
-    print(json.dumps({key: {"tree": trees[key],
-                            **{name: [r[name] for r in runs[key]] for name in runs[key][0]}}
-                      for key in runs}), flush=True)
+    ab_main(CHILD, argv)
 
 
 if __name__ == "__main__":

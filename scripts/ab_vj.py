@@ -23,80 +23,52 @@ last a JSON summary with each tree's numbers in run order.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
-import sys
+from ab_common import main as ab_main
 
 CHILD = """
-import json, sys, time
-sys.path.insert(0, ".")
+import json, sys
 import torch
 import chip_smoke as cs
 from varnet_tpu_torch import VarNet, load_theta_npz, params_from_jax
 from varnet_tpu_torch.ops import value_and_jac as vj
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
+steps = json.loads(sys.argv[1])["lm_steps"]
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.phase_build()
 xs_t, nq = cs._bench_points()
 kc = -(-(xs_t.shape[1] // nq) // 16)
-out = {{}}
+out = {}
 for widths in ((48, 48), (48, 48, 48)):
     tag = "w" + "x".join(map(str, widths))
     params, gen = cs._seeded_net(3, widths, 0)
     for shape, pts in (("mesh", xs_t), ("chunk", xs_t[:, :kc * nq].contiguous())):
         g = torch.randn(4, pts.shape[1], generator=gen).cuda()
-        tangent = [{{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}}
+        tangent = [{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}
                    for layer in params]
-        out[f"fwd_ms_{{tag}}_{{shape}}"] = cs._median_ms(lambda: vj.vj_fwd(params, pts, "tanh"))
-        out[f"bwd_ms_{{tag}}_{{shape}}"] = cs._median_ms(lambda: vj.vj_bwd(params, pts, "tanh", g))
-        out[f"jvp_ms_{{tag}}_{{shape}}"] = cs._median_ms(
+        out[f"fwd_ms_{tag}_{shape}"] = cs._median_ms(lambda: vj.vj_fwd(params, pts, "tanh"))
+        out[f"bwd_ms_{tag}_{shape}"] = cs._median_ms(lambda: vj.vj_bwd(params, pts, "tanh", g))
+        out[f"jvp_ms_{tag}_{shape}"] = cs._median_ms(
             lambda: vj.vj_jvp(params, pts, "tanh", tangent))
     vn = VarNet(transient_ad_2d()["pde"], layer_width=widths, device="cuda", **cs.BENCH)
     if len(widths) == 3:
         vn.theta = params_from_jax(load_theta_npz(cs.LM_START), device="cuda")
-    res = vn.refine_lm(weight=cs.WEIGHT, steps={steps}, cg_iters=20, k_chunks=16, save_freq=1,
+    res = vn.refine_lm(weight=cs.WEIGHT, steps=steps, cg_iters=20, k_chunks=16, save_freq=1,
                        verbose=False, error_disc=48, error_times=3)
     torch.cuda.synchronize()
-    out[f"lm_s_per_iter_{{tag}}"] = (res.wall_times[-1] - res.wall_times[0]) / ({steps} - 1)
-    out[f"lm_loss_{{tag}}"] = res.losses[-1]["loss"]
+    out[f"lm_s_per_iter_{tag}"] = (res.wall_times[-1] - res.wall_times[0]) / (steps - 1)
+    out[f"lm_loss_{tag}"] = res.losses[-1]["loss"]
 print(json.dumps(out))
 """
 
 
-def run(tree, steps):
-    out = subprocess.run([sys.executable, "-c", CHILD.format(steps=steps)], cwd=tree,
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
-                         f"{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("tree_a")
-    ap.add_argument("tree_b")
-    ap.add_argument("--pairs", type=int, default=3)
-    ap.add_argument("--lm-steps", type=int, default=3)
-    args = ap.parse_args(argv)
+def _check(args):
     if args.lm_steps < 2:
         raise SystemExit("--lm-steps must be >= 2 (the first iteration is not timed)")
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    trees = {"a": os.path.abspath(args.tree_a), "b": os.path.abspath(args.tree_b)}
-    runs = {"a": [], "b": []}
-    for _ in range(args.pairs):
-        for key in ("a", "b", "b", "a"):
-            nums = run(trees[key], args.lm_steps)
-            runs[key].append(nums)
-            print(json.dumps({"tree": trees[key], **nums}), flush=True)
-    print(json.dumps({key: {"tree": trees[key],
-                            **{name: [r[name] for r in runs[key]] for name in runs[key][0]}}
-                      for key in runs}), flush=True)
+
+def main(argv=None):
+    ab_main(CHILD, argv, [("--lm-steps", int, 3)], _check)
 
 
 if __name__ == "__main__":

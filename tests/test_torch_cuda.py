@@ -360,13 +360,61 @@ def test_ff_backwards_are_deterministic(cuda, mode):
 
 
 def test_ff_kernels_refuse_what_they_do_not_take(cuda):
+    """An activation they do not have, a net wider than 256, and a 256-wide net too deep
+    for the backward's stacked slots (ValueErrors naming them, before any launch)."""
     params, bt, _ = _ff_params(8, (16, 16))
     xs_t = torch.rand(3, 100, device=cuda)
     with pytest.raises(ValueError):
         vj.ff_vj_fwd(params, xs_t, bt, "sin")
-    wide, wbt, _ = _ff_params(8, (130,))
-    with pytest.raises(ValueError, match="hidden width"):
+    wide, wbt, _ = _ff_params(8, (257,))
+    with pytest.raises(ValueError, match="hidden width 257"):
         vj.ff_vj_fwd(wide, xs_t, wbt, "tanh")
+    deep, dbt, gen = _ff_params(8, (256,) * 6)
+    g = torch.randn((4, 100), generator=gen).to(cuda)
+    with pytest.raises(ValueError, match="hidden width 256 at depth 6"):
+        vj.ff_vj_bwd(deep, xs_t, dbt, "tanh", g)
+    assert torch.isfinite(vj.ff_vj_fwd(deep, xs_t, dbt, "tanh")).all()
+
+
+@pytest.mark.parametrize("n_feat,hp", [(128, 96), (None, 256)], ids=["F128-w96x3", "F0-w251x3"])
+def test_ff_jvp_is_deterministic(cuda, n_feat, hp):
+    """K8 writes each point's tangent once, no atomics: bit-identical across calls."""
+    params, bt, xs, _ = _ff_sweep_case("unit", n_feat, hp, 3, 64, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    tangent = [{k: torch.randn(v.shape, generator=gen).to(cuda) for k, v in layer.items()}
+               for layer in params]
+    assert torch.equal(vj.ff_vj_jvp(params, xs, bt, "tanh", tangent),
+                       vj.ff_vj_jvp(params, xs, bt, "tanh", tangent))
+
+
+def test_net_wider_than_128_trains_and_refines_on_the_ff_kernels(cuda):
+    """A plain net of width (192, 192) runs on csrc/ff_mlp.cu at HP 192 (warp groups of
+    four): 20 Adam epochs through K2-FF's kernels without an embedding and 2 LM
+    iterations through K7 / K8 take the plain path's steps (rtol 2e-4 / 2e-2)."""
+    kw = dict(layer_width=(192, 192), disc_num=8, b_disc_num=6, t_disc_num=4, device=cuda)
+    train = dict(epoch_num=20, weight=(1.0, 10.0, 10.0), save_freq=1, verbose=False,
+                 error_disc=8, error_times=2)
+    counters = (fr.dir_residual_ff_fwd, fr.dir_residual_ff_bwd)
+    before = [c.launches for c in counters]
+    vn = VarNet(transient_ad_2d()["pde"], **kw)
+    theta = [{k: v.clone() for k, v in layer.items()} for layer in vn.theta]
+    res = vn.train(**train)
+    assert [c.launches - b for c, b in zip(counters, before)] == [20, 20]
+    plain = VarNet(transient_ad_2d()["pde"], use_pallas=False, use_fused_residual=False, **kw)
+    plain.theta = theta
+    np.testing.assert_allclose([r["loss"] for r in res.losses],
+                               [r["loss"] for r in plain.train(**train).losses], rtol=2e-4)
+    lm = dict(steps=2, weight=(1.0, 10.0, 10.0), cg_iters=5, k_chunks=2, save_freq=1,
+              verbose=False, error_disc=8, error_times=2)
+    theta = [{k: v.clone() for k, v in layer.items()} for layer in vn.theta]
+    before = (vj.ff_vj_fwd.launches, vj.ff_vj_bwd.launches, vj.ff_vj_jvp.launches)
+    res = vn.refine_lm(**lm)
+    counts = [a - b for a, b in zip((vj.ff_vj_fwd.launches, vj.ff_vj_bwd.launches,
+                                     vj.ff_vj_jvp.launches), before)]
+    assert min(counts) >= 2 * 5, counts
+    plain.theta = theta
+    np.testing.assert_allclose([r["loss"] for r in res.losses],
+                               [r["loss"] for r in plain.refine_lm(**lm).losses], rtol=2e-2)
 
 
 @pytest.mark.parametrize("ff", [False, True], ids=["mlp", "ff"])
@@ -939,12 +987,13 @@ def test_burgers_training_on_cuda_goes_through_k3(cuda, hard):
 
 FF_SWEEP_MODES = [("dir", None), ("dir", 8), ("dir", 128), ("unit", None), ("unit", 8),
                   ("unit", 128), ("pre", None), ("jac", None)]
+FF_SWEEP_HP = [32, 64, 96, 128, 160, 192, 224, 256]
 FF_SWEEP_NQ = {1: 1001, 64: 23, 1296: 3}   # nq -> k: P = 1001 and 3888 are no multiple
                                            # of any tile (16 .. 64 points); 64 nq always is
 
 
 def _ff_sweep_case(mode, n_feat, hp, depth, nq, seed, device="cuda"):
-    """A seeded net (hidden width hp: the padded width itself, or hp - 5 at the widest),
+    """A seeded net (hidden width hp: the padded width itself, or hp - 5 from 128 up),
     its data for ``mode`` (n_in 3 and d 2 with time; K3 with the Burgers direction b and
     reaction) and the cotangent: gr [k] of a residual, or g [4, P] of K7."""
     gen = torch.Generator().manual_seed(seed)
@@ -994,7 +1043,7 @@ def _gate(err, own, gate):
 @pytest.mark.parametrize("nq", sorted(FF_SWEEP_NQ))
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
 @pytest.mark.parametrize("depth", [1, 3])
-@pytest.mark.parametrize("hp", [32, 64, 96, 128])
+@pytest.mark.parametrize("hp", FF_SWEEP_HP)
 @pytest.mark.parametrize("mode,n_feat", FF_SWEEP_MODES,
                          ids=[f"{m}-F{f or 0}" for m, f in FF_SWEEP_MODES])
 def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activation, nq,
@@ -1054,3 +1103,32 @@ def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activ
     for what, err, own, gate in checks:
         assert _gate(err, own, gate), (what, err, own)
 
+
+
+@pytest.mark.parametrize("nq", sorted(FF_SWEEP_NQ))
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("hp", FF_SWEEP_HP)
+@pytest.mark.parametrize("n_feat", [None, 8, 128], ids=["F0", "F8", "F128"])
+def test_ff_jvp_kernel_matches_plain(cuda, n_feat, hp, depth, activation, nq, request):
+    """K8 (the tensor-core ff_jvp_kernel) against its plain version in f64 at every padded
+    width, feature count, depth and activation, on the sweep's point counts (P = 1001,
+    1472, 3888: no multiple of any tile), a seeded tangent of every leaf: each output row
+    within 1e-4 (or 3x the f32 plain version's own distance, as the sweep above), kept as
+    the ``gates`` property."""
+    params, bt, xs, _ = _ff_sweep_case("unit", n_feat, hp, depth, nq, seed=hp + depth + nq)
+    gen = torch.Generator().manual_seed(hp + nq)
+    tangent = [{k: torch.randn(v.shape, generator=gen).to(cuda) for k, v in layer.items()}
+               for layer in params]
+    before = vj.ff_vj_jvp.launches
+    dout = vj.ff_vj_jvp(params, xs, bt, activation, tangent)
+    torch.cuda.synchronize()
+    assert vj.ff_vj_jvp.launches - before == 1
+    ref = vj.ff_vj_jvp_plain(_f64(params), xs.double(), None if bt is None else bt.double(),
+                             activation, _f64(tangent))
+    own = vj.ff_vj_jvp_plain(params, xs, bt, activation, tangent)
+    checks = [(f"r{i}", _rel(a.double(), b), _rel(c.double(), b), 1e-4)
+              for i, (a, b, c) in enumerate(zip(dout, ref, own))]
+    request.node.user_properties.append(("gates", json.dumps(checks)))
+    for what, err, own_err, gate in checks:
+        assert _gate(err, own_err, gate), (what, err, own_err)

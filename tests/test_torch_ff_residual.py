@@ -83,8 +83,46 @@ def test_forward_matches_pallas_interpret(mesh, multiscale, scaled):
 @pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "raw"])
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
 def test_backward_matches_jax_grad_of_the_plain_reference(mesh, activation, scaled):
+    _check_backward(mesh, activation, scaled, (16, 16))
+
+
+def test_width_256_matches_jax(mesh):
+    """At the widest hidden width the kernels take (HP 256, warp groups of four on
+    the card): the forward against the Pallas kernel in interpret mode, the
+    backward against jax.grad of the plain reference, tolerances as above."""
     jfd, fd = mesh
-    b, theta = _b(True), _theta(seed=1)
+    b, theta = _b(True), _theta(widths=(256,), seed=2)
+    quad, scale, shift, bt = _jax_args(jfd, b, True)
+    r_ref = pallas_fused_residual(jax.tree_util.tree_map(jnp.asarray, theta), quad, "tanh",
+                                  scale, shift, time_dependent=True, tile=49, interpret=True,
+                                  fourier_bt=bt)
+    r = fr.dir_residual_ff_fwd(params_from_jax(theta), _port_data(fd, b, True), "tanh")
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(r_ref)).max()))
+    _check_backward(mesh, "sigmoid", True, (256,))
+
+
+def test_width_limit_and_routing_above_128():
+    """csrc/ff_mlp.cu takes hidden widths up to 256 (padded 160..256 run on warp
+    groups of four) and refuses 257 by name; on CUDA a plain net of width 200 is
+    routed to it, on the CPU to the plain version."""
+    def net(width):
+        return [{"w": torch.zeros(3, width), "b": torch.zeros(width)},
+                {"w": torch.zeros(width, 1), "b": torch.zeros(1)}]
+
+    xs = torch.zeros(3, 5)
+    fr.check_ff_args(net(256), None, (xs,), "tanh")
+    assert fr.ff_dims(net(256), embedded=False) == (256, 0)
+    assert fr.ff_dims(net(129), embedded=False) == (160, 0)
+    with pytest.raises(ValueError, match="hidden width 257"):
+        fr.check_ff_args(net(257), None, (xs,), "tanh")
+    assert fr.uses_ff_kernels(net(200), on_cuda=True, embedded=False)
+    assert not fr.uses_ff_kernels(net(200), on_cuda=False, embedded=False)
+
+
+def _check_backward(mesh, activation, scaled, widths):
+    jfd, fd = mesh
+    b, theta = _b(True), _theta(widths=widths, seed=1)
     quad, scale, shift, _ = _jax_args(jfd, b, scaled)
     st = jfd.static
     k, nq, _ = quad.coords.shape
@@ -140,8 +178,8 @@ def test_ff_data_layout_and_kernel_limits(mesh):
         torch.testing.assert_close(a["w"], c["w"], rtol=0, atol=0)
         torch.testing.assert_close(a["b"], c["b"], rtol=0, atol=0)
     bt = data.bt
-    with pytest.raises(ValueError, match="hidden width"):
-        fr.check_ff_args(params_from_jax(_theta(widths=(130, 8))), bt, (data.xs,), "tanh")
+    with pytest.raises(ValueError, match="hidden width 257"):
+        fr.check_ff_args(params_from_jax(_theta(widths=(257, 8))), bt, (data.xs,), "tanh")
     with pytest.raises(ValueError, match="Fourier features"):
         fr.check_ff_args(params, torch.zeros(129, 3), (data.xs,), "tanh")
     with pytest.raises(ValueError):

@@ -55,7 +55,19 @@ def _leaves(params):
 @pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "raw"])
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
 def test_port_matches_pallas_ff_interpret(activation, scaled):
-    b, theta, tangent, x, cu, cd = _case()
+    _check_against_pallas_ff(activation, scaled, (16, 16))
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("widths", [(160,), (256, 256)], ids=["w160", "w256x2"])
+def test_wide_port_matches_pallas_ff_interpret(widths, activation):
+    """Hidden widths above 128, which csrc/ff_mlp.cu runs at HP 160..256 (warp groups
+    of four): K7 forward / backward and K8 as above."""
+    _check_against_pallas_ff(activation, True, widths)
+
+
+def _check_against_pallas_ff(activation, scaled, widths):
+    b, theta, tangent, x, cu, cd = _case(widths=widths)
     jscale = jshift = scale = shift = None
     if scaled:
         jscale, jshift = jax_scaling(LO[:3], HI[:3])
@@ -136,7 +148,7 @@ def test_ff_value_and_jac_matches_the_model_function():
 
 
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
-@pytest.mark.parametrize("widths", [(72, 40), (128,)])
+@pytest.mark.parametrize("widths", [(72, 40), (128,), (160,), (256, 256)])
 def test_no_embedding_matches_pallas_value_and_jac(widths, activation):
     """With bt None the K7 / K8 plain versions (and FfValueAndJacFn's rules) are
     the plain net's value + jacobian: held to K5 / K6 in interpret mode at widths

@@ -115,6 +115,18 @@ def test_plain_version_matches_jax_kernel(name, factory, kw, td, react, scaled, 
         np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
 
 
+def test_width_256_matches_jax_kernel():
+    """At the widest hidden width csrc/ff_mlp.cu takes (HP 256, warp groups of four on
+    the card): the 2-D Burgers front, tolerances as above."""
+    _, factory, kw, td, react, scaled, activation = CASES[IDS.index("front2d")]
+    pde, fd, raw, cw, scale, shift = _setup(factory, kw, scaled, widths=(256,), seed=2)
+    r, grads = _port(pde, fd, raw, cw, td, react, scale, shift, activation)
+    r_ref, g_ref = _jax(pde, fd, raw, cw, td, react, scale, shift, activation)
+    np.testing.assert_allclose(r, r_ref, rtol=1e-5, atol=1e-5 * np.abs(r_ref).max())
+    for g, gr in zip(grads, g_ref):
+        np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
+
+
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in ("front2d", "react-nl", "mor2d")],
                          ids=["front2d", "react-nl", "mor2d"])
@@ -167,14 +179,15 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
 
 def test_kernel_refuses_what_it_does_not_take():
     """The argument checks of K3's wrappers (run before any launch on CUDA) and
-    of the layout: no embedding, a [d] Burgers direction, widths up to 128."""
+    of the layout: no embedding, a [d] Burgers direction, widths up to 256."""
     pde, fd, raw, _, scale, shift = _setup(*CASES[2][1:3], True)
     data = _port_data(pde, fd, True, False, scale, shift)
     fr._check_jac_data(params_from_jax(raw), data, "tanh")
-    wide = params_from_jax(_setup(*CASES[2][1:3], True, widths=(128, 128))[2])
-    fr._check_jac_data(wide, data, "tanh")
-    with pytest.raises(ValueError, match="hidden width"):
-        fr._check_jac_data(params_from_jax(_setup(*CASES[2][1:3], True, widths=(136,))[2]),
+    for widths in ((128, 128), (256,)):
+        wide = params_from_jax(_setup(*CASES[2][1:3], True, widths=widths)[2])
+        fr._check_jac_data(wide, data, "tanh")
+    with pytest.raises(ValueError, match="hidden width 264"):
+        fr._check_jac_data(params_from_jax(_setup(*CASES[2][1:3], True, widths=(264,))[2]),
                            data, "tanh")
     with pytest.raises(ValueError, match="sin"):
         fr._check_jac_data(params_from_jax(raw), data, "sin")

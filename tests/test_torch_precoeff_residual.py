@@ -135,6 +135,18 @@ def test_plain_version_matches_jax_kernel(name, factory, kw, td, react, hard, wi
         np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
 
 
+def test_width_256_matches_jax_kernel():
+    """At the widest hidden width csrc/ff_mlp.cu takes in precoeff mode (HP 256, warp
+    groups of four on the card): exact BC on the order-2 2-D space, tolerances as above."""
+    _, factory, kw, td, react, hard, _ = CASES[IDS.index("2d-o2-hard")]
+    fd, st, hq, raw, cw, scale, shift = _setup(factory, kw, hard, (256,), seed=2)
+    r, grads = _port(fd, st, hq, raw, cw, td, react, scale, shift)
+    r_ref, g_ref = _jax(fd, hq, raw, cw, td, react, scale, shift)
+    np.testing.assert_allclose(r, r_ref, rtol=1e-5, atol=1e-5 * np.abs(r_ref).max())
+    for g, gr in zip(grads, g_ref):
+        np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
+
+
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in ("2dt-hard", "2d-o2-hard",
                                                                 "adr1d-hard")],

@@ -30,7 +30,9 @@ its emulations (``ff_*``, F 128, w96x3 as the contaminant net) take W0's rows in
 kernel's slice order and sum the weight gradients tile by tile.  3xTF32 with fresh tiles
 holds K2-FF's r gate (5e-5) and the 1e-4 gates with the same headroom, single TF32 does
 not, and a truncating running sum loses the layer-0 sum itself
-(``test_truncating_running_sum_loses_the_layer0_sum``).
+(``test_truncating_running_sum_loses_the_layer0_sum``).  K8 (``ff_jvp``) is emulated in
+ff_jvp_kernel's order: the s panels in tile 0, their tangents in tile 1, dW's product
+added onto tile 1's fresh tile after DS W's.
 """
 
 import numpy as np
@@ -64,25 +66,29 @@ def rz(x):
     return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def mm_steps(a, b, split=True, fresh=True):
+def mm_steps(a, b, split=True, fresh=True, also=None):
     """a @ b as the kernels' mma.sync k-steps: depth-8 slices of the contraction, each
     mma's sum rounded toward zero; ``split``: 3xTF32 (the small terms first), else a
     single TF32 product; ``fresh``: each k-step's products summed in a fresh tile and
     added to the running sum in f32 (round to nearest), else the running sum kept in
-    the mma accumulator."""
+    the mma accumulator.  ``also``: a second product (a2, b2) of the same shapes added
+    k-step by k-step after a @ b's, into the same fresh tile (K8's DS W + S dW)."""
     if b.shape[1] > 1024:   # column blocks: the same sums in bounded memory
-        return torch.cat([mm_steps(a, b[:, j:j + 1024], split, fresh)
+        return torch.cat([mm_steps(a, b[:, j:j + 1024], split, fresh,
+                                   None if also is None else (also[0], also[1][:, j:j + 1024]))
                           for j in range(0, b.shape[1], 1024)], dim=1)
-    a, b = a.float(), b.float()
-    pad = -a.shape[1] % 8
-    a = torch.nn.functional.pad(a, (0, pad))
-    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
-    ah, bh = tf32(a), tf32(b)
-    terms = [(tf32(a - ah), bh), (ah, tf32(b - bh)), (ah, bh)] if split else [(ah, bh)]
-    steps = a.shape[1] // 8
-    # the exact products of each k-step: [steps, M, N] per term
-    prods = [torch.bmm(x.double().reshape(-1, steps, 8).transpose(0, 1),
-                       y.double().reshape(steps, 8, -1)) for x, y in terms]
+    prods = []
+    for x, y in [(a, b)] + ([] if also is None else [also]):
+        x, y = x.float(), y.float()
+        pad = -x.shape[1] % 8
+        x = torch.nn.functional.pad(x, (0, pad))
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+        xh, yh = tf32(x), tf32(y)
+        terms = [(tf32(x - xh), yh), (xh, tf32(y - yh)), (xh, yh)] if split else [(xh, yh)]
+        steps = x.shape[1] // 8
+        # the exact products of each k-step: [steps, M, N] per term
+        prods += [torch.bmm(u.double().reshape(-1, steps, 8).transpose(0, 1),
+                            v.double().reshape(steps, 8, -1)) for u, v in terms]
     acc = torch.zeros(a.shape[0], b.shape[1])
     if fresh:
         tile = torch.zeros_like(prods[0], dtype=torch.float32)
@@ -97,16 +103,23 @@ def mm_steps(a, b, split=True, fresh=True):
     return acc
 
 
-def mm_3xtf32(a, b):
-    return mm_steps(a, b)
+def mm_3xtf32(a, b, also=None):
+    return mm_steps(a, b, also=also)
 
 
-def mm_tf32(a, b):
-    return mm_steps(a, b, split=False)
+def mm_tf32(a, b, also=None):
+    return mm_steps(a, b, split=False, also=also)
 
 
-def mm_trunc(a, b):
-    return mm_steps(a, b, fresh=False)
+def mm_trunc(a, b, also=None):
+    return mm_steps(a, b, fresh=False, also=also)
+
+
+def mm_pair(mm):
+    """a1 @ b1 + a2 @ b2 through ``mm``, the two products' k-steps sharing fresh tiles."""
+    if mm is torch.matmul:
+        return lambda a1, b1, a2, b2: a1 @ b1 + a2 @ b2
+    return lambda a1, b1, a2, b2: mm(a1, b1, also=(a2, b2))
 
 
 def bwd(params, xs, g, act_name, mm):
@@ -336,6 +349,18 @@ def ff_embed_rows():
     return torch.cat([j, FF_F + j], dim=1).reshape(-1)
 
 
+def ff_embed_panels(data, dirs):
+    """The embedding's value and tangent panels [2F, np P] (pc = bt . v in the JAX
+    kernels' order)."""
+    ang = fr._small_k(data.bt, data.xs)
+    sn, cs = torch.sin(ang), torch.cos(ang)
+    panels = [torch.cat([sn, cs])]
+    for v in dirs:
+        pc = fr._small_k(data.bt, v)
+        panels.append(torch.cat([cs * pc, -sn * pc]))
+    return torch.cat(panels, dim=1)
+
+
 def ff_stacks(params, data, dirs, act_name, mm):
     """The stacked forward as the kernels compute it: S_0 = the embedding's value and
     tangent panels [2F, np P] (pc = bt . v in the JAX kernels' order), layer 0 through
@@ -345,13 +370,7 @@ def ff_stacks(params, data, dirs, act_name, mm):
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     p = data.xs.shape[1]
-    ang = fr._small_k(data.bt, data.xs)
-    sn, cs = torch.sin(ang), torch.cos(ang)
-    panels = [torch.cat([sn, cs])]
-    for v in dirs:
-        pc = fr._small_k(data.bt, v)
-        panels.append(torch.cat([cs * pc, -sn * pc]))
-    s0 = torch.cat(panels, dim=1)
+    s0 = ff_embed_panels(data, dirs)
     rows = ff_embed_rows()
     s, slots = s0, []
     for l, (wt, b) in enumerate(zip(wts[:-1], bs[:-1])):
@@ -426,6 +445,44 @@ def ff_bwd(params, data, dirs, go, act_name, mm):
     return [t for dw, db in zip(d_wts, d_bs) for t in (dw.T, db[:, 0])]
 
 
+def ff_jvp(params, data, tangent, act_name, mm):
+    """K8 as ff_jvp_kernel computes it: tile 0 the s panels (value and unit tangents of
+    the embedding), tile 1 their parameter tangents ds; layer 0 S W0 and S dW0 (each its
+    own fresh tiles), each hidden layer S W and DS W + S dW (the two sharing a k-step's
+    fresh tile), W0's rows in the kernel's slice order; the epilogue and the output rows
+    dW_out s + w_out ds in the tensors' own precision."""
+    act, act_p, act_pp = _act_triple(act_name)
+    wts = [layer["w"].T for layer in params]
+    bs = [layer["b"][:, None] for layer in params]
+    dwts = [layer["w"].T for layer in tangent]
+    dbs = [layer["b"][:, None] for layer in tangent]
+    n, p = data.xs.shape
+    s0 = ff_embed_panels(data, ff_unit_dirs(data))
+    rows = ff_embed_rows()
+    s = ds = None
+    for l, (wt, b, dwt, db) in enumerate(zip(wts[:-1], bs[:-1], dwts[:-1], dbs[:-1])):
+        if l == 0:
+            zc, dzc = mm(wt[:, rows], s0[rows]), mm(dwt[:, rows], s0[rows])
+        else:
+            zc, dzc = mm(wt, s), mm_pair(mm)(wt, ds, dwt, s)
+        a = act(zc[:, :p] + b)
+        dz = dzc[:, :p] + db
+        sp = act_p(a)
+        dsp = act_pp(a, sp) * dz
+        s = torch.cat([a, sp.repeat(1, n) * zc[:, p:]], dim=1)
+        ds = torch.cat([sp * dz, dsp.repeat(1, n) * zc[:, p:] + sp.repeat(1, n) * dzc[:, p:]],
+                       dim=1)
+    doc = (dwts[-1] @ s + wts[-1] @ ds).reshape(1 + n, p)
+    return list(torch.cat([doc[:1] + dbs[-1], doc[1:]], dim=0))
+
+
+def ff_tangent(params, seed):
+    """A seeded parameter tangent of every leaf, in the parameters' dtype (f32 values)."""
+    rng = np.random.default_rng(200 + seed)
+    return [{k: torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(np.float32))
+             .to(v.dtype) for k, v in layer.items()} for layer in params]
+
+
 def ff_unit_dirs(data):
     eye = torch.eye(data.xs.shape[0], dtype=data.xs.dtype)
     return [eye[:, j:j + 1].expand_as(data.xs) for j in range(data.xs.shape[0])]
@@ -434,7 +491,7 @@ def ff_unit_dirs(data):
 def ff_kernel(kind, act_name):
     """(emulation, plain version) of ``kind`` on the seeded ff case of a fixture param
     (its depth picks the seed): K2-FF forward (r, summed per test function as
-    vr_qsum_kernel does) and backward, K7 forward ([u, du]) and backward."""
+    vr_qsum_kernel does) and backward, K7 forward ([u, du]) and backward, K8."""
     def emul(p, t, x, g, c, gt, cu, cs, mm):
         params, data, gr, gu = ff_case(len(p), x.dtype)
         if kind == "dir_fwd":
@@ -446,6 +503,8 @@ def ff_kernel(kind, act_name):
             g_tan = gr.repeat_interleave(data.nq)
             return ff_bwd(params, data, [c], torch.stack([torch.zeros_like(g_tan), g_tan]),
                           act_name, mm)
+        if kind == "unit_jvp":
+            return ff_jvp(params, data, ff_tangent(params, len(p)), act_name, mm)
         dirs = ff_unit_dirs(data)
         if kind == "unit_fwd":
             return list(ff_outputs(params, ff_stacks(params, data, dirs, act_name, mm)[1][-1],
@@ -460,6 +519,9 @@ def ff_kernel(kind, act_name):
             return vj._leaves(fr.dir_residual_bwd_plain(params, data, act_name, gr))
         if kind == "unit_fwd":
             return list(vj.ff_vj_fwd_plain(params, data.xs, data.bt, act_name))
+        if kind == "unit_jvp":
+            return list(vj.ff_vj_jvp_plain(params, data.xs, data.bt, act_name,
+                                           ff_tangent(params, len(p))))
         return vj._leaves(vj.ff_vj_bwd_plain(params, data.xs, data.bt, act_name, gu))
 
     return emul, plain
@@ -526,10 +588,12 @@ KERNELS = {
          dir_fwd_plain(p, x, c, cs, cu if react else None, nq, act))(act, react, nq),
         FWD_GATE, FWD_HEADROOM)
        for act, react, nq in [(a, r, DIR_NQ) for a, r in DIR_CASES] + [("tanh", False, 1296)]},
-    # csrc/ff_mlp.cu at F 128, w96x3: K2-FF r (5e-5) and gradients, K7 rows and gradients
+    # csrc/ff_mlp.cu at F 128, w96x3: K2-FF r (5e-5) and gradients, K7 rows and gradients,
+    # K8 rows
     **{f"ff_{kind}-{act}": (*ff_kernel(kind, act), gate, room)
        for kind, gate, room in (("dir_fwd", FF_R_GATE, HEADROOM), ("dir_bwd", GATE, HEADROOM),
-                                ("unit_fwd", GATE, HEADROOM), ("unit_bwd", GATE, HEADROOM))
+                                ("unit_fwd", GATE, HEADROOM), ("unit_bwd", GATE, HEADROOM),
+                                ("unit_jvp", GATE, HEADROOM))
        for act in ("tanh", "sigmoid")},
 }
 MODES = (("f32", torch.matmul), ("3xtf32", mm_3xtf32), ("tf32", mm_tf32), ("trunc", mm_trunc))

@@ -1,5 +1,5 @@
-// Fourier-feature MLP kernels for Hopper (sm_90a): the residual and value + jacobian
-// kernels on the tensor cores (3xTF32 mma.sync, csrc/tc3xtf32.cuh), K8 on the CUDA cores.
+// Fourier-feature MLP kernels for Hopper (sm_90a), all on the tensor cores (3xTF32
+// mma.sync, csrc/tc3xtf32.cuh).
 //
 // Replace the TPU kernels of the JAX package that run the trial net
 // u = MLP([sin | cos](2 pi B^T xs)) with a fixed B:
@@ -9,6 +9,7 @@
 //   ff_fwd_kernel (unit mode)     <- ops/pallas_mlp.py::_fwd_pallas_ff          K7 forward
 //   ff_bwd_kernel (unit mode)     <- ops/pallas_mlp.py::_bwd_pallas_ff          K7 backward
 //   ff_jvp_kernel                 <- ops/pallas_mlp.py::_jvp_pallas_ff          K8
+//                                    (_jvp_kernel_ff, _jvp_tail)
 //   ff_fwd_kernel (jacobian mode) <- ops/pallas_residual.py::_fused_residual_fn,
 //                                    directional=False (_fused_fwd_kernel)       K3 forward
 //   ff_bwd_kernel (jacobian mode) <- the same, _fused_bwd_kernel                 K3 backward
@@ -18,12 +19,12 @@
 // forward-mode tangent panel per direction.  K2-FF has one direction per point, the
 // weak-form vector c (its output is r_k = sum_q dd + csrc + cu u); K7 has the n_in unit
 // vectors of the scaled coordinates (its output is [u, du/dxs]); K8 carries the K7
-// panels and their parameter tangents (2 (1 + n_in) panels).  Layer 0's input is the
+// panels and their parameter tangents.  Layer 0's input is the
 // embedding E = [sin | cos](ang), ang = bt xs (bt = 2 pi B^T [F][n_in]), and along a
 // direction v its tangent [cos | -sin](ang) * (bt v).  B is fixed: nothing flows to it.
 // Without bt (a null pointer) layer 0 takes the scaled coordinates themselves and, along
 // v, v (a plain MLP): the same kernels then carry the plain nets wider than
-// value_and_jac.cu and dir_residual.cu take (hidden width 65..128).
+// value_and_jac.cu and dir_residual.cu take (hidden width 65..256).
 //
 // Residual modes (FfMode).  FF_DIR (K2-FF) forms the weak-form direction c, cu and csrc
 // from the shared tables per point; FF_PRE (K4 for nets wider than 64) reads them per
@@ -37,27 +38,41 @@
 // cotangents of _fused_bwd_kernel from gr[k] and the recomputed u, du,
 //     g_u = gr cu + gr w N (b . grad u),   g_du_j = gr c_j + gr w N u b_j s_j (j < d),
 // and hands them to the unit-mode backward.  The bilinear term is why K3 has no
-// directional form: u and grad u enter as a product.  Widths up to 128 (HP = 32..128).
+// directional form: u and grad u enter as a product.  Widths up to 256 (HP = 32..256).
 // The residual forwards write one integrand per point; vr_qsum_kernel (tc3xtf32.cuh, the
 // K1/K4 forward's) sums each test function's nq of them.
 //
 // What bounds them: operations.  At the contaminant net (F = 128, width 96 x 3) a panel
 // row takes 43 k multiply-adds per layer stack (24.6 k of them layer 0's, K = 256), the
-// backward (recompute, cotangents, dW) about 2.4 times the forward, against tens of bytes
-// read per point.
+// backward (recompute, cotangents, dW) about 2.4 times the forward, K8 (W s, W ds and
+// dW s) about 2.5 times, against tens of bytes read per point.
 //
-// Design (ff_fwd_kernel, ff_bwd_kernel).  A block of ng warp pairs (ng <= 4) walks tiles
-// of points, persistent.  Each pair owns a group of 32 stacked rows: G = 32 / npad points
-// of the tile with their npad panels (np padded to 2, 4 or 8 with zero rows), row
-// m G + t for panel m of point t, so one lane's mma accumulator holds the value and the
-// tangent rows of the same points and columns (npad 8: lane and lane ^ 16), and the layer
-// epilogues a = act(z + b), J = act'(a) z run on them in registers.  Every layer product
-// -- layer 0 against the embedding (depth KE = 2 FP), the hidden layers, the cotangents
+// Design (ff_fwd_kernel, ff_bwd_kernel).  A block of ng warp groups walks tiles of
+// points, persistent.  Each group owns 32 stacked rows: G = 32 / npad points of the tile
+// with their npad panels (np padded to 2, 4 or 8 with zero rows), row m G + t for panel
+// m of point t, so one lane's mma accumulator holds the value and the tangent rows of the
+// same points and columns (npad 8: lane and lane ^ 16), and the layer epilogues
+// a = act(z + b), J = act'(a) z run on them in registers.  Every layer product -- layer 0
+// against the embedding (depth KE = 2 FP), the hidden layers, the cotangents
 // G_{l-1} = G_l W_l^T and the weight gradients dW_l = S_{l-1}^T G_l, dW_0 = E^T G_0 --
 // is mma.sync.m16n8k8 tf32 in 3xTF32 with a fresh tile per k-step added on the CUDA cores
 // (csrc/tc3xtf32.cuh: the same split, product order and rounding as the other kernels).
-// A warp takes its pair's 32 rows (two 16-row tiles) for half of the HP / 8 output tiles:
-// each B fragment is split once for both row tiles, each A fragment once for the half.
+// A warp takes its group's 32 rows (two 16-row tiles) for its share of the HP / 8 output
+// tiles: each B fragment is split once for both row tiles, each A fragment once for the
+// share.  A group is WG = 2 warps up to HP 128 and 4 above (ff_wg), so a warp's share is
+// at most 8 tiles (64 accumulator floats a lane) at every width, and a block at most 256
+// threads (ng <= 8 / WG).
+//
+// K8 (ff_jvp_kernel) is the same walk with its own row layout: a group's 32 rows are two
+// 16-row tiles, tile 0 the s panels (value and unit tangents) of G = 16 / npad points,
+// tile 1 their parameter tangents ds at the same rows, so a lane holds s and ds of the
+// same rows and columns.  Per hidden layer tile 0 += S W and tile 1 += DS W + S dW (the
+// second term reuses tile 0's split A fragments; a k-step's two products share one fresh
+// tile); layer 0 takes tile 0 += E W0, tile 1 += E dW0 (B is fixed: E has no parameter
+// tangent).  W and dW slices stream together.  The epilogue, in registers, with the value
+// row's z and dz brought to the tangent rows by a shuffle: z = acc0 + b, dz = acc1 + db;
+// value rows a and sp dz; tangent rows sp zc and spp dz zc + sp dzc.  The output is
+// dW_out . s + w_out . ds (+ db_out on the value row), per point: no atomics.
 //
 // Weights stream, they do not stay.  Kept in f32 in shared memory the contaminant net's
 // weights take 172 KB, which would leave one block of 4 warps per SM beside the
@@ -71,18 +86,20 @@
 // Each block fetches the weights once per tile of 32 ng rows (64 points of K2-FF at ng 4).
 //
 // Shared memory (floats; ff_tc_smem_floats), and the occupancy it allows at the
-// contaminant shape (HP 96, KE 256, three layers) and at HP 128:
+// contaminant shape (HP 96, KE 256, three layers):
 //   weight slices 2 x 16 (HP + 8) (backward: 2 x max(16 (HP + 8), 20 HP): the cotangent
-//   slices are transposed, [HP][FF_ELD]); embedding slices 2 x 32 ng x FF_ELD; slots
-//   (forward 1, backward L) x 32 ng x (HP + 4); biases, w_out, bt, the tile's point data;
-//   the backward's per-epilogue-group sums.
+//   slices are transposed, [HP][FF_ELD]; K8: 2 x 32 (HP + 8), W and dW); embedding
+//   slices 2 x 32 ng x FF_ELD; slots (forward and K8 1, backward L) x 32 ng x (HP + 4);
+//   biases, w_out (K8: and their tangents), bt, the tile's point data; the backward's
+//   per-epilogue-group sums.
 //   forward  HP 96:  ng 4: 93.3 KB -> 2 blocks, 16 warps per SM
-//            HP 128: ng 4: 111.8 KB -> 2 blocks, 16 warps
 //   backward HP 96:  ng 4: 196.3 KB -> 1 block, 8 warps per SM
-//            HP 128: ng 3: 193 KB -> 1 block, 6 warps (ng 4 needs 257 KB)
-// The launcher takes, of ng 4, 3, 2, 1, the one that keeps the most warps resident
+//   K8       HP 96:  ng 4: 105.5 KB -> 2 blocks, 16 warps per SM
+// At HP 256 the backward's three slots leave ng 1 (157 KB, 4 warps per SM).  The launcher
+// takes, of ng = 8 / WG .. 1, the one that keeps the most warps resident
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; on a tie the larger block: more points
-// per fetch of the weights); ff_launch_shape reports it.
+// per fetch of the weights); ff_launch_shape reports it.  Where not even ng 1 fits (a net
+// too deep for its width) the launchers return FF_DOES_NOT_FIT and launch nothing.
 //
 // The weight gradient.  At the contaminant shape dW is 43,104 floats (172 KB): it does not
 // fit in shared memory beside the slots, nor in the registers of 8 warps (168 a thread)
@@ -104,7 +121,7 @@
 // slice.
 //
 // Packed parameter layout (floats; ops/fused_residual.py::ff_pack_index mirrors it):
-// hidden widths zero-padded to HP (a multiple of 32, at most 128), the features to FP (a
+// hidden widths zero-padded to HP (a multiple of 32, at most 256), the features to FP (a
 // multiple of 16), KE = 2 FP; weights stored [fan_in][fan_out] (as w in the JAX layout;
 // the fragment loaders read it as B [k][n] in the forward, transposed in the cotangents):
 //   W0 [KE][HP] (rows f: sin f, FP + f: cos f) | b0 [HP] | (W_l [HP][HP] | b_l [HP])
@@ -116,7 +133,8 @@
 
 #define FF_MAX_IN 4
 #define FF_NCF (3 + FF_MAX_IN)  // per-point coefficient rows: cu, csrc, w N, c_0..c_3
-#define FF_MAX_NG 4             // warp pairs (groups of 32 stacked rows) per block
+#define FF_MAX_THREADS 256      // a block's threads: ng groups of WG warps
+#define FF_DOES_NOT_FIT 1001    // launcher result: not even one group fits in shared memory
 
 // Measurement builds, never the default (scripts/ff_costs.py builds them with -D):
 //   FF_PHASE_CLOCK         thread 0 of every block of ff_fwd_kernel / ff_bwd_kernel adds
@@ -153,6 +171,8 @@ __device__ unsigned long long ff_phase_ticks[2][FF_NPHASE];
 
 // What a block computes per point: (u, du/dxs) (K7), or one of the weak residuals.
 enum FfMode { FF_UNIT = 0, FF_DIR = 1, FF_PRE = 2, FF_JAC = 3 };
+// Which stacked kernel (ff_launch_shape's kind).
+enum FfKind { FF_FWD = 0, FF_BWD = 1, FF_JVP = 2 };
 
 __host__ __device__ inline int ff_off_w(int hp, int ke, int l) {  // l >= 1; W0 is at 0
   return ke * hp + hp + (l - 1) * (hp * hp + hp);
@@ -180,63 +200,80 @@ struct FfProblem {
   const float* cu;     // FF_PRE: [P] coefficient of u, or null
   long long P;
   int mode;            // FfMode
-  int n_in, np, T;     // np panels (value + np - 1 directions); T: K8's points per tile
+  int n_in, np;        // np panels (value + np - 1 directions)
   int ke, n_hidden, act;
   int nq, d, td, has_react;  // has_react: a cu term (reaction, or FF_PRE's cu)
 };
 
 // ------------------------------------------------------------------------------------
-// The stacked tensor-core kernels (K2-FF, K7, K3, wide K4).
+// The stacked tensor-core kernels (K2-FF, K7, K8, K3, wide K4).
 
+// Warps per group of 32 stacked rows: a warp takes HP / (8 WG) <= 8 output tiles.
+__host__ __device__ constexpr int ff_wg(int hp) { return hp > 128 ? 4 : 2; }
 __host__ __device__ inline int ff_npad(int np) { return np <= 2 ? 2 : (np <= 4 ? 4 : 8); }
+// Points of a group: 32 rows of npad panels, or (K8) 16 rows, s above ds.
+__host__ __device__ inline int ff_group_points(int np, int kind) {
+  return (kind == FF_JVP ? 16 : 32) / ff_npad(np);
+}
 // Floats of one weight-slice buffer: [FF_SLICE][HP + 8] (forward products), in the
-// backward also the transposed cotangent slices [HP][FF_ELD].
-__host__ __device__ inline int ff_wbuf(int hp, bool bwd) {
+// backward also the transposed cotangent slices [HP][FF_ELD], in K8 W and dW slices
+// [2 FF_SLICE][HP + 8].
+__host__ __device__ inline int ff_wbuf(int hp, int kind) {
   const int a = FF_SLICE * (hp + 8), b = hp * FF_ELD;
-  return bwd && b > a ? b : a;
+  if (kind == FF_JVP) return 2 * a;
+  return kind == FF_BWD && b > a ? b : a;
 }
 // Floats of one epilogue group's sums: the biases of every layer, w_out, b_out (pad 4).
 __host__ __device__ inline int ff_acc_floats(int hp, int n_hidden) {
   return (n_hidden + 1) * hp + 4;
 }
 __host__ __device__ inline int ff_egroups(int nthr, int hp) { return nthr >= hp ? nthr / hp : 1; }
-// Shared memory (floats) of a block of ng warp pairs (the order of ff_tc_carve).
+// Shared memory (floats) of a block of ng groups (the order of ff_tc_carve).
 __host__ __device__ inline int ff_tc_smem_floats(int hp, int ng, int ke, int n_hidden, int np,
-                                                 bool bwd) {
-  const int R = 32 * ng, TP = R / ff_npad(np);
-  int f = 2 * ff_wbuf(hp, bwd) + 2 * R * FF_ELD + (bwd ? n_hidden : 1) * R * (hp + 4) +
-          n_hidden * hp + hp + 4 + ke / 2 * 4 + 8 + (2 * FF_MAX_IN + FF_NCF) * TP + 2 * R;
-  if (bwd) f += ff_egroups(64 * ng, hp) * ff_acc_floats(hp, n_hidden);
+                                                 int kind) {
+  const int R = 32 * ng, TP = ng * ff_group_points(np, kind);
+  int f = 2 * ff_wbuf(hp, kind) + 2 * R * FF_ELD + (kind == FF_BWD ? n_hidden : 1) * R * (hp + 4) +
+          (kind == FF_JVP ? 2 : 1) * (n_hidden * hp + hp + 4) + ke / 2 * 4 + 8 +
+          (2 * FF_MAX_IN + FF_NCF) * TP + 2 * R;
+  if (kind == FF_BWD) f += ff_egroups(32 * ff_wg(hp) * ng, hp) * ff_acc_floats(hp, n_hidden);
   return f;
 }
 
 struct FfTc {
-  float *W, *E, *S, *bias, *wout, *bt, *scale, *nls, *X, *Dir, *Cf, *Go, *Out, *Acc;
+  float *W, *E, *S, *bias, *wout, *dbias, *dwout, *bt, *scale, *nls, *X, *Dir, *Cf, *Go, *Out,
+      *Acc;
   int npad, G, TP, R, fp, n0, nh, Q, wb, cnt;  // cnt: slices consumed (buffer parity)
   bool has_next;                               // the block has another tile
 };
 
 // The block's shared memory: W, the weight-slice double buffer; E, the embedding-slice
 // double buffer [2][R][FF_ELD]; S, the layer slots [nslot][R][HP + 4] (rows 32 g.. of a
-// slot are group g's); bias [L][HP]; wout [HP] | b_out; bt [FP][4]; scale, nls (b_j s_j)
-// [4]; the tile's point data X, Dir [4][TP], Cf [FF_NCF][TP]; per stacked row the output
+// slot are group g's); bias [L][HP]; wout [HP] | b_out; K8's dbias, dwout (the same, of
+// the parameter tangent; null otherwise); bt [FP][4]; scale, nls (b_j s_j) [4]; the
+// tile's point data X, Dir [4][TP], Cf [FF_NCF][TP]; per stacked row the output
 // cotangent Go [R] and output Out [R]; the backward's epilogue sums Acc.
-__device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb, bool bwd) {
+__device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb, int kind) {
   FfTc t;
+  const bool bwd = kind == FF_BWD, jvp = kind == FF_JVP;
   t.npad = ff_npad(pb.np);
-  t.G = 32 / t.npad;
+  t.G = ff_group_points(pb.np, kind);
   t.R = 32 * ng;
-  t.TP = t.R / t.npad;
+  t.TP = ng * t.G;
   t.fp = pb.bt ? pb.ke / 2 : 0;
   t.n0 = t.fp ? t.fp / 8 : 1;
   t.nh = hp / FF_SLICE;
   t.Q = t.n0 + (bwd ? 2 : 1) * (pb.n_hidden - 1) * t.nh;
-  t.wb = ff_wbuf(hp, bwd);
+  t.wb = ff_wbuf(hp, kind);
   t.W = s;      s += 2 * t.wb;
   t.E = s;      s += 2 * t.R * FF_ELD;
   t.S = s;      s += (bwd ? pb.n_hidden : 1) * t.R * (hp + 4);
   t.bias = s;   s += pb.n_hidden * hp;
   t.wout = s;   s += hp + 4;
+  t.dbias = t.dwout = nullptr;
+  if (jvp) {
+    t.dbias = s;  s += pb.n_hidden * hp;
+    t.dwout = s;  s += hp + 4;
+  }
   t.bt = s;     s += pb.ke / 2 * 4;
   t.scale = s;  s += 4;
   t.nls = s;    s += 4;
@@ -251,13 +288,21 @@ __device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb
   return t;
 }
 
+// The biases, w_out | b_out (and, with dparams, K8's tangents of them), bt, the input
+// scale and the Burgers direction into shared memory.
 __device__ void ff_tc_load_consts(const FfProblem& pb, const float* __restrict__ params,
-                                  const FfTc& t, int hp) {
+                                  const float* __restrict__ dparams, const FfTc& t, int hp) {
   const int tid = threadIdx.x, nthr = blockDim.x;
-  for (int i = tid; i < pb.n_hidden * hp; i += nthr)
-    t.bias[i] = params[ff_off_b(hp, pb.ke, i / hp) + i % hp];
   const int ow = ff_off_wout(hp, pb.ke, pb.n_hidden);
-  for (int i = tid; i <= hp; i += nthr) t.wout[i] = params[ow + i];
+  for (int i = tid; i < pb.n_hidden * hp; i += nthr) {
+    const int o = ff_off_b(hp, pb.ke, i / hp) + i % hp;
+    t.bias[i] = params[o];
+    if (dparams) t.dbias[i] = dparams[o];
+  }
+  for (int i = tid; i <= hp; i += nthr) {
+    t.wout[i] = params[ow + i];
+    if (dparams) t.dwout[i] = dparams[ow + i];
+  }
   if (pb.bt)
     for (int i = tid; i < pb.ke / 2 * 4; i += nthr) t.bt[i] = pb.bt[i];
   if (tid < 4) {
@@ -337,20 +382,22 @@ __device__ void ff_tc_setup(const FfProblem& pb, const FfTc& t, long long tile,
 // layer 0's rows (with an embedding the 8 sin rows 8 q.. then the 8 cos rows FP + 8 q..;
 // without, rows 0..15); then the n_hidden - 1 hidden layers, nh slices of FF_SLICE rows
 // each, as [k][HP + 8]; then (the backward's cotangents) the hidden layers from the top
-// down, transposed: W_l[i][16 s..16 s + 15] as [i][FF_ELD].
-template <int HP>
-__device__ void ff_stage(const FfProblem& pb, const float* __restrict__ params, const FfTc& t,
-                         int q, float* buf) {
+// down, transposed: W_l[i][16 s..16 s + 15] as [i][FF_ELD].  JVP (K8): each forward
+// slice is followed by the same rows of the parameter tangent dparams, [2 FF_SLICE][HP + 8].
+template <int HP, bool JVP>
+__device__ void ff_stage(const FfProblem& pb, const float* __restrict__ params,
+                         const float* __restrict__ dparams, const FfTc& t, int q, float* buf) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int nf = t.n0 + (pb.n_hidden - 1) * t.nh;
   if (q < nf) {
     const bool l0 = q < t.n0;
     const int s = l0 ? q : (q - t.n0) % t.nh;
-    const float* w = params + (l0 ? 0 : ff_off_w(HP, pb.ke, 1 + (q - t.n0) / t.nh));
-    for (int c = tid; c < FF_SLICE * HP / 4; c += nthr) {
-      const int kk = c / (HP / 4), c4 = c % (HP / 4);
-      int row = FF_SLICE * s + kk;
-      if (l0) row = !t.fp ? kk : (kk < 8 ? 8 * s + kk : t.fp + 8 * s + kk - 8);
+    const int off = l0 ? 0 : ff_off_w(HP, pb.ke, 1 + (q - t.n0) / t.nh);
+    for (int c = tid; c < (JVP ? 2 : 1) * FF_SLICE * HP / 4; c += nthr) {
+      const int kk = c / (HP / 4), c4 = c % (HP / 4), k = JVP ? kk % FF_SLICE : kk;
+      int row = FF_SLICE * s + k;
+      if (l0) row = !t.fp ? k : (k < 8 ? 8 * s + k : t.fp + 8 * s + k - 8);
+      const float* w = (JVP && kk >= FF_SLICE ? dparams : params) + off;
       ff_cp_async16(buf + kk * (HP + 8) + 4 * c4, w + row * HP + 4 * c4);
     }
   } else {
@@ -422,43 +469,56 @@ __device__ __forceinline__ int ff_next(const FfTc& t, int q) {
   return q + 1 < t.Q ? q + 1 : (t.has_next ? 0 : -1);
 }
 
-// The two warps of group g (threads 64 g .. 64 g + 63) meet.
-__device__ __forceinline__ void ff_pair_sync() {
-  asm volatile("bar.sync %0, 64;" ::"r"(1 + (threadIdx.x >> 6)) : "memory");
+// The WG warps of group g (threads 32 WG g ..) meet.
+template <int WG>
+__device__ __forceinline__ void ff_group_sync() {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + (int)threadIdx.x / (32 * WG)), "r"(32 * WG)
+               : "memory");
 }
 
-// One stacked product over n slices of the weight schedule from slice q0: warp (g, hf) =
-// (warp / 2, warp % 2) sums rows 32 g.. of the tile for the output tiles hf NTH .., acc =
-// A B with A(r, k) = a(r, s, k) (row r < 32 of the group, k < FF_SLICE of slice s) and B
-// the slice, read b(k, n) = W[k][n] (forward layout) or W[n][k] (transposed).  While
-// slice s is summed the next slice of the schedule loads (and, with emb, the embedding
-// slice s + 1 is formed); one block barrier per slice.
-template <int NI, class LoadA>
-__device__ void ff_product(const FfProblem& pb, const float* __restrict__ params, FfTc& t,
-                           int q0, int n, bool transposed, bool emb, LoadA a,
-                           float (&acc)[2][2 * NI][4]) {
-  constexpr int HP = 32 * NI, NTH = 2 * NI;
-  const int n0 = 8 * NTH * ((threadIdx.x >> 5) & 1);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTH; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+// Walks n slices of the weight schedule from slice q0: for slice s it waits for the
+// slice's weights, stages the next slice of the schedule into the other buffer (and, with
+// emb, forms the embedding slice s + 1), then runs body(s, W) on the slice; one block
+// barrier per slice.
+template <int HP, bool JVP, class Body>
+__device__ __forceinline__ void ff_slices(const FfProblem& pb, const float* __restrict__ params,
+                                          const float* __restrict__ dparams, FfTc& t, int q0,
+                                          int n, bool emb, Body body) {
   for (int s = 0; s < n; ++s) {
     ff_cp_async_wait_all();
     __syncthreads();
     const float* W = t.W + (t.cnt & 1) * t.wb;
     const int next = ff_next(t, q0 + s);
-    if (next >= 0) ff_stage<HP>(pb, params, t, next, t.W + ((t.cnt + 1) & 1) * t.wb);
+    if (next >= 0) ff_stage<HP, JVP>(pb, params, dparams, t, next, t.W + ((t.cnt + 1) & 1) * t.wb);
     if (emb && s + 1 < n) ff_form_emb(pb, t, s + 1, t.E + ((s + 1) & 1) * t.R * FF_ELD);
-    if (transposed)
-      ff_rows2_slice<NTH>(acc, [&](int r, int k) { return a(r, s, k); },
-                          [&](int k, int nn) { return W[(n0 + nn) * FF_ELD + k]; });
-    else
-      ff_rows2_slice<NTH>(acc, [&](int r, int k) { return a(r, s, k); },
-                          [&](int k, int nn) { return W[k * (HP + 8) + n0 + nn]; });
+    body(s, W);
     ++t.cnt;
   }
+}
+
+// One stacked product over n slices of the weight schedule from slice q0: warp (g, wi) =
+// (warp / WG, warp % WG) sums rows 32 g.. of the tile for the output tiles wi NTW ..,
+// acc = A B with A(r, k) = a(r, s, k) (row r < 32 of the group, k < FF_SLICE of slice s)
+// and B the slice, read b(k, n) = W[k][n] (forward layout) or W[n][k] (transposed).
+template <int NI, class LoadA>
+__device__ void ff_product(const FfProblem& pb, const float* __restrict__ params, FfTc& t,
+                           int q0, int n, bool transposed, bool emb, LoadA a,
+                           float (&acc)[2][4 * NI / ff_wg(32 * NI)][4]) {
+  constexpr int HP = 32 * NI, WG = ff_wg(HP), NTW = HP / (8 * WG);
+  const int n0 = 8 * NTW * ((threadIdx.x >> 5) & (WG - 1));
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+  ff_slices<HP, false>(pb, params, nullptr, t, q0, n, emb, [&](int s, const float* W) {
+    if (transposed)
+      ff_rows2_slice<NTW>(acc, [&](int r, int k) { return a(r, s, k); },
+                          [&](int k, int nn) { return W[(n0 + nn) * FF_ELD + k]; });
+    else
+      ff_rows2_slice<NTW>(acc, [&](int r, int k) { return a(r, s, k); },
+                          [&](int k, int nn) { return W[k * (HP + 8) + n0 + nn]; });
+  });
 }
 
 // A forward layer's epilogue, stored to the group's rows of slot O: a = act(z + b) on the
@@ -466,13 +526,14 @@ __device__ void ff_product(const FfProblem& pb, const float* __restrict__ params
 // this lane holds (npad 2: tile 0, same register; npad 4: tile 0, register h & 1) or lane
 // & 15 does (npad 8: the group's 4 value rows are rows 0..3 of tile 0, lanes 0..15).
 template <int NI>
-__device__ void ff_store_fwd(float (&acc)[2][2 * NI][4], const float* b, float* O,
-                             const FfTc& t, int act) {
-  constexpr int HP = 32 * NI, NTH = 2 * NI, LD = HP + 4;
+__device__ void ff_store_fwd(float (&acc)[2][4 * NI / ff_wg(32 * NI)][4], const float* b,
+                             float* O, const FfTc& t, int act) {
+  constexpr int HP = 32 * NI, WG = ff_wg(HP), NTW = HP / (8 * WG), LD = HP + 4;
   const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
-  const int g = threadIdx.x >> 6, n0 = 8 * NTH * ((threadIdx.x >> 5) & 1), G = t.G;
+  const int g = threadIdx.x / (32 * WG), n0 = 8 * NTW * ((threadIdx.x >> 5) & (WG - 1));
+  const int G = t.G;
 #pragma unroll
-  for (int nt = 0; nt < NTH; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
     for (int h = 0; h < 4; ++h)
       if ((gq + 8 * (h >> 1)) / G == 0)
@@ -497,45 +558,125 @@ __device__ void ff_store_fwd(float (&acc)[2][2 * NI][4], const float* b, float* 
 
 // The accumulator as it is, to the group's rows of slot O (the cotangents G_{l-1}).
 template <int NI>
-__device__ void ff_store_raw(const float (&acc)[2][2 * NI][4], float* O) {
-  constexpr int HP = 32 * NI, NTH = 2 * NI, LD = HP + 4;
+__device__ void ff_store_raw(const float (&acc)[2][4 * NI / ff_wg(32 * NI)][4], float* O) {
+  constexpr int HP = 32 * NI, WG = ff_wg(HP), NTW = HP / (8 * WG), LD = HP + 4;
   const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
-  const int g = threadIdx.x >> 6, n0 = 8 * NTH * ((threadIdx.x >> 5) & 1);
+  const int g = threadIdx.x / (32 * WG), n0 = 8 * NTW * ((threadIdx.x >> 5) & (WG - 1));
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NTH; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int h = 0; h < 4; ++h)
         O[(32 * g + 16 * mt + gq + 8 * (h >> 1)) * LD + n0 + 8 * nt + 2 * q + (h & 1)] =
             acc[mt][nt][h];
 }
 
-// Out[r] = w_out . S[r] for the R stacked rows of slot S (b_out not added): two threads a
-// row (blockDim = 2 R), each half the columns in four chains, then added.
-template <int NI>
-__device__ void ff_outputs(const FfTc& t, const float* S) {
-  constexpr int HP = 32 * NI, LD = HP + 4;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const float4* s4 = reinterpret_cast<const float4*>(S + r * LD + half * (HP / 2));
-  const float4* w4 = reinterpret_cast<const float4*>(t.wout + half * (HP / 2));
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+// K8's slice: over the FF_SLICE / 8 k-steps of slice W ([2 FF_SLICE][HP + 8]: the W rows,
+// then the dW rows), acc[0] (tile 0, the s rows a(0..15, k)) += S W and acc[1] (tile 1)
+// += DS W + S dW with DS = a(16.., k); at layer 0 (L0) acc[1] += S dW alone (the
+// embedding has no parameter tangent).  The S fragments are split once for both of their
+// products; a k-step's two products into tile 1 share one fresh tile.
+template <int HP, int NTW, bool L0, class LoadA>
+__device__ __forceinline__ void ff_jvp_slice(float (&acc)[2][NTW][4], LoadA a, const float* W,
+                                             int n0) {
 #pragma unroll
-  for (int i = 0; i < HP / 8; ++i) {
-    const float4 a = s4[i], w = w4[i];
-    c[0] = fmaf(w.x, a.x, c[0]);
-    c[1] = fmaf(w.y, a.y, c[1]);
-    c[2] = fmaf(w.z, a.z, c[2]);
-    c[3] = fmaf(w.w, a.w, c[3]);
+  for (int k0 = 0; k0 < FF_SLICE; k0 += 8) {
+    unsigned sh[4], sl[4], dh[4], dl[4];
+    vj_frag_a(a, k0, sh, sl);
+    if (!L0) vj_frag_a([&](int r, int k) { return a(16 + r, k); }, k0, dh, dl);
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      unsigned wh[2], wl[2], vh[2], vl[2];
+      vj_frag_b([&](int k, int n) { return W[k * (HP + 8) + n0 + n]; }, k0, 8 * nt, wh, wl);
+      vj_frag_b([&](int k, int n) { return W[(FF_SLICE + k) * (HP + 8) + n0 + n]; }, k0,
+                8 * nt, vh, vl);
+      float t0[4], t1[4];
+      vj_mma3z(t0, sh, sl, wh, wl);
+      vj_add(acc[0][nt], t0);
+      if (L0) {
+        vj_mma3z(t1, sh, sl, vh, vl);
+      } else {
+        vj_mma3z(t1, dh, dl, wh, wl);
+        vj_mma3(t1, sh, sl, vh, vl);
+      }
+      vj_add(acc[1][nt], t1);
+    }
   }
-  float v = (c[0] + c[1]) + (c[2] + c[3]);
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  if (half == 0) t.Out[r] = v;
 }
 
-// The forward's per-point results from Out (thread tp < TP): (u, du/dxs) to out [np][P]
-// (FF_UNIT), or the integrand to out [P] in the order of the JAX kernels: dd + csrc
-// (+ cu u) (FF_DIR, FF_PRE), _fused_fwd_kernel's (FF_JAC).
+// K8's layer epilogue, stored to the group's rows of slot O (s rows 0..15, ds rows
+// 16..31): a lane holds rows gq and gq + 8 of both tiles, point gq % G; that point's value
+// row is row gq % G, registers 0 and 1 of lane lane & (4 G - 1), which computes
+// a = act(z + b), dz = acc1 + db there and shuffles them here.  Value rows: s = a,
+// ds = sp dz; tangent rows: s = sp zc, ds = spp dz zc + sp dzc (zc, dzc: the row's acc).
+template <int NI>
+__device__ void ff_store_jvp(float (&acc)[2][4 * NI / ff_wg(32 * NI)][4], const float* b,
+                             const float* db, float* O, const FfTc& t, int act) {
+  constexpr int HP = 32 * NI, WG = ff_wg(HP), NTW = HP / (8 * WG), LD = HP + 4;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  const int g = threadIdx.x / (32 * WG), n0 = 8 * NTW * ((threadIdx.x >> 5) & (WG - 1));
+  const int G = t.G, src = lane & (4 * G - 1);
+  float* Os = O + 32 * g * LD;
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt) {
+    float a[2], dz[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = n0 + 8 * nt + 2 * q + e;
+      a[e] = gq < G ? vj_act(acc[0][nt][e] + b[j], act) : 0.0f;
+      dz[e] = acc[1][nt][e] + db[j];
+      a[e] = __shfl_sync(0xffffffffu, a[e], src);
+      dz[e] = __shfl_sync(0xffffffffu, dz[e], src);
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int row = gq + 8 * (h >> 1), e = h & 1, j = n0 + 8 * nt + 2 * q + e;
+      const float sp = vj_dact(a[e], act);
+      float sv, dv;
+      if (row < G) {
+        sv = a[e];
+        dv = sp * dz[e];
+      } else {
+        const float zc = acc[0][nt][h];
+        sv = sp * zc;
+        dv = fmaf(vj_ddact(a[e], sp, act) * dz[e], zc, sp * acc[1][nt][h]);
+      }
+      Os[row * LD + j] = sv;
+      Os[(16 + row) * LD + j] = dv;
+    }
+  }
+}
+
+// Out[r] = w . S[r] for the R stacked rows of slot S (b_out not added), w = w_out, or in
+// K8 dw_out on a group's s rows (r % 32 < 16): WG threads a row (blockDim = WG R), each
+// HP / WG columns in four chains, then added.
+template <int NI>
+__device__ void ff_outputs(const FfTc& t, const float* S) {
+  constexpr int HP = 32 * NI, WG = ff_wg(HP), LD = HP + 4, NC = HP / WG;
+  const int r = threadIdx.x / WG, part = threadIdx.x & (WG - 1);
+  const float* w = t.dwout && (r & 31) < 16 ? t.dwout : t.wout;
+  const float4* s4 = reinterpret_cast<const float4*>(S + r * LD + part * NC);
+  const float4* w4 = reinterpret_cast<const float4*>(w + part * NC);
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NC / 4; ++i) {
+    const float4 a = s4[i], ww = w4[i];
+    c[0] = fmaf(ww.x, a.x, c[0]);
+    c[1] = fmaf(ww.y, a.y, c[1]);
+    c[2] = fmaf(ww.z, a.z, c[2]);
+    c[3] = fmaf(ww.w, a.w, c[3]);
+  }
+  float v = (c[0] + c[1]) + (c[2] + c[3]);
+#pragma unroll
+  for (int o = 1; o < WG; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (part == 0) t.Out[r] = v;
+}
+
+// The per-point results from Out (thread tp < TP): (u, du/dxs) to out [np][P] (FF_UNIT),
+// K8's tangent of them (s row's dW_out part + ds row's w_out part, + db_out on the value
+// row), or the integrand to out [P] in the order of the JAX kernels: dd + csrc (+ cu u)
+// (FF_DIR, FF_PRE), _fused_fwd_kernel's (FF_JAC).
 __device__ void ff_point_out(const FfProblem& pb, const FfTc& t, long long tile, int hp,
                              float* __restrict__ out) {
   const int tp = threadIdx.x, TP = t.TP, G = t.G;
@@ -543,6 +684,11 @@ __device__ void ff_point_out(const FfProblem& pb, const FfTc& t, long long tile,
   const long long p = tile * TP + tp;
   if (p >= pb.P) return;
   const int r0 = 32 * (tp / G) + tp % G;
+  if (t.dwout) {
+    out[p] = t.Out[r0] + t.Out[r0 + 16] + t.dwout[hp];
+    for (int m = 1; m < pb.np; ++m) out[m * pb.P + p] = t.Out[r0 + m * G] + t.Out[r0 + 16 + m * G];
+    return;
+  }
   const float u = t.Out[r0] + t.wout[hp];
   if (pb.mode == FF_UNIT) {
     out[p] = u;
@@ -650,20 +796,20 @@ __device__ void ff_epilogue(const FfProblem& pb, const FfTc& t, int l, const flo
 //   residual modes: out [P] = the integrand per point (summed over q by vr_qsum_kernel)
 //   unit mode:      out [np][P] = (u, du/dxs_j)
 // Per tile: the point data, layer 0 against the embedding slices, the hidden layers in
-// place in the one slot (the pair meets before it overwrites the rows it read), the
+// place in the one slot (the group meets before it overwrites the rows it read), the
 // output row, the per-point results.
 template <int NI>
-__global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
+__global__ void __launch_bounds__(FF_MAX_THREADS, 2)
     ff_fwd_kernel(FfProblem pb, const float* __restrict__ params, float* __restrict__ out,
                   long long n_tiles, int ng) {
   extern __shared__ float4 ff_smem4[];
-  constexpr int HP = 32 * NI, LD = HP + 4;
-  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, false);
-  const int L = pb.n_hidden, act = pb.act, g = threadIdx.x >> 6;
+  constexpr int HP = 32 * NI, LD = HP + 4, WG = ff_wg(HP), NTW = HP / (8 * WG);
+  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, FF_FWD);
+  const int L = pb.n_hidden, act = pb.act, g = threadIdx.x / (32 * WG);
   FF_CLOCK_START
-  ff_tc_load_consts(pb, params, t, HP);
+  ff_tc_load_consts(pb, params, nullptr, t, HP);
   long long tile = blockIdx.x;
-  if (tile < n_tiles) ff_stage<HP>(pb, params, t, 0, t.W);
+  if (tile < n_tiles) ff_stage<HP, false>(pb, params, nullptr, t, 0, t.W);
   const float* Eg = t.E + 32 * g * FF_ELD;
   const float* Sg = t.S + 32 * g * LD;
   for (; tile < n_tiles; tile += gridDim.x) {
@@ -673,7 +819,7 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
     __syncthreads();
     FF_MARK(0);
     ff_form_emb(pb, t, 0, t.E);
-    float acc[2][2 * NI][4];
+    float acc[2][NTW][4];
     ff_product<NI>(pb, params, t, 0, t.n0, false, true,
                    [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
                    acc);
@@ -682,7 +828,7 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
     for (int l = 1; l < L; ++l) {
       ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false,
                      [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; }, acc);
-      ff_pair_sync();
+      ff_group_sync<WG>();
       ff_store_fwd<NI>(acc, t.bias + l * HP, t.S, t, act);
     }
     __syncthreads();
@@ -705,14 +851,14 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 2)
 // l, the epilogue into slot l - 1; last dW_0 += E^T [gz; gp]_0 over the embedding slices,
 // formed again (one sincosf per point and feature).
 template <int NI>
-__global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
+__global__ void __launch_bounds__(FF_MAX_THREADS, 1)
     ff_bwd_kernel(FfProblem pb, const float* __restrict__ params, const float* __restrict__ g,
                   float* __restrict__ partials, long long n_tiles, int ng) {
   extern __shared__ float4 ff_smem4[];
-  constexpr int HP = 32 * NI, LD = HP + 4, NTH = 2 * NI;
-  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, true);
+  constexpr int HP = 32 * NI, LD = HP + 4, WG = ff_wg(HP), NTW = HP / (8 * WG);
+  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, FF_BWD);
   const int L = pb.n_hidden, act = pb.act, tid = threadIdx.x, nthr = blockDim.x;
-  const int grp = tid >> 6, warp = tid >> 5, nwarp = nthr >> 5;
+  const int grp = tid / (32 * WG), warp = tid >> 5, nwarp = nthr >> 5;
   const int lane = tid & 31, gq = lane >> 2, q = lane & 3;
   const int slot = t.R * LD, npp = ff_n_params(HP, pb.ke, L);
   const int EG = ff_egroups(nthr, HP), na = ff_acc_floats(HP, L);
@@ -721,10 +867,10 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
   float* part = partials + (long long)blockIdx.x * npp;
   for (int i = tid; i < npp; i += nthr) part[i] = 0.0f;
   for (int i = tid; i < EG * na; i += nthr) t.Acc[i] = 0.0f;
-  ff_tc_load_consts(pb, params, t, HP);
-  if (blockIdx.x < n_tiles) ff_stage<HP>(pb, params, t, 0, t.W);
+  ff_tc_load_consts(pb, params, nullptr, t, HP);
+  if (blockIdx.x < n_tiles) ff_stage<HP, false>(pb, params, nullptr, t, 0, t.W);
   const float* Eg = t.E + 32 * grp * FF_ELD;
-  float acc[2][NTH][4];
+  float acc[2][NTW][4];
 #ifdef FF_DW_NO_PARTIAL_ADDS
   float dw_sink = 0.0f;
 #define FF_DW_ADD(dst, v) ((void)&(dst), dw_sink += (v))
@@ -780,11 +926,11 @@ __global__ void __launch_bounds__(64 * FF_MAX_NG, 1)
             FF_DW_ADD(dst[8 * (h >> 1) * HP + 8 * nt + (h & 1)], dw[nt][h]);
         FF_MARK(5);
       }
-      // G_{l-1} = [gz; gp]_l W_l^T, in place in slot l once the pair has read its rows
+      // G_{l-1} = [gz; gp]_l W_l^T, in place in slot l once the group has read its rows
       const float* Sg = Sl + 32 * grp * LD;
       ff_product<NI>(pb, params, t, nf + (L - 1 - l) * t.nh, t.nh, true, false,
                      [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; }, acc);
-      ff_pair_sync();
+      ff_group_sync<WG>();
       ff_store_raw<NI>(acc, Sl);
       __syncthreads();
       FF_MARK(6);
@@ -850,251 +996,59 @@ __global__ void ff_reduce_kernel(const float* __restrict__ partials, float* __re
 }
 
 // ------------------------------------------------------------------------------------
-// K8 on the CUDA cores: a block of FF_NT threads owns a tile of T points, every layer a
-// block-wide register-tiled f32 product Out [HP][panels x T] = W [HP][K] x In [K][panels
-// x T], the weights streamed through shared memory in K-slices of FF_KS rows, each thread
-// holding a 4 x 4 output tile per 32 rows; the embedding is stored as sin / cos per
-// feature and point, and the layer-0 input slices are formed from it as they are
-// streamed.
-
-#define FF_NT 128      // threads per block
-#define FF_C 64        // panel columns of a tile: panels x points
-#define FF_LD 68       // row stride of a panel buffer (float4 rows, odd in 16-byte units)
-#define FF_KS 32       // rows of a streamed K-slice
-#define FF_MAX_T 32    // points per tile at the fewest (2) panels
-
-// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
-__device__ __forceinline__ float ff_act(float z, int act) {
-  return act == 0 ? tanhf(z) : 1.0f / (1.0f + expf(-z));
-}
-__device__ __forceinline__ float ff_dact(float a, int act) {
-  return act == 0 ? 1.0f - a * a : a * (1.0f - a);
-}
-__device__ __forceinline__ float ff_ddact(float a, float sp, int act) {
-  return act == 0 ? -2.0f * a * sp : (1.0f - 2.0f * a) * sp;
-}
-
-// Shared memory (floats) of a K8 block.
-__host__ __device__ inline int ff_smem_floats(int hp, int ke) {
-  return FF_KS * hp + FF_KS * FF_LD + 2 * hp * FF_LD + ke * FF_MAX_T + ke / 2 * 4 +
-         FF_MAX_IN * FF_MAX_T + FF_MAX_IN * FF_MAX_IN * FF_MAX_T;
-}
-
-struct FfSmem {
-  float *Ws, *In, *A, *Sin, *Cos, *bt, *X, *Dir;
-};
-
-__device__ __forceinline__ FfSmem ff_smem(float* s, int hp, const FfProblem& pb) {
-  FfSmem m;
-  const int fp = pb.ke / 2;
-  m.Ws = s;    s += FF_KS * hp;                    // [FF_KS][hp] weight slice
-  m.In = s;    s += FF_KS * FF_LD;                 // [FF_KS][FF_LD] input slice
-  m.A = s;     s += 2 * hp * FF_LD;                // 2 x [hp][FF_LD] panel buffers
-  m.Sin = s;   s += fp * FF_MAX_T;                 // [fp][FF_MAX_T]
-  m.Cos = s;   s += fp * FF_MAX_T;
-  m.bt = s;    s += fp * 4;
-  m.X = s;     s += FF_MAX_IN * FF_MAX_T;          // [j][pt]
-  m.Dir = s;                                       // [direction][j][pt]
-  return m;
-}
-
-// The tile's coordinates and unit directions, then sin / cos of every feature at every
-// point.
-__device__ void ff_tile_setup(const FfProblem& pb, const FfSmem& sm, long long tile) {
-  const int tid = threadIdx.x, T = pb.T;
-  __syncthreads();  // the previous tile is done with these arrays
-  if (tid < T) {
-    const long long p = tile * T + tid;
-    const bool valid = p < pb.P;
-#pragma unroll
-    for (int j = 0; j < FF_MAX_IN; ++j)
-      sm.X[j * FF_MAX_T + tid] = (valid && j < pb.n_in) ? pb.xs[j * pb.P + p] : 0.0f;
-    for (int m = 0; m < pb.np - 1; ++m)
-#pragma unroll
-      for (int j = 0; j < FF_MAX_IN; ++j)
-        sm.Dir[(m * FF_MAX_IN + j) * FF_MAX_T + tid] = j == m ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  const int fp = pb.bt ? pb.ke / 2 : 0;
-  for (int i = tid; i < fp * T; i += FF_NT) {
-    const int f = i / T, pt = i % T;
-    const float* b = sm.bt + 4 * f;
-    float ang = b[0] * sm.X[pt];
-#pragma unroll
-    for (int j = 1; j < FF_MAX_IN; ++j) ang += b[j] * sm.X[j * FF_MAX_T + pt];
-    float s, c;
-    sincosf(ang, &s, &c);
-    sm.Sin[f * FF_MAX_T + pt] = s;
-    sm.Cos[f * FF_MAX_T + pt] = c;
-  }
-  __syncthreads();
-}
-
-// Row k of the embedded layer-0 input for panel m at point pt: the value panel
-// [sin | cos](ang), or the tangent along direction m - 1, [cos | -sin](ang) (bt . v).
-// fp = 0 (no embedding): x_k, or v_k along direction m - 1 (0 for k >= FF_MAX_IN).
-__device__ __forceinline__ float ff_emb(const FfSmem& sm, int fp, int k, int m, int pt) {
-  if (fp == 0) {
-    if (k >= FF_MAX_IN) return 0.0f;
-    return m == 0 ? sm.X[k * FF_MAX_T + pt] : sm.Dir[((m - 1) * FF_MAX_IN + k) * FF_MAX_T + pt];
-  }
-  const bool second = k >= fp;
-  const int f = second ? k - fp : k;
-  const float s = sm.Sin[f * FF_MAX_T + pt], c = sm.Cos[f * FF_MAX_T + pt];
-  if (m == 0) return second ? c : s;
-  const float* b = sm.bt + 4 * f;
-  const float* v = sm.Dir + (m - 1) * FF_MAX_IN * FF_MAX_T + pt;
-  float pc = b[0] * v[0];
-#pragma unroll
-  for (int j = 1; j < FF_MAX_IN; ++j) pc += b[j] * v[j * FF_MAX_T];
-  return second ? -s * pc : c * pc;
-}
-
-// acc[i][r][c] += sum_{k < K} W(32 i + 4 rg + r, k) In(k, c0 + c), rg = tid / 16,
-// c0 = 4 (tid % 16).  W streams through sWs in FF_KS-row slices, W(r, k) = w[k HP + r]
-// (a weight in the packed layout).  fill(k0, sIn) stages In(k0 + kk, c) at
-// sIn[kk FF_LD + c].
-template <int NI, class Fill>
-__device__ void ff_mm(float (&acc)[NI][4][4], const float* __restrict__ w, int K, float* sWs,
-                      float* sIn, Fill fill) {
-  constexpr int HP = 32 * NI;
-  const int tid = threadIdx.x, rg = tid / 16, c0 = (tid % 16) * 4;
-  for (int k0 = 0; k0 < K; k0 += FF_KS) {
-    __syncthreads();
-    for (int i = tid; i < FF_KS * HP; i += FF_NT) {
-      const int r = i % HP, kk = i / HP;
-      sWs[kk * HP + r] = w[(k0 + kk) * HP + r];
-    }
-    fill(k0, sIn);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < FF_KS; ++kk) {
-      const float4 x4 = *reinterpret_cast<const float4*>(sIn + kk * FF_LD + c0);
-      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const float4 w4 = *reinterpret_cast<const float4*>(sWs + kk * HP + 32 * i + 4 * rg);
-        const float wr[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][r][c] = fmaf(wr[r], x[c], acc[i][r][c]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
+// K8: dout [np][P], the tangent of (u, du/dxs) along the packed parameter tangent
+// dparams, persistent.  Per tile: the point data, layer 0 (tile 0 += E W0, tile 1 +=
+// E dW0) against the embedding slices, the hidden layers (tile 0 += S W, tile 1 += DS W
+// + S dW) in place in the one slot, each layer's epilogue in registers, the output rows
+// (dW_out on the s rows, w_out on the ds rows) and the per-point sums.
 template <int NI>
-__device__ __forceinline__ void ff_zero(float (&acc)[NI][4][4]) {
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][r][c] = 0.0f;
-}
-
-// K8: tangent of out = (u, du/dxs) along the packed parameter tangent dparams.  2 np
-// column panels: s panels (a, pre_j) then ds panels (dz, dpre_j) of the current layer,
-// stored raw; the layer inputs are s = (a, sp pre_j), ds = (sp dz, spp dz pre_j +
-// sp dpre_j).  Each layer is two products into the same tile: W [s | ds], then
-// dW [0 | s] (the zero half keeps one column layout).
-__device__ __forceinline__ float ff_jvp_in(const float* A, int k, int m, bool tangent,
-                                           int np, int T, int pt, int act) {
-  const float* row = A + k * FF_LD;
-  const float a = row[pt], sp = ff_dact(a, act);
-  if (!tangent) return m == 0 ? a : sp * row[m * T + pt];
-  const float dz = row[np * T + pt];
-  if (m == 0) return sp * dz;
-  return fmaf(ff_ddact(a, sp, act) * dz, row[m * T + pt], sp * row[(np + m) * T + pt]);
-}
-
-template <int NI>
-__device__ __forceinline__ void ff_store_jvp(const float (&acc)[NI][4][4],
-                                             const float* __restrict__ b,
-                                             const float* __restrict__ db, float* Aout, int np,
-                                             int T, int act) {
-  const int tid = threadIdx.x, rg = tid / 16, c0 = (tid % 16) * 4;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 32 * i + 4 * rg + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c0 + c, m2 = col / T;
-        const float v = acc[i][r][c];
-        float o = v;
-        if (m2 >= 2 * np) o = 0.0f;
-        else if (m2 == 0) o = ff_act(v + b[row], act);
-        else if (m2 == np) o = v + db[row];
-        Aout[row * FF_LD + col] = o;
-      }
-    }
-}
-
-template <int NI>
-__global__ void ff_jvp_kernel(FfProblem pb, const float* __restrict__ params,
-                              const float* __restrict__ dparams, float* __restrict__ dout) {
+__global__ void __launch_bounds__(FF_MAX_THREADS, 2)
+    ff_jvp_kernel(FfProblem pb, const float* __restrict__ params,
+                  const float* __restrict__ dparams, float* __restrict__ dout,
+                  long long n_tiles, int ng) {
   extern __shared__ float4 ff_smem4[];
-  constexpr int HP = 32 * NI;
-  const int np = pb.np, T = pb.T, act = pb.act, fp = pb.bt ? pb.ke / 2 : 0;
-  const FfSmem sm = ff_smem(reinterpret_cast<float*>(ff_smem4), HP, pb);
-  if (pb.bt)
-    for (int i = threadIdx.x; i < pb.ke / 2 * 4; i += FF_NT) sm.bt[i] = pb.bt[i];
-  const long long tile = blockIdx.x;
-  ff_tile_setup(pb, sm, tile);
-  float acc[NI][4][4];
-  const float* prev = nullptr;
-  for (int l = 0; l < pb.n_hidden; ++l) {
-    float* out = sm.A + (l & 1) * HP * FF_LD;
-    const int ow = l == 0 ? 0 : ff_off_w(HP, pb.ke, l);
-    const int K = l == 0 ? pb.ke : HP;
-    const float* in = prev;
-    ff_zero<NI>(acc);
-    // W [s | ds]
-    ff_mm<NI>(acc, params + ow, K, sm.Ws, sm.In, [&](int k0, float* sIn) {
-      for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-        const int kk = i / FF_C, c = i % FF_C, m2 = c / T, pt = c % T;
-        float v = 0.0f;
-        if (l == 0) {
-          if (m2 < np) v = ff_emb(sm, fp, k0 + kk, m2, pt);
-        } else if (m2 < 2 * np) {
-          v = ff_jvp_in(in, k0 + kk, m2 % np, m2 >= np, np, T, pt, act);
-        }
-        sIn[kk * FF_LD + c] = v;
+  constexpr int HP = 32 * NI, LD = HP + 4, WG = ff_wg(HP), NTW = HP / (8 * WG);
+  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, FF_JVP);
+  const int L = pb.n_hidden, act = pb.act, g = threadIdx.x / (32 * WG);
+  const int n0 = 8 * NTW * ((threadIdx.x >> 5) & (WG - 1));
+  ff_tc_load_consts(pb, params, dparams, t, HP);
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) ff_stage<HP, true>(pb, params, dparams, t, 0, t.W);
+  const float* Eg = t.E + 32 * g * FF_ELD;
+  const float* Sg = t.S + 32 * g * LD;
+  float acc[2][NTW][4];
+  for (; tile < n_tiles; tile += gridDim.x) {
+    t.has_next = tile + gridDim.x < n_tiles;
+    __syncthreads();  // the previous tile is done with the point data
+    ff_tc_setup(pb, t, tile, nullptr);
+    __syncthreads();
+    ff_form_emb(pb, t, 0, t.E);
+    for (int l = 0; l < L; ++l) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt)
+          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+      if (l == 0) {
+        ff_slices<HP, true>(pb, params, dparams, t, 0, t.n0, true, [&](int s, const float* W) {
+          ff_jvp_slice<HP, NTW, true>(
+              acc, [&](int r, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; }, W, n0);
+        });
+      } else {
+        ff_slices<HP, true>(pb, params, dparams, t, t.n0 + (l - 1) * t.nh, t.nh, false,
+                            [&](int s, const float* W) {
+                              ff_jvp_slice<HP, NTW, false>(
+                                  acc, [&](int r, int k) { return Sg[r * LD + FF_SLICE * s + k]; },
+                                  W, n0);
+                            });
+        ff_group_sync<WG>();
       }
-    });
-    // + dW [0 | s]
-    ff_mm<NI>(acc, dparams + ow, K, sm.Ws, sm.In, [&](int k0, float* sIn) {
-      for (int i = threadIdx.x; i < FF_KS * FF_C; i += FF_NT) {
-        const int kk = i / FF_C, c = i % FF_C, m2 = c / T, pt = c % T;
-        float v = 0.0f;
-        if (m2 >= np && m2 < 2 * np)
-          v = l == 0 ? ff_emb(sm, fp, k0 + kk, m2 - np, pt)
-                     : ff_jvp_in(in, k0 + kk, m2 - np, false, np, T, pt, act);
-        sIn[kk * FF_LD + c] = v;
-      }
-    });
-    ff_store_jvp<NI>(acc, params + ff_off_b(HP, pb.ke, l), dparams + ff_off_b(HP, pb.ke, l),
-                     out, np, T, act);
-    prev = out;
-  }
-  __syncthreads();
-  const int ow = ff_off_wout(HP, pb.ke, pb.n_hidden);
-  const float* wout = params + ow;
-  const float* dwout = dparams + ow;
-  const int tid = threadIdx.x;
-  if (tid < np * T) {
-    const int m = tid / T, pt = tid % T;
-    const long long p = tile * T + pt;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int k = 0; k < HP; ++k) {
-      s1 = fmaf(dwout[k], ff_jvp_in(prev, k, m, false, np, T, pt, act), s1);
-      s2 = fmaf(wout[k], ff_jvp_in(prev, k, m, true, np, T, pt, act), s2);
+      ff_store_jvp<NI>(acc, t.bias + l * HP, t.dbias + l * HP, t.S, t, act);
     }
-    if (p < pb.P) dout[m * pb.P + p] = m == 0 ? s1 + s2 + dwout[HP] : s1 + s2;
+    __syncthreads();
+    ff_outputs<NI>(t, t.S);
+    __syncthreads();
+    ff_point_out(pb, t, tile, HP, dout);
   }
 }
 
@@ -1104,7 +1058,7 @@ namespace {
 
 const size_t kMaxSmem = 227 * 1024 - FF_STATIC_SMEM;  // a block's dynamic shared memory, sm_90
 
-// The launch shape of a stacked kernel: ng warp pairs per block, blocks resident per SM,
+// The launch shape of a stacked kernel: ng warp groups per block, blocks resident per SM,
 // the persistent grid and the tiles it walks.
 struct TcShape {
   int ng, threads, per_sm, blocks;
@@ -1113,39 +1067,46 @@ struct TcShape {
 };
 
 template <int NI>
-const void* tc_kernel(bool bwd) {
-  return bwd ? (const void*)ff_bwd_kernel<NI> : (const void*)ff_fwd_kernel<NI>;
+const void* tc_kernel(int kind) {
+  return kind == FF_BWD   ? (const void*)ff_bwd_kernel<NI>
+         : kind == FF_JVP ? (const void*)ff_jvp_kernel<NI>
+                          : (const void*)ff_fwd_kernel<NI>;
 }
 
-// Of 4, 3, 2 and 1 warp pairs per block, the one that keeps the most warps resident per
-// SM, on a tie the larger block (more points per fetch of the weights); one wave of
+// Of ng = 8 / WG .. 1 warp groups per block, the one that keeps the most warps resident
+// per SM, on a tie the larger block (more points per fetch of the weights); one wave of
 // persistent blocks, or fewer when there are fewer tiles (at least one: a backward with
 // P = 0 writes a zero partial).  From the mode and shapes alone, so a blocks query (null
-// pointers) sizes the grid as the launch does.
+// pointers) sizes the grid as the launch does.  FF_DOES_NOT_FIT where not even one group
+// fits in shared memory.
 template <int NI>
-int tc_shape(bool bwd, const FfProblem& pb, TcShape* out) {
-  const void* fn = tc_kernel<NI>(bwd);
+int tc_shape(int kind, const FfProblem& pb, TcShape* out) {
+  constexpr int WG = ff_wg(32 * NI);
+  const void* fn = tc_kernel<NI>(kind);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (err != cudaSuccess) return (int)err;
   int best = 0;
-  for (int ng = FF_MAX_NG; ng >= 1; --ng) {
+  bool fits = false;
+  for (int ng = FF_MAX_THREADS / (32 * WG); ng >= 1; --ng) {
     const size_t smem =
-        sizeof(float) * (size_t)ff_tc_smem_floats(32 * NI, ng, pb.ke, pb.n_hidden, pb.np, bwd);
+        sizeof(float) * (size_t)ff_tc_smem_floats(32 * NI, ng, pb.ke, pb.n_hidden, pb.np, kind);
     if (smem > kMaxSmem) continue;
+    fits = true;
     int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 64 * ng, smem)) !=
-        cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * WG * ng,
+                                                             smem)) != cudaSuccess)
       return (int)err;
-    if (per_sm * 2 * ng > best) {
-      best = per_sm * 2 * ng;
-      *out = TcShape{ng, 64 * ng, per_sm, 0, 0, smem};
+    if (per_sm * WG * ng > best) {
+      best = per_sm * WG * ng;
+      *out = TcShape{ng, 32 * WG * ng, per_sm, 0, 0, smem};
     }
   }
+  if (!fits) return FF_DOES_NOT_FIT;
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
   int n_sm = 0;
   if (const int e = vj_sm_count(&n_sm)) return e;
-  const long long tp = 32 * out->ng / ff_npad(pb.np);
+  const long long tp = out->ng * ff_group_points(pb.np, kind);
   out->n_tiles = (pb.P + tp - 1) / tp;
   const long long b = (long long)out->per_sm * n_sm;
   out->blocks = (int)(b < out->n_tiles ? b : (out->n_tiles > 0 ? out->n_tiles : 1));
@@ -1156,7 +1117,7 @@ template <int NI>
 int launch_fwd(const FfProblem& pb, const float* params, float* out, cudaStream_t stream) {
   if (pb.P == 0) return 0;
   TcShape sh;
-  const int err = tc_shape<NI>(false, pb, &sh);
+  const int err = tc_shape<NI>(FF_FWD, pb, &sh);
   if (err) return err;
   ff_fwd_kernel<NI><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, out, sh.n_tiles,
                                                                 sh.ng);
@@ -1176,7 +1137,7 @@ int launch_res_fwd(const FfProblem& pb, const float* params, float* contrib, flo
 template <int NI>
 int bwd_blocks(const FfProblem& pb, int* blocks) {
   TcShape sh;
-  const int err = tc_shape<NI>(true, pb, &sh);
+  const int err = tc_shape<NI>(FF_BWD, pb, &sh);
   if (err) return err;
   *blocks = sh.blocks;
   return 0;
@@ -1186,7 +1147,7 @@ template <int NI>
 int launch_bwd(const FfProblem& pb, const float* params, const float* g, float* partials,
                int n_blocks, float* grad, cudaStream_t stream) {
   TcShape sh;
-  int err = tc_shape<NI>(true, pb, &sh);
+  int err = tc_shape<NI>(FF_BWD, pb, &sh);
   if (err) return err;
   if (n_blocks != sh.blocks) return (int)cudaErrorInvalidValue;
   ff_bwd_kernel<NI><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, g, partials,
@@ -1198,9 +1159,21 @@ int launch_bwd(const FfProblem& pb, const float* params, const float* g, float* 
 }
 
 template <int NI>
-int shape_of(bool bwd, const FfProblem& pb, int* threads, int* per_sm, int* blocks) {
+int launch_jvp(const FfProblem& pb, const float* params, const float* dparams, float* out,
+               cudaStream_t stream) {
+  if (pb.P == 0) return 0;
   TcShape sh;
-  const int err = tc_shape<NI>(bwd, pb, &sh);
+  const int err = tc_shape<NI>(FF_JVP, pb, &sh);
+  if (err) return err;
+  ff_jvp_kernel<NI><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, dparams, out,
+                                                                sh.n_tiles, sh.ng);
+  return (int)cudaGetLastError();
+}
+
+template <int NI>
+int shape_of(int kind, const FfProblem& pb, int* threads, int* per_sm, int* blocks) {
+  TcShape sh;
+  const int err = tc_shape<NI>(kind, pb, &sh);
   if (err) return err;
   *threads = sh.threads;
   *per_sm = sh.per_sm;
@@ -1208,39 +1181,11 @@ int shape_of(bool bwd, const FfProblem& pb, int* threads, int* per_sm, int* bloc
   return 0;
 }
 
-// K8: one tile of T points per block.
-template <int NI>
-int jvp_shape(const FfProblem& pb, int* threads, int* per_sm, int* blocks) {
-  const size_t smem = sizeof(float) * (size_t)ff_smem_floats(32 * NI, pb.ke);
-  cudaError_t e = cudaFuncSetAttribute((const void*)ff_jvp_kernel<NI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, ff_jvp_kernel<NI>, FF_NT, smem);
-  *threads = FF_NT;
-  *blocks = (int)((pb.P + pb.T - 1) / pb.T);
-  return (int)e;
-}
-
-template <int NI>
-int launch_jvp(const FfProblem& pb, const float* params, const float* dparams, float* out,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)ff_smem_floats(32 * NI, pb.ke);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  const cudaError_t e = cudaFuncSetAttribute(
-      (const void*)ff_jvp_kernel<NI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long grid = (pb.P + pb.T - 1) / pb.T;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ff_jvp_kernel<NI><<<(unsigned)grid, FF_NT, smem, stream>>>(pb, params, dparams, out);
-  return (int)cudaGetLastError();
-}
-
-// Unit-mode (value + jacobian) problem; jvp doubles K8's column panels.
+// Unit-mode (value + jacobian) problem (K7, K8).
 FfProblem vj_problem(const float* xs, const float* bt, long long P, int n_in, int ke,
-                     int n_hidden, int act, bool jvp) {
+                     int n_hidden, int act) {
   FfProblem pb = {};
   pb.xs = xs; pb.bt = bt; pb.P = P; pb.n_in = n_in; pb.np = 1 + n_in;
-  pb.T = FF_C / (jvp ? 2 * pb.np : pb.np);
   pb.ke = ke; pb.n_hidden = n_hidden; pb.act = act;
   return pb;
 }
@@ -1288,6 +1233,10 @@ bool bad_jac(int k, int nq, int n_in, int d, int n_hidden, int act) {
     case 64: { constexpr int NI = 2; return CALL; }    \
     case 96: { constexpr int NI = 3; return CALL; }    \
     case 128: { constexpr int NI = 4; return CALL; }   \
+    case 160: { constexpr int NI = 5; return CALL; }   \
+    case 192: { constexpr int NI = 6; return CALL; }   \
+    case 224: { constexpr int NI = 7; return CALL; }   \
+    case 256: { constexpr int NI = 8; return CALL; }   \
     default: return (int)cudaErrorInvalidValue;        \
   }
 
@@ -1318,20 +1267,16 @@ int ff_launch_shape(int kind, int np, long long P, int ke, int n_hidden, int hp,
     return (int)cudaErrorInvalidValue;
   FfProblem pb = {};
   pb.np = np; pb.P = P; pb.ke = ke; pb.n_hidden = n_hidden;
-  if (kind == 2) {
-    pb.T = FF_C / (2 * np);
-    FF_DISPATCH(hp, jvp_shape<NI>(pb, threads, per_sm, blocks))
-  }
-  FF_DISPATCH(hp, shape_of<NI>(kind == 1, pb, threads, per_sm, blocks))
+  FF_DISPATCH(hp, shape_of<NI>(kind, pb, threads, per_sm, blocks))
 }
 
 // K7 forward: out [1 + n_in][P] = (u, du/dxs) at the scaled points xs [n_in][P].
-// Returns a cudaError_t value.
+// Returns a cudaError_t value, or FF_DOES_NOT_FIT (as every launcher below).
 int ff_vj_fwd(const float* xs, const float* bt, const float* params, float* out, long long P,
               int n_in, int ke, int n_hidden, int hp, int act, void* stream) {
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act, false);
+  const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act);
   FF_DISPATCH(hp, launch_fwd<NI>(pb, params, out, (cudaStream_t)stream))
 }
 
@@ -1341,14 +1286,14 @@ int ff_vj_jvp(const float* xs, const float* bt, const float* params, const float
               void* stream) {
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act, true);
+  const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act);
   FF_DISPATCH(hp, launch_jvp<NI>(pb, params, dparams, dout, (cudaStream_t)stream))
 }
 
 // Number of K7 backward blocks (rows of the partials buffer) on the current device.
 int ff_vj_bwd_blocks(long long P, int n_in, int ke, int n_hidden, int hp, int* blocks) {
   if (bad(P, n_in, ke, n_hidden, 0)) return (int)cudaErrorInvalidValue;
-  const FfProblem pb = vj_problem(nullptr, nullptr, P, n_in, ke, n_hidden, 0, false);
+  const FfProblem pb = vj_problem(nullptr, nullptr, P, n_in, ke, n_hidden, 0);
   FF_DISPATCH(hp, bwd_blocks<NI>(pb, blocks))
 }
 
@@ -1358,7 +1303,7 @@ int ff_vj_bwd(const float* xs, const float* bt, const float* params, const float
               float* partials, int n_blocks, float* grad, long long P, int n_in, int ke,
               int n_hidden, int hp, int act, void* stream) {
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;
-  const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act, false);
+  const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act);
   FF_DISPATCH(hp, launch_bwd<NI>(pb, params, g, partials, n_blocks, grad,
                                  (cudaStream_t)stream))
 }
@@ -1397,7 +1342,7 @@ int ff_res_bwd(const float* xs, const float* flds, const float* tab, const float
                                  (cudaStream_t)stream))
 }
 
-// K4 forward for a plain net of hidden width 65..128: r [k] from the precomputed
+// K4 forward for a plain net of hidden width 65..256: r [k] from the precomputed
 // coefficients cdir [n_in][P], csrc [P] and cu [P] (or null); contrib is workspace of
 // k * nq floats.
 int ff_pre_fwd(const float* xs, const float* cdir, const float* csrc, const float* cu,

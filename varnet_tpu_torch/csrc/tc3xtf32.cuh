@@ -1,7 +1,7 @@
 // 3xTF32 tensor-core tools for Hopper (sm_90a), and the stacked-panel layers built from
 // them, shared by csrc/value_and_jac.cu (K5 forward / backward, K6),
-// csrc/dir_residual.cu (K1/K4 forward / backward) and csrc/ff_mlp.cu (K2-FF, K7, K3 and
-// K4 for widths 65..128: the "ff" tools below); the launch shape of their warp-per-group
+// csrc/dir_residual.cu (K1/K4 forward / backward) and csrc/ff_mlp.cu (K2-FF, K7, K8, K3
+// and K4 for widths 65..256: the "ff" tools below); the launch shape of their warp-per-group
 // forwards; and the per-test-function sum of every residual forward (vr_qsum_kernel).
 //
 // Stacked panels.  As the TPU kernels pack the value panel and the tangent panels into
@@ -338,11 +338,11 @@ __device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const f
 }
 
 // ------------------------------------------------------------------------------------
-// The "ff" tools (csrc/ff_mlp.cu): hidden widths HP = 32..128 and layer-0 depths up to 256,
+// The "ff" tools (csrc/ff_mlp.cu): hidden widths HP = 32..256 and layer-0 depths up to 256,
 // so the weights do not stay in shared memory: they stream through it in K-slices of
 // FF_SLICE rows (cp.async, double-buffered), and a warp takes 2 x 16 stacked rows of the
-// tile for half of the HP / 8 output tiles (its A fragments split once for them, each B
-// fragment once for both 16-row tiles).  The dW row blocks are ff_dw_rows, above.
+// tile for its share of the HP / 8 output tiles (its A fragments split once for them,
+// each B fragment once for both 16-row tiles).  The dW row blocks are ff_dw_rows, above.
 
 #define FF_SLICE 16            // weight rows (the product's k) per streamed K-slice
 #define FF_ELD (FF_SLICE + 4)  // row stride of an embedding slice and of a transposed slice

@@ -37,14 +37,14 @@ Two implementations share one signature:
 
 ``dir_residual_fwd`` / ``_bwd`` (K1/K2), ``dir_residual_ff_fwd`` / ``_bwd``
 (K2-FF), ``dirp_residual_fwd`` / ``_bwd`` (K4), ``dirp_residual_ff_fwd`` /
-``_bwd`` (K4 on ``ff_mlp.cu``, hidden width 65..128) and ``jac_residual_fwd`` /
+``_bwd`` (K4 on ``ff_mlp.cu``, hidden width 65..256) and ``jac_residual_fwd`` /
 ``_bwd`` (K3) dispatch on the device of the data: CPU tensors take the plain
 version, CUDA tensors launch the kernel (or raise), anything else raises.
 Each counts its kernel launches in ``.launches``.  ``DirResidualFn`` is the
 autograd glue for all of them (:func:`_residual_fns` picks the pair),
 ``fused_residual`` the loss's entry.  ``csrc/ff_mlp.cu`` also runs without an
 embedding (``bt`` None: layer 0 reads the scaled coordinates): on CUDA a plain
-net wider than ``dir_residual.cu`` takes (hidden width 65..128) goes through
+net wider than ``dir_residual.cu`` takes (hidden width 65..256) goes through
 its kernels.
 """
 
@@ -641,8 +641,9 @@ dirp_residual_bwd.launches = 0
 # ---------------------------------------------------------------------------
 # K2-FF: the Fourier-feature net's residual (csrc/ff_mlp.cu, residual mode)
 
-FF_MAX_HIDDEN = 128
+FF_MAX_HIDDEN = 256
 FF_MAX_FEATURES = 128
+FF_DOES_NOT_FIT = 1001  # csrc/ff_mlp.cu: not even one warp group fits in shared memory
 
 
 def ff_dims(params, embedded: bool = True):
@@ -740,6 +741,16 @@ def check_ff_args(params, bt, tensors, activation):
             raise ValueError("the Fourier-feature kernels take contiguous data")
 
 
+def ff_raise_on(params, err: int, what: str):
+    """Raise on a csrc/ff_mlp.cu result: a ValueError naming the width and depth
+    where the net does not fit a block's shared memory, else as ``build.raise_on``."""
+    if err == FF_DOES_NOT_FIT:
+        widest = max(layer["w"].shape[1] for layer in params[:-1])
+        raise ValueError(f"hidden width {widest} at depth {len(params) - 1} needs more shared "
+                         f"memory than a block has in the Fourier-feature kernels ({what})")
+    build.raise_on(err, what)
+
+
 def _ff_packed(lib, params, embedded: bool = True):
     hp, fp = ff_dims(params, embedded)
     packed = ff_pack(params, hp, fp)
@@ -777,7 +788,7 @@ def kernel_ff_fwd(lib, params, data: ResidualData, activation: str, stream=None)
     hp, fp, packed = _ff_packed(lib, params, data.bt is not None)
     bt = ff_bt(data.bt, fp)
     contrib, r = _fwd_buffers(data)
-    build.raise_on(lib.ff_res_fwd(
+    ff_raise_on(params, lib.ff_res_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(bt), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_ff_res_args(data, params, activation, hp, fp), stream), "dir_residual_ff_fwd")
@@ -790,12 +801,13 @@ def kernel_ff_bwd(lib, params, data: ResidualData, activation: str, gr, stream=N
     dev = data.xs.device
     bt = ff_bt(data.bt, fp)
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.ff_res_bwd_blocks(data.k, data.nq, data.d, ff_ke(fp), len(params) - 1,
-                                         hp, ctypes.byref(blocks)), "dir_residual_ff_bwd_blocks")
+    ff_raise_on(params, lib.ff_res_bwd_blocks(data.k, data.nq, data.d, ff_ke(fp),
+                                              len(params) - 1, hp, ctypes.byref(blocks)),
+                "dir_residual_ff_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
-    build.raise_on(lib.ff_res_bwd(
+    ff_raise_on(params, lib.ff_res_bwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(bt), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
         grad.data_ptr(), *_ff_res_args(data, params, activation, hp, fp), stream),
@@ -864,7 +876,7 @@ def kernel_dirp_ff_fwd(lib, params, data: CoeffData, activation: str, stream=Non
     """Launch ff_mlp.cu's precoeff forward (K4, wide nets) of ``lib``: r [K]."""
     hp, _, packed = _ff_packed(lib, params, False)
     contrib, r = _fwd_buffers(data)
-    build.raise_on(lib.ff_pre_fwd(
+    ff_raise_on(params, lib.ff_pre_fwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
         packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_fwd")
@@ -876,12 +888,12 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
     hp, _, packed = _ff_packed(lib, params, False)
     dev = data.xs.device
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.ff_pre_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
-                                         ctypes.byref(blocks)), "dirp_residual_ff_bwd_blocks")
+    ff_raise_on(params, lib.ff_pre_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
+                                              ctypes.byref(blocks)), "dirp_residual_ff_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
-    build.raise_on(lib.ff_pre_bwd(
+    ff_raise_on(params, lib.ff_pre_bwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
         packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value, grad.data_ptr(),
         *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_bwd")
@@ -889,7 +901,7 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
 
 
 def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
-    """K4 for a plain net of hidden width 65..128 (csrc/ff_mlp.cu): the CUDA
+    """K4 for a plain net of hidden width 65..256 (csrc/ff_mlp.cu): the CUDA
     kernel for CUDA tensors, the plain version for CPU ones."""
     if _route(data) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
@@ -997,7 +1009,7 @@ def kernel_jac_fwd(lib, params, data: ResidualData, activation: str, stream=None
     """Launch K3's forward of ``lib`` (no device dispatch).  Returns r [K]."""
     hp, _, packed = _ff_packed(lib, params, False)
     contrib, r = _fwd_buffers(data)
-    build.raise_on(lib.ff_jac_fwd(
+    ff_raise_on(params, lib.ff_jac_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(data.nl), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_ff_jac_args(data, params, activation, hp), stream), "jac_residual_fwd")
@@ -1009,13 +1021,13 @@ def kernel_jac_bwd(lib, params, data: ResidualData, activation: str, gr, stream=
     hp, _, packed = _ff_packed(lib, params, False)
     dev = data.xs.device
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.ff_jac_bwd_blocks(data.k, data.nq, data.xs.shape[0], data.d,
-                                         len(params) - 1, hp, ctypes.byref(blocks)),
-                   "jac_residual_bwd_blocks")
+    ff_raise_on(params, lib.ff_jac_bwd_blocks(data.k, data.nq, data.xs.shape[0], data.d,
+                                              len(params) - 1, hp, ctypes.byref(blocks)),
+                "jac_residual_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
-    build.raise_on(lib.ff_jac_bwd(
+    ff_raise_on(params, lib.ff_jac_bwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(data.nl), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
         grad.data_ptr(), *_ff_jac_args(data, params, activation, hp), stream),

@@ -24,7 +24,7 @@ fixed bt = 2 pi B^T [F, n_in], kernels in ``csrc/ff_mlp.cu``, the Function
 ``models.mlp.ff_value_and_jac``.  Coordinates (and B) are fixed data: no gradient
 or tangent flows to them.  With ``bt`` None the K7 / K8 kernels run a plain net
 (layer 0 reads the coordinates): on CUDA ``value_and_jac`` sends a net wider than
-K5 / K6 take (hidden width 65..128) through them.
+K5 / K6 take (hidden width 65..256) through them.
 """
 
 from __future__ import annotations
@@ -471,33 +471,33 @@ def _ff_vj_args(params, xs_t, activation, hp, fp):
 def kernel_ff_vj_fwd(lib, params, xs_t, bt, activation: str, stream=None):
     """Launch K7's forward of ``lib`` (no device dispatch): out [1 + n_in, P]."""
     hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
-    btp = fr._ptr(fr.ff_bt(bt, fp))
+    btf = fr.ff_bt(bt, fp)  # held until the launch has read it
     out = torch.empty((1 + xs_t.shape[0], xs_t.shape[1]), dtype=torch.float32,
                       device=xs_t.device)
-    build.raise_on(lib.ff_vj_fwd(xs_t.data_ptr(), btp, packed.data_ptr(),
-                                 out.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp),
-                                 stream), "ff_vj_fwd")
+    fr.ff_raise_on(params, lib.ff_vj_fwd(
+        xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), out.data_ptr(),
+        *_ff_vj_args(params, xs_t, activation, hp, fp), stream), "ff_vj_fwd")
     return out
 
 
 def kernel_ff_vj_bwd(lib, params, xs_t, bt, activation: str, g, stream=None):
     """Launch K7's backward of ``lib``: gradients of <g, out>."""
     hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
-    btp = fr._ptr(fr.ff_bt(bt, fp))
+    btf = fr.ff_bt(bt, fp)  # held until the launch has read it
     n_in, p = xs_t.shape
     g = g.detach().to(torch.float32).contiguous()
     if tuple(g.shape) != (1 + n_in, p) or g.device != xs_t.device:
         raise ValueError(f"cotangent must be [{1 + n_in}, {p}] on {xs_t.device}")
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.ff_vj_bwd_blocks(p, n_in, fr.ff_ke(fp), len(params) - 1, hp,
-                                        ctypes.byref(blocks)), "ff_vj_bwd_blocks")
+    fr.ff_raise_on(params, lib.ff_vj_bwd_blocks(p, n_in, fr.ff_ke(fp), len(params) - 1, hp,
+                                                ctypes.byref(blocks)), "ff_vj_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32,
                            device=xs_t.device)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=xs_t.device)
-    build.raise_on(lib.ff_vj_bwd(xs_t.data_ptr(), btp, packed.data_ptr(),
-                                 g.data_ptr(), partials.data_ptr(), blocks.value,
-                                 grad.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp),
-                                 stream), "ff_vj_bwd")
+    fr.ff_raise_on(params, lib.ff_vj_bwd(
+        xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), g.data_ptr(), partials.data_ptr(),
+        blocks.value, grad.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp), stream),
+        "ff_vj_bwd")
     return fr.ff_unpack(grad, params, hp, fp)
 
 
@@ -505,13 +505,12 @@ def kernel_ff_vj_jvp(lib, params, xs_t, bt, activation: str, tangent, stream=Non
     """Launch K8 of ``lib``: dout [1 + n_in, P] along ``tangent``."""
     hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
     dpacked = fr.ff_pack(tangent, hp, fp)
-    btp = fr._ptr(fr.ff_bt(bt, fp))
+    btf = fr.ff_bt(bt, fp)  # held until the launch has read it
     dout = torch.empty((1 + xs_t.shape[0], xs_t.shape[1]), dtype=torch.float32,
                        device=xs_t.device)
-    build.raise_on(lib.ff_vj_jvp(xs_t.data_ptr(), btp, packed.data_ptr(),
-                                 dpacked.data_ptr(), dout.data_ptr(),
-                                 *_ff_vj_args(params, xs_t, activation, hp, fp), stream),
-                   "ff_vj_jvp")
+    fr.ff_raise_on(params, lib.ff_vj_jvp(
+        xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), dpacked.data_ptr(), dout.data_ptr(),
+        *_ff_vj_args(params, xs_t, activation, hp, fp), stream), "ff_vj_jvp")
     return dout
 
 
