@@ -36,6 +36,21 @@ is non-zero and no result line is printed):
                agree within rtol 2e-2, and the final rel-L2 stays in (6e-4, 1e-3).
                The kernels are also held to their plain versions at the chunk shape
                the LM calls them with.
+7b. resume  -- checkpoints and fault recovery on the main path: 40 Adam epochs at the
+               bench shape (w20x2, save_freq 20) against 20 epochs in one ``VarNet``
+               and a ``resume=True`` to 40 in a fresh one on the same folder, through
+               K1/K2 (max |dtheta| printed, must be 0); the save and restore times of a
+               checkpoint; Adam steps/s over 300 epochs at save_freq 50 (the exact-BC
+               recipe's epochs / 6) without, with, and again without a folder.  LM at
+               the lm phase's shape (w48x3, cg 20, k_chunks 16) from the 8.3e-4 theta: 2
+               iterations straight against 1 and a resume to 2 (lam from the meta) through
+               K5/K6 (|dtheta| must be 0); then a hook makes the first LM attempt ask the
+               allocator for twice the card's memory after its first checkpoint, a real
+               ``torch.cuda.OutOfMemoryError``: ``refine_lm(max_retries=1)`` resumes from
+               ``lm/`` with k_chunks doubled and ends within rtol 2e-2 of the straight
+               run's loss.  Last, the ``ad2d_transient`` CLI in a subprocess (disc 16 /
+               t_disc 8): 40 epochs with ``--folder``, then ``--epochs 60 --resume``
+               ("resumed from epoch 40", ``ckpt_*`` of epochs 20, 40, 60).
 
 8. kernels-ff -- the Fourier-feature kernels at the pinned contaminant net (w96x3 behind
                128 features, scales (0.5, 2.0), committed B and theta, raw inputs) on
@@ -140,6 +155,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -477,7 +493,199 @@ def phase_lm(xs_t, nq):
     log("lm plain", losses=",".join(f"{v:.6e}" for v in lp),
         rel_l2=f"{rp.errors[-1]:.6e}", s_per_iter=f"{per_it['plain']:.4f}",
         call_seconds=f"{secs_p:.3f}", max_rel_diff=f"{worst:.3e}")
-    return launches
+    return launches, vn, rk
+
+# ---------------------------------------------------------------------------
+# Checkpoints, resume and fault recovery on the main path (K1 / K2, K5 / K6)
+
+RESUME_DIR = os.path.join(ROOT, "build", "chip_smoke_resume")
+RESUME_ADAM = dict(lr=2e-3, decay_rate=0.4, decay_steps=100)
+RECIPE_EPOCHS, RECIPE_SAVE = 300, 50     # hardbc_tpu.py's save_freq = epochs // 6
+
+
+def _resume_vn(widths, **kw):
+    from varnet_tpu_torch import OptimizerConfig, VarNet
+    from varnet_tpu_torch.problems.analytic import transient_ad_2d
+
+    return VarNet(transient_ad_2d()["pde"], layer_width=widths, device="cuda",
+                  optimizer=OptimizerConfig(**RESUME_ADAM), **BENCH, **kw)
+
+
+def _max_dtheta(a, b):
+    return max(float((x[k] - y[k]).abs().max()) for x, y in zip(a, b) for k in ("w", "b"))
+
+
+def phase_resume(theta_full, r_full):
+    """Adam through K1/K2 and LM through K5/K6, each cut in half and resumed in a
+    fresh VarNet, against the uninterrupted run (LM: the lm phase's kernel run,
+    ``theta_full`` and ``r_full``); a real out-of-memory error retried with
+    k_chunks doubled; a CLI through --folder / --resume; the save and restore
+    times and the Adam steps/s with and without checkpoints."""
+    import shutil
+
+    import torch
+
+    from varnet_tpu_torch import VarNet, load_theta_npz, params_from_jax
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.ops import value_and_jac as vj
+    from varnet_tpu_torch.train.checkpoint import (
+        list_checkpoint_steps, load_checkpoint, load_meta)
+    from varnet_tpu_torch.train.optim import make_optimizer
+
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    tk = dict(weight=WEIGHT, save_freq=20, verbose=False, error_disc=32, error_times=3)
+    full = _resume_vn((20, 20))
+    full.train(epoch_num=40, folderpath=os.path.join(RESUME_DIR, "adam_full"), **tk)
+    cut_dir = os.path.join(RESUME_DIR, "adam_cut")
+    _resume_vn((20, 20)).train(epoch_num=20, folderpath=cut_dir, **tk)
+    before = fr.dir_residual_fwd.launches
+    resumed = _resume_vn((20, 20))
+    res = resumed.train(epoch_num=40, folderpath=cut_dir, resume=True, **tk)
+    k1 = fr.dir_residual_fwd.launches - before
+    d_adam = _max_dtheta(resumed.theta, full.theta)
+    if k1 < 20 or res.epochs != [40] or list_checkpoint_steps(cut_dir) != [20, 40]:
+        raise AssertionError(f"Adam resume: K1 launches {k1}, epochs {res.epochs}, "
+                             f"steps {list_checkpoint_steps(cut_dir)}")
+    if d_adam != 0.0:
+        raise AssertionError(f"Adam resumed theta differs from the uninterrupted run's by "
+                             f"{d_adam:.3e}")
+    log("resume adam", widths="20x20", epochs="20+20", k1_launches=k1,
+        max_abs_dtheta=f"{d_adam:.3e}", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # save / restore times of a checkpoint of the bench net and its Adam state
+    theta = [{k: v.clone().requires_grad_(True) for k, v in layer.items()}
+             for layer in resumed.theta]
+    opt = make_optimizer(resumed.optimizer_cfg, [l[k] for l in theta for k in ("w", "b")])
+    opt.load_state_dict(load_checkpoint(cut_dir, {"theta": resumed.theta,
+                                                  "opt_state": opt.state_dict()},
+                                        map_location="cuda")[0]["opt_state"])
+    t_dir = os.path.join(RESUME_DIR, "timing")
+    save_ms, load_ms = [], []
+    for i in range(10):
+        t1 = time.perf_counter()
+        resumed._save(t_dir, i + 1, theta, {"seed": 0}, opt)
+        save_ms.append(1e3 * (time.perf_counter() - t1))
+        t1 = time.perf_counter()
+        load_checkpoint(t_dir, {"theta": resumed.theta, "opt_state": opt.state_dict()},
+                        map_location="cuda")
+        torch.cuda.synchronize()
+        load_ms.append(1e3 * (time.perf_counter() - t1))
+    log("checkpoint", widths="20x20", save_ms=f"{statistics.median(save_ms):.3f}",
+        restore_ms=f"{statistics.median(load_ms):.3f}",
+        bytes=os.path.getsize(os.path.join(t_dir, f"ckpt_{10:010d}", "state.pt")))
+
+    # Adam steps/s at the recipe's save period: without a folder, with one, and
+    # with one whose checkpoint writes are taken out (the log alone), in turns
+    t0 = time.perf_counter()
+    rates = {"none": [], "folder": [], "log_only": []}
+    real_save = VarNet._save
+    rate_vn = _resume_vn((20, 20))
+    for i, mode in enumerate(("none", "folder", "log_only", "log_only", "folder", "none")):
+        folder = None if mode == "none" else os.path.join(RESUME_DIR, f"rate{i}")
+        if mode == "log_only":
+            VarNet._save = lambda *args, **kw: None
+        try:
+            r = rate_vn.train(epoch_num=RECIPE_EPOCHS, weight=WEIGHT, save_freq=RECIPE_SAVE,
+                              folderpath=folder, verbose=False, error_disc=32, error_times=3)
+        finally:
+            VarNet._save = real_save
+        rates[mode].append(r.steps_per_sec)
+    log("checkpoint steps/s", epochs=RECIPE_EPOCHS, save_freq=RECIPE_SAVE,
+        **{k: ",".join(f"{x:.4f}" for x in v) for k, v in rates.items()},
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # LM: the lm phase's 2 iterations against 1 and a resume to 2 (lam from the meta)
+    t0 = time.perf_counter()
+    lm = dict(weight=WEIGHT, save_freq=1, verbose=False, error_disc=32, error_times=3,
+              cg_iters=LM["cg_iters"], k_chunks=LM["k_chunks"])
+    theta0 = params_from_jax(load_theta_npz(LM_START), device="cuda")
+    lm_vn = _resume_vn((48, 48, 48), use_pallas=True)
+
+    def lm_run(**kw):
+        lm_vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta0]
+        return lm_vn.refine_lm(**lm, **kw)
+
+    lm_cut = os.path.join(RESUME_DIR, "lm_cut")
+    lm_run(steps=1, folderpath=lm_cut)
+    lam_meta = load_meta(os.path.join(lm_cut, "lm"), 1)["lam"]
+    before = (vj.vj_bwd.launches, vj.vj_jvp.launches)
+    lm_res = _resume_vn((48, 48, 48), use_pallas=True)
+    r_res = lm_res.refine_lm(steps=2, folderpath=lm_cut, resume=True, **lm)
+    k56 = (vj.vj_bwd.launches - before[0], vj.vj_jvp.launches - before[1])
+    d_lm = _max_dtheta(lm_res.theta, theta_full)
+    if min(k56) < LM["cg_iters"] or r_res.epochs != [2]:
+        raise AssertionError(f"LM resume: K5 bwd / K6 launches {k56}, epochs {r_res.epochs}")
+    if d_lm != 0.0 or r_res.losses != r_full.losses[1:]:
+        raise AssertionError(f"LM resumed theta differs by {d_lm:.3e}: {r_res.losses} vs "
+                             f"{r_full.losses[1:]}")
+    log("resume lm", widths="48x48x48", iterations="1+1", lam_from_meta=f"{lam_meta:.6g}",
+        k5_bwd_launches=k56[0], k6_launches=k56[1], max_abs_dtheta=f"{d_lm:.3e}",
+        loss=f"{r_res.losses[-1]['loss']:.6e}", seconds=f"{time.perf_counter() - t0:.1f}")
+    del lm_res
+
+    # a genuine OOM after the first LM checkpoint: retried with k_chunks doubled
+    real_impl = VarNet._refine_lm_impl
+    seen = {"k": [], "oom": None}
+
+    def impl(self, steps, *args):
+        seen["k"].append(args[8])
+        return real_impl(self, steps, *args)
+
+    def save(self, folderpath, step, theta, meta, optimizer=None):
+        real_save(self, folderpath, step, theta, meta, optimizer)
+        if seen["oom"] is None:
+            seen["oom"] = "armed"
+            total = torch.cuda.get_device_properties(0).total_memory
+            try:
+                torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+            except torch.cuda.OutOfMemoryError as err:
+                seen["oom"] = type(err).__name__
+                raise
+
+    VarNet._refine_lm_impl, VarNet._save = impl, save
+    try:
+        t0 = time.perf_counter()
+        r_oom = lm_run(steps=2, folderpath=os.path.join(RESUME_DIR, "lm_oom"), max_retries=1,
+                       retry_backoff=0.0)
+        oom_s = time.perf_counter() - t0
+    finally:
+        VarNet._refine_lm_impl, VarNet._save = real_impl, real_save
+    del lm_vn
+    k0 = LM["k_chunks"]
+    band = abs(r_oom.losses[-1]["loss"] - r_full.losses[-1]["loss"]) / r_full.losses[-1]["loss"]
+    if seen["k"] != [k0, 2 * k0] or seen["oom"] != "OutOfMemoryError" or r_oom.epochs != [2]:
+        raise AssertionError(f"OOM retry: k_chunks {seen['k']}, error {seen['oom']}, "
+                             f"epochs {r_oom.epochs}")
+    if not band <= 2e-2:
+        raise AssertionError(f"OOM-retried LM loss off the uninterrupted run's by {band:.3e}")
+    log("resume lm oom", error=seen["oom"], k_chunks=f"{k0}->{2 * k0}",
+        loss=f"{r_oom.losses[-1]['loss']:.6e}", rel_diff=f"{band:.3e}",
+        call_seconds=f"{oom_s:.3f}")
+
+    # a CLI through --folder, then --resume to a larger total, in a subprocess
+    t0 = time.perf_counter()
+    folder = os.path.join(RESUME_DIR, "cli")
+    base = [sys.executable, "-m", "varnet_tpu_torch.examples.ad2d_transient", "--disc", "16",
+            "--tdisc", "8", "--bdisc", "16", "--save-freq", "20", "--folder", folder]
+    outs = []
+    for extra in (["--epochs", "40"], ["--epochs", "60", "--resume"]):
+        proc = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {extra} failed: {proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-2000:]}")
+        outs.append(proc.stdout)
+    steps = list_checkpoint_steps(folder)
+    if ("resumed from epoch 40" not in outs[1] or steps != [20, 40, 60]
+            or not os.path.exists(os.path.join(folder, "config.json"))
+            or load_meta(folder, 60) is None):
+        raise AssertionError(f"CLI resume: steps {steps}; output {outs[1][-1000:]}")
+    log("resume cli", module="ad2d_transient", steps=",".join(map(str, steps)),
+        summary=outs[1].strip().splitlines()[-1], seconds=f"{time.perf_counter() - t0:.1f}")
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    return {"adam_dtheta": d_adam, "lm_dtheta": d_lm}
+
 
 # ---------------------------------------------------------------------------
 # The Fourier-feature contaminant slice (K2-FF, K7, K8)
@@ -1485,8 +1693,13 @@ def main():
     phase_kernels_vj((20, 20), xs_t)
     phase_kernels_vj((48, 48), xs_t)
     v48 = phase_kernels_vj((48, 48, 48), xs_t)
-    lm_launches = phase_lm(xs_t, nq)
+    lm_launches, lm_vn, lm_res = phase_lm(xs_t, nq)
     del xs_t
+    torch.cuda.empty_cache()
+    t_resume = time.perf_counter()
+    phase_resume(lm_vn.theta, lm_res)
+    del lm_vn
+    resume_s = time.perf_counter() - t_resume
     torch.cuda.empty_cache()
     ff, p_ff, k_ff, p_chunk = phase_kernels_ff()
     ff_launches = phase_causal()
@@ -1508,7 +1721,8 @@ def main():
     phase_burgers_accuracy()
     phase_burgers_lm()
     log("done", seconds=f"{time.perf_counter() - t0:.1f}",
-        burgers_seconds=f"{time.perf_counter() - t_burgers:.1f}")
+        burgers_seconds=f"{time.perf_counter() - t_burgers:.1f}",
+        resume_seconds=f"{resume_s:.1f}")
 
     p_bench, k_bench = k20["points"], k20["k"]
     src = "varnet_tpu_torch/csrc/"

@@ -38,11 +38,11 @@ def test_window_checks(windows, match):
         train_causal(_pde, windows=windows, epoch_num=1, varnet_kwargs=SMALL)
 
 
-@pytest.mark.parametrize("kw,err", [({"resume": True}, NotImplementedError),
-                                    ({"train_kwargs": {"weight": W}}, ValueError),
-                                    ({"train_kwargs": {"folderpath": "x"}}, ValueError)])
+@pytest.mark.parametrize("kw,err", [({"resume": True}, "folderpath"),
+                                    ({"train_kwargs": {"weight": W}}, "train_kwargs"),
+                                    ({"train_kwargs": {"folderpath": "x"}}, "train_kwargs")])
 def test_unported_and_colliding_options_raise(kw, err):
-    with pytest.raises(err):
+    with pytest.raises(ValueError, match=err):
         train_causal(_pde, windows=(1.0,), epoch_num=1, varnet_kwargs=SMALL, **kw)
 
 
@@ -128,3 +128,32 @@ def test_input_scaling_off_feeds_raw_coordinates(jax_window):
     t = np.random.default_rng(1).random(50) * 0.25
     np.testing.assert_allclose(vn.evaluate(x, t), np.asarray(jvn.evaluate(x, t)), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_train_causal_resume(tmp_path):
+    """The counterpart of ``tests/test_causal.py::test_train_causal_resume``: a
+    completed window is restored and skipped, a partly trained one trains only
+    its remaining epochs, and ``resume`` inside ``train_kwargs`` is refused."""
+    import shutil
+
+    from varnet_tpu_torch.train.checkpoint import list_checkpoint_steps
+
+    folder = str(tmp_path / "case")
+    kw = dict(windows=(0.5, 1.0), epoch_num=8, weight=W, t_disc_full=8,
+              varnet_kwargs=dict(SMALL, seed=3), train_kwargs=dict(save_freq=4, error_disc=4,
+                                                                   error_times=2),
+              folderpath=folder, verbose=False)
+    vn1, _ = train_causal(_pde, **kw)
+    w1 = f"{folder}_w1"
+    assert list_checkpoint_steps(w1) == [4, 8]
+    shutil.rmtree(f"{w1}/ckpt_{8:010d}")   # a death halfway through window 2
+
+    vn2, st2 = train_causal(_pde, resume=True, **kw)
+    assert st2[0] == {"t_end": 0.5, "resumed": True, "epochs_done": 8}
+    assert st2[1]["result"].epochs == [8]   # only epochs 5..8 ran
+    assert list_checkpoint_steps(w1)[-1] == 8
+    # the resumed run lands where the uninterrupted one did
+    for a, b in zip(vn1.theta, vn2.theta):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+    with pytest.raises(ValueError, match="train_kwargs"):
+        train_causal(_pde, **dict(kw, train_kwargs=dict(save_freq=4, resume=True)))

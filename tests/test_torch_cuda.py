@@ -1132,3 +1132,100 @@ def test_ff_jvp_kernel_matches_plain(cuda, n_feat, hp, depth, activation, nq, re
     request.node.user_properties.append(("gates", json.dumps(checks)))
     for what, err, own_err, gate in checks:
         assert _gate(err, own_err, gate), (what, err, own_err)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and fault recovery on the card
+
+RESUME_MESH = dict(layer_width=(20, 20), disc_num=8, b_disc_num=6, t_disc_num=4)
+RESUME_TRAIN = dict(weight=(1.0, 10.0, 10.0), save_freq=10, verbose=False, error_disc=8,
+                    error_times=2)
+RESUME_LM = dict(weight=(1.0, 10.0, 10.0), cg_iters=5, k_chunks=2, save_freq=1,
+                 verbose=False, error_disc=8, error_times=2)
+
+
+def _resume_vn(cuda, **kw):
+    from varnet_tpu_torch.train.optim import OptimizerConfig
+
+    return VarNet(transient_ad_2d()["pde"], device=cuda, seed=3,
+                  optimizer=OptimizerConfig(lr=2e-3, decay_rate=0.5, decay_steps=7),
+                  **{**RESUME_MESH, **kw})
+
+
+def _max_dtheta(a, b):
+    return max(float((x[k] - y[k]).abs().max()) for x, y in zip(a, b) for k in ("w", "b"))
+
+
+def test_adam_resume_through_k1_is_exact(cuda, tmp_path):
+    """20 epochs through K1/K2, then a fresh VarNet resumed to 40, equal the
+    uninterrupted 40 epochs bit for bit (no kernel of the path sums atomically)."""
+    full = _resume_vn(cuda)
+    full.train(epoch_num=40, folderpath=str(tmp_path / "full"), **RESUME_TRAIN)
+    _resume_vn(cuda).train(epoch_num=20, folderpath=str(tmp_path / "cut"), **RESUME_TRAIN)
+    before = fr.dir_residual_fwd.launches
+    resumed = _resume_vn(cuda)
+    res = resumed.train(epoch_num=40, folderpath=str(tmp_path / "cut"), resume=True,
+                        **RESUME_TRAIN)
+    assert fr.dir_residual_fwd.launches - before >= 20
+    assert res.epochs == [30, 40]
+    assert resumed.theta[0]["w"].device.type == "cuda"
+    assert _max_dtheta(resumed.theta, full.theta) == 0.0
+
+
+def test_lm_resume_through_k5_k6_is_exact(cuda, tmp_path):
+    start = _resume_vn(cuda)
+    start.train(epoch_num=20, **RESUME_TRAIN)
+    theta = start.theta
+    full = _resume_vn(cuda)
+    full.theta = theta
+    full.refine_lm(steps=2, folderpath=str(tmp_path / "full"), **RESUME_LM)
+    cut = _resume_vn(cuda)
+    cut.theta = theta
+    cut.refine_lm(steps=1, folderpath=str(tmp_path / "cut"), **RESUME_LM)
+    before = (vj.vj_bwd.launches, vj.vj_jvp.launches)
+    resumed = _resume_vn(cuda)
+    res = resumed.refine_lm(steps=2, folderpath=str(tmp_path / "cut"), resume=True,
+                            **RESUME_LM)
+    assert vj.vj_bwd.launches > before[0] and vj.vj_jvp.launches > before[1]
+    assert res.epochs == [2]
+    assert _max_dtheta(resumed.theta, full.theta) == 0.0
+    from varnet_tpu_torch.train.checkpoint import load_meta
+
+    assert load_meta(str(tmp_path / "cut" / "lm"), 2) == load_meta(
+        str(tmp_path / "full" / "lm"), 2)
+
+
+def test_lm_retries_a_real_oom_with_k_chunks_doubled(cuda, tmp_path, monkeypatch):
+    """After the first LM checkpoint the first attempt asks the allocator for
+    twice the card's memory: a genuine ``torch.cuda.OutOfMemoryError``.
+    ``refine_lm(max_retries=1)`` resumes from ``lm/`` with k_chunks doubled and
+    lands within the LM band of the uninterrupted run."""
+    start = _resume_vn(cuda)
+    start.train(epoch_num=20, **RESUME_TRAIN)
+    ref = _resume_vn(cuda)
+    ref.theta = start.theta
+    r_ref = ref.refine_lm(steps=3, **RESUME_LM)
+
+    real_impl, real_save = VarNet._refine_lm_impl, VarNet._save
+    seen = {"k": [], "oom": 0}
+
+    def impl(self, steps, *args):
+        seen["k"].append(args[8])
+        return real_impl(self, steps, *args)
+
+    def save(self, folderpath, step, theta, meta, optimizer=None):
+        real_save(self, folderpath, step, theta, meta, optimizer)
+        if not seen["oom"]:
+            seen["oom"] += 1
+            total = torch.cuda.get_device_properties(cuda).total_memory
+            torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+
+    monkeypatch.setattr(VarNet, "_refine_lm_impl", impl)
+    monkeypatch.setattr(VarNet, "_save", save)
+    vn = _resume_vn(cuda)
+    vn.theta = start.theta
+    res = vn.refine_lm(steps=3, folderpath=str(tmp_path), max_retries=1, retry_backoff=0.0,
+                       **RESUME_LM)
+    assert seen["k"] == [2, 4] and seen["oom"] == 1
+    assert res.epochs == [2, 3]
+    np.testing.assert_allclose(res.losses[-1]["loss"], r_ref.losses[-1]["loss"], rtol=2e-2)

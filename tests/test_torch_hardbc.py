@@ -143,7 +143,7 @@ def test_hard_loss_refuses_unfolded_fused_data():
 
 
 def test_flux_rows_with_hard_bc_are_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="Neumann/Robin flux rows"):
         VarNet(analytic.steady_ad_2d_neumann()["pde"], disc_num=4, b_disc_num=4,
                device="cpu", hard_bc=True)
 

@@ -60,13 +60,6 @@ def test_preconditioned_lm_runs_and_does_not_raise_the_loss(jax_lm, mode):
     assert np.all(np.isfinite(losses)) and losses[0] <= start and losses[1] <= losses[0]
 
 
-@pytest.mark.parametrize("kw", [{"folderpath": "unused"}, {"resume": True},
-                                {"max_retries": 1}])
-def test_checkpointing_is_not_ported(jax_lm, kw):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port(jax_lm[0]).refine_lm(**{**LM, **kw})
-
-
 def test_refine_lm_updates_theta_and_result(jax_lm):
     vn = _port(jax_lm[0])
     res = vn.refine_lm(**LM)

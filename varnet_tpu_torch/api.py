@@ -12,18 +12,23 @@ tables; K3, the jacobian-panel residual, for nonlinear advection: viscous
 Burgers, ``ADPDE(nl_adv=b)``), and the value + jacobian evaluation of the LM refinement and of the
 Adam general path through those of ``ops/value_and_jac.py`` (K5 forward and
 backward, K6 JVP; K7/K8 with the embedding); on the CPU through their plain
-versions.
+versions.  ``train`` and ``refine_lm`` checkpoint into a case folder
+(``train/checkpoint.py``), resume from it with global step numbering, and retry
+transient device faults (``train/fault.py``), as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
+import shutil
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +52,15 @@ from .ops import value_and_jac as vj
 from .ops.fused_residual import prepare_residual_coeffs, prepare_residual_data
 from .ops.residual import support_volume, weak_residual
 from .problems.adpde import ADPDE, NeumannBC, RobinBC
+from .train.checkpoint import (
+    list_checkpoint_steps,
+    load_checkpoint,
+    load_config,
+    load_meta,
+    save_checkpoint,
+    save_meta,
+)
+from .train.fault import is_transient_device_error
 from .train.gauss_newton import LMState, make_lm_step, make_residual_fn
 from .train.loss import make_loss_fn
 from .train.optim import OptimizerConfig, make_optimizer
@@ -180,7 +194,7 @@ class VarNet:
         if any(isinstance(g, (NeumannBC, RobinBC)) for g in pde.bcs):
             raise NotImplementedError(
                 "Neumann/Robin flux rows are not ported to varnet_tpu_torch yet, in penalty "
-                "or hard_bc mode (ROADMAP Queue 1 item 3, old item 15)")
+                "or hard_bc mode (the loss's flux penalty and the LM residual's flux rows)")
         self.hard = None
         if hard_bc:
             self.hard = HardBC(pde)
@@ -211,6 +225,7 @@ class VarNet:
         if self.input_scaling:
             self.scale, self.shift = make_input_scaling(
                 self.static.input_lo, self.static.input_hi, device=self.device)
+        self.opt_state = None   # the optimizer state of the last load_model
         self.train_result: Optional[TrainResult] = None
 
     @property
@@ -322,29 +337,115 @@ class VarNet:
         batch_num: int = 1,
         save_freq: int = 500,
         folderpath: Optional[str] = None,
+        resume: bool = False,
         verbose: bool = True,
         error_disc: int = 64,
         error_times: int = 5,
         target_error: Optional[float] = None,
+        max_retries: int = 0,
+        retry_backoff: float = 30.0,
     ) -> TrainResult:
         """Run the training loop (reference ``VarNet.train``).
 
         weight:      (w_int, w_bc[, w_ic]) loss weights
         batch_num:   interior mini-batches per epoch
-        save_freq:   report period (epochs)
-        folderpath:  directory for the JSONL training log and train_result.json
+        save_freq:   report / checkpoint period (epochs)
+        folderpath:  case directory for the checkpoints (``ckpt_<epoch>/`` with
+                     theta and the optimizer state, a meta sidecar with the
+                     seed, ``config.json``), the JSONL training log and
+                     train_result.json
+        resume:      restore the newest checkpoint of ``folderpath`` first;
+                     ``epoch_num`` then counts the TOTAL epochs (global epoch
+                     semantics, as ``refine_lm``): a checkpoint at step >=
+                     ``epoch_num`` makes the call a no-op that restores theta
+                     and leaves the folder alone, so a recovery loop can re-run
+                     the same command; an empty folder starts fresh
         target_error: optional early-stop threshold on rel-L2 error
+        max_retries: on a transient device fault (``train/fault.py``),
+                     re-enter the loop up to this many times, resuming from
+                     the newest checkpoint when ``folderpath`` is set
+        retry_backoff: seconds to sleep before each retry
 
         Matmuls outside the kernel run with TF32 off (exact f32), as the
         kernel does on the CUDA cores.
         """
-        with matmul_precision_scope():
-            return self._train_impl(int(epoch_num), weight, int(batch_num), save_freq,
-                                    folderpath, verbose, error_disc, error_times,
-                                    target_error)
+        if resume and folderpath is None:
+            raise ValueError("resume=True requires folderpath (nothing to resume from)")
 
-    def _train_impl(self, epoch_num, weight, batch_num, save_freq, folderpath, verbose,
-                    error_disc, error_times, target_error):
+        def newest():
+            steps = list_checkpoint_steps(folderpath) if folderpath else []
+            return steps[-1] if steps else 0
+
+        # global-epoch accounting: checkpoints this call writes land in (start,
+        # target]; ``pre`` tells them from stale ones already in the folder (a
+        # fresh resume=False run never resumes from those, it restarts)
+        pre = newest()
+        start = pre if resume else 0
+        target = max(int(epoch_num), start) if resume else start + int(epoch_num)
+        st = {"epochs": target - start, "resume": resume}
+        if resume and target == start:
+            if verbose:
+                print(f"[varnet] resume: {start} epochs already complete "
+                      f"(budget {int(epoch_num)}), skipping training")
+            self._restore_theta(folderpath)
+            self.train_result = TrainResult()
+            return self.train_result
+
+        def attempt_fn():
+            with matmul_precision_scope():
+                return self._train_impl(st["epochs"], weight, int(batch_num), save_freq,
+                                        folderpath, st["resume"], verbose, error_disc,
+                                        error_times, target_error)
+
+        def on_fault(_attempt):
+            now = newest()
+            trust = now > pre or (resume and now == pre)
+            if trust and now >= target:
+                return TrainResult()   # faulted after the final checkpoint: done
+            if trust:
+                st["resume"], st["epochs"] = True, target - max(now, start)
+                return f"resuming from epoch {max(now, start)} in {folderpath}"
+            st["resume"], st["epochs"] = False, int(epoch_num)
+            return "restarting from in-memory state (no checkpoint yet)"
+
+        return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
+                                     verbose, label="", include_oom=False)
+
+    def _retry_transient(self, attempt_fn, on_fault, max_retries, retry_backoff, verbose,
+                         label, include_oom):
+        """Shared transient-fault retry loop: runs ``attempt_fn()``; on a
+        transient device error (``train/fault.py``) frees the allocator's
+        cache and calls ``on_fault(attempt)`` to reposition state for the next
+        attempt; it returns a description, or a terminal ``TrainResult`` when
+        the checkpoints show the work already done.  Program errors and sticky
+        CUDA errors propagate at once."""
+        attempt = 0
+        while True:
+            try:
+                return attempt_fn()
+            except RuntimeError as err:
+                if attempt >= int(max_retries) or not is_transient_device_error(
+                        err, include_oom=include_oom):
+                    raise
+                fault = f"{type(err).__name__}: {str(err).splitlines()[0][:200]}"
+            # out of the except block the traceback's frames, and the tensors
+            # they hold, are released: collect them and return the cache
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            attempt += 1
+            outcome = on_fault(attempt)
+            if isinstance(outcome, TrainResult):
+                return outcome
+            if verbose:
+                print(f"[varnet{label}] transient device fault (retry {attempt}/"
+                      f"{int(max_retries)}, {fault}): {outcome} after "
+                      f"{float(retry_backoff):.0f}s", flush=True)
+            if retry_backoff > 0:
+                time.sleep(float(retry_backoff))
+
+    def _train_impl(self, epoch_num, weight, batch_num, save_freq, folderpath, resume,
+                    verbose, error_disc, error_times, target_error):
         td = self.static.time_dependent
         if weight is None:
             weight = (1.0, 1.0) + ((1.0,) if td else ())
@@ -400,6 +501,28 @@ class VarNet:
                  for layer in self._params(None)]
         optimizer = make_optimizer(self.optimizer_cfg,
                                    [layer[k] for layer in theta for k in ("w", "b")])
+        start_epoch = 0
+        if resume:
+            try:
+                state, step = load_checkpoint(
+                    folderpath, {"theta": theta, "opt_state": optimizer.state_dict()},
+                    map_location=self.device)
+            except FileNotFoundError:
+                # nothing persisted yet (the previous attempt died before its
+                # first checkpoint): start fresh, so a recovery loop progresses
+                state, step = None, 0
+                if verbose:
+                    print(f"[varnet] resume: no checkpoints in {folderpath} yet, "
+                          "starting fresh")
+            if state is not None:
+                with torch.no_grad():   # in place: the leaves keep requires_grad
+                    for layer, stored in zip(theta, state["theta"]):
+                        for k in ("w", "b"):
+                            layer[k].copy_(stored[k])
+                optimizer.load_state_dict(state["opt_state"])
+                start_epoch = step
+                if verbose:
+                    print(f"[varnet] resumed from epoch {step} in {folderpath}")
         step_fn = make_train_step(loss_fn, optimizer, batch_num=batch_num)
 
         result = TrainResult()
@@ -411,14 +534,14 @@ class VarNet:
         t_start = None          # set after the first (warm-up) step
         timed_epochs = 0
         report_overhead = 0.0   # host + eval time excluded from throughput
-        for epoch in range(1, epoch_num + 1):
+        for epoch in range(start_epoch + 1, start_epoch + epoch_num + 1):
             aux = step_fn(theta, quads, bc_d, ic_d, w_full, prepared, hard_d)
             if t_start is None:
                 self._sync()
                 t_start = time.perf_counter()
             else:
                 timed_epochs += 1
-            last = epoch == epoch_num
+            last = epoch == start_epoch + epoch_num
             if epoch % int(save_freq) == 0 or last:
                 # drain the queued device work first so it counts as training time
                 self._sync()
@@ -439,6 +562,7 @@ class VarNet:
                 if log_path is not None:
                     with open(log_path, "a") as f:
                         f.write(json.dumps({"epoch": epoch, "err": err, **aux_host}) + "\n")
+                    self._save(folderpath, epoch, theta, {"seed": self.seed}, optimizer)
                 report_overhead += time.perf_counter() - t_rep
                 if target_error is not None and err is not None and err < target_error:
                     if verbose:
@@ -502,22 +626,79 @@ class VarNet:
         backward (K8 and K7's backward with a Fourier-feature embedding), with
         exact BC, per-node test tables and nonlinear advection too (the JAX
         package's LM takes the value + jacobian kernels there as well).
-        Checkpointing and fault recovery (``folderpath``, ``resume``,
-        ``max_retries``) are not ported yet (ROADMAP Queue 1 item 9).
+
+        Fault recovery (checkpoint-restart):
+
+        folderpath:  LM checkpoints (theta; lam and loss in the meta sidecar)
+                     go to its ``lm/`` subfolder at each report iteration,
+                     numbered globally across resumed runs, apart from the
+                     epoch-numbered ones of ``train``; a fresh run
+                     (``resume=False``) clears a stale ``lm/``
+        resume:      restore the newest LM checkpoint (theta and lam) and
+                     continue toward ``steps`` TOTAL iterations
+        max_retries: on a transient device fault (``train/fault.py``, out of
+                     memory included), resume from the newest checkpoint up
+                     to this many times, with the allocator's cache freed and
+                     ``k_chunks`` doubled each retry.  Program errors
+                     propagate, and so do sticky CUDA errors (illegal address,
+                     launch failure, ECC), after which the process's context
+                     is dead: the checkpoints then serve a cross-process
+                     ``resume=True``, as does a hung card.
+        retry_backoff: seconds to sleep before each retry
         """
-        if folderpath is not None or resume or int(max_retries) > 0:
-            raise NotImplementedError(
-                "refine_lm checkpoints and fault recovery (folderpath, resume, "
-                "max_retries) are not ported to varnet_tpu_torch yet (ROADMAP item 9)")
-        with matmul_precision_scope(matmul_precision):
-            return self._refine_lm_impl(
-                int(steps), weight, int(cg_iters), int(save_freq), verbose, error_disc,
-                error_times, float(lam0), target_error, int(k_chunks), int(cg_segment),
-                int(precond), precond_mode)
+        if resume and folderpath is None:
+            raise ValueError("resume=True requires folderpath (nothing to resume from)")
+        lm_folder = None if folderpath is None else os.path.join(folderpath, "lm")
+        st = {"steps": int(steps), "lam": float(lam0), "k": int(k_chunks), "offset": 0}
+
+        def restore():
+            st["offset"], lam_meta = self._restore_theta(lm_folder)
+            if lam_meta is not None:
+                st["lam"] = float(lam_meta)
+            st["steps"] = int(steps) - st["offset"]
+
+        def done():
+            result = TrainResult()
+            result.total_steps = int(steps)
+            return result
+
+        if resume:
+            restore()
+            if verbose and st["offset"]:
+                print(f"[varnet/lm] resumed from LM step {st['offset']} in {lm_folder} "
+                      f"(lam {st['lam']:.1e})")
+            if st["steps"] <= 0:
+                return done()
+        elif lm_folder is not None and list_checkpoint_steps(lm_folder):
+            shutil.rmtree(lm_folder)
+            if verbose:
+                print(f"[varnet/lm] cleared stale LM checkpoints in {lm_folder} (fresh "
+                      "run; pass resume=True to continue them instead)")
+
+        def attempt_fn():
+            with matmul_precision_scope(matmul_precision):
+                return self._refine_lm_impl(
+                    st["steps"], weight, int(cg_iters), int(save_freq), verbose, error_disc,
+                    error_times, st["lam"], target_error, st["k"], int(cg_segment),
+                    int(precond), precond_mode, lm_folder, st["offset"])
+
+        def on_fault(_attempt):
+            if lm_folder is not None:
+                restore()
+            else:
+                st["steps"] = int(steps)
+            if st["steps"] <= 0:
+                return done()   # faulted after the final checkpoint
+            st["k"] *= 2
+            return (f"resuming from LM step {st['offset']} with k_chunks {st['k']}, "
+                    f"lam {st['lam']:.1e}")
+
+        return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
+                                     verbose, label="/lm", include_oom=True)
 
     def _refine_lm_impl(self, steps, weight, cg_iters, save_freq, verbose, error_disc,
                         error_times, lam0, target_error, k_chunks, cg_segment, precond,
-                        precond_mode) -> TrainResult:
+                        precond_mode, folderpath=None, step_offset=0) -> TrainResult:
         td = self.static.time_dependent
         if weight is None:
             weight = (1.0, 1.0) + ((1.0,) if td else ())
@@ -563,23 +744,102 @@ class VarNet:
                 theta_now = unravel(state.flat)
                 loss, lam = float(state.loss), float(state.lam)
                 err = self.compute_error(theta_now, disc=error_disc, n_times=error_times)
-                result.epochs.append(it)
+                it_g = step_offset + it
+                result.epochs.append(it_g)
                 result.losses.append({"loss": loss, "lam": lam})
                 result.errors.append(err if err is not None else float("nan"))
                 result.wall_times.append(time.perf_counter() - t_start)
                 if verbose:
                     err_s = f"{err:.3e}" if err is not None else "n/a"
-                    print(f"[varnet/lm] it {it:5d}  loss {loss:.4e}  lam {lam:.1e}"
+                    print(f"[varnet/lm] it {it_g:5d}  loss {loss:.4e}  lam {lam:.1e}"
                           f"  relL2 {err_s}  ({result.wall_times[-1]:.1f}s)", flush=True)
+                if folderpath is not None:
+                    # lam in the sidecar makes the restart exact: a resumed run
+                    # re-enters with the damping it stopped at
+                    self._save(folderpath, it_g, theta_now,
+                               {"lam": lam, "loss": loss, "phase": "lm"})
                 if target_error is not None and err is not None and err < target_error:
                     if verbose:
                         print(f"[varnet/lm] target {target_error:.1e} reached")
                     break
         self.theta = [{k: v.detach().clone() for k, v in layer.items()}
                       for layer in unravel(state.flat)]
-        result.total_steps = steps
+        result.total_steps = step_offset + steps
         self.train_result = result
         return result
+
+    # ------------------------------------------------------------------ #
+    # persistence
+
+    def config_dict(self) -> Dict[str, Any]:
+        """The problem / discretization fingerprint stored beside checkpoints
+        (``config.json``): the JAX package's keys, with the same values for
+        the same problem."""
+        return {
+            "layer_width": list(self.layer_width),
+            "disc_num": self.disc_num if np.isscalar(self.disc_num) else list(self.disc_num),
+            "b_disc_num": self.b_disc_num,
+            "t_disc_num": self.t_disc_num,
+            "integ_p_num": self.integ_p_num,
+            "test_order": self.test_order,
+            "activation": self.activation,
+            "n_inputs": self.static.n_inputs,
+            "n_test": self.static.n_test,
+            "time_dependent": self.static.time_dependent,
+            "hard_bc": self.hard is not None,
+            "param_count": int(sum(np.prod(v.shape) for layer in self.theta
+                                   for v in layer.values())),
+        }
+
+    def _save(self, folderpath, step, theta, meta, optimizer=None):
+        """One checkpoint (theta, the optimizer's state when given), its meta
+        sidecar and ``config.json``."""
+        state = {"theta": [{k: v.detach().clone() for k, v in layer.items()}
+                           for layer in theta]}
+        if optimizer is not None:
+            state["opt_state"] = optimizer.state_dict()
+        save_checkpoint(folderpath, step, state, config=self.config_dict())
+        save_meta(folderpath, step, meta)
+
+    def _restore_theta(self, folderpath):
+        """Load the newest checkpoint's theta into ``self.theta``.  Returns
+        ``(step, lam)``: the step (0 when the folder holds none) and lam from
+        its meta sidecar (None for a checkpoint of ``train``).  The
+        params-only restore is deliberate here, so its warning is silenced.
+        A ``train`` checkpoint's meta holds the constructor seed: the port
+        keeps no training-time generator (the LM probes' is seeded afresh)."""
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="stored optimizer state")
+                state, step = load_checkpoint(folderpath, {"theta": self._params(None)},
+                                              map_location=self.device)
+        except FileNotFoundError:
+            return 0, None
+        self.theta = state["theta"]
+        meta = load_meta(folderpath, step)
+        return int(step), None if meta is None else meta.get("lam")
+
+    def load_model(self, folderpath: str, step: Optional[int] = None) -> int:
+        """Restore theta (and the optimizer state, kept in ``opt_state``) from a
+        case folder (reference ``VarNet.loadModel``); the stored config's
+        ``layer_width``, ``n_inputs``, ``activation`` and ``time_dependent``
+        must match this instance's.  Returns the step."""
+        stored = load_config(folderpath)
+        if stored is not None:
+            ours = self.config_dict()
+            for k in ("layer_width", "n_inputs", "activation", "time_dependent"):
+                if stored.get(k) != ours[k]:
+                    raise ValueError(f"checkpoint config mismatch on '{k}': "
+                                     f"{stored.get(k)} != {ours[k]}")
+        theta = self._params(None)
+        optimizer = make_optimizer(self.optimizer_cfg,
+                                   [layer[k] for layer in theta for k in ("w", "b")])
+        state, step = load_checkpoint(folderpath, {"theta": theta,
+                                                   "opt_state": optimizer.state_dict()},
+                                      step, map_location=self.device)
+        self.theta = state["theta"]
+        self.opt_state = state["opt_state"]
+        return step
 
     # ------------------------------------------------------------------ #
     # evaluation
@@ -794,8 +1054,9 @@ class VarNet:
         ``VarNet.train_adaptive``): ``epoch_num`` split over ``rounds + 1``
         stages with a refinement between consecutive stages; the merged
         history carries each refinement's info on the stage's last loss record.
-        With ``folderpath`` each stage logs into its own ``stage<K>/``
-        subfolder (logs only: checkpoints wait for ROADMAP item 9)."""
+        With ``folderpath`` each stage checkpoints into its own ``stage<K>/``
+        subfolder: refinement changes the problem's shape, so the stages are
+        separate checkpoint lineages."""
         stages = int(rounds) + 1
         per = max(1, int(epoch_num) // stages)
         merged = TrainResult()

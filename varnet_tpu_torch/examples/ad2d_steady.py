@@ -1,0 +1,20 @@
+"""2-D steady advection-diffusion on a rectangle with Dirichlet BCs, manufactured
+solution u = sin(pi x) sin(pi y) (the port of ``varnet_tpu/examples/ad2d_steady.py``).
+
+    python -m varnet_tpu_torch.examples.ad2d_steady --folder out/
+"""
+
+from ..problems.analytic import steady_ad_2d
+from .common import make_parser, run_case
+
+
+def main(argv=None):
+    p = make_parser("2D steady AD (manufactured)", epochs=30000, disc=30)
+    p.add_argument("--kappa", type=float, default=0.1)
+    args = p.parse_args(argv)
+    case = steady_ad_2d(kappa=args.kappa)
+    return run_case(case["pde"], args, weight=(1.0, 10.0))
+
+
+if __name__ == "__main__":
+    main()

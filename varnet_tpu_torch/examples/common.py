@@ -3,9 +3,12 @@
 
     python -m varnet_tpu_torch.examples.contaminant_2d --epochs 20000 --folder out/
 
-Runs on the CUDA card unless ``--device cpu`` is given.  Flags whose machinery is
-not ported yet are accepted by the parser (the JAX package's command lines stay
-valid) and refused with the ROADMAP item that will bring them.
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--folder`` holds the
+checkpoints (``ckpt_<epoch>/``, meta sidecars, ``config.json``), the training log
+and the result; ``--resume`` continues from its newest checkpoint toward the
+TOTAL ``--epochs`` (a no-op once they are done).  Flags whose machinery is not
+ported yet are accepted by the parser (the JAX package's command lines stay
+valid) and refused with the name of the missing feature.
 """
 
 from __future__ import annotations
@@ -16,12 +19,11 @@ import json
 from ..api import VarNet
 from ..train.optim import OptimizerConfig
 
-# flag -> (value that asks for it, ROADMAP item that ports it)
+# flag -> (value that asks for it, the feature it needs)
 UNPORTED = {
-    "resume": (True, "item 9 (checkpoints)"),
-    "ensemble": (lambda v: v >= 2, "item 18 (train_ensemble)"),
-    "plot": (True, "item 18 (viz / sim_res)"),
-    "devices": (lambda v: v is not None and v != 1, "item 10 (multi-device)"),
+    "ensemble": (lambda v: v >= 2, "ensemble training (train_ensemble)"),
+    "plot": (True, "solution plots (sim_res)"),
+    "devices": (lambda v: v is not None and v != 1, "multi-device training"),
 }
 
 
@@ -48,8 +50,10 @@ def make_parser(desc: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--ensemble", type=int, default=0, help="not ported yet")
     p.add_argument("--batch-num", type=int, default=1)
     p.add_argument("--save-freq", type=int, default=defaults.get("save_freq", 2000))
-    p.add_argument("--folder", type=str, default=None, help="case folder for the logs")
-    p.add_argument("--resume", action="store_true", help="not ported yet")
+    p.add_argument("--folder", type=str, default=None,
+                   help="case folder for checkpoints and logs")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint in --folder")
     p.add_argument("--target", type=float, default=None,
                    help="early-stop rel-L2 error target")
     p.add_argument("--plot", action="store_true", help="not ported yet")
@@ -66,12 +70,12 @@ def make_parser(desc: str, **defaults) -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message naming the ROADMAP item of each unported flag asked for."""
-    for name, (asks, item) in UNPORTED.items():
+    """Exit with a message naming the missing feature of each unported flag asked for."""
+    for name, (asks, feature) in UNPORTED.items():
         value = getattr(args, name, None)
         if (asks(value) if callable(asks) else value == asks):
             raise SystemExit(f"--{name.replace('_', '-')} is not ported to varnet_tpu_torch "
-                             f"yet (ROADMAP {item})")
+                             f"yet: it needs {feature}")
 
 
 def optimizer_of(args) -> OptimizerConfig:
@@ -80,15 +84,16 @@ def optimizer_of(args) -> OptimizerConfig:
                            or max(args.epochs // 6, 1))
 
 
-def refine(vn: VarNet, args, weight):
-    """The LM polish of ``--lm-steps`` (or None without it)."""
+def refine(vn: VarNet, args, weight, folderpath=None):
+    """The LM polish of ``--lm-steps`` (or None without it); with
+    ``folderpath`` it checkpoints into its ``lm/``."""
     if not getattr(args, "lm_steps", 0):
         return None
     return vn.refine_lm(
         steps=args.lm_steps, weight=weight, cg_iters=args.lm_cg,
         save_freq=max(args.lm_steps // 10, 1), target_error=args.target,
         matmul_precision=getattr(args, "precision", None) or "highest",
-        precond=getattr(args, "lm_precond", 0),
+        precond=getattr(args, "lm_precond", 0), folderpath=folderpath,
     )
 
 
@@ -113,6 +118,7 @@ def run_case(pde, args, weight, t_disc_num=None, **varnet_kwargs) -> VarNet:
         batch_num=args.batch_num,
         save_freq=args.save_freq,
         folderpath=args.folder,
+        resume=args.resume,
         target_error=args.target,
     )
     summary = {

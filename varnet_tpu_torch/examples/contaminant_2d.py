@@ -67,9 +67,10 @@ def _run_causal(args, kap, extra):
             optimizer=optimizer_of(args), **extra),
         train_kwargs=dict(batch_num=args.batch_num, save_freq=args.save_freq),
         folderpath=args.folder,
+        resume=args.resume,
     )
     summary = {"stage_losses": [s.get("final_loss") for s in stages]}
-    r_lm = refine(vn, args, w)
+    r_lm = refine(vn, args, w, folderpath=args.folder)
     if r_lm is not None and r_lm.losses:
         summary["lm_final_loss"] = r_lm.losses[-1]["loss"]
     print(json.dumps(summary))

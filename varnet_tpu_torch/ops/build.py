@@ -98,4 +98,6 @@ load_library.build_seconds = 0.0
 
 def raise_on(err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {err}")
+        from ..train.fault import CudaKernelError
+
+        raise CudaKernelError(what, err)

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from .checkpoint import list_checkpoint_steps
+
 __all__ = ["train_causal"]
 
 
@@ -46,13 +48,19 @@ def train_causal(
     varnet_kwargs: forwarded to every stage's ``VarNet`` (``input_scaling``
                    defaults to False here, see the module docstring)
     train_kwargs:  forwarded to every stage's ``.train`` call
-    folderpath:    stage w writes its training log under ``{folderpath}_w{w:g}``
+    folderpath:    stage w checkpoints (and logs) under ``{folderpath}_w{w:g}``: a
+                   fault mid-stage must not lose the warm-start chain
     stage_hook:    ``stage_hook(vn, window, result) -> dict`` run after each
                    stage; its return value is merged into the stage's record
     stage_transfer: ``stage_transfer(theta, w_prev, w_next) -> theta`` applied
                    to the warm-start iterate when the window grows
-    resume:        continuing a dead run from per-stage checkpoints is not
-                   ported yet (ROADMAP item 9) and raises
+    resume:        continue a dead run from its per-stage checkpoints (needs
+                   ``folderpath``): a stage whose folder holds ``epoch_num``
+                   epochs is restored and skipped (its record is ``{"t_end",
+                   "resumed", "epochs_done"}`` and ``stage_hook`` is not re-run),
+                   a partly trained stage trains only its remaining epochs,
+                   later stages run as usual; ``train_kwargs`` must not carry
+                   ``resume`` (the curriculum sets it per stage)
 
     Returns ``(vn, stages)``: the final-window ``VarNet`` and a list of
     per-stage dicts ``{"t_end", "final_loss", "result", ...}``.
@@ -67,14 +75,16 @@ def train_causal(
     if windows[0] <= 0.0:
         raise ValueError("windows must be positive fractions of the "
                          "interval (got a window <= 0)")
-    if resume:
-        raise NotImplementedError("train_causal(resume=True) needs checkpoints, which are "
-                                  "not ported to varnet_tpu_torch yet (ROADMAP item 9)")
+    if resume and folderpath is None:
+        raise ValueError("resume=True requires folderpath (nothing to resume from)")
     vkw = dict(varnet_kwargs or {})
     vkw.setdefault("input_scaling", False)
     tkw = dict(train_kwargs or {})
     tkw.setdefault("verbose", verbose)
-    for key in ("epoch_num", "weight", "folderpath", "resume"):
+    if "resume" in tkw:
+        raise ValueError("pass resume to train_causal itself, not via train_kwargs "
+                         "(the curriculum manages per-stage resume)")
+    for key in ("epoch_num", "weight", "folderpath"):
         if key in tkw:
             raise ValueError(f"pass {key} to train_causal itself, not via train_kwargs")
     tkw.setdefault("save_freq", max(epoch_num // 2, 1))
@@ -91,13 +101,29 @@ def train_causal(
             vn.theta = theta
         w_prev = w
         folder = None if folderpath is None else f"{folderpath}_w{w:g}"
-        res = vn.train(epoch_num=epoch_num, weight=weight, folderpath=folder, **tkw)
+        steps = list_checkpoint_steps(folder) if resume else []
+        done = steps[-1] if steps else 0
+        if done >= epoch_num:
+            # a completed stage: restore its theta (params only) and skip it
+            step, _ = vn._restore_theta(folder)
+            theta = vn.theta
+            stages.append({"t_end": w, "resumed": True, "epochs_done": step})
+            if verbose:
+                print(f"[varnet/causal] window [0,{w}]: resumed complete ({step} epochs), "
+                      "skipping", flush=True)
+            continue
+        # epoch_num is the window's TOTAL budget: train(resume=True) counts
+        # global epochs and runs only the remainder
+        res = vn.train(epoch_num=epoch_num, weight=weight, folderpath=folder,
+                       resume=bool(done), **tkw)
         theta = vn.theta
+        # empty when a fault retry found the work already done
         final_loss = res.losses[-1]["loss"] if res.losses else None
         rec = {"t_end": w, "final_loss": final_loss, "result": res}
         if stage_hook is not None:
             rec.update(stage_hook(vn, w, res) or {})
         stages.append(rec)
         if verbose:
-            print(f"[varnet/causal] window [0,{w}]: loss {final_loss:.3e}", flush=True)
+            loss_s = "n/a (restored complete)" if final_loss is None else f"{final_loss:.3e}"
+            print(f"[varnet/causal] window [0,{w}]: loss {loss_s}", flush=True)
     return vn, stages

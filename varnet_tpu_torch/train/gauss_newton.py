@@ -35,7 +35,14 @@ from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac
 from ..ops.residual import support_volume, weak_residual
 
 # make_residual_fn options of the JAX package that the port does not carry yet
-UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs", "neu")
+# argument -> the feature it needs, not ported yet
+UNPORTED = {
+    "source_fn": "the trainable source of the inverse source problem",
+    "diff_fn": "the trainable diffusivity of the inverse coefficient problem",
+    "vel_fn": "the trainable velocity of the inverse coefficient problem",
+    "has_obs": "observation rows",
+    "neu": "Neumann/Robin flux rows",
+}
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
 
 
@@ -74,7 +81,8 @@ def make_residual_fn(
         raise TypeError(f"make_residual_fn got unexpected arguments {unknown}")
     asked = sorted(k for k, v in unported.items() if v not in (None, False))
     if asked:
-        raise NotImplementedError(f"not ported to varnet_tpu_torch yet: {asked}")
+        raise NotImplementedError("not ported to varnet_tpu_torch yet: " + "; ".join(
+            f"{UNPORTED[k]} ({k})" for k in asked))
     d = static.n_space
     td = static.time_dependent
     n_in = static.n_inputs

@@ -31,7 +31,13 @@ from ..ops.fused_residual import CoeffData, fused_residual
 from ..ops.residual import masked_mse, masked_sum_sq, support_volume, weak_residual
 
 # make_loss_fn options of the JAX package that the port does not carry yet
-UNPORTED = ("source_fn", "diff_fn", "vel_fn", "has_obs")
+# argument -> the feature it needs, not ported yet
+UNPORTED = {
+    "source_fn": "the trainable source of the inverse source problem",
+    "diff_fn": "the trainable diffusivity of the inverse coefficient problem",
+    "vel_fn": "the trainable velocity of the inverse coefficient problem",
+    "has_obs": "observation rows",
+}
 
 
 def make_loss_fn(
@@ -66,14 +72,15 @@ def make_loss_fn(
     ``nl_vec``: the constant [d] Burgers direction b of the nonlinear
     advection term (None: a linear problem); the fused path needs
     ``prepared`` built with it (``prepare_residual_data(nl_vec=)``, K3).
-    Observation and flux rows are not ported (ROADMAP items 13 and 15).
+    Observation and flux rows are not ported (``UNPORTED``).
     """
     unknown = sorted(set(unported) - set(UNPORTED))
     if unknown:
         raise TypeError(f"make_loss_fn got unexpected arguments {unknown}")
     asked = sorted(k for k, v in unported.items() if v not in (None, False))
     if asked:
-        raise NotImplementedError(f"not ported to varnet_tpu_torch yet: {asked}")
+        raise NotImplementedError("not ported to varnet_tpu_torch yet: " + "; ".join(
+            f"{UNPORTED[k]} ({k})" for k in asked))
     d = static.n_space
     td = static.time_dependent
     n_in = static.n_inputs

@@ -13,6 +13,10 @@
   (optax.exponential_decay, staircase off).
 * clip: optax.clip_by_global_norm (no epsilon, unlike
   ``torch.nn.utils.clip_grad_norm_``).
+
+``Optimizer.state_dict()`` / ``load_state_dict()`` carry the slots, Adam's count
+and the schedule's step through a checkpoint (``train/checkpoint.py``), so a
+resumed run continues the bias correction and the decay where they stopped.
 """
 
 from __future__ import annotations
@@ -105,6 +109,7 @@ class Optimizer:
 
     def __init__(self, cfg: OptimizerConfig, params):
         self.params = list(params)
+        self.name = cfg.name
         if cfg.name == "adam":
             self.opt = AdamF32BiasCorrection(self.params, lr=cfg.lr)
         elif cfg.name == "rmsprop":
@@ -134,6 +139,48 @@ class Optimizer:
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """The optimizer's state in a layout fixed from the first step on (so
+        a checkpoint's structure can be checked against a fresh optimizer's):
+        the name, the slot tensors per parameter (adam: ``count``, ``m``,
+        ``v``; rmsprop: ``nu``; zeros before the first step, which is the
+        state a first step creates), and the schedule's step and rates (its
+        lambda is rebuilt from the config, not stored)."""
+        state = [self.opt.state.get(p, {}) for p in self.params]
+        out = {"name": self.name, "slots": {}, "sched": None}
+        slots = {"adam": ("m", "v"), "rmsprop": ("nu",)}.get(self.name, ())
+        for key in slots:
+            out["slots"][key] = [s[key] if key in s else torch.zeros_like(p)
+                                 for s, p in zip(state, self.params)]
+        if self.name == "adam":
+            out["count"] = int(state[0].get("count", 0)) if state else 0
+        if self.sched is not None:
+            out["sched"] = {"last_epoch": int(self.sched.last_epoch),
+                            "step_count": int(self.sched._step_count),
+                            "lrs": [float(g["lr"]) for g in self.opt.param_groups]}
+        return out
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Inverse of :meth:`state_dict` (the slot tensors are copied into the
+        optimizer's own, on the parameters' device)."""
+        if sd["name"] != self.name or (sd["sched"] is None) != (self.sched is None):
+            raise ValueError(f"optimizer state of '{sd['name']}' (schedule "
+                             f"{sd['sched'] is not None}) does not fit '{self.name}' "
+                             f"(schedule {self.sched is not None})")
+        with torch.no_grad():
+            for i, p in enumerate(self.params):
+                st = self.opt.state[p]
+                for key, tensors in sd["slots"].items():
+                    st[key] = tensors[i].to(device=p.device, dtype=p.dtype).clone()
+                if self.name == "adam":
+                    st["count"] = int(sd["count"])
+        if self.sched is not None:
+            self.sched.last_epoch = int(sd["sched"]["last_epoch"])
+            self.sched._step_count = int(sd["sched"]["step_count"])
+            for g, lr in zip(self.opt.param_groups, sd["sched"]["lrs"]):
+                g["lr"] = float(lr)
+            self.sched._last_lr = [float(lr) for lr in sd["sched"]["lrs"]]
 
 
 def make_optimizer(cfg: OptimizerConfig, params) -> Optimizer:
