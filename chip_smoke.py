@@ -36,6 +36,18 @@ is non-zero and no result line is printed):
                agree within rtol 2e-2, and the final rel-L2 stays in (6e-4, 1e-3).
                The kernels are also held to their plain versions at the chunk shape
                the LM calls them with.
+7a. siren   -- the main path with a SIREN net (activation "sin", ``init_siren`` at
+               omega0 6): the sin instantiations of K1/K2 (fwd rtol 1e-5, bwd 1e-4) at
+               the bench mesh w48x2 and of K5 fwd (1e-5), bwd and K6 (1e-4) at its
+               points w48x3 against their plain versions, and K4 at hard 3dt d8/t6
+               w64x2 beside tanh's K4 there, each timed; the sin / tanh time ratios at
+               the same shapes.  Then from one ``init_siren`` theta at the bench mesh
+               w48x2: 20 Adam epochs through K1/K2 and 20 on the general path through
+               K5, each within rtol 2e-4 of the plain general path; 2 LM iterations (cg
+               20, k_chunks 16) through K5/K6 from where Adam ended, within rtol 2e-2 of
+               the plain LM, the loss not rising; 20 exact-BC Adam epochs (3-D transient,
+               d8/t6 w64x2) through K4 within rtol 2e-4 of the plain path.  Launch
+               counters are set to 0 before each run and read after it.
 7b. resume  -- checkpoints and fault recovery on the main path: 40 Adam epochs at the
                bench shape (w20x2, save_freq 20) against 20 epochs in one ``VarNet``
                and a ``resume=True`` to 40 in a fresh one on the same folder, through
@@ -168,6 +180,8 @@ WEIGHT = (1.0, 10.0, 10.0)
 R_RTOL, G_RTOL = 1e-5, 1e-4      # r: f32 q-sums; grads: sums over ~4.4M points
 VJ_FWD_RTOL, VJ_RTOL = 1e-5, 1e-4  # K5 forward; K5 backward and K6 (longer f32 chains)
 LM = dict(steps=2, cg_iters=20, k_chunks=16)
+OMEGA0 = 6.0                     # SIREN's layer-0 frequency (VarNet's default)
+SIREN_NET = (48, 48)             # the siren phase's net: Adam through K1/K2, LM K5/K6
 
 
 def log(phase, **nums):
@@ -229,6 +243,20 @@ def _seeded_net(n_in, widths, seed):
     return params, gen
 
 
+def _siren_net(n_in, widths, seed, biases=True):
+    """A SIREN net on the card (``init_siren``, omega0 6; biases drawn too unless
+    ``biases`` is False) and its generator."""
+    import torch
+
+    from varnet_tpu_torch.models.mlp import init_siren
+
+    gen = torch.Generator().manual_seed(seed)
+    params = init_siren(gen, n_in, widths, omega0=OMEGA0, device="cuda")
+    for layer in params[:len(params) if biases else 0]:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).cuda()
+    return params, gen
+
+
 def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -248,21 +276,24 @@ def _bench_data(jacobian=False):
                                     has_react=False, device="cuda", jacobian=jacobian)
 
 
-def phase_kernels(widths, seed=0):
-    """Kernel vs plain at the bench mesh for one width; returns the numbers."""
+def phase_kernels(widths, seed=0, activation="tanh", data=None):
+    """Kernel vs plain at the bench mesh for one width (sin: a SIREN net); returns
+    the numbers."""
     import torch
 
     from varnet_tpu_torch.ops import fused_residual as fr
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    data = _bench_data()
-    params, gen = _seeded_net(data.xs.shape[0], widths, seed)
+    data = data or _bench_data()
+    net = _siren_net if activation == "sin" else _seeded_net
+    params, gen = net(data.xs.shape[0], widths, seed)
     gr = torch.randn(data.k, generator=gen).cuda()
+    act = activation
 
-    r_k = fr.dir_residual_fwd(params, data, "tanh")
-    r_p = fr.dir_residual_fwd_plain(params, data, "tanh")
-    g_k = fr.dir_residual_bwd(params, data, "tanh", gr)
-    g_p = fr.dir_residual_bwd_plain(params, data, "tanh", gr)
+    r_k = fr.dir_residual_fwd(params, data, act)
+    r_p = fr.dir_residual_fwd_plain(params, data, act)
+    g_k = fr.dir_residual_bwd(params, data, act, gr)
+    g_p = fr.dir_residual_bwd_plain(params, data, act, gr)
     torch.cuda.synchronize()
     r_err = _rel_err(r_k, r_p)
     g_err = max(_rel_err(a[k], b[k]) for a, b in zip(g_k, g_p) for k in ("w", "b"))
@@ -276,27 +307,28 @@ def phase_kernels(widths, seed=0):
     out = {
         "points": data.k * data.nq, "k": data.k,
         "r_rel_err": r_err, "g_rel_err": g_err, "r_abs_err": r_abs, "g_abs_err": g_abs,
-        "fwd_ms": _median_ms(lambda: fr.dir_residual_fwd(params, data, "tanh")),
-        "fwd_plain_ms": _median_ms(lambda: fr.dir_residual_fwd_plain(params, data, "tanh")),
-        "bwd_ms": _median_ms(lambda: fr.dir_residual_bwd(params, data, "tanh", gr)),
-        "bwd_plain_ms": _median_ms(
-            lambda: fr.dir_residual_bwd_plain(params, data, "tanh", gr)),
+        "fwd_ms": _median_ms(lambda: fr.dir_residual_fwd(params, data, act)),
+        "fwd_plain_ms": _median_ms(lambda: fr.dir_residual_fwd_plain(params, data, act)),
+        "bwd_ms": _median_ms(lambda: fr.dir_residual_bwd(params, data, act, gr)),
+        "bwd_plain_ms": _median_ms(lambda: fr.dir_residual_bwd_plain(params, data, act, gr)),
     }
-    log(f"kernels w{'x'.join(map(str, widths))}",
+    log(f"kernels w{'x'.join(map(str, widths))}" + ("" if act == "tanh" else f" {act}"),
         **{k: f"{v:.4g}" for k, v in out.items()})
     return out
 
 
-def _train(widths, theta, epochs, save_freq, fused):
+def _train(widths, theta, epochs, save_freq, fused, activation="tanh", use_pallas=None):
     """Adam at the bench mesh: through K1/K2 (fused) or the plain general path
-    (no fused residual, no value+jac kernel)."""
+    (no fused residual, no value+jac kernel; ``use_pallas``: the general path
+    through K5)."""
     import torch
 
     from varnet_tpu_torch import VarNet
     from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
     vn = VarNet(transient_ad_2d()["pde"], layer_width=widths, device="cuda",
-                use_fused_residual=fused, use_pallas=fused, **BENCH)
+                use_fused_residual=fused, use_pallas=fused if use_pallas is None else use_pallas,
+                activation=activation, **BENCH)
     if theta is not None:
         vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
     res = vn.train(epoch_num=epochs, weight=WEIGHT, save_freq=save_freq, verbose=False)
@@ -376,7 +408,7 @@ def _bench_points():
     return xs_t, coords.shape[1]
 
 
-def _vj_compare(params, xs_t, seed, label, timed, g=None):
+def _vj_compare(params, xs_t, seed, label, timed, g=None, act="tanh"):
     """K5 forward / backward and K6 against their plain versions on xs_t; the
     backward's cotangent g [1 + n_in, P] is seeded unless given."""
     import torch
@@ -389,12 +421,12 @@ def _vj_compare(params, xs_t, seed, label, timed, g=None):
     tangent = [{k: torch.randn(v.shape, generator=gen).cuda() for k, v in layer.items()}
                for layer in params]
     checks = {
-        "fwd": (lambda: vj.vj_fwd(params, xs_t, "tanh"),
-                lambda: vj.vj_fwd_plain(params, xs_t, "tanh"), VJ_FWD_RTOL),
-        "bwd": (lambda: vj._leaves(vj.vj_bwd(params, xs_t, "tanh", g)),
-                lambda: vj._leaves(vj.vj_bwd_plain(params, xs_t, "tanh", g)), VJ_RTOL),
-        "jvp": (lambda: vj.vj_jvp(params, xs_t, "tanh", tangent),
-                lambda: vj.vj_jvp_plain(params, xs_t, "tanh", tangent), VJ_RTOL),
+        "fwd": (lambda: vj.vj_fwd(params, xs_t, act),
+                lambda: vj.vj_fwd_plain(params, xs_t, act), VJ_FWD_RTOL),
+        "bwd": (lambda: vj._leaves(vj.vj_bwd(params, xs_t, act, g)),
+                lambda: vj._leaves(vj.vj_bwd_plain(params, xs_t, act, g)), VJ_RTOL),
+        "jvp": (lambda: vj.vj_jvp(params, xs_t, act, tangent),
+                lambda: vj.vj_jvp_plain(params, xs_t, act, tangent), VJ_RTOL),
     }
     out = {}
     for name, (kernel, plain, rtol) in checks.items():
@@ -426,14 +458,14 @@ def phase_kernels_vj(widths, xs_t, seed=0):
                        timed=True)
 
 
-def _lm(theta, use_pallas):
+def _lm(theta, use_pallas, widths=(48, 48, 48), activation="tanh"):
     import torch
 
     from varnet_tpu_torch import VarNet
     from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
-    vn = VarNet(transient_ad_2d()["pde"], layer_width=(48, 48, 48), device="cuda",
-                use_pallas=use_pallas, **BENCH)
+    vn = VarNet(transient_ad_2d()["pde"], layer_width=widths, device="cuda",
+                use_pallas=use_pallas, activation=activation, **BENCH)
     vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
     t0 = time.perf_counter()
     res = vn.refine_lm(weight=WEIGHT, save_freq=1, verbose=False, error_disc=96,
@@ -494,6 +526,114 @@ def phase_lm(xs_t, nq):
         rel_l2=f"{rp.errors[-1]:.6e}", s_per_iter=f"{per_it['plain']:.4f}",
         call_seconds=f"{secs_p:.3f}", max_rel_diff=f"{worst:.3e}")
     return launches, vn, rk
+
+# ---------------------------------------------------------------------------
+# SIREN nets (activation "sin", omega0 6) on the main path: K1/K2, K4, K5/K6
+
+
+def phase_siren(data, xs_t):
+    """The main path with a SIREN net: the sin kernels against their plain versions
+    at the shapes the tanh rows are timed at (K1/K2 at d48/t32 w48x2, K5/K6 at the
+    d48/t32 points w48x3; K4 at hard 3dt d8/t6 w64x2, with tanh timed there too);
+    20 Adam epochs through K1/K2 from one ``init_siren`` theta against the plain
+    general path (rtol 2e-4), and through K5 (the general path on the kernels);
+    2 LM iterations (cg 20, k_chunks 16) from there through K5/K6 against the
+    plain LM (rtol 2e-2); 20 exact-BC Adam epochs through K4 against the plain
+    path.  Each path's launch counters are set to 0 just before its run and read
+    just after.  Returns the kernels' numbers and launches."""
+    import torch
+
+    from varnet_tpu_torch.fem.assembly import pad_quad
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    t0 = time.perf_counter()
+    k48 = phase_kernels(SIREN_NET, seed=31, activation="sin", data=data)
+    v48 = _vj_compare(_siren_net(3, (48, 48, 48), 32)[0], xs_t, 33, "siren kernels-vj w48x3",
+                      timed=True, act="sin")
+    vh = _hard_vn("transient_ad_3d", (64, 64), HARD_3DT_SMALL, activation="sin")
+    quad = pad_quad(vh.fixed.quad, 1)
+    hdata = fr.prepare_residual_coeffs(quad, vh.scale, vh.shift, time_dependent=True,
+                                       has_react=vh.has_react, hard=vh._hard_tables(quad),
+                                       device="cuda")
+    params, gen = _siren_net(4, (64, 64), 34)
+    dirp = _residual_compare(params, hdata, gen, "siren kernels-dirp 3dt-hard d8/t6 w64x2",
+                             act="sin")
+    params, gen = _seeded_net(4, (64, 64), 34)
+    dirp_tanh = _residual_compare(params, hdata, gen, "tanh kernels-dirp 3dt-hard d8/t6 w64x2")
+    # each kernel's launch shape at those shapes, sin beside tanh
+    shapes, w48x2, w48x3 = {}, _seeded_net(3, SIREN_NET, 0)[0], _seeded_net(3, (48,) * 3, 0)[0]
+    for act in ("sin", "tanh"):
+        for kind in ("fwd", "bwd"):
+            shapes[f"dir_{kind}_{act}"] = fr.dir_launch_shape(kind, w48x2, data, act)
+            shapes[f"dirp_{kind}_{act}"] = fr.dir_launch_shape(kind, params, hdata, act)
+        for kind in ("fwd", "jvp", "bwd"):
+            shapes[f"vj_{kind}_{act}"] = vj.launch_shape(kind, w48x3, xs_t, act)
+    log("siren launch shapes", **{
+        k: f"{v['threads']}thr,{v['blocks_per_sm']}/SM,T{v['tile']},{v['smem_bytes']}B"
+        for k, v in shapes.items()})
+    del hdata, quad
+    torch.cuda.empty_cache()
+
+    theta, _ = _siren_net(3, SIREN_NET, 35, biases=False)   # init_siren, as VarNet draws it
+    fr.dir_residual_fwd.launches = fr.dir_residual_bwd.launches = 0
+    vk, rk = _train(SIREN_NET, theta, 20, 1, True, activation="sin")
+    k12 = {"fwd": fr.dir_residual_fwd.launches, "bwd": fr.dir_residual_bwd.launches}
+    vj.vj_fwd.launches = vj.vj_bwd.launches = vj.vj_jvp.launches = 0
+    _, rg = _train(SIREN_NET, theta, 20, 1, False, activation="sin", use_pallas=True)
+    k5_adam = {"vj_fwd": vj.vj_fwd.launches, "vj_bwd": vj.vj_bwd.launches}
+    _, rp = _train(SIREN_NET, theta, 20, 1, False, activation="sin")
+    lk, lg, lp = _losses(rk), _losses(rg), _losses(rp)
+    worst = max(float(np.max(np.abs(x - lp) / np.abs(lp))) for x in (lk, lg))
+    if min(k12.values()) < 20 or min(k5_adam.values()) < 20:
+        raise AssertionError(f"sin Adam launches K1/K2 {k12}, K5 {k5_adam} < 1 per epoch")
+    if not (np.all(np.isfinite(lk)) and lk[-1] < lk[0] and worst <= 2e-4):
+        raise AssertionError(f"sin Adam: kernel {lk[[0, -1]]} general-K5 {lg[[0, -1]]} vs plain "
+                             f"{lp[[0, -1]]}, max rel diff {worst:.3e}")
+    log("siren adam", widths="x".join(map(str, SIREN_NET)), omega0=OMEGA0, epochs=20,
+        **{f"dir_{k}": v for k, v in k12.items()}, **k5_adam, max_rel_diff=f"{worst:.3e}",
+        loss_start=f"{lk[0]:.6e}", loss_end_kernel=f"{lk[-1]:.6e}",
+        loss_end_general_k5=f"{lg[-1]:.6e}", loss_end_plain=f"{lp[-1]:.6e}",
+        steps_per_sec=f"{rk.steps_per_sec:.4f}")
+
+    vj.vj_fwd.launches = vj.vj_bwd.launches = vj.vj_jvp.launches = 0
+    _, mk, secs_k = _lm(vk.theta, True, SIREN_NET, "sin")
+    lm_launches = {"vj_fwd": vj.vj_fwd.launches, "vj_bwd": vj.vj_bwd.launches,
+                   "vj_jvp": vj.vj_jvp.launches}
+    _, mp, secs_p = _lm(vk.theta, False, SIREN_NET, "sin")
+    mlk, mlp = _losses(mk), _losses(mp)
+    need = LM["steps"] * LM["cg_iters"]
+    worst_lm = float(np.max(np.abs(mlk - mlp) / np.abs(mlp)))
+    if min(lm_launches.values()) < need:
+        raise AssertionError(f"sin LM kernel launches {lm_launches} < steps x cg_iters = {need}")
+    if not (np.all(np.isfinite(mlk)) and mlk[-1] <= lk[-1] * (1 + 1e-5)
+            and np.all(np.diff(mlk) <= 0) and worst_lm <= 2e-2):
+        raise AssertionError(f"sin LM: kernel {mlk} vs plain {mlp} from {lk[-1]}")
+    log("siren lm", **LM, losses_kernel=",".join(f"{v:.6e}" for v in mlk),
+        losses_plain=",".join(f"{v:.6e}" for v in mlp), max_rel_diff=f"{worst_lm:.3e}",
+        rel_l2=f"{mk.errors[-1]:.6e}", call_seconds_kernel=f"{secs_k:.3f}",
+        call_seconds_plain=f"{secs_p:.3f}", **lm_launches)
+
+    runs, k4 = {}, None
+    for fused in (True, False):
+        fr.dirp_residual_fwd.launches = fr.dirp_residual_bwd.launches = 0
+        vs = _hard_vn("transient_ad_3d", (64, 64), HARD_3DT_SMALL, activation="sin",
+                      use_fused_residual=fused, use_pallas=fused)
+        runs[fused] = _losses(vs.train(epoch_num=20, save_freq=1, verbose=False, error_disc=8,
+                                       error_times=2))
+        k4 = k4 or {"fwd": fr.dirp_residual_fwd.launches, "bwd": fr.dirp_residual_bwd.launches}
+    worst_h = float(np.max(np.abs(runs[True] - runs[False]) / np.abs(runs[False])))
+    if min(k4.values()) < 20 or not worst_h <= 2e-4:
+        raise AssertionError(f"sin hard Adam: K4 launches {k4}, kernel vs plain {worst_h:.3e}")
+    log("siren hard-adam", mesh="d8/t6", widths="64x64", epochs=20,
+        **{f"dirp_{k}": v for k, v in k4.items()}, max_rel_diff=f"{worst_h:.3e}",
+        loss_end_kernel=f"{runs[True][-1]:.6e}", loss_end_plain=f"{runs[False][-1]:.6e}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"k48": k48, "v48": v48, "dirp": dirp, "dirp_tanh": dirp_tanh, "shapes": shapes,
+            "p_hard": vh.static.n_test * vh.static.n_quad_per_test, "k_hard": vh.static.n_test,
+            "launches": {**{f"dir_{k}": v for k, v in k12.items()},
+                         **{f"dirp_{k}": v for k, v in k4.items()}, **lm_launches}}
+
 
 # ---------------------------------------------------------------------------
 # Checkpoints, resume and fault recovery on the main path (K1 / K2, K5 / K6)
@@ -1058,7 +1198,7 @@ def phase_hard_tables():
 
 
 def _residual_compare(params, data, gen, label, timed=True, kernels=None, plains=None,
-                      kinds=("fwd", "bwd")):
+                      kinds=("fwd", "bwd"), act="tanh"):
     """A residual kernel pair's forward / backward against its plain version on
     ``data`` (default: K4 against ``dir_residual_*_plain``)."""
     import torch
@@ -1069,10 +1209,9 @@ def _residual_compare(params, data, gen, label, timed=True, kernels=None, plains
     fwd_p, bwd_p = plains or (fr.dir_residual_fwd_plain, fr.dir_residual_bwd_plain)
     gr = torch.randn(data.k, generator=gen).cuda()
     checks = {
-        "fwd": (lambda: [fwd(params, data, "tanh")], lambda: [fwd_p(params, data, "tanh")],
-                R_RTOL),
-        "bwd": (lambda: [g[k] for g in bwd(params, data, "tanh", gr) for k in ("w", "b")],
-                lambda: [g[k] for g in bwd_p(params, data, "tanh", gr) for k in ("w", "b")],
+        "fwd": (lambda: [fwd(params, data, act)], lambda: [fwd_p(params, data, act)], R_RTOL),
+        "bwd": (lambda: [g[k] for g in bwd(params, data, act, gr) for k in ("w", "b")],
+                lambda: [g[k] for g in bwd_p(params, data, act, gr) for k in ("w", "b")],
                 G_RTOL),
     }
     out = {}
@@ -1683,9 +1822,10 @@ def main():
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    k20 = phase_kernels((20, 20))
-    phase_kernels((48, 48))
-    phase_kernels((48, 48, 48))
+    data = _bench_data()
+    k20 = phase_kernels((20, 20), data=data)
+    k48_tanh = phase_kernels((48, 48), data=data)
+    phase_kernels((48, 48, 48), data=data)
     phase_kernels_nq1296()
     launches = phase_train()
     phase_accuracy()
@@ -1694,7 +1834,16 @@ def main():
     phase_kernels_vj((48, 48), xs_t)
     v48 = phase_kernels_vj((48, 48, 48), xs_t)
     lm_launches, lm_vn, lm_res = phase_lm(xs_t, nq)
-    del xs_t
+    siren = phase_siren(data, xs_t)
+    # the sin kernels' times over tanh's at the same shape, in this call
+    ratios = {f"dir_{k}_w48x2": siren["k48"][f"{k}_ms"] / k48_tanh[f"{k}_ms"]
+              for k in ("fwd", "bwd")}
+    ratios.update({f"vj_{k}_w48x3": siren["v48"][k]["ms"] / v48[k]["ms"]
+                   for k in ("fwd", "bwd", "jvp")})
+    ratios.update({f"dirp_{k}_d8t6": siren["dirp"][k]["ms"] / siren["dirp_tanh"][k]["ms"]
+                   for k in ("fwd", "bwd")})
+    log("siren / tanh ms", **{k: f"{v:.4f}" for k, v in ratios.items()})
+    del xs_t, data
     torch.cuda.empty_cache()
     t_resume = time.perf_counter()
     phase_resume(lm_vn.theta, lm_res)
@@ -1769,6 +1918,29 @@ def main():
                jac_launches[kind], jac[kind],
                _bounds(kind, BURG_NET, 3, 4, p_b, 3, n_k=k_b, n_fields=4, first_panels=1))
         for kind in ("fwd", "bwd")
+    ]
+    # the sin instantiations of the main path's kernels (phase siren): K1/K2 at d48/t32
+    # w48x2, K4 at hard 3dt d8/t6 w64x2, K5/K6 at d48/t32 w48x3; launches from the
+    # phase's Adam (K1/K2, K4) and LM (K5/K6) runs
+    sl = siren["launches"]
+    k48s = siren["k48"]
+    kernels += [
+        _entry(f"dir_residual_{kind}_sin", src + "dir_residual.cu", res_py + ":1015",
+               sl[f"dir_{kind}"],
+               {"abs_err": k48s[f"{('r', 'g')[kind == 'bwd']}_abs_err"],
+                "ms": k48s[f"{kind}_ms"], "plain_ms": k48s[f"{kind}_plain_ms"]},
+               _bounds(kind, SIREN_NET, 3, 2, p_bench, 3, n_k=k_bench))
+        for kind in ("fwd", "bwd")
+    ] + [
+        _entry(f"dirp_residual_{kind}_sin", src + "dir_residual.cu", res_py + ":1340",
+               sl[f"dirp_{kind}"], siren["dirp"][kind],
+               _bounds(kind, (64, 64), 4, 2, siren["p_hard"], 4, n_k=siren["k_hard"],
+                       n_fields=6))
+        for kind in ("fwd", "bwd")
+    ] + [
+        _entry(f"vj_{k}_sin", src + "value_and_jac.cu", mlp_py + line, sl[f"vj_{k}"],
+               siren["v48"][k], _bounds(k, (48, 48, 48), 3, 4, p_bench, 3))
+        for k, line in (("fwd", ":266"), ("bwd", ":825"), ("jvp", ":508"))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,7 +40,7 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(20, 20), (8, 8, 8), (13, 48, 7), (64, 64)])
 @pytest.mark.parametrize("name,factory,kw,td,react", CASES, ids=[c[0] for c in CASES])
 def test_kernel_matches_plain(cuda, name, factory, kw, td, react, widths, activation):
@@ -110,7 +110,7 @@ def _vj_case(n_in, widths, p=1000, seed=0, device="cuda"):
     return params, xs_t, g, tangent
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", VJ_WIDTHS)
 @pytest.mark.parametrize("n_in", [1, 3, 4])
 def test_value_and_jac_kernels_match_plain(cuda, n_in, widths, activation):
@@ -130,12 +130,13 @@ def test_value_and_jac_kernels_match_plain(cuda, n_in, widths, activation):
             assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
-def _check_fwd(params, xs_t, activation):
+def _check_fwd(params, xs_t, activation, gates=None):
     """K5 forward (tensor cores, 3xTF32) against its plain version evaluated in f64,
     per output row: within 1e-5 of the row's max.  On a row where the f32 plain version
     is itself more than half of that from f64 (some deep sigmoid nets and the deepest
     n_in 1 tanh net: a cancellation of the row's terms that no f32 evaluation avoids),
-    within 3x the f32 plain version's own distance instead."""
+    within 3x the f32 plain version's own distance instead.  ``gates``: a list that
+    takes each comparison (row, error, the f32 plain version's, gate)."""
     before = vj.vj_fwd.launches
     out = vj.vj_fwd(params, xs_t, activation)
     torch.cuda.synchronize()
@@ -144,6 +145,8 @@ def _check_fwd(params, xs_t, activation):
     plain = vj.vj_fwd_plain(params, xs_t, activation)
     for row, (a, b, c) in enumerate(zip(out, ref, plain)):
         own = _rel(c.double(), b)
+        if gates is not None:
+            gates.append((f"vj_fwd r{row}", _rel(a.double(), b), own, 1e-5))
         assert _rel(a.double(), b) < (1e-5 if own <= 5e-6 else 3 * own), (
             row, _rel(a.double(), b), own)
 
@@ -167,18 +170,24 @@ def _check_bwd_jvp(params, xs_t, g, tangent, activation):
             assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("layers", [1, 2, 3, 4])
 @pytest.mark.parametrize("n_in", [1, 2, 3, 4])
 @pytest.mark.parametrize("hp", [8, 16, 24, 32, 40, 48, 56, 64])
-def test_tensor_core_kernels_match_plain_at_every_width(cuda, hp, n_in, layers, activation):
+def test_tensor_core_kernels_match_plain_at_every_width(cuda, hp, n_in, layers, activation,
+                                                        request):
+    """Every padded width, input count and depth (sin's backward keeps cos z per layer
+    beside the slots: HP 64 x 4 hidden layers x n_in 4 is the largest it must fit);
+    the 3x-rule comparisons are kept as the user property ``gates``."""
+    gates = []
     params, xs_t, g, tangent = _vj_case(n_in, (hp,) * layers, p=777, seed=hp + n_in + layers)
-    _check_fwd(params, xs_t, activation)
+    _check_fwd(params, xs_t, activation, gates)
     _check_bwd_jvp(params, xs_t, g, tangent, activation)
     # the K1/K4 forward: table mode with and without reaction, precoeff mode
     for mode in DIR_MODES:
         params, data, _ = _dir_synth(mode, n_in, (hp,) * layers, seed=hp + n_in + layers)
-        _check_dir_fwd(mode, params, data, activation)
+        _check_dir_fwd(mode, params, data, activation, gates)
+    request.node.user_properties.append(("gates", json.dumps(gates)))
 
 
 @pytest.mark.parametrize("p", [1, 15, 17, 63, 65, 1001])
@@ -238,12 +247,59 @@ def test_value_and_jac_function_rules_on_cuda(cuda):
 
 
 def test_value_and_jac_kernels_refuse_what_they_do_not_take(cuda):
-    params, xs_t, _, _ = _vj_case(3, (20, 20))
-    with pytest.raises(ValueError):
-        vj.vj_fwd(params, xs_t, "sin")
+    """sin runs on K5 / K6 (against the plain versions as the sweeps hold them); a net
+    wider than 64 is refused, with sin by the message naming the slice that brings
+    csrc/ff_mlp.cu's sin mode."""
+    params, xs_t, g, tangent = _vj_case(3, (20, 20))
+    before = vj.vj_fwd.launches
+    _check_fwd(params, xs_t, "sin")
+    _check_bwd_jvp(params, xs_t, g, tangent, "sin")
+    assert vj.vj_fwd.launches == before + 1
     wide, xs_w, _, _ = _vj_case(3, (72, 72))
     with pytest.raises(ValueError):
         vj.vj_fwd(wide, xs_w, "tanh")
+    with pytest.raises(ValueError, match="next slice"):
+        vj.vj_fwd(wide, xs_w, "sin")
+
+
+def test_sin_varnet_runs_on_the_kernels_and_nowhere_else(cuda):
+    """A SIREN net on the card: Adam through K1/K2, LM through K5 / K6, exact BC through
+    K4, each following its plain path; Fourier features, the jacobian-panel residual
+    and hidden widths above 64 (csrc/ff_mlp.cu) raise naming the next slice, with no
+    launch and no fallback."""
+    kw = dict(layer_width=(20, 20), disc_num=8, b_disc_num=6, t_disc_num=4, device=cuda,
+              activation="sin")
+    train = dict(epoch_num=5, weight=(1.0, 10.0, 10.0), save_freq=1, verbose=False,
+                 error_disc=8, error_times=2)
+    lm = dict(steps=2, weight=(1.0, 10.0, 10.0), cg_iters=5, k_chunks=2, save_freq=1,
+              verbose=False, error_disc=8, error_times=2)
+    pde = transient_ad_2d()["pde"]
+    runs = {}
+    for fused in (True, False):
+        vn = VarNet(pde, use_fused_residual=fused, use_pallas=fused, **kw)
+        before = fr.dir_residual_fwd.launches
+        adam = vn.train(**train)
+        k1 = fr.dir_residual_fwd.launches - before
+        before = (vj.vj_bwd.launches, vj.vj_jvp.launches)
+        runs[fused] = (adam, vn.refine_lm(**lm))
+        k56 = [vj.vj_bwd.launches - before[0], vj.vj_jvp.launches - before[1]]
+        assert (k1 == 5 and min(k56) >= 10) if fused else (k1, k56) == (0, [0, 0])
+    for a, b, rtol in zip(runs[True], runs[False], (2e-4, 2e-2)):
+        np.testing.assert_allclose([r["loss"] for r in a.losses],
+                                   [r["loss"] for r in b.losses], rtol=rtol)
+    from varnet_tpu_torch.problems.analytic import transient_ad_1d
+
+    hard = VarNet(transient_ad_1d()["pde"], layer_width=(16, 16), disc_num=12, t_disc_num=4,
+                  device=cuda, activation="sin", hard_bc=True)
+    before = fr.dirp_residual_bwd.launches
+    assert np.isfinite(hard.train(epoch_num=3, save_freq=3, verbose=False,
+                                  error_disc=16).losses[-1]["loss"])
+    assert fr.dirp_residual_bwd.launches == before + 3
+    for bad in (dict(fourier_features=4), dict(layer_width=(72, 72)),
+                dict(fused_directional=False)):
+        vn = VarNet(pde, **{**kw, **bad})
+        with pytest.raises(ValueError, match="next slice"):
+            vn.train(**{**train, "epoch_num": 1})
 
 
 def test_refine_lm_on_cuda_goes_through_the_kernels(cuda):
@@ -568,7 +624,7 @@ def _dirp_case(cuda, factory, kw, td, react, hard, widths, seed=0):
     return data, params, torch.randn(data.k, generator=gen).to(cuda)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(20, 20), (64, 64), (13, 48, 7), (32, 32, 32)])
 @pytest.mark.parametrize("name,factory,kw,td,react,hard", DIRP_CASES,
                          ids=[c[0] for c in DIRP_CASES])
@@ -643,7 +699,7 @@ def _dir_f64(data):
     return _f64_data(data)
 
 
-def _check_dir_bwd(mode, params, data, gr, activation):
+def _check_dir_bwd(mode, params, data, gr, activation, gates=None):
     """The K1 (table mode) or K4 (precoeff mode) backward against its plain version
     evaluated in f64: each gradient leaf within 1e-4 of its max.  On a leaf where the
     f32 plain version is itself more than half of that from f64 (a sum that cancels,
@@ -662,10 +718,12 @@ def _check_dir_bwd(mode, params, data, gr, activation):
             if p[k].abs().max() > 0:
                 own = _rel(q[k].double(), p[k])
                 err = _rel(g[k].double(), p[k])
+                if gates is not None:
+                    gates.append((f"{mode} {k}", err, own, 1e-4))
                 assert err < (1e-4 if own <= 5e-5 else 3 * own), (k, err, own)
 
 
-def _check_dir_fwd(mode, params, data, activation):
+def _check_dir_fwd(mode, params, data, activation, gates=None):
     """The K1 (table mode) or K4 (precoeff mode) forward against its plain version
     evaluated in f64: r within 1e-5 of max |r|, or within 3x the f32 plain version's own
     distance from f64 where that exceeds half the gate (a q-sum that cancels).
@@ -678,6 +736,8 @@ def _check_dir_fwd(mode, params, data, activation):
     ref = fr.dir_residual_fwd_plain(_f64(params), _dir_f64(data), activation)
     own = _rel(fr.dir_residual_fwd_plain(params, data, activation).double(), ref)
     err = _rel(r.double(), ref)
+    if gates is not None:
+        gates.append((f"{mode} r", err, own, 1e-5))
     assert err < (1e-5 if own <= 5e-6 else 3 * own), (err, own)
     return r
 
@@ -732,14 +792,17 @@ def test_training_at_1296_points_per_test_function(cuda, kind):
                                [r["loss"] for r in vns[1].train(**train).losses], rtol=2e-4)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("layers", [1, 2, 3, 4])
 @pytest.mark.parametrize("n_in", [1, 2, 3, 4])
 @pytest.mark.parametrize("hp", [8, 16, 24, 32, 40, 48, 56, 64])
 @pytest.mark.parametrize("mode", DIR_MODES)
-def test_dir_backward_matches_plain_at_every_width(cuda, mode, hp, n_in, layers, activation):
+def test_dir_backward_matches_plain_at_every_width(cuda, mode, hp, n_in, layers, activation,
+                                                   request):
+    gates = []
     params, data, gr = _dir_synth(mode, n_in, (hp,) * layers, seed=hp + n_in + layers)
-    _check_dir_bwd(mode, params, data, gr, activation)
+    _check_dir_bwd(mode, params, data, gr, activation, gates)
+    request.node.user_properties.append(("gates", json.dumps(gates)))
 
 
 @pytest.mark.parametrize("k", [0, 1, 3, 7, 111])

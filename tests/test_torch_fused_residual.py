@@ -37,7 +37,9 @@ CASES = [  # name, factory, assembly kwargs, time-dependent, reaction, widths
 IDS = [c[0] for c in CASES]
 
 
-def _setup(factory, kw, widths, seed=0):
+def _setup(factory, kw, widths, seed=0, siren=False):
+    """Fixed data, a seeded net and a cotangent; ``siren``: the net drawn from
+    SIREN's bounds at omega0 6 (``init_siren``), biases seeded as for the others."""
     fd = build_fixed_data(factory()["pde"], **kw)
     st = fd.static
     rng = np.random.default_rng(seed)
@@ -45,6 +47,10 @@ def _setup(factory, kw, widths, seed=0):
     raw = [{"w": (rng.standard_normal((a, b)) * np.sqrt(2.0 / (a + b))).astype(np.float32),
             "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
            for a, b in zip(sizes[:-1], sizes[1:])]
+    if siren:
+        bounds = [6.0 / a if i == 0 else np.sqrt(6.0 / a) for i, a in enumerate(sizes[:-1])]
+        for layer, bound in zip(raw, bounds):
+            layer["w"] = rng.uniform(-bound, bound, layer["w"].shape).astype(np.float32)
     cw = rng.standard_normal(fd.quad.coords.shape[0]).astype(np.float32)
     return fd, st, raw, cw
 
@@ -55,20 +61,20 @@ def _data(fd, st, td=True, react=False):
                                     time_dependent=td, has_react=react)
 
 
-def _port(fd, st, raw, cw, td, react):
+def _port(fd, st, raw, cw, td, react, activation="tanh"):
     """Port residual and gradients of sum(r * cw) through DirResidualFn."""
     data = _data(fd, st, td, react)
     params = params_from_jax(raw)
     for layer in params:
         for v in layer.values():
             v.requires_grad_(True)
-    r = fr.fused_residual(params, data, "tanh")
+    r = fr.fused_residual(params, data, activation)
     grads = torch.autograd.grad((r * torch.from_numpy(cw)).sum(),
                                 [layer[k] for layer in params for k in ("w", "b")])
     return r.detach().numpy(), [g.numpy() for g in grads]
 
 
-def _jax(fd, st, raw, cw, td, react, q_block):
+def _jax(fd, st, raw, cw, td, react, q_block, activation="tanh"):
     quad = jax.tree_util.tree_map(jnp.asarray, fd.quad)
     scale, shift = make_input_scaling(st.input_lo, st.input_hi)
     k = quad.coords.shape[0]
@@ -76,7 +82,7 @@ def _jax(fd, st, raw, cw, td, react, q_block):
     def loss(p):
         if q_block is None:  # the general path
             nq = quad.coords.shape[1]
-            u, du = mlp_value_and_jac(p, quad.coords.reshape(k * nq, -1), "tanh",
+            u, du = mlp_value_and_jac(p, quad.coords.reshape(k * nq, -1), activation,
                                       scale, shift)
             d = st.n_space
             r = weak_residual(du[:, :d].reshape(k, nq, d), quad.N, quad.dN, quad.w,
@@ -85,7 +91,7 @@ def _jax(fd, st, raw, cw, td, react, q_block):
                               u=u.reshape(k, nq) if react else None,
                               react=quad.react if react else None)
         else:
-            r = pallas_fused_residual(p, quad, "tanh", scale, shift, time_dependent=td,
+            r = pallas_fused_residual(p, quad, activation, scale, shift, time_dependent=td,
                                       has_react=react, tile=k, interpret=True,
                                       q_block=q_block)
         return jnp.sum(r * cw), r
@@ -110,7 +116,18 @@ def test_matches_jax(name, factory, kw, td, react, widths, q_block):
     _assert_match(r, grads, r_ref, g_ref)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("q_block", [1, 2, None], ids=["K2_G1", "K1_G2", "general"])
+@pytest.mark.parametrize("name,factory,kw,td,react,widths", CASES, ids=IDS)
+def test_sin_matches_jax(name, factory, kw, td, react, widths, q_block):
+    """A SIREN net (sin, omega0 6): the port's K1/K2 plain version against the same
+    JAX kernels and general path, at the same tolerances."""
+    fd, st, raw, cw = _setup(factory, kw, widths, seed=2, siren=True)
+    r, grads = _port(fd, st, raw, cw, td, react, "sin")
+    r_ref, g_ref = _jax(fd, st, raw, cw, td, react, q_block, "sin")
+    _assert_match(r, grads, r_ref, g_ref)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("name,factory,kw,td,react,widths", CASES, ids=IDS)
 def test_closed_form_backward_matches_autograd(name, factory, kw, td, react, widths,
                                                activation):
@@ -148,8 +165,13 @@ def test_unsupported_inputs_raise():
     fd, st, raw, cw = _setup(*CASES[0][1:3], CASES[0][5])
     data = _data(fd, st)
     params = params_from_jax(raw)
-    with pytest.raises(ValueError, match="sin"):
-        fr.dir_residual_fwd(params, data, "sin")
+    with pytest.raises(ValueError, match="unknown activation"):
+        fr.dir_residual_fwd(params, data, "relu")
+    # sin where the card would take csrc/ff_mlp.cu (hidden width > 64): refused on
+    # the CPU as there
+    wide = params_from_jax(_setup(*CASES[0][1:3], (72, 8))[2])
+    with pytest.raises(ValueError, match="sin on csrc/ff_mlp.cu"):
+        fr.dir_residual_fwd(wide, data, "sin")
     with pytest.raises(ValueError, match="hidden width"):
         fr._check_kernel_args(params_from_jax(_setup(*CASES[0][1:3], (72, 8))[2]), data,
                               "tanh")

@@ -55,7 +55,9 @@ CASES = [
 IDS = [c[0] for c in CASES]
 
 
-def _setup(factory, kw, hard, widths, seed=0):
+def _setup(factory, kw, hard, widths, seed=0, siren=False):
+    """Fixed data, exact-BC tables, a seeded net, a cotangent and the input scaling;
+    ``siren``: the net drawn from SIREN's bounds at omega0 6 (``init_siren``)."""
     pde = factory()["pde"]
     fd = build_fixed_data(pde, **kw)
     st = fd.static
@@ -65,6 +67,10 @@ def _setup(factory, kw, hard, widths, seed=0):
     raw = [{"w": (rng.standard_normal((a, b)) * np.sqrt(2.0 / (a + b))).astype(np.float32),
             "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
            for a, b in zip(sizes[:-1], sizes[1:])]
+    if siren:
+        bounds = [6.0 / a if i == 0 else np.sqrt(6.0 / a) for i, a in enumerate(sizes[:-1])]
+        for layer, bound in zip(raw, bounds):
+            layer["w"] = rng.uniform(-bound, bound, layer["w"].shape).astype(np.float32)
     cw = rng.standard_normal(fd.quad.coords.shape[0]).astype(np.float32)
     scale, shift = (np.asarray(a) for a in make_input_scaling(st.input_lo, st.input_hi))
     return fd, st, hq, raw, cw, scale, shift
@@ -95,7 +101,7 @@ def test_coefficients_bit_equal_to_jax(name, factory, kw, td, react, hard, width
         assert not data.cdir[st.n_space:].any()  # the MOR rows' zero direction
 
 
-def _port(fd, st, hq, raw, cw, td, react, scale, shift):
+def _port(fd, st, hq, raw, cw, td, react, scale, shift, activation="tanh"):
     """Port r and the gradients of sum(r * cw) through DirResidualFn (K4's plain
     version on the CPU)."""
     data = _port_data(fd, st, hq, td, react, scale, shift)
@@ -103,19 +109,19 @@ def _port(fd, st, hq, raw, cw, td, react, scale, shift):
     leaves = [layer[k] for layer in params for k in ("w", "b")]
     for v in leaves:
         v.requires_grad_(True)
-    r = fr.fused_residual(params, data, "tanh")
+    r = fr.fused_residual(params, data, activation)
     grads = torch.autograd.grad((r * torch.from_numpy(cw)).sum(), leaves, allow_unused=True)
     return r.detach().numpy(), [np.zeros(tuple(v.shape), np.float32) if g is None
                                 else g.numpy() for v, g in zip(leaves, grads)]
 
 
-def _jax(fd, hq, raw, cw, td, react, scale, shift):
+def _jax(fd, hq, raw, cw, td, react, scale, shift, activation="tanh"):
     quad = jax.tree_util.tree_map(jnp.asarray, fd.quad)
     hq_d = None if hq is None else jax.tree_util.tree_map(jnp.asarray, hq)
     k = quad.coords.shape[0]
 
     def loss(p):
-        r = pallas_fused_residual(p, quad, "tanh", jnp.asarray(scale), jnp.asarray(shift),
+        r = pallas_fused_residual(p, quad, activation, jnp.asarray(scale), jnp.asarray(shift),
                                   time_dependent=td, has_react=react, tile=k,
                                   interpret=True, q_block=1, precoeff=True, hard=hq_d)
         return jnp.sum(r * cw), r
@@ -135,6 +141,18 @@ def test_plain_version_matches_jax_kernel(name, factory, kw, td, react, hard, wi
         np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
 
 
+@pytest.mark.parametrize("name,factory,kw,td,react,hard,widths", CASES, ids=IDS)
+def test_sin_matches_jax_kernel(name, factory, kw, td, react, hard, widths):
+    """A SIREN net (sin, omega0 6) through K4's plain version against the JAX
+    kernel, at the tolerances above."""
+    fd, st, hq, raw, cw, scale, shift = _setup(factory, kw, hard, widths, seed=3, siren=True)
+    r, grads = _port(fd, st, hq, raw, cw, td, react, scale, shift, "sin")
+    r_ref, g_ref = _jax(fd, hq, raw, cw, td, react, scale, shift, "sin")
+    np.testing.assert_allclose(r, r_ref, rtol=1e-5, atol=1e-5 * np.abs(r_ref).max())
+    for g, gr in zip(grads, g_ref):
+        np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
+
+
 def test_width_256_matches_jax_kernel():
     """At the widest hidden width csrc/ff_mlp.cu takes in precoeff mode (HP 256, warp
     groups of four on the card): exact BC on the order-2 2-D space, tolerances as above."""
@@ -147,7 +165,7 @@ def test_width_256_matches_jax_kernel():
         np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in ("2dt-hard", "2d-o2-hard",
                                                                 "adr1d-hard")],
                          ids=["2dt-hard", "2d-o2-hard", "adr1d-hard"])
@@ -188,8 +206,12 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="dirp_residual_ff_fwd"):
         fr._check_dirp_args(params_from_jax(_setup(*CASES[1][1:3], True, (72, 8))[3]), data,
                             "tanh")
-    with pytest.raises(ValueError, match="sin"):
-        fr._check_dirp_args(params_from_jax(raw), data, "sin")
+    # sin runs on K4 up to width 64; above, where the card would take csrc/ff_mlp.cu,
+    # it is refused on the CPU as there
+    fr._check_dirp_args(params_from_jax(raw), data, "sin")
+    wide = params_from_jax(_setup(*CASES[1][1:3], True, (72, 8))[3])
+    with pytest.raises(ValueError, match="sin on csrc/ff_mlp.cu"):
+        fr.dirp_residual_fwd(wide, data, "sin")
     fr._check_dirp_args(params_from_jax(raw), data, "tanh")
     with pytest.raises(ValueError, match="contiguous"):
         fr._check_dirp_args(params_from_jax(raw), data._replace(csrc=data.csrc[:-1]), "tanh")

@@ -43,6 +43,14 @@ from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.ops import value_and_jac as vj
 from varnet_tpu_torch.ops.fused_residual import _act_triple
 
+
+def _act_of_a(name):
+    """The kernels' tanh / sigmoid helpers with act' and act'' as functions of the
+    output a alone, as these emulations apply them."""
+    act, act_p, act_pp = _act_triple(name)
+    return act, (lambda a: act_p(None, a)), (lambda a, sp: act_pp(None, a, sp))
+
+
 GATE = 1e-4         # the card gates of K5 bwd, K6 and the K1/K4 gradients
 FWD_GATE = 1e-5     # K5 forward's
 HEADROOM = 10.0     # 3xTF32 must stay below its gate / HEADROOM ...
@@ -126,7 +134,7 @@ def bwd(params, xs, g, act_name, mm):
     """K5 backward as the kernel computes it: hidden-layer products through
     ``mm``, everything else in the tensors' own precision.  Parameters in the
     kernel's layout: wts[l] [out, in], bs[l] [out, 1]."""
-    act, act_p, act_pp = _act_triple(act_name)
+    act, act_p, act_pp = _act_of_a(act_name)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     n, p = xs.shape
@@ -171,7 +179,7 @@ def bwd(params, xs, g, act_name, mm):
 
 def jvp(params, xs, tangent, act_name, mm):
     """K6 as the kernel computes it (``mm`` for the hidden layers' products)."""
-    act, act_p, act_pp = _act_triple(act_name)
+    act, act_p, act_pp = _act_of_a(act_name)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     dwts = [layer["w"].T for layer in tangent]
@@ -201,7 +209,7 @@ def jvp(params, xs, tangent, act_name, mm):
 def fwd(params, xs, act_name, mm):
     """K5 forward as the kernel computes it: the value and n_in jacobian panels stacked,
     the hidden-layer products through ``mm``."""
-    act, act_p, _ = _act_triple(act_name)
+    act, act_p, _ = _act_of_a(act_name)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     n, p = xs.shape
@@ -234,7 +242,7 @@ def dir_fwd(params, xs, c, csrc, cu, nq, act_name, mm):
     tensors' own precision, the stacked [a | t] through ``mm`` at each hidden layer, the
     point contributions w_out . t + csrc (+ cu (w_out . a + b_out), cu None: no
     reaction), then the test functions' sums (``qsum``)."""
-    act, act_p, _ = _act_triple(act_name)
+    act, act_p, _ = _act_of_a(act_name)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     p = xs.shape[1]
@@ -264,7 +272,7 @@ def dir_bwd(params, xs, c, g_tan, cu, act_name, mm):
     directional tangent t = act'(a) W c, stacked [a | t]; the output cotangents g_val =
     g_tan cu (zero without reaction: cu None) and g_tan per point; the hidden-layer
     products through ``mm``; the act'' term (act''/act') gj t."""
-    act, act_p, _ = _act_triple(act_name)
+    act, act_p, _ = _act_of_a(act_name)
     ratio = (lambda a: -2.0 * a) if act_name == "tanh" else (lambda a: 1.0 - 2.0 * a)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
@@ -366,7 +374,7 @@ def ff_stacks(params, data, dirs, act_name, mm):
     tangent panels [2F, np P] (pc = bt . v in the JAX kernels' order), layer 0 through
     ``mm`` over W0's rows in the kernel's order, then each hidden layer; per layer the
     slot [a | J_1 .. J_{np-1}] [H, np P].  Returns (S_0, slots)."""
-    act, act_p, _ = _act_triple(act_name)
+    act, act_p, _ = _act_of_a(act_name)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     p = data.xs.shape[1]
@@ -417,7 +425,7 @@ def ff_bwd(params, data, dirs, go, act_name, mm):
     the cotangents G_{l-1} = [gz | gp]_l W_l^T through ``mm``, the epilogue gz = act' ga
     + (act''/act') sum_m gj_m J_m, gp_m = act' gj_m; dW_0 against the embedding's
     panels.  go [np, P]: the output cotangent of every panel."""
-    act, act_p, _ = _act_triple(act_name)
+    act, act_p, _ = _act_of_a(act_name)
     ratio = (lambda a: -2.0 * a) if act_name == "tanh" else (lambda a: 1.0 - 2.0 * a)
     wts = [layer["w"].T for layer in params]
     n_panels, p = go.shape
@@ -451,7 +459,7 @@ def ff_jvp(params, data, tangent, act_name, mm):
     own fresh tiles), each hidden layer S W and DS W + S dW (the two sharing a k-step's
     fresh tile), W0's rows in the kernel's slice order; the epilogue and the output rows
     dW_out s + w_out ds in the tensors' own precision."""
-    act, act_p, act_pp = _act_triple(act_name)
+    act, act_p, act_pp = _act_of_a(act_name)
     wts = [layer["w"].T for layer in params]
     bs = [layer["b"][:, None] for layer in params]
     dwts = [layer["w"].T for layer in tangent]

@@ -63,7 +63,7 @@ def _leaves(params):
     return [layer[k] for layer in params for k in ("w", "b")]
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(8, 8), (16, 16, 16)])
 def test_port_matches_pallas_interpret(widths, activation):
     """u, du (scaled inputs, P = 300: not a tile multiple), the parameter
@@ -110,7 +110,7 @@ def test_port_matches_pallas_interpret(widths, activation):
     np.testing.assert_allclose(tdu.numpy(), np.asarray(jddu_t), **GRAD)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("n_in,widths", [(1, (8,)), (2, (13, 20, 7)), (3, (20, 20)),
                                          (4, (16, 16, 16))])
 def test_function_rules_match_autograd(n_in, widths, activation):
@@ -150,15 +150,22 @@ def test_value_and_jac_matches_mlp_value_and_jac():
 
 
 def test_cpu_wrappers_launch_nothing_and_refuse_sin():
+    """The CPU route takes the plain versions and counts no launch, for sin too;
+    sin is refused where the card would take csrc/ff_mlp.cu (a hidden width
+    above 64, K7 / K8), on the CPU as there."""
     params = params_from_jax(_theta(3, (8, 8)))
     xs_t = torch.zeros(3, 10)
     before = (vj.vj_fwd.launches, vj.vj_bwd.launches, vj.vj_jvp.launches)
-    vj.vj_fwd(params, xs_t, "tanh")
-    vj.vj_bwd(params, xs_t, "tanh", torch.ones(4, 10))
-    vj.vj_jvp(params, xs_t, "tanh", params)
+    for act in ("tanh", "sin"):
+        vj.vj_fwd(params, xs_t, act)
+        vj.vj_bwd(params, xs_t, act, torch.ones(4, 10))
+        vj.vj_jvp(params, xs_t, act, params)
     assert (vj.vj_fwd.launches, vj.vj_bwd.launches, vj.vj_jvp.launches) == before
-    with pytest.raises(ValueError, match="sin"):
-        vj.vj_fwd(params, xs_t, "sin")
+    wide = params_from_jax(_theta(3, (72, 8)))
+    with pytest.raises(ValueError, match="sin on csrc/ff_mlp.cu"):
+        vj.vj_fwd(wide, xs_t, "sin")
+    with pytest.raises(ValueError, match="next slice"):
+        vj.ff_vj_fwd(params, xs_t, None, "sin")
 
 
 @pytest.mark.parametrize("widths", [(20, 20), (48, 48, 48)])

@@ -22,6 +22,7 @@ from .models.mlp import (
     ff_apply,
     ff_value_and_jac,
     init_mlp,
+    init_siren,
     make_fourier_features,
     make_input_scaling,
     mlp_apply,
@@ -51,6 +52,7 @@ __all__ = [
     "PointData",
     "ProblemStatic",
     "init_mlp",
+    "init_siren",
     "make_fourier_features",
     "ff_apply",
     "ff_value_and_jac",

@@ -40,6 +40,7 @@ from .models.mlp import (
     ff_apply,
     ff_value_and_jac,
     init_mlp,
+    init_siren,
     leaf_segments,
     make_fourier_features,
     make_input_scaling,
@@ -85,7 +86,12 @@ class VarNet:
       integ_p_num:  Gauss-Legendre points per dim per element
       test_order:   1 = hat test space (the reference's); 2 = quadratic
                     Lagrange test space (per-node [K, nQ] test tables)
-      activation:   'tanh' | 'sigmoid'
+      activation:   'tanh' | 'sigmoid' | 'sin'.  sin (SIREN) nets are drawn by
+                    ``init_siren``; on CUDA they run on dir_residual.cu and
+                    value_and_jac.cu, and the csrc/ff_mlp.cu routes (Fourier
+                    features, the jacobian-panel residual K3, hidden widths
+                    65-256) refuse them until that file has a sin mode
+      omega0:       SIREN's layer-0 frequency (activation 'sin' only)
       seed:         seed of the ``torch.Generator`` that draws the initial net
       device:       torch device of the fixed data, parameters and training;
                     'cuda' raises when no GPU is present (no fallback)
@@ -157,6 +163,7 @@ class VarNet:
         hard_bc: bool = False,
         fused_precoeff: bool = False,
         fused_directional: bool = True,
+        omega0: float = 6.0,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -219,7 +226,11 @@ class VarNet:
             self.fourier_b = make_fourier_features(gen, n_in, int(fourier_features),
                                                    fourier_scale).to(self.device)
         net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
-        self.theta = init_mlp(gen, net_in, self.layer_width, device=self.device)
+        if activation == "sin":
+            self.theta = init_siren(gen, net_in, self.layer_width, omega0=float(omega0),
+                                    device=self.device)
+        else:
+            self.theta = init_mlp(gen, net_in, self.layer_width, device=self.device)
         self.input_scaling = bool(input_scaling)
         self.scale = self.shift = None
         if self.input_scaling:

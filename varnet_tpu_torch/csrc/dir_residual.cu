@@ -66,6 +66,17 @@
 // block-diagonal weights and VMEM tile pickers only fed the 128-row MXU and are gone:
 // points are [rows, P] (P = K * nq, point p = k * nq + q), so loads are coalesced.
 //
+// Activations: tanh and sigmoid (act 0 / 1) share one instantiation per width, act'
+// and act'' read back from the output a; sin (act 2, SIREN nets, the JAX kernels'
+// activation="sin") has instantiations of its own (SIN), since act' = cos z is no
+// function of a and the backward's act'' term is -a p, p the tangent's pre-activation.
+// The forward keeps cos z in registers from the value tile for the tangent tile
+// (vj_forward_group_sin); the backward keeps [a; p] in its slots and cos z in rows of its
+// own (Cz, T per hidden layer: 1.5x the stacked state), and forms the tangent t = cos(z)
+// p as the products load it (vj_stack_layer_sin, vj_dw_rows_by).  Keeping t as well,
+// or forming p again as the JAX kernel does, would double the state or the recompute;
+// dividing t by cos z fails where cos z vanishes.
+//
 // Hidden widths are zero-padded to HP (a multiple of 8, at most 64): padded units carry
 // zero weights and biases, contribute exactly nothing, and get gradients that the
 // wrapper discards.  Packed parameter layout: see csrc/tc3xtf32.cuh; the gradient uses
@@ -176,8 +187,10 @@ __device__ __forceinline__ void vr_form(const VrProblem& pb, const float* sTab,
 // sized by nq) when its turn comes.  Output: lane r takes row r's dot product with w_out
 // in four chains added pairwise (u on the value rows, dd = w_out . t on the tangent rows),
 // and lane t writes contrib[p] = dd + csrc (+ cu u); vr_qsum_kernel sums each test
-// function's nq contributions.
-template <int HP>
+// function's nq contributions.  SIN: the activation is sin (pb.act 2), whose act' = cos z
+// the hidden layers keep in registers from the value tile for the tangent tile
+// (vj_forward_group_sin); the slot and its size are the same.
+template <int HP, bool SIN>
 __global__ void __launch_bounds__(256)
     vr_fwd_kernel(VrProblem pb, const float* __restrict__ params, float* __restrict__ contrib,
                   long long n_groups) {
@@ -232,16 +245,21 @@ __global__ void __launch_bounds__(256)
       pre = fmaf(w.z, d.z, pre);
       z = fmaf(w.w, x.w, z);
       pre = fmaf(w.w, d.w, pre);
-      const float a = vj_act(z, act);
+      float a, sp;
+      vj_act_sp<SIN>(z, act, a, sp);
       S[t * LD + i] = a;
-      S[(16 + t) * LD + i] = vj_dact(a, act) * pre;
+      S[(16 + t) * LD + i] = sp * pre;
     }
     __syncwarp();
     for (int l = 1; l < Lh; ++l) {
       const float* W = sW + (l - 1) * HP * LD;
       const float* b = sSm + 4 * HP + l * HP;
-      vj_forward_tile<HP>(S, S, W, b, true, nullptr, act);
-      vj_forward_tile<HP>(S + 16 * LD, S + 16 * LD, W, b, false, S, act);
+      if constexpr (SIN) {
+        vj_forward_group_sin<HP>(S, 2, W, b);
+      } else {
+        vj_forward_tile<HP>(S, S, W, b, true, nullptr, act);
+        vj_forward_tile<HP>(S + 16 * LD, S + 16 * LD, W, b, false, S, act);
+      }
     }
     __syncwarp();
     // the output row, four chains (a cancelling row shows one long chain's rounding);
@@ -300,6 +318,11 @@ __device__ __forceinline__ void vr_bwd_point(const VrProblem& pb, const float* s
 //                           (g_val, g_tan)
 //   S    [Lh][2T][LD]       slot l: [a_l; t_l] (rows t, then T + t); going down
 //                           [gz_l; gp_l], then G_{l-1} = [ga; gj] of the layer below.
+//   Cz   [Lh][T][LD]        SIN only: cos z_l; slot l then keeps the tangent's
+//                           pre-activation p_l in place of t_l = cos(z_l) p_l, which the
+//                           products form as they load (vj_stack_layer_sin,
+//                           vj_dw_rows_by): the act'' term is -a p, and where cos z
+//                           vanishes no function of (a, t) gives p.
 // The epilogues run on G = blockDim / HP groups of HP threads, thread (g, i) on column i
 // of points t = g, g + G, ...; it sums its share of db_l, dW0, dw_out and b_out over the
 // whole walk (in registers, db_l in its group's shared partial), and the groups' sums
@@ -308,7 +331,7 @@ __device__ __forceinline__ void vr_bwd_point(const VrProblem& pb, const float* s
 // the list over all hidden layers, and sums each unit's HP / 8 tiles in dw[k] over the
 // whole walk; the block writes one partial row per chunk.  Point tile j + 1's inputs are
 // read into registers while tile j is computed.
-template <int HP, int R>
+template <int HP, int R, bool SIN>
 __global__ void __launch_bounds__(256, 2)
     vr_bwd_kernel(VrProblem pb, const float* __restrict__ params,
                   const float* __restrict__ gr, float* __restrict__ partials,
@@ -335,6 +358,7 @@ __global__ void __launch_bounds__(256, 2)
   float* C = X + VR_MAX_IN * T;
   float* GO = C + VR_MAX_IN * T;
   float* S = GO + 2 * T;
+  float* Cz = S + Lh * slot;  // SIN only
   for (int u = tid; u < G * nsm + nw; u += nthr) sGg[u] = 0.0f;
   vj_load_params<HP>(params, Lh, sSm, sW);
   vr_load_tab(pb, sTab, sScale);
@@ -361,7 +385,8 @@ __global__ void __launch_bounds__(256, 2)
     __syncthreads();
     if (tid < T) vr_bwd_point(pb, sTab, sScale, gr, (tile + gridDim.x) * T + tid, in);
     // forward recompute, every layer's slot kept.  Layer 0 on the CUDA cores: a_0 =
-    // act(W0 x + b0), t_0 = act'(a_0) W0 c; the hidden layers on the tensor cores
+    // act(W0 x + b0), t_0 = act'(a_0) W0 c (SIN: p_0 = W0 c and cos z_0); the hidden
+    // layers on the tensor cores
     for (int u = tid; u < T * HP; u += nthr) {
       const int t = u / HP, i = u % HP;
       float z = sSm[4 * HP + i], pre = 0.0f;
@@ -370,41 +395,55 @@ __global__ void __launch_bounds__(256, 2)
         z = fmaf(W0[i * 4 + c], X[c * T + t], z);
         pre = fmaf(W0[i * 4 + c], C[c * T + t], pre);
       }
-      const float a = vj_act(z, act);
+      float a, sp;
+      vj_act_sp<SIN>(z, act, a, sp);
       S[t * LD + i] = a;
-      S[(T + t) * LD + i] = vj_dact(a, act) * pre;
+      if constexpr (SIN) {
+        S[(T + t) * LD + i] = pre;
+        Cz[t * LD + i] = sp;
+      } else {
+        S[(T + t) * LD + i] = sp * pre;
+      }
     }
     __syncthreads();
-    for (int l = 1; l < Lh; ++l)
-      vj_stack_layer<HP>(S + (l - 1) * slot, S + l * slot, sW + (l - 1) * HP * LD,
-                         sSm + 4 * HP + l * HP, T, 2, act);
+    for (int l = 1; l < Lh; ++l) {
+      if constexpr (SIN)
+        vj_stack_layer_sin<HP>(S + (l - 1) * slot, Cz + (l - 1) * T * LD, S + l * slot,
+                               Cz + l * T * LD, sW + (l - 1) * HP * LD, sSm + 4 * HP + l * HP,
+                               T, 2);
+      else
+        vj_stack_layer<HP>(S + (l - 1) * slot, S + l * slot, sW + (l - 1) * HP * LD,
+                           sSm + 4 * HP + l * HP, T, 2, act);
+    }
 
     for (int l = Lh - 1; l >= 0; --l) {
       float* Sl = S + l * slot;
       const float* Gin = S + (l + 1) * slot;  // G_l = [ga; gj]_l, below the top layer
       const bool top = l == Lh - 1;
       // epilogue on the CUDA cores, in place: [a; t]_l -> [gz; gp]_l with
-      // gz = act' ga + (act''/act') gj t and gp = act' gj; the sums of db_l (and at the
-      // top the output row's dw_out += g_val a + g_tan t, db_out += g_val; at layer 0
-      // dW0 += gz x^T + gp c^T)
+      // gz = act' ga + (act''/act') gj t and gp = act' gj (SIN: [a; p]_l, gz = cos(z) ga
+      // - a gj p); the sums of db_l (and at the top the output row's dw_out += g_val a +
+      // g_tan t, db_out += g_val; at layer 0 dW0 += gz x^T + gp c^T)
       if (ep) {
         float db = 0.0f;
         for (int t = eg; t < T; t += G) {
           const int r = t * LD + ei;  // the value row; the tangent's T rows on
           const float a = Sl[r], tt = Sl[r + T * LD];
-          const float sp = vj_dact(a, act);
+          const float sp = SIN ? Cz[l * T * LD + t * LD + ei] : vj_dact(a, act);
           float ga, gj;
           if (top) {
             const float gv = GO[t], gt = GO[T + t];
             ga = wout[ei] * gv;
             gj = wout[ei] * gt;
-            s_wout = fmaf(gv, a, fmaf(gt, tt, s_wout));
+            s_wout = fmaf(gv, a, fmaf(gt, SIN ? sp * tt : tt, s_wout));
             s_bout += gv;
           } else {
             ga = Gin[r];
             gj = Gin[r + T * LD];
           }
-          const float gz = fmaf(sp, ga, vj_ddact_ratio(a, act) * (gj * tt)), gp = sp * gj;
+          const float gz = SIN ? fmaf(sp, ga, -a * (gj * tt))
+                               : fmaf(sp, ga, vj_ddact_ratio(a, act) * (gj * tt));
+          const float gp = sp * gj;
           Sl[r] = gz;
           Sl[r + T * LD] = gp;
           db += gz;
@@ -422,6 +461,8 @@ __global__ void __launch_bounds__(256, 2)
       // of `chunks` chunks of the tile's rows per warp unit, or (R == 0) one 16 x 8 tile over
       // all rows
       const float* Sp = S + (l - 1) * slot;
+      const float* Cp = Cz + (l - 1) * T * LD;  // SIN: S_{l-1}'s tangent rows are Cp Sp
+      const auto sp_sin = [&](int r, int i) { return vj_sin_operand<HP>(Sp, Cp, T, r, i); };
       if constexpr (R > 0) {
         const int rc = rows / chunks;
 #pragma unroll
@@ -430,7 +471,12 @@ __global__ void __launch_bounds__(256, 2)
           if (un / (MT * chunks) == l - 1) {
             const int v = un % (MT * chunks), c = v % chunks;
             float acc[NT][4];
-            vj_dw_rows<HP>(acc, Sl + c * rc * LD, Sp + c * rc * LD, rc, (v / chunks) * 16);
+            if constexpr (SIN)
+              vj_dw_rows_by<HP>(
+                  acc, Sl + c * rc * LD, [&](int r, int i) { return sp_sin(c * rc + r, i); },
+                  rc, (v / chunks) * 16);
+            else
+              vj_dw_rows<HP>(acc, Sl + c * rc * LD, Sp + c * rc * LD, rc, (v / chunks) * 16);
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) vj_add(dw[k][nt], acc[nt]);
           }
@@ -440,7 +486,10 @@ __global__ void __launch_bounds__(256, 2)
         for (int v = warp; v < U; v += nwarp) {
           const int j0 = (v / NT) * 16, i0 = (v % NT) * 8;
           float acc[4];
-          vj_dw_tile<HP>(acc, Sl, Sp, rows, j0, i0);
+          if constexpr (SIN)
+            vj_dw_tile_by<HP>(acc, Sl, sp_sin, rows, j0, i0);
+          else
+            vj_dw_tile<HP>(acc, Sl, Sp, rows, j0, i0);
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
             const int j = j0 + gq + (h & 2 ? 8 : 0), i = i0 + 2 * q + (h & 1);
@@ -540,18 +589,20 @@ void dw_plan(int hp, int n_hidden, int threads, int T, int* R, int* C) {
   *C = *R ? c : 1;
 }
 
+// The backward's shared memory; sin adds its cos z rows, T per hidden layer (Cz).
 size_t bwd_smem(int hp, const VrProblem& pb, int T, int threads, int R) {
   const size_t Lh = pb.n_hidden, ld = hp + 4, small = vj_small_size(hp, pb.n_hidden);
   const size_t part = (threads / hp) * small + (R == 0 ? (Lh - 1) * hp * hp : 0);
+  const size_t rows = pb.act == VJ_ACT_SIN ? 3 * T : 2 * T;  // per layer: [a; t] (+ Cz)
   return sizeof(float) * (part + small + (Lh - 1) * hp * ld + vr_tab_floats(pb) +
-                          VR_MAX_IN + (2 * VR_MAX_IN + 2) * (size_t)T + Lh * 2 * T * ld);
+                          VR_MAX_IN + (2 * VR_MAX_IN + 2) * (size_t)T + Lh * rows * ld);
 }
 
-template <int HP>
+template <int HP, bool SIN>
 const void* bwd_kernel(int R) {
-  if (R == 1) return (const void*)vr_bwd_kernel<HP, 1>;
-  if (R == 2) return (const void*)vr_bwd_kernel<HP, 2>;
-  return (const void*)vr_bwd_kernel<HP, 0>;
+  if (R == 1) return (const void*)vr_bwd_kernel<HP, 1, SIN>;
+  if (R == 2) return (const void*)vr_bwd_kernel<HP, 2, SIN>;
+  return (const void*)vr_bwd_kernel<HP, 0, SIN>;
 }
 
 VrProblem make_problem(const float* xs, const float* flds, const float* tab,
@@ -578,7 +629,7 @@ VrProblem make_pre_problem(const float* xs, const float* cdir, const float* csrc
 
 // Forward: one wave of persistent blocks (vj_group_grid), then the q-sums.  contrib is
 // workspace of P floats.
-template <int HP>
+template <int HP, bool SIN>
 int launch_fwd(const VrProblem& pb, const float* params, float* contrib, float* r,
                cudaStream_t stream) {
   if (pb.k == 0) return 0;
@@ -586,11 +637,11 @@ int launch_fwd(const VrProblem& pb, const float* params, float* contrib, float* 
     const auto smem = [&](int th) { return fwd_smem(HP, pb.n_hidden, th); };
     const long long n_groups = (pb.P + 15) / 16;
     int threads = 0, blocks = 0;
-    const int err = vj_group_grid((const void*)vr_fwd_kernel<HP>, smem, n_groups,
+    const int err = vj_group_grid((const void*)vr_fwd_kernel<HP, SIN>, smem, n_groups,
                                   &threads, &blocks);
     if (err) return err;
-    vr_fwd_kernel<HP><<<blocks, threads, smem(threads), stream>>>(pb, params, contrib,
-                                                                  n_groups);
+    vr_fwd_kernel<HP, SIN><<<blocks, threads, smem(threads), stream>>>(pb, params, contrib,
+                                                                       n_groups);
     if (const int e = (int)cudaGetLastError()) return e;
   }
   return vr_qsum(contrib, r, pb.k, pb.nq, stream);
@@ -605,9 +656,10 @@ struct BwdGrid {
   int T, threads, R, C, blocks;
   long long n_tiles;
   size_t smem;
+  int per_sm;  // blocks resident per SM
 };
 
-template <int HP>
+template <int HP, bool SIN>
 int bwd_config(const VrProblem& pb, BwdGrid* out) {
   int best = 0, per_sm_best = 0;
   cudaError_t err;
@@ -615,7 +667,7 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
     for (int threads : kTileThreads) {
       int R = 0, C = 1;
       dw_plan(HP, pb.n_hidden, threads, T, &R, &C);
-      const void* fn = bwd_kernel<HP>(R);
+      const void* fn = bwd_kernel<HP, SIN>(R);
       if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       (int)kVjMaxSmem)) != cudaSuccess)
         return (int)err;
@@ -630,7 +682,7 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
       if (busy > best || (busy == best && per_sm > per_sm_best)) {
         best = busy;
         per_sm_best = per_sm;
-        *out = BwdGrid{T, threads, R, C, 0, 0, smem};
+        *out = BwdGrid{T, threads, R, C, 0, 0, smem, per_sm};
       }
     }
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
@@ -643,54 +695,72 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
 }
 
 // Rows of the backward's partials buffer: C per block.
-template <int HP>
+template <int HP, bool SIN>
 int bwd_blocks(const VrProblem& pb, int* rows) {
   BwdGrid cfg;
-  const int err = bwd_config<HP>(pb, &cfg);
+  const int err = bwd_config<HP, SIN>(pb, &cfg);
   if (err) return err;
   *rows = cfg.blocks * cfg.C;
   return 0;
 }
 
-template <int HP>
+template <int HP, bool SIN>
 int launch_bwd(const VrProblem& pb, const float* params, const float* gr, float* partials,
                int n_rows, float* grad, cudaStream_t stream) {
   BwdGrid cfg;
-  int err = bwd_config<HP>(pb, &cfg);
+  int err = bwd_config<HP, SIN>(pb, &cfg);
   if (err) return err;
   if (n_rows != cfg.blocks * cfg.C) return (int)cudaErrorInvalidValue;
   const int nb = cfg.blocks;
   if (cfg.R == 1)
-    vr_bwd_kernel<HP, 1><<<nb, cfg.threads, cfg.smem, stream>>>(pb, params, gr, partials,
-                                                               cfg.n_tiles, cfg.T, cfg.C);
+    vr_bwd_kernel<HP, 1, SIN><<<nb, cfg.threads, cfg.smem, stream>>>(
+        pb, params, gr, partials, cfg.n_tiles, cfg.T, cfg.C);
   else if (cfg.R == 2)
-    vr_bwd_kernel<HP, 2><<<nb, cfg.threads, cfg.smem, stream>>>(pb, params, gr, partials,
-                                                               cfg.n_tiles, cfg.T, cfg.C);
+    vr_bwd_kernel<HP, 2, SIN><<<nb, cfg.threads, cfg.smem, stream>>>(
+        pb, params, gr, partials, cfg.n_tiles, cfg.T, cfg.C);
   else
-    vr_bwd_kernel<HP, 0><<<nb, cfg.threads, cfg.smem, stream>>>(pb, params, gr, partials,
-                                                               cfg.n_tiles, cfg.T, cfg.C);
+    vr_bwd_kernel<HP, 0, SIN><<<nb, cfg.threads, cfg.smem, stream>>>(
+        pb, params, gr, partials, cfg.n_tiles, cfg.T, cfg.C);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   const int npp = vj_n_params(HP, pb.n_hidden);
   vr_reduce_kernel<<<(npp + 127) / 128, 128, 0, stream>>>(partials, grad, n_rows, npp);
   return (int)cudaGetLastError();
 }
 
+// The forward's (bwd 0) or backward's (bwd 1) launch shape: {threads, blocks resident per
+// SM, blocks, points per tile (the forward: 16 per warp), shared memory bytes per block}.
+template <int HP, bool SIN>
+int launch_shape(int bwd, const VrProblem& pb, int* shape) {
+  if (bwd) {
+    BwdGrid cfg;
+    const int err = bwd_config<HP, SIN>(pb, &cfg);
+    if (err) return err;
+    shape[0] = cfg.threads, shape[1] = cfg.per_sm, shape[2] = cfg.blocks, shape[3] = cfg.T;
+    shape[4] = (int)cfg.smem;
+    return 0;
+  }
+  const auto smem = [&](int th) { return fwd_smem(HP, pb.n_hidden, th); };
+  shape[3] = 16;
+  const int err = vj_group_grid((const void*)vr_fwd_kernel<HP, SIN>, smem, (pb.P + 15) / 16,
+                                &shape[0], &shape[2], &shape[1]);
+  shape[4] = err ? 0 : (int)smem(shape[0]);
+  return err;
+}
+
 }  // namespace
 
-#define VR_DISPATCH(hp, CALL)                                      \
-  switch (hp) {                                                    \
-    case 8: { constexpr int HP = 8; return CALL; }                 \
-    case 16: { constexpr int HP = 16; return CALL; }               \
-    case 24: { constexpr int HP = 24; return CALL; }               \
-    case 32: { constexpr int HP = 32; return CALL; }               \
-    case 40: { constexpr int HP = 40; return CALL; }               \
-    case 48: { constexpr int HP = 48; return CALL; }               \
-    case 56: { constexpr int HP = 56; return CALL; }               \
-    case 64: { constexpr int HP = 64; return CALL; }               \
-    default: return (int)cudaErrorInvalidValue;                    \
-  }
-
 extern "C" {
+
+// Launch shape of the K1 (table mode) or K4 (pre 1) forward (bwd 0) or backward (bwd 1)
+// on the current device: shape[5] = {threads, blocks resident per SM, blocks, points per
+// tile, shared memory bytes per block}.  Returns a cudaError_t value.
+int vr_launch_shape(int bwd, int k, int nq, int d, int n_hidden, int hp, int act, int pre,
+                    int* shape) {
+  VrProblem pb = make_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 0, d, 0, 0, n_hidden,
+                              act);
+  pb.pre = pre;
+  VJ_DISPATCH(hp, act, launch_shape<HP, SIN>(bwd, pb, shape))
+}
 
 // Packed parameter count (floats) for hidden width hp and n_hidden hidden layers.
 int vr_dir_residual_n_params(int hp, int n_hidden) { return vj_n_params(hp, n_hidden); }
@@ -703,14 +773,15 @@ int vr_dir_residual_fwd(const float* xs, const float* flds, const float* tab,
                         int hp, int act, void* stream) {
   const VrProblem pb = make_problem(xs, flds, tab, scale, k, nq, n_in, d, td, has_react,
                                     n_hidden, act);
-  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, contrib, r, (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_fwd<HP, SIN>(pb, params, contrib, r, (cudaStream_t)stream))
 }
 
 // Rows of the backward's partials buffer for this problem on the current device.
-int vr_dir_residual_bwd_blocks(int k, int nq, int d, int n_hidden, int hp, int* blocks) {
+int vr_dir_residual_bwd_blocks(int k, int nq, int d, int n_hidden, int hp, int act,
+                               int* blocks) {
   const VrProblem pb = make_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 0, d, 0, 0,
-                                    n_hidden, 0);
-  VR_DISPATCH(hp, bwd_blocks<HP>(pb, blocks))
+                                    n_hidden, act);
+  VJ_DISPATCH(hp, act, bwd_blocks<HP, SIN>(pb, blocks))
 }
 
 // Packed parameter gradient grad [n_params] for the cotangent gr [k].  partials is
@@ -722,8 +793,8 @@ int vr_dir_residual_bwd(const float* xs, const float* flds, const float* tab,
                         void* stream) {
   const VrProblem pb = make_problem(xs, flds, tab, scale, k, nq, n_in, d, td, has_react,
                                     n_hidden, act);
-  VR_DISPATCH(hp, launch_bwd<HP>(pb, params, gr, partials, n_blocks, grad,
-                                 (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_bwd<HP, SIN>(pb, params, gr, partials, n_blocks, grad,
+                                           (cudaStream_t)stream))
 }
 
 // K4, precoeff mode: r [k] from the precomputed xs, cdir [n_in][P], csrc [P] and cu [P]
@@ -735,14 +806,14 @@ int vr_dirp_residual_fwd(const float* xs, const float* cdir, const float* csrc,
                          void* stream) {
   const VrProblem pb = make_pre_problem(xs, cdir, csrc, cu, k, nq, n_in, has_cu, n_hidden,
                                         act);
-  VR_DISPATCH(hp, launch_fwd<HP>(pb, params, contrib, r, (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_fwd<HP, SIN>(pb, params, contrib, r, (cudaStream_t)stream))
 }
 
 // Rows of K4's backward partials buffer for this problem on the current device.
-int vr_dirp_residual_bwd_blocks(int k, int nq, int n_hidden, int hp, int* blocks) {
+int vr_dirp_residual_bwd_blocks(int k, int nq, int n_hidden, int hp, int act, int* blocks) {
   const VrProblem pb = make_pre_problem(nullptr, nullptr, nullptr, nullptr, k, nq, 0, 0,
-                                        n_hidden, 0);
-  VR_DISPATCH(hp, bwd_blocks<HP>(pb, blocks))
+                                        n_hidden, act);
+  VJ_DISPATCH(hp, act, bwd_blocks<HP, SIN>(pb, blocks))
 }
 
 // K4's packed parameter gradient grad [n_params] for the cotangent gr [k]; partials as
@@ -753,8 +824,8 @@ int vr_dirp_residual_bwd(const float* xs, const float* cdir, const float* csrc,
                          int has_cu, int n_hidden, int hp, int act, void* stream) {
   const VrProblem pb = make_pre_problem(xs, cdir, csrc, cu, k, nq, n_in, has_cu, n_hidden,
                                         act);
-  VR_DISPATCH(hp, launch_bwd<HP>(pb, params, gr, partials, n_blocks, grad,
-                                 (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_bwd<HP, SIN>(pb, params, gr, partials, n_blocks, grad,
+                                           (cudaStream_t)stream))
 }
 
 }  // extern "C"

@@ -55,7 +55,13 @@ __host__ __device__ inline int vj_n_params(int hp, int n_hidden) {
   return (vj_off_wout(hp, n_hidden) + hp + 1 + 3) / 4 * 4;
 }
 
-// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.
+// act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.  act 2 = sin
+// (SIREN nets): act' = cos z and act'' = -a, where cos z is no function of a; the kernels
+// of csrc/dir_residual.cu and csrc/value_and_jac.cu take it as instantiations of their
+// own (template flag SIN; vj_act_sp and the sin tools below), so the tanh / sigmoid code is as it
+// was; csrc/ff_mlp.cu refuses it.
+#define VJ_ACT_SIN 2
+
 __device__ __forceinline__ float vj_act(float z, int act) {
   return act == 0 ? tanhf(z) : 1.0f / (1.0f + expf(-z));
 }
@@ -70,6 +76,18 @@ __device__ __forceinline__ float vj_ddact(float a, float sp, int act) {
 // spp P = (act''/act') J, so every product reads its operand straight from a slot.
 __device__ __forceinline__ float vj_ddact_ratio(float a, int act) {
   return act == 0 ? -2.0f * a : 1.0f - 2.0f * a;
+}
+
+// a = act(z) and sp = act'(z).  sin by sincosf, with its full range reduction: SIREN's
+// layer 0 puts |z| near omega0, where the __sinf / __cosf intrinsics lose digits.
+template <bool SIN>
+__device__ __forceinline__ void vj_act_sp(float z, int act, float& a, float& sp) {
+  if constexpr (SIN) {
+    sincosf(z, &a, &sp);
+  } else {
+    a = vj_act(z, act);
+    sp = vj_dact(a, act);
+  }
 }
 
 // ------------------------------------------------------------------------------------
@@ -260,6 +278,86 @@ __device__ __forceinline__ void vj_stack_layer(const float* Sin, float* Sout, co
   __syncthreads();
 }
 
+// ------------------------------------------------------------------------------------
+// sin (act 2).  act' = cos z is no function of the output a, so neither of the forward
+// tools above applies, and the backward's act'' term -a P needs the tangents'
+// pre-activations P: where cos z vanishes, no function of (a, J = cos(z) P) gives it.
+
+// One hidden layer of a warp's stacked forward over its group of 16 points, in place in
+// its slot S [panels x 16][LD] (the value tile, then the tangent tiles): the value tile's
+// z + b becomes a = sin, and cos stays in the lane's registers -- a lane holds the same
+// (point, unit) entries of every tile of the group -- for each tangent tile's J = cos(z)
+// z_k.  The tile's rows are all read before any is written (__syncwarp), and the next
+// tile's loads read rows that no store of this tile touches.
+template <int HP>
+__device__ __forceinline__ void vj_forward_group_sin(float* S, int panels, const float* W,
+                                                     const float* b) {
+  constexpr int LD = kVjLd<HP>;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  float cz[HP / 8][4];
+  for (int k = 0; k < panels; ++k) {
+    float* A = S + k * 16 * LD;
+    float acc[HP / 8][4];
+    vj_zero<HP>(acc);
+    vj_rows_mma<HP>(
+        acc, [&](int rr, int i) { return A[rr * LD + i]; },
+        [&](int i, int j) { return W[j * LD + i]; });
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < HP / 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int rr = gq + (h & 2 ? 8 : 0), j = nt * 8 + 2 * q + (h & 1);
+        if (k == 0) {
+          float s, c;
+          sincosf(acc[nt][h] + b[j], &s, &c);
+          cz[nt][h] = c;
+          A[rr * LD + j] = s;
+        } else {
+          A[rr * LD + j] = cz[nt][h] * acc[nt][h];
+        }
+      }
+  }
+}
+
+// The backward's stacked forward of one hidden layer (vj_stack_layer) for sin.  A slot
+// keeps [a; P] -- the tangent panels' pre-activations -- and cos z in rows C [T][LD] of
+// its own; the product's tangent operand J_{l-1} = C_{l-1} P_{l-1} is formed as its
+// fragments load.  The value tile stores a = sin(z + b) and C_l = cos(z + b), a tangent
+// tile its product P_l as it is.  T is a power of two (16, 32 or 64).  Ends with
+// __syncthreads.
+template <int HP>
+__device__ __forceinline__ void vj_stack_layer_sin(const float* Sin, const float* Cin,
+                                                   float* Sout, float* Cout, const float* W,
+                                                   const float* b, int T, int panels) {
+  constexpr int LD = kVjLd<HP>;
+  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  const auto lw = [&](int i, int j) { return W[j * LD + i]; };
+  for (int mt = warp; mt < panels * T / 16; mt += nwarp) {
+    const int r0 = mt * 16;
+    const float* A = Sin + r0 * LD;
+    float* O = Sout + r0 * LD;
+    float acc[HP / 8][4];
+    vj_zero<HP>(acc);
+    if (r0 < T) {
+      vj_rows_mma<HP>(acc, [&](int rr, int i) { return A[rr * LD + i]; }, lw);
+      float* CO = Cout + r0 * LD;
+      vj_rows_store<HP>(acc, [&](int rr, int j, float v) {
+        float s, c;
+        sincosf(v + b[j], &s, &c);
+        O[rr * LD + j] = s;
+        CO[rr * LD + j] = c;
+      });
+    } else {
+      const float* C = Cin + (r0 & (T - 1)) * LD;
+      vj_rows_mma<HP>(acc, [&](int rr, int i) { return C[rr * LD + i] * A[rr * LD + i]; },
+                      lw);
+      vj_rows_store<HP>(acc, [&](int rr, int j, float v) { O[rr * LD + j] = v; });
+    }
+  }
+  __syncthreads();
+}
+
 // G_{l-1} = G_l W_l over the `rows` stacked rows of slot Sl, in place: each warp reads all
 // of its 16 rows before it writes them.  Ends with __syncthreads.
 template <int HP>
@@ -280,12 +378,12 @@ __device__ __forceinline__ void vj_cotangent_rows(float* Sl, const float* W, int
 }
 
 // acc[nt] (16 x 8 tile nt of a 16 x 8 NTU row block) = A^T B summed over `rows` stacked
-// rows: A [rows][lda] read at columns i < 16 (columns i >= imax read as zero), B
-// [rows][ldb] at columns 0..8 NTU-1 (both pre-offset to the block's columns); each k-step's
-// A fragment split once for all NTU column tiles.
-template <int NTU>
-__device__ __forceinline__ void ff_dw_rows(float (&acc)[NTU][4], const float* A, int lda,
-                                           const float* B, int ldb, int rows, int imax = 16) {
+// rows: A [rows][lda] read at columns i < 16 (columns i >= imax read as zero), B read as
+// b(r, j), row r < rows, column j < 8 NTU (both pre-offset to the block's columns); each
+// k-step's A fragment split once for all NTU column tiles.  ff_dw_rows: B [rows][ldb].
+template <int NTU, class LoadB>
+__device__ __forceinline__ void ff_dw_rows_by(float (&acc)[NTU][4], const float* A, int lda,
+                                              LoadB b, int rows, int imax = 16) {
 #pragma unroll
   for (int nt = 0; nt < NTU; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
 #pragma unroll 2
@@ -296,7 +394,7 @@ __device__ __forceinline__ void ff_dw_rows(float (&acc)[NTU][4], const float* A,
 #pragma unroll
     for (int nt = 0; nt < NTU; ++nt) {
       unsigned bh[2], bl[2];
-      vj_frag_b([&](int r, int j) { return B[(r0 + r) * ldb + j]; }, 0, nt * 8, bh, bl);
+      vj_frag_b([&](int r, int j) { return b(r0 + r, j); }, 0, nt * 8, bh, bl);
       float t[4];
       vj_mma3z(t, ah, al, bh, bl);
       vj_add(acc[nt], t);
@@ -304,9 +402,23 @@ __device__ __forceinline__ void ff_dw_rows(float (&acc)[NTU][4], const float* A,
   }
 }
 
+template <int NTU>
+__device__ __forceinline__ void ff_dw_rows(float (&acc)[NTU][4], const float* A, int lda,
+                                           const float* B, int ldb, int rows, int imax = 16) {
+  ff_dw_rows_by<NTU>(acc, A, lda, [&](int r, int j) { return B[r * ldb + j]; }, rows, imax);
+}
+
 // acc[nt] = the 16 x 8 tiles (rows j0.., columns 8 nt..) of G^T Sp summed over the `rows`
 // stacked rows of the slots G and Sp: a whole row block of dW_l.  Rows j >= HP read as
-// zero.
+// zero.  vj_dw_rows_by: Sp read as sp(r, i) (the sin backward's [a; cos(z) P], formed as
+// it loads).
+template <int HP, class LoadS>
+__device__ __forceinline__ void vj_dw_rows_by(float acc[HP / 8][4], const float* G, LoadS sp,
+                                              int rows, int j0) {
+  ff_dw_rows_by<HP / 8>(*reinterpret_cast<float(*)[HP / 8][4]>(acc), G + j0, kVjLd<HP>, sp,
+                        rows, HP - j0);
+}
+
 template <int HP>
 __device__ __forceinline__ void vj_dw_rows(float acc[HP / 8][4], const float* G, const float* Sp,
                                            int rows, int j0) {
@@ -315,11 +427,11 @@ __device__ __forceinline__ void vj_dw_rows(float acc[HP / 8][4], const float* G,
 }
 
 // acc = the 16 x 8 tile (rows j0.., columns i0..) of G^T Sp summed over the `rows` stacked
-// rows of the slots G (the cotangents [gz; gp]_l) and Sp ([a; J]_{l-1}): the dW_l tile
-// of one warp unit.  Rows j >= HP (HP not a multiple of 16) read as zero.
-template <int HP>
-__device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const float* Sp,
-                                           int rows, int j0, int i0) {
+// rows of the slots G (the cotangents [gz; gp]_l) and Sp ([a; J]_{l-1}), read as sp(r, i):
+// the dW_l tile of one warp unit.  Rows j >= HP (HP not a multiple of 16) read as zero.
+template <int HP, class LoadS>
+__device__ __forceinline__ void vj_dw_tile_by(float acc[4], const float* G, LoadS sp, int rows,
+                                              int j0, int i0) {
   constexpr int LD = kVjLd<HP>;
   acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
   // the k-steps' fresh tiles are independent: unrolled, their loads and mma overlap (one
@@ -330,11 +442,27 @@ __device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const f
     vj_frag_a(
         [&](int jj, int r) { return j0 + jj < HP ? G[(r0 + r) * LD + j0 + jj] : 0.0f; }, 0,
         ah, al);
-    vj_frag_b([&](int r, int i) { return Sp[(r0 + r) * LD + i]; }, 0, i0, bh, bl);
+    vj_frag_b([&](int r, int i) { return sp(r0 + r, i); }, 0, i0, bh, bl);
     float t[4];
     vj_mma3z(t, ah, al, bh, bl);
     vj_add(acc, t);
   }
+}
+
+template <int HP>
+__device__ __forceinline__ void vj_dw_tile(float acc[4], const float* G, const float* Sp,
+                                           int rows, int j0, int i0) {
+  vj_dw_tile_by<HP>(acc, G, [&](int r, int i) { return Sp[r * kVjLd<HP> + i]; }, rows, j0, i0);
+}
+
+// Stacked row r, column i of a sin slot's operand [a; C P] (rows t, then k T + t; T a
+// power of two): a value row below T, else the tangent C[r mod T] P[r].
+template <int HP>
+__device__ __forceinline__ float vj_sin_operand(const float* S, const float* C, int T, int r,
+                                                int i) {
+  constexpr int LD = kVjLd<HP>;
+  const float v = S[r * LD + i];
+  return r < T ? v : C[(r & (T - 1)) * LD + i] * v;
 }
 
 // ------------------------------------------------------------------------------------
@@ -409,6 +537,24 @@ static inline int vr_qsum(const float* contrib, float* r, int k, int nq, cudaStr
 }
 
 // ------------------------------------------------------------------------------------
+// Host: the instantiation of a call (csrc/dir_residual.cu, csrc/value_and_jac.cu): the
+// statement `return CALL;` with HP the padded hidden width (8..64) and SIN whether act is
+// sin, or cudaErrorInvalidValue for another width or activation.
+
+#define VJ_CASE(W, S, ...) \
+  case (S ? 1000 : 0) + W: { constexpr int HP = W; constexpr bool SIN = S; return __VA_ARGS__; }
+#define VJ_CASES(S, ...)                                                                 \
+  VJ_CASE(8, S, __VA_ARGS__) VJ_CASE(16, S, __VA_ARGS__) VJ_CASE(24, S, __VA_ARGS__)    \
+  VJ_CASE(32, S, __VA_ARGS__) VJ_CASE(40, S, __VA_ARGS__) VJ_CASE(48, S, __VA_ARGS__)   \
+  VJ_CASE(56, S, __VA_ARGS__) VJ_CASE(64, S, __VA_ARGS__)
+#define VJ_DISPATCH(hp, act, ...)                                                        \
+  switch ((act) < 0 || (act) > VJ_ACT_SIN ? 0 : ((act) == VJ_ACT_SIN ? 1000 : 0) + (hp)) { \
+    VJ_CASES(false, __VA_ARGS__)                                                         \
+    VJ_CASES(true, __VA_ARGS__)                                                          \
+    default: return (int)cudaErrorInvalidValue;                                          \
+  }
+
+// ------------------------------------------------------------------------------------
 // Host: launch shapes.
 
 constexpr size_t kVjMaxSmem = 227 * 1024;  // a block's shared-memory limit on sm_90
@@ -424,9 +570,10 @@ inline int vj_sm_count(int* n_sm) {
 // A persistent kernel of one warp per group of 16 points (K5's and K1/K4's forwards), fn,
 // with smem(threads) bytes of shared memory per block: of 256, 128 and 64 threads the
 // block that keeps the most warps resident per SM, and one wave of blocks, or fewer when
-// there are fewer groups.
+// there are fewer groups (per_sm: the blocks resident per SM).
 template <class Smem>
-int vj_group_grid(const void* fn, Smem smem, long long n_groups, int* threads, int* blocks) {
+int vj_group_grid(const void* fn, Smem smem, long long n_groups, int* threads, int* blocks,
+                  int* per_sm_out = nullptr) {
   const int choices[] = {256, 128, 64};
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kVjMaxSmem);
@@ -450,5 +597,6 @@ int vj_group_grid(const void* fn, Smem smem, long long n_groups, int* threads, i
   const long long per_block = *threads / 32, want = (n_groups + per_block - 1) / per_block;
   const long long b = (long long)per_sm_best * n_sm;
   *blocks = (int)(b < want ? b : want);
+  if (per_sm_out) *per_sm_out = per_sm_best;
   return 0;
 }

@@ -51,6 +51,14 @@
 // lane (no __syncthreads chain), writes the partial once, and vj_reduce_kernel sums the
 // partials in block order: no atomics, bit-reproducible gradients.
 //
+// Activations: tanh / sigmoid (act 0 / 1) in one instantiation per width; sin (act 2,
+// SIREN nets) in instantiations of its own (SIN): act' = cos z is no function of a.  The
+// forward keeps cos z in registers from the value tile for the tangent tiles
+// (vj_forward_group_sin); K6 holds z in its epilogues (act'' = -a); the backward keeps
+// [a; P^k] in its slots and cos z in rows Cz of its own (T per hidden layer), forming
+// J^k = cos(z) P^k as the products load it, since its act'' term -a sum_k gJ^k P^k needs
+// P where cos z may vanish.
+//
 // Packed parameter layout: see csrc/tc3xtf32.cuh (the same as csrc/dir_residual.cu's).
 
 #include "tc3xtf32.cuh"
@@ -72,10 +80,12 @@ __device__ __forceinline__ void vj_load_x(const VjProblem& pb, long long p0, int
 
 // Layer 0 of the stacked forward on the CUDA cores for np points, by threads first, first
 // + step, ...: a_0 = act(W0 x + b0) and J_0^k = act'(a_0) W0[:, k] into S (point t of
-// panel k at row k np + t), from the coordinates X [4][ldx].
-template <int HP>
+// panel k at row k np + t), from the coordinates X [4][ldx].  SIN with rows Cz (the
+// backward's, vj_stack_layer_sin): the tangent rows keep P_0^k = W0[:, k] and Cz cos z_0.
+template <int HP, bool SIN>
 __device__ __forceinline__ void vj_panels0(const float* sSm, const float* X, int ldx, float* S,
-                                           int np, int n, int act, int first, int step) {
+                                           int np, int n, int act, int first, int step,
+                                           float* Cz = nullptr) {
   constexpr int LD = kVjLd<HP>;
   const float* W0 = sSm;
   for (int e = first; e < np * HP; e += step) {
@@ -83,10 +93,23 @@ __device__ __forceinline__ void vj_panels0(const float* sSm, const float* X, int
     float z = sSm[4 * HP + i];
 #pragma unroll
     for (int c = 0; c < VJ_MAX_IN; ++c) z = fmaf(W0[i * 4 + c], X[c * ldx + t], z);
-    const float a = vj_act(z, act), sp = vj_dact(a, act);
+    float a, sp;
+    vj_act_sp<SIN>(z, act, a, sp);
     S[t * LD + i] = a;
-    for (int k = 0; k < n; ++k) S[((1 + k) * np + t) * LD + i] = sp * W0[i * 4 + k];
+    if (SIN && Cz) {
+      Cz[t * LD + i] = sp;
+      for (int k = 0; k < n; ++k) S[((1 + k) * np + t) * LD + i] = W0[i * 4 + k];
+    } else {
+      for (int k = 0; k < n; ++k) S[((1 + k) * np + t) * LD + i] = sp * W0[i * 4 + k];
+    }
   }
+}
+
+// a = act(z), sp = act'(z) and spp = act''(z) (the JVP's epilogues, which hold z).
+template <bool SIN>
+__device__ __forceinline__ void vj_act3(float z, int act, float& a, float& sp, float& spp) {
+  vj_act_sp<SIN>(z, act, a, sp);
+  spp = SIN ? -a : vj_ddact(a, sp, act);
 }
 
 // ------------------------------------------------------------------------------------
@@ -94,8 +117,9 @@ __device__ __forceinline__ void vj_panels0(const float* sSm, const float* X, int
 // tiles of vj_forward_tile): no block-wide sync after the weights are loaded.  Shared memory: the small parameters, W_l (f32, [out][LD]), and per
 // warp the group's coordinates X [4][16] and one slot [(1 + n) 16][LD] that every hidden
 // layer overwrites in place.  Group j + 1's coordinates are read into registers while
-// group j is computed.
-template <int HP>
+// group j is computed.  SIN: act' = cos z rides the lane's registers from the value tile
+// to the tangent tiles (vj_forward_group_sin); the slot is the same.
+template <int HP, bool SIN>
 __global__ void __launch_bounds__(256)
     vj_fwd_kernel(VjProblem pb, const float* __restrict__ params, float* __restrict__ out,
                   long long n_groups) {
@@ -129,14 +153,19 @@ __global__ void __launch_bounds__(256)
     X[lane + 32] = xn[1];
     __syncwarp();
     fetch(grp + stride);
-    vj_panels0<HP>(sSm, X, 16, S, 16, n, act, lane, 32);
+    vj_panels0<HP, SIN>(sSm, X, 16, S, 16, n, act, lane, 32);
     __syncwarp();
     // the hidden layers in place, the value tile first: the tangent tiles read act'(a)
     // from the value rows the same lanes wrote
-    for (int l = 1; l < Lh; ++l)
-      for (int k = 0; k < panels; ++k)
-        vj_forward_tile<HP>(S + k * 16 * LD, S + k * 16 * LD, sW + (l - 1) * HP * LD,
-                            sSm + 4 * HP + l * HP, k == 0, k == 0 ? nullptr : S, act);
+    for (int l = 1; l < Lh; ++l) {
+      if constexpr (SIN) {
+        vj_forward_group_sin<HP>(S, panels, sW + (l - 1) * HP * LD, sSm + 4 * HP + l * HP);
+      } else {
+        for (int k = 0; k < panels; ++k)
+          vj_forward_tile<HP>(S + k * 16 * LD, S + k * 16 * LD, sW + (l - 1) * HP * LD,
+                              sSm + 4 * HP + l * HP, k == 0, k == 0 ? nullptr : S, act);
+      }
+    }
     __syncwarp();
     // output layer: out[k][p] = w_out . s_k (+ b_out), four chains; a panel's 16 points
     // are written by 16 consecutive lanes (and the 16-byte reads of the rows at stride LD
@@ -165,8 +194,9 @@ __global__ void __launch_bounds__(256)
 // K6 JVP, persistent over tiles of T points.  Shared memory: the small parameters and
 // their tangent, W_l and dW_l (f32, [out][LD]), the tile's coordinates X [4][T], and two
 // slots of (S, DS) [(1 + n) T][LD] (rows k T + t: the value panel, then the n tangent
-// panels) that the hidden layers read from and write to in turn.
-template <int HP>
+// panels) that the hidden layers read from and write to in turn.  Its epilogues hold z, so
+// SIN only changes act, act' and act'' (vj_act3).
+template <int HP, bool SIN>
 __global__ void __launch_bounds__(256)
     vj_jvp_kernel(VjProblem pb, const float* __restrict__ params,
                   const float* __restrict__ dparams, float* __restrict__ dout,
@@ -207,7 +237,8 @@ __global__ void __launch_bounds__(256)
           z = fmaf(W0[i * 4 + c], X[c * T + t], z);
           dz = fmaf(dW0[i * 4 + c], X[c * T + t], dz);
         }
-        const float a = vj_act(z, act), sp = vj_dact(a, act), spp = vj_ddact(a, sp, act);
+        float a, sp, spp;
+        vj_act3<SIN>(z, act, a, sp, spp);
         const float dsp = spp * dz;
         S[t * LD + i] = a;
         DS[t * LD + i] = sp * dz;
@@ -264,8 +295,8 @@ __global__ void __launch_bounds__(256)
       const float* db = sDm + 4 * HP + l * HP;
       for (int u = tid; u < T * HP; u += nthr) {
         const int t = u / HP, i = u % HP;
-        const float a = vj_act(So[t * LD + i] + b[i], act);
-        const float sp = vj_dact(a, act), spp = vj_ddact(a, sp, act);
+        float a, sp, spp;
+        vj_act3<SIN>(So[t * LD + i] + b[i], act, a, sp, spp);
         const float dzv = DSo[t * LD + i] + db[i], dsp = spp * dzv;
         So[t * LD + i] = a;
         DSo[t * LD + i] = sp * dzv;
@@ -312,7 +343,12 @@ __global__ void __launch_bounds__(256)
 //   X [4][T], GO [1+n][T] the tile's coordinates and the cotangent g of out
 //   S    [Lh][(1+n) T][LD] slot l: the stacked operand [a_l; J_l^1..J_l^n] (rows t, then
 //                         k T + t); going down: [gz_l; gp_l^k], then G_{l-1} = [ga; gJ^k].
-template <int HP>
+//   Cz   [Lh][T][LD]      SIN only: cos z_l; slot l then keeps the tangents'
+//                         pre-activations P_l^k in place of J_l^k = cos(z_l) P_l^k, which
+//                         the products form as they load (vj_stack_layer_sin,
+//                         vj_dw_tile_by): the act'' term is -a sum_k gJ^k P^k, and where
+//                         cos z vanishes no function of (a, J) gives P.
+template <int HP, bool SIN>
 __global__ void __launch_bounds__(256)
     vj_bwd_kernel(VjProblem pb, const float* __restrict__ params, const float* __restrict__ g,
                   float* __restrict__ partials, long long n_tiles, int T) {
@@ -331,6 +367,7 @@ __global__ void __launch_bounds__(256)
   float* X = sW + (Lh - 1) * HP * LD;
   float* GO = X + VJ_MAX_IN * T;
   float* S = GO + (1 + n) * T;
+  float* Cz = S + Lh * slot;  // SIN only
   for (int u = tid; u < npp; u += nthr) sG[u] = 0.0f;
   vj_load_params<HP>(params, Lh, sSm, sW);
   __syncthreads();
@@ -346,16 +383,23 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
     // forward recompute, every layer's slot kept
-    vj_panels0<HP>(sSm, X, T, S, T, n, act, tid, nthr);
+    vj_panels0<HP, SIN>(sSm, X, T, S, T, n, act, tid, nthr, Cz);
     __syncthreads();
-    for (int l = 1; l < Lh; ++l)
-      vj_stack_layer<HP>(S + (l - 1) * slot, S + l * slot, sW + (l - 1) * HP * LD,
-                         sSm + 4 * HP + l * HP, T, 1 + n, act);
+    for (int l = 1; l < Lh; ++l) {
+      if constexpr (SIN)
+        vj_stack_layer_sin<HP>(S + (l - 1) * slot, Cz + (l - 1) * T * LD, S + l * slot,
+                               Cz + l * T * LD, sW + (l - 1) * HP * LD, sSm + 4 * HP + l * HP,
+                               T, 1 + n);
+      else
+        vj_stack_layer<HP>(S + (l - 1) * slot, S + l * slot, sW + (l - 1) * HP * LD,
+                           sSm + 4 * HP + l * HP, T, 1 + n, act);
+    }
 
     // output layer: dw_out += sum_r g_r S_top[r] (g_u a + sum_k g_k J^k), db_out += g_u;
     // one owner per entry, four chains
     {
       const float* St = S + (Lh - 1) * slot;
+      const float* Ct = Cz + (Lh - 1) * T * LD;
       for (int i = tid; i <= HP; i += nthr) {
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (i == HP) {
@@ -363,7 +407,10 @@ __global__ void __launch_bounds__(256)
         } else {
           for (int r = 0; r < rows; r += 4)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[c] = fmaf(GO[r + c], St[(r + c) * LD + i], acc[c]);
+            for (int c = 0; c < 4; ++c) {
+              const float s = SIN ? vj_sin_operand<HP>(St, Ct, T, r + c, i) : St[(r + c) * LD + i];
+              acc[c] = fmaf(GO[r + c], s, acc[c]);
+            }
         }
         sG[off_wout + i] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
       }
@@ -375,11 +422,12 @@ __global__ void __launch_bounds__(256)
       const float* Gin = S + (l + 1) * slot;  // G_l = [ga; gJ^k]_l, below the top layer
       const bool top = l == Lh - 1;
       // epilogue on the CUDA cores, in place: [a; J^k]_l -> [gz; gp^k]_l with
-      // gz = act' ga + (act''/act') sum_k gJ^k J^k and gp^k = act' gJ^k
+      // gz = act' ga + (act''/act') sum_k gJ^k J^k and gp^k = act' gJ^k (SIN: [a; P^k]_l,
+      // gz = cos(z) ga - a sum_k gJ^k P^k)
       for (int u = tid; u < T * HP; u += nthr) {
         const int t = u / HP, i = u % HP;
         const float a = Sl[t * LD + i];
-        const float sp = vj_dact(a, act);
+        const float sp = SIN ? Cz[l * T * LD + t * LD + i] : vj_dact(a, act);
         const float ga = top ? wout[i] * GO[t] : Gin[t * LD + i];
         float acc = 0.0f;
         for (int k = 0; k < n; ++k) {
@@ -388,7 +436,7 @@ __global__ void __launch_bounds__(256)
           acc = fmaf(gj, Sl[r], acc);
           Sl[r] = sp * gj;
         }
-        Sl[t * LD + i] = fmaf(sp, ga, vj_ddact_ratio(a, act) * acc);
+        Sl[t * LD + i] = SIN ? fmaf(sp, ga, -a * acc) : fmaf(sp, ga, vj_ddact_ratio(a, act) * acc);
       }
       __syncthreads();
       // db_l (and at layer 0, dW_0 = gz x^T + sum_t gp^c) on the CUDA cores
@@ -411,10 +459,17 @@ __global__ void __launch_bounds__(256)
       // tile's rows; each tile is added to sG by the lanes that hold it
       {
         const int off_w = vj_off_w(HP, l);
+        const float* Sp = S + (l - 1) * slot;
+        const float* Cp = Cz + (l - 1) * T * LD;
         for (int un = warp; un < MT * NT; un += nwarp) {
           const int j0 = (un / NT) * 16, i0 = (un % NT) * 8;
           float acc[4];
-          vj_dw_tile<HP>(acc, Sl, S + (l - 1) * slot, rows, j0, i0);
+          if constexpr (SIN)
+            vj_dw_tile_by<HP>(
+                acc, Sl, [&](int r, int i) { return vj_sin_operand<HP>(Sp, Cp, T, r, i); }, rows,
+                j0, i0);
+          else
+            vj_dw_tile<HP>(acc, Sl, Sp, rows, j0, i0);
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
             const int j = j0 + gq + (h & 2 ? 8 : 0), i = i0 + 2 * q + (h & 1);
@@ -451,8 +506,9 @@ const int kTileThreads[] = {256, 128};
 enum Kind { kFwd, kJvp, kBwd };
 
 // Shared memory (bytes) of a block: for a tile of T points (K5 backward, K6), or of T
-// threads (K5 forward: a group's coordinates and slot per warp).
-size_t smem_bytes(Kind kind, int hp, int n_hidden, int n_in, int T) {
+// threads (K5 forward: a group's coordinates and slot per warp).  sin adds the backward's
+// cos z rows, T per hidden layer.
+size_t smem_bytes(Kind kind, int hp, int n_hidden, int n_in, int T, bool sin) {
   const size_t npp = vj_n_params(hp, n_hidden), h = hp, ld = hp + 4;
   const size_t rows = (size_t)(1 + n_in) * T, small = vj_small_size(hp, n_hidden);
   const size_t hidden = (size_t)(n_hidden - 1) * h * ld;
@@ -463,16 +519,16 @@ size_t smem_bytes(Kind kind, int hp, int n_hidden, int n_in, int T) {
       return sizeof(float) * (2 * small + 2 * hidden + VJ_MAX_IN * T + 4 * rows * ld);
     default:
       return sizeof(float) * (npp + small + hidden + (VJ_MAX_IN + 1 + n_in) * T +
-                              n_hidden * rows * ld);
+                              n_hidden * (rows + (sin ? T : 0)) * ld);
   }
 }
 
-template <int HP>
+template <int HP, bool SIN>
 const void* kernel_of(Kind kind) {
   switch (kind) {
-    case kFwd: return (const void*)vj_fwd_kernel<HP>;
-    case kJvp: return (const void*)vj_jvp_kernel<HP>;
-    default: return (const void*)vj_bwd_kernel<HP>;
+    case kFwd: return (const void*)vj_fwd_kernel<HP, SIN>;
+    case kJvp: return (const void*)vj_jvp_kernel<HP, SIN>;
+    default: return (const void*)vj_bwd_kernel<HP, SIN>;
   }
 }
 
@@ -491,17 +547,18 @@ struct TileGrid {
   int T, threads, blocks;
   long long n_tiles;
   size_t smem;
+  int per_sm;  // blocks resident per SM
 };
 
-template <int HP>
+template <int HP, bool SIN>
 int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
-  const void* fn = kernel_of<HP>(kind);
+  const void* fn = kernel_of<HP, SIN>(kind);
   int err = allow_smem(fn);
   if (err) return err;
   int best = 0, per_sm_best = 0;
   for (int T : kTileChoices)
     for (int threads : kTileThreads) {
-      const size_t smem = smem_bytes(kind, HP, pb.n_hidden, pb.n_in, T);
+      const size_t smem = smem_bytes(kind, HP, pb.n_hidden, pb.n_in, T, SIN);
       if (smem > kVjMaxSmem) continue;
       int per_sm = 0;
       if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
@@ -512,7 +569,7 @@ int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
       if (busy > best || (busy == best && per_sm > per_sm_best)) {
         best = busy;
         per_sm_best = per_sm;
-        *out = TileGrid{T, threads, 0, 0, smem};
+        *out = TileGrid{T, threads, 0, 0, smem, per_sm};
       }
     }
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
@@ -525,50 +582,75 @@ int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
 }
 
 // K5 forward: one wave of persistent blocks (vj_group_grid).
-template <int HP>
+template <int HP, bool SIN>
 int launch_fwd(const VjProblem& pb, const float* params, float* out, cudaStream_t stream) {
-  const auto smem = [&](int th) { return smem_bytes(kFwd, HP, pb.n_hidden, pb.n_in, th); };
+  const auto smem = [&](int th) {
+    return smem_bytes(kFwd, HP, pb.n_hidden, pb.n_in, th, SIN);
+  };
   const long long n_groups = (pb.P + 15) / 16;
   int threads = 0, blocks = 0;
-  const int err = vj_group_grid(kernel_of<HP>(kFwd), smem, n_groups, &threads, &blocks);
+  const int err = vj_group_grid(kernel_of<HP, SIN>(kFwd), smem, n_groups, &threads, &blocks);
   if (err) return err;
-  vj_fwd_kernel<HP><<<blocks, threads, smem(threads), stream>>>(pb, params, out, n_groups);
+  vj_fwd_kernel<HP, SIN><<<blocks, threads, smem(threads), stream>>>(pb, params, out,
+                                                                     n_groups);
   return (int)cudaGetLastError();
 }
 
-template <int HP>
+template <int HP, bool SIN>
 int launch_jvp(const VjProblem& pb, const float* params, const float* dparams, float* out,
                cudaStream_t stream) {
   TileGrid tg;
-  int err = tile_grid<HP>(kJvp, pb, &tg);
+  int err = tile_grid<HP, SIN>(kJvp, pb, &tg);
   if (err) return err;
-  vj_jvp_kernel<HP><<<tg.blocks, tg.threads, tg.smem, stream>>>(pb, params, dparams, out,
-                                                                tg.n_tiles, tg.T);
+  vj_jvp_kernel<HP, SIN><<<tg.blocks, tg.threads, tg.smem, stream>>>(pb, params, dparams, out,
+                                                                     tg.n_tiles, tg.T);
   return (int)cudaGetLastError();
 }
 
-template <int HP>
+template <int HP, bool SIN>
 int bwd_blocks(const VjProblem& pb, int* blocks) {
   TileGrid tg;
-  int err = tile_grid<HP>(kBwd, pb, &tg);
+  int err = tile_grid<HP, SIN>(kBwd, pb, &tg);
   if (err) return err;
   *blocks = tg.blocks;
   return 0;
 }
 
-template <int HP>
+template <int HP, bool SIN>
 int launch_bwd(const VjProblem& pb, const float* params, const float* g, float* partials,
                int n_blocks, float* grad, cudaStream_t stream) {
   TileGrid tg;
-  int err = tile_grid<HP>(kBwd, pb, &tg);
+  int err = tile_grid<HP, SIN>(kBwd, pb, &tg);
   if (err) return err;
   if (n_blocks != tg.blocks) return (int)cudaErrorInvalidValue;
-  vj_bwd_kernel<HP><<<n_blocks, tg.threads, tg.smem, stream>>>(pb, params, g, partials,
-                                                               tg.n_tiles, tg.T);
+  vj_bwd_kernel<HP, SIN><<<n_blocks, tg.threads, tg.smem, stream>>>(pb, params, g, partials,
+                                                                    tg.n_tiles, tg.T);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   const int npp = vj_n_params(HP, pb.n_hidden);
   vj_reduce_kernel<<<(npp + 127) / 128, 128, 0, stream>>>(partials, grad, n_blocks, npp);
   return (int)cudaGetLastError();
+}
+
+// The launch shape of kind: {threads, blocks resident per SM, blocks, points per tile (the
+// forward: 16 per warp), shared memory bytes per block}.
+template <int HP, bool SIN>
+int launch_shape(Kind kind, const VjProblem& pb, int* shape) {
+  if (kind == kFwd) {
+    const auto smem = [&](int th) {
+      return smem_bytes(kFwd, HP, pb.n_hidden, pb.n_in, th, SIN);
+    };
+    shape[3] = 16;
+    const int err = vj_group_grid(kernel_of<HP, SIN>(kFwd), smem, (pb.P + 15) / 16,
+                                  &shape[0], &shape[2], &shape[1]);
+    shape[4] = err ? 0 : (int)smem(shape[0]);
+    return err;
+  }
+  TileGrid tg;
+  const int err = tile_grid<HP, SIN>(kind, pb, &tg);
+  if (err) return err;
+  shape[0] = tg.threads, shape[1] = tg.per_sm, shape[2] = tg.blocks, shape[3] = tg.T;
+  shape[4] = (int)tg.smem;
+  return 0;
 }
 
 VjProblem make_problem(const float* xs, long long P, int n_in, int n_hidden, int act) {
@@ -583,19 +665,6 @@ bool bad_shape(long long P, int n_in, int n_hidden) {
 
 }  // namespace
 
-#define VJ_DISPATCH(hp, CALL)                                      \
-  switch (hp) {                                                    \
-    case 8: { constexpr int HP = 8; return CALL; }                 \
-    case 16: { constexpr int HP = 16; return CALL; }               \
-    case 24: { constexpr int HP = 24; return CALL; }               \
-    case 32: { constexpr int HP = 32; return CALL; }               \
-    case 40: { constexpr int HP = 40; return CALL; }               \
-    case 48: { constexpr int HP = 48; return CALL; }               \
-    case 56: { constexpr int HP = 56; return CALL; }               \
-    case 64: { constexpr int HP = 64; return CALL; }               \
-    default: return (int)cudaErrorInvalidValue;                    \
-  }
-
 extern "C" {
 
 // Packed parameter count (floats) for hidden width hp and n_hidden hidden layers.
@@ -608,7 +677,7 @@ int vj_fwd(const float* xs, const float* params, float* out, long long P, int n_
   if (bad_shape(P, n_in, n_hidden)) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   const VjProblem pb = make_problem(xs, P, n_in, n_hidden, act);
-  VJ_DISPATCH(hp, launch_fwd<HP>(pb, params, out, (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_fwd<HP, SIN>(pb, params, out, (cudaStream_t)stream))
 }
 
 // dout [1 + n_in][P]: tangent of out along the packed parameter tangent dparams.
@@ -617,14 +686,24 @@ int vj_jvp(const float* xs, const float* params, const float* dparams, float* do
   if (bad_shape(P, n_in, n_hidden)) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   const VjProblem pb = make_problem(xs, P, n_in, n_hidden, act);
-  VJ_DISPATCH(hp, launch_jvp<HP>(pb, params, dparams, dout, (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_jvp<HP, SIN>(pb, params, dparams, dout, (cudaStream_t)stream))
+}
+
+// Launch shape of K5 forward (kind 0), K6 (1) or K5 backward (2) on the current device:
+// shape[5] = {threads, blocks resident per SM, blocks, points per tile, shared memory
+// bytes per block}.
+int vj_launch_shape(int kind, long long P, int n_in, int n_hidden, int hp, int act,
+                    int* shape) {
+  if (bad_shape(P, n_in, n_hidden) || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  const VjProblem pb = make_problem(nullptr, P, n_in, n_hidden, act);
+  VJ_DISPATCH(hp, act, launch_shape<HP, SIN>((Kind)kind, pb, shape))
 }
 
 // Number of backward blocks (rows of the partials buffer) on the current device.
-int vj_bwd_blocks(long long P, int n_in, int n_hidden, int hp, int* blocks) {
+int vj_bwd_blocks(long long P, int n_in, int n_hidden, int hp, int act, int* blocks) {
   if (bad_shape(P, n_in, n_hidden)) return (int)cudaErrorInvalidValue;
-  const VjProblem pb = make_problem(nullptr, P, n_in, n_hidden, 0);
-  VJ_DISPATCH(hp, bwd_blocks<HP>(pb, blocks))
+  const VjProblem pb = make_problem(nullptr, P, n_in, n_hidden, act);
+  VJ_DISPATCH(hp, act, bwd_blocks<HP, SIN>(pb, blocks))
 }
 
 // Packed parameter gradient grad [n_params] for the cotangent g [1 + n_in][P] of out.
@@ -634,8 +713,8 @@ int vj_bwd(const float* xs, const float* g, const float* params, float* partials
            void* stream) {
   if (bad_shape(P, n_in, n_hidden)) return (int)cudaErrorInvalidValue;
   const VjProblem pb = make_problem(xs, P, n_in, n_hidden, act);
-  VJ_DISPATCH(hp, launch_bwd<HP>(pb, params, g, partials, n_blocks, grad,
-                                 (cudaStream_t)stream))
+  VJ_DISPATCH(hp, act, launch_bwd<HP, SIN>(pb, params, g, partials, n_blocks, grad,
+                                           (cudaStream_t)stream))
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 from .mlp import (
     init_mlp,
+    init_siren,
     make_input_scaling,
     mlp_apply,
     mlp_value_and_jac,

@@ -49,6 +49,30 @@ def init_mlp(
     return params
 
 
+def init_siren(
+    generator: torch.Generator,
+    n_in: int,
+    hidden: Sequence[int],
+    n_out: int = 1,
+    omega0: float = 6.0,
+    dtype=torch.float32,
+    device=None,
+) -> Params:
+    """SIREN initialization (Sitzmann et al. 2020) for sin-activation nets, the
+    bounds of the JAX package's ``init_siren``: layer 0 ~ U(-omega0/n_in,
+    omega0/n_in) (the frequency multiplier folded into the weights; inputs are
+    expected scaled to [-1, 1]), deeper layers ~ U(-sqrt(6/fan_in),
+    sqrt(6/fan_in)), biases zero.  Drawn from ``generator`` (a CPU
+    ``torch.Generator``), as :func:`init_mlp`."""
+    sizes = [int(n_in)] + [int(h) for h in hidden] + [int(n_out)]
+    params: Params = []
+    for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        bound = float(omega0) / fan_in if i == 0 else math.sqrt(6.0 / fan_in)
+        w = (2.0 * torch.rand((fan_in, fan_out), generator=generator, dtype=dtype) - 1.0) * bound
+        params.append({"w": w.to(device), "b": torch.zeros(fan_out, dtype=dtype, device=device)})
+    return params
+
+
 def params_from_jax(params, device=None, dtype=torch.float32) -> Params:
     """A JAX-layout parameter list (``[{'w': [in, out], 'b': [out]}, ...]`` of
     NumPy or JAX arrays, e.g. from ``load_theta_npz``) as torch tensors."""

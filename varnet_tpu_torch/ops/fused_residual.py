@@ -61,7 +61,7 @@ from . import build
 
 MAX_IN = 4          # kernel's padded input width: n_in <= 4
 MAX_HIDDEN = 64
-ACTIVATIONS = {"tanh": 0, "sigmoid": 1}
+ACTIVATIONS = {"tanh": 0, "sigmoid": 1, "sin": 2}
 
 
 class ResidualData(NamedTuple):
@@ -233,13 +233,31 @@ def prepare_residual_coeffs(quad, scale, shift, *, time_dependent: bool, has_rea
 
 
 def _act_triple(activation):
+    """(act, act'(z, a), act''(z, a, act')) of the kernels (the JAX package's
+    ``pallas_mlp._act_pair``): tanh and sigmoid derive both from the output
+    a, sin (SIREN nets) from the pre-activation z."""
     if activation == "tanh":
-        return torch.tanh, (lambda a: 1.0 - a * a), (lambda a, sp: -2.0 * a * sp)
+        return torch.tanh, (lambda z, a: 1.0 - a * a), (lambda z, a, sp: -2.0 * a * sp)
     if activation == "sigmoid":
-        return (torch.sigmoid, (lambda a: a * (1.0 - a)),
-                (lambda a, sp: (1.0 - 2.0 * a) * sp))
-    raise ValueError(f"activation '{activation}' is not supported by the fused "
-                     "residual (tanh|sigmoid; sin comes with the SIREN port)")
+        return (torch.sigmoid, (lambda z, a: a * (1.0 - a)),
+                (lambda z, a, sp: (1.0 - 2.0 * a) * sp))
+    if activation == "sin":
+        return torch.sin, (lambda z, a: torch.cos(z)), (lambda z, a, sp: -a)
+    raise ValueError(f"unknown activation '{activation}' (tanh|sigmoid|sin)")
+
+
+SIN_NEXT_SLICE = ("sin on csrc/ff_mlp.cu (Fourier features, the Burgers/jacobian residual "
+                  "K3, hidden widths 65-256) comes in the next slice")
+
+
+def refuse_ff_sin(params, activation, ff: bool):
+    """Raise on sin where the card would run csrc/ff_mlp.cu, which has no sin
+    mode yet: ``ff`` (an embedding, K3) or a hidden width above ``MAX_HIDDEN``.
+    Every wrapper calls it on both devices, so the CPU and the card take sin
+    at the same places."""
+    if activation == "sin" and (ff or (len(params) > 1 and max(
+            layer["w"].shape[1] for layer in params[:-1]) > MAX_HIDDEN)):
+        raise ValueError(SIN_NEXT_SLICE)
 
 
 def _dir_coeffs(data):
@@ -288,17 +306,17 @@ def _layer0_inputs(data: ResidualData, c):
 
 
 def _forward_states(wts, bs, x0, t0, activation):
-    """Hidden-layer activations a_l and tangent pre-activations pre_l [H_l, P]
-    from the layer-0 input pair (x0, t0)."""
+    """Hidden-layer pre-activations z_l, activations a_l and tangent
+    pre-activations pre_l [H_l, P] from the layer-0 input pair (x0, t0)."""
     act, act_p, _ = _act_triple(activation)
-    a = act(wts[0] @ x0 + bs[0])
-    acts, pres = [a], [wts[0] @ t0]
+    zs = [wts[0] @ x0 + bs[0]]
+    acts, pres = [act(zs[0])], [wts[0] @ t0]
     for wt, b in zip(wts[1:-1], bs[1:-1]):
-        t = act_p(a) * pres[-1]
-        a = act(wt @ a + b)
-        acts.append(a)
+        t = act_p(zs[-1], acts[-1]) * pres[-1]
+        zs.append(wt @ acts[-1] + b)
+        acts.append(act(zs[-1]))
         pres.append(wt @ t)
-    return acts, pres
+    return zs, acts, pres
 
 
 def dir_residual_fwd_plain(params, data, activation: str = "tanh"):
@@ -309,9 +327,9 @@ def dir_residual_fwd_plain(params, data, activation: str = "tanh"):
     _, act_p, _ = _act_triple(activation)
     wts, bs = _wt_layout(params)
     c, cu, csrc = _dir_coeffs(data)
-    acts, pres = _forward_states(wts, bs, *_layer0_inputs(data, c), activation)
+    zs, acts, pres = _forward_states(wts, bs, *_layer0_inputs(data, c), activation)
     a = acts[-1]
-    dd = (wts[-1] @ (act_p(a) * pres[-1]))[0]
+    dd = (wts[-1] @ (act_p(zs[-1], a) * pres[-1]))[0]
     contrib = dd + csrc
     if cu is not None:
         contrib = contrib + cu * (wts[-1] @ a + bs[-1])[0]
@@ -328,10 +346,10 @@ def dir_residual_bwd_plain(params, data, activation: str, gr):
     wts, bs = _wt_layout(params)
     c, cu, _ = _dir_coeffs(data)
     x0, t0 = _layer0_inputs(data, c)
-    acts, pres = _forward_states(wts, bs, x0, t0, activation)
+    zs, acts, pres = _forward_states(wts, bs, x0, t0, activation)
     g_tan = gr.repeat_interleave(data.nq)[None, :]             # [1, P]
     g_val = g_tan * cu if cu is not None else torch.zeros_like(g_tan)
-    tans = [act_p(a) * pre for a, pre in zip(acts, pres)]
+    tans = [act_p(z, a) * pre for z, a, pre in zip(zs, acts, pres)]
     n = len(params)
     d_wts, d_bs = [None] * n, [None] * n
     d_wts[-1] = g_tan @ tans[-1].T + g_val @ acts[-1].T
@@ -339,8 +357,8 @@ def dir_residual_bwd_plain(params, data, activation: str, gr):
     ga = wts[-1].T * g_val                                     # [H, P]
     gj = wts[-1].T * g_tan
     for l in range(n - 2, -1, -1):
-        sp = act_p(acts[l])
-        spp = act_pp(acts[l], sp)
+        sp = act_p(zs[l], acts[l])
+        spp = act_pp(zs[l], acts[l], sp)
         gz = sp * ga + spp * (gj * pres[l])
         gp = sp * gj
         x_in, t_in = (x0, t0) if l == 0 else (acts[l - 1], tans[l - 1])
@@ -364,10 +382,10 @@ def load_library(defines: tuple = ()) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vr_dir_residual_n_params.argtypes = [i32, i32]
     lib.vr_dir_residual_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-    lib.vr_dir_residual_bwd_blocks.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+    lib.vr_dir_residual_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.vr_dir_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 9 + [ptr]
     lib.vr_dirp_residual_fwd.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
-    lib.vr_dirp_residual_bwd_blocks.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.vr_dirp_residual_bwd_blocks.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.vr_dirp_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 7 + [ptr]
     lib.ff_n_params_c.argtypes = [i32] * 3
     lib.ff_res_fwd.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
@@ -381,13 +399,15 @@ def load_library(defines: tuple = ()) -> ctypes.CDLL:
     lib.ff_jac_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 9 + [ptr]
     lib.ff_launch_shape.argtypes = ([i32, i32, ctypes.c_int64] + [i32] * 3
                                     + [ctypes.POINTER(i32)] * 3)
+    lib.vr_launch_shape.argtypes = [i32] * 8 + [ctypes.POINTER(i32)]
     for fn in (lib.vr_dir_residual_n_params, lib.vr_dir_residual_fwd,
                lib.vr_dir_residual_bwd_blocks, lib.vr_dir_residual_bwd,
                lib.vr_dirp_residual_fwd, lib.vr_dirp_residual_bwd_blocks,
                lib.vr_dirp_residual_bwd, lib.ff_n_params_c,
                lib.ff_res_fwd, lib.ff_res_bwd_blocks, lib.ff_res_bwd,
                lib.ff_pre_fwd, lib.ff_pre_bwd_blocks, lib.ff_pre_bwd,
-               lib.ff_jac_fwd, lib.ff_jac_bwd_blocks, lib.ff_jac_bwd, lib.ff_launch_shape):
+               lib.ff_jac_fwd, lib.ff_jac_bwd_blocks, lib.ff_jac_bwd, lib.ff_launch_shape,
+               lib.vr_launch_shape):
         fn.restype = i32
     return lib
 
@@ -501,9 +521,9 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
     hp, packed = _packed(lib, params)
     n_hidden = len(params) - 1
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.vr_dir_residual_bwd_blocks(data.k, data.nq, data.d, n_hidden, hp,
-                                             ctypes.byref(blocks)),
-              "dir_residual_bwd_blocks")
+    raise_on_fit(params, lib.vr_dir_residual_bwd_blocks(
+        data.k, data.nq, data.d, n_hidden, hp, ACTIVATIONS[activation], ctypes.byref(blocks)),
+        f"dir_residual_bwd_blocks, {activation}", NO_TILE_FITS, "dir_residual.cu's backward")
     npp = packed.numel()
     partials = torch.empty(blocks.value * npp, dtype=torch.float32, device=data.xs.device)
     grad = torch.empty(npp, dtype=torch.float32, device=data.xs.device)
@@ -516,7 +536,11 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
     return unpack_grads(grad, params, hp)
 
 
-def _route(data: ResidualData) -> str:
+def _route(data, params, activation, ff: bool = False) -> str:
+    """The device kind of ``data`` ("cpu" or "cuda"), after refusing sin where
+    the card would take csrc/ff_mlp.cu (``ff``: the wrapper's kernels are
+    there; :func:`refuse_ff_sin`)."""
+    refuse_ff_sin(params, activation, ff or data.bt is not None)
     kind = data.xs.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"fused residual: unsupported device '{kind}'")
@@ -525,7 +549,7 @@ def _route(data: ResidualData) -> str:
 
 def dir_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
     """r [K]: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_kernel_args(params, data, activation)
     r = kernel_fwd(load_library(), params, data, activation,
@@ -536,7 +560,7 @@ def dir_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
 
 def dir_residual_bwd(params, data: ResidualData, activation: str, gr):
     """Parameter gradients for cotangent gr [K]; dispatch as dir_residual_fwd."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_kernel_args(params, data, activation)
     grads = kernel_bwd(load_library(), params, data, activation, gr,
@@ -596,9 +620,9 @@ def kernel_dirp_bwd(lib, params, data: CoeffData, activation: str, gr, stream=No
     """Launch K4's backward kernels of ``lib``.  Returns ``{'w', 'b'}`` grads."""
     hp, packed = _packed(lib, params)
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.vr_dirp_residual_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
-                                                   ctypes.byref(blocks)),
-                   "dirp_residual_bwd_blocks")
+    raise_on_fit(params, lib.vr_dirp_residual_bwd_blocks(
+        data.k, data.nq, len(params) - 1, hp, ACTIVATIONS[activation], ctypes.byref(blocks)),
+        f"dirp_residual_bwd_blocks, {activation}", NO_TILE_FITS, "dir_residual.cu's backward")
     dev = data.xs.device
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
@@ -613,7 +637,7 @@ def kernel_dirp_bwd(lib, params, data: CoeffData, activation: str, gr, stream=No
 def dirp_residual_fwd(params, data: CoeffData, activation: str = "tanh"):
     """K4: r [K] from precomputed coefficients: the CUDA kernel for CUDA
     tensors, the plain version for CPU ones."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_dirp_args(params, data, activation)
     r = kernel_dirp_fwd(load_library(), params, data, activation,
@@ -625,7 +649,7 @@ def dirp_residual_fwd(params, data: CoeffData, activation: str = "tanh"):
 def dirp_residual_bwd(params, data: CoeffData, activation: str, gr):
     """K4's parameter gradients for cotangent gr [K]; dispatch as
     ``dirp_residual_fwd``."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_dirp_args(params, data, activation)
     grads = kernel_dirp_bwd(load_library(), params, data, activation, gr,
@@ -644,6 +668,10 @@ dirp_residual_bwd.launches = 0
 FF_MAX_HIDDEN = 256
 FF_MAX_FEATURES = 128
 FF_DOES_NOT_FIT = 1001  # csrc/ff_mlp.cu: not even one warp group fits in shared memory
+# cudaErrorInvalidConfiguration, which the backward's block queries of dir_residual.cu and
+# value_and_jac.cu return when no tile fits a block's shared memory (sin's backward keeps
+# one more row per point and hidden layer: cos z)
+NO_TILE_FITS = 9
 
 
 def ff_dims(params, embedded: bool = True):
@@ -715,8 +743,9 @@ def ff_bt(bt: Optional[torch.Tensor], fp: int) -> Optional[torch.Tensor]:
 
 def check_ff_args(params, bt, tensors, activation):
     """Raise on what csrc/ff_mlp.cu does not take (``bt`` None: a net
-    without an embedding on the points ``tensors[0]`` [n_in, P])."""
+    without an embedding on the points ``tensors[0]`` [n_in, P]), sin among it."""
     _act_triple(activation)
+    refuse_ff_sin(params, activation, True)
     n_feat, n_in = (None, tensors[0].shape[0]) if bt is None else bt.shape
     if not 1 <= n_in <= 4:
         raise ValueError(f"the Fourier-feature kernels take 1 <= n_in <= 4, got {n_in}")
@@ -741,13 +770,16 @@ def check_ff_args(params, bt, tensors, activation):
             raise ValueError("the Fourier-feature kernels take contiguous data")
 
 
-def ff_raise_on(params, err: int, what: str):
-    """Raise on a csrc/ff_mlp.cu result: a ValueError naming the width and depth
-    where the net does not fit a block's shared memory, else as ``build.raise_on``."""
-    if err == FF_DOES_NOT_FIT:
+def raise_on_fit(params, err: int, what: str, no_fit: int = FF_DOES_NOT_FIT,
+                 kernels: str = "the Fourier-feature kernels"):
+    """Raise on a launcher's result: a ValueError naming the width and depth where
+    the net does not fit a block's shared memory (``no_fit``: csrc/ff_mlp.cu's
+    FF_DOES_NOT_FIT, or :data:`NO_TILE_FITS` from a backward's block query of
+    dir_residual.cu / value_and_jac.cu), else as ``build.raise_on``."""
+    if err == no_fit:
         widest = max(layer["w"].shape[1] for layer in params[:-1])
         raise ValueError(f"hidden width {widest} at depth {len(params) - 1} needs more shared "
-                         f"memory than a block has in the Fourier-feature kernels ({what})")
+                         f"memory than a block has in {kernels} ({what})")
     build.raise_on(err, what)
 
 
@@ -774,6 +806,22 @@ def ff_launch_shape(kind: str, panels: int, p: int, ke: int, n_hidden: int, hp: 
             "blocks": blocks}
 
 
+def dir_launch_shape(kind: str, params, data, activation: str) -> dict:
+    """The launch shape csrc/dir_residual.cu takes on the current card for the K1/K2
+    (``ResidualData``) or K4 (``CoeffData``) forward (``kind`` "fwd") or backward
+    ("bwd") of ``params`` on ``data``: threads per block, blocks resident per SM,
+    warps per SM, blocks of the grid, points per tile and shared memory bytes per block."""
+    shape = (ctypes.c_int * 5)()
+    pre = isinstance(data, CoeffData)
+    raise_on_fit(params, load_library().vr_launch_shape(
+        ("fwd", "bwd").index(kind), data.k, data.nq, 0 if pre else data.d, len(params) - 1,
+        padded_width(params), ACTIVATIONS[activation], int(pre), shape),
+        f"dir_launch_shape, {activation}", NO_TILE_FITS, "dir_residual.cu's backward")
+    threads, per_sm, blocks, tile, smem = shape
+    return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
+            "blocks": blocks, "tile": tile, "smem_bytes": smem}
+
+
 def _ff_res_args(data: ResidualData, params, activation, hp, fp):
     return [data.k, data.nq, data.xs.shape[0], data.d, int(data.td), int(data.has_react),
             ff_ke(fp), len(params) - 1, hp, ACTIVATIONS[activation]]
@@ -788,7 +836,7 @@ def kernel_ff_fwd(lib, params, data: ResidualData, activation: str, stream=None)
     hp, fp, packed = _ff_packed(lib, params, data.bt is not None)
     bt = ff_bt(data.bt, fp)
     contrib, r = _fwd_buffers(data)
-    ff_raise_on(params, lib.ff_res_fwd(
+    raise_on_fit(params, lib.ff_res_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(bt), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_ff_res_args(data, params, activation, hp, fp), stream), "dir_residual_ff_fwd")
@@ -801,13 +849,13 @@ def kernel_ff_bwd(lib, params, data: ResidualData, activation: str, gr, stream=N
     dev = data.xs.device
     bt = ff_bt(data.bt, fp)
     blocks = ctypes.c_int(0)
-    ff_raise_on(params, lib.ff_res_bwd_blocks(data.k, data.nq, data.d, ff_ke(fp),
-                                              len(params) - 1, hp, ctypes.byref(blocks)),
-                "dir_residual_ff_bwd_blocks")
+    raise_on_fit(params, lib.ff_res_bwd_blocks(data.k, data.nq, data.d, ff_ke(fp),
+                                               len(params) - 1, hp, ctypes.byref(blocks)),
+                 "dir_residual_ff_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
-    ff_raise_on(params, lib.ff_res_bwd(
+    raise_on_fit(params, lib.ff_res_bwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(bt), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
         grad.data_ptr(), *_ff_res_args(data, params, activation, hp, fp), stream),
@@ -823,7 +871,7 @@ def dir_residual_ff_fwd(params, data: ResidualData, activation: str = "tanh"):
     """K2-FF: r [K] of the Fourier-feature net (``data.bt`` set; None: a plain
     net through the same kernels): the CUDA kernel for CUDA tensors, the plain
     version for CPU ones."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation, ff=True) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_ff_data(params, data, activation)
     r = kernel_ff_fwd(load_library(), params, data, activation,
@@ -835,7 +883,7 @@ def dir_residual_ff_fwd(params, data: ResidualData, activation: str = "tanh"):
 def dir_residual_ff_bwd(params, data: ResidualData, activation: str, gr):
     """K2-FF's parameter gradients for cotangent gr [K]; dispatch as
     ``dir_residual_ff_fwd``."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation, ff=True) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_ff_data(params, data, activation)
     grads = kernel_ff_bwd(load_library(), params, data, activation, gr,
@@ -876,7 +924,7 @@ def kernel_dirp_ff_fwd(lib, params, data: CoeffData, activation: str, stream=Non
     """Launch ff_mlp.cu's precoeff forward (K4, wide nets) of ``lib``: r [K]."""
     hp, _, packed = _ff_packed(lib, params, False)
     contrib, r = _fwd_buffers(data)
-    ff_raise_on(params, lib.ff_pre_fwd(
+    raise_on_fit(params, lib.ff_pre_fwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
         packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_fwd")
@@ -888,12 +936,12 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
     hp, _, packed = _ff_packed(lib, params, False)
     dev = data.xs.device
     blocks = ctypes.c_int(0)
-    ff_raise_on(params, lib.ff_pre_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
-                                              ctypes.byref(blocks)), "dirp_residual_ff_bwd_blocks")
+    raise_on_fit(params, lib.ff_pre_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
+                                               ctypes.byref(blocks)), "dirp_residual_ff_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
-    ff_raise_on(params, lib.ff_pre_bwd(
+    raise_on_fit(params, lib.ff_pre_bwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
         packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value, grad.data_ptr(),
         *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_bwd")
@@ -903,7 +951,7 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
 def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
     """K4 for a plain net of hidden width 65..256 (csrc/ff_mlp.cu): the CUDA
     kernel for CUDA tensors, the plain version for CPU ones."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation, ff=True) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_dirp_ff_args(params, data, activation)
     r = kernel_dirp_ff_fwd(load_library(), params, data, activation,
@@ -915,7 +963,7 @@ def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
 def dirp_residual_ff_bwd(params, data: CoeffData, activation: str, gr):
     """Its parameter gradients for cotangent gr [K]; dispatch as
     ``dirp_residual_ff_fwd``."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation, ff=True) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_dirp_ff_args(params, data, activation)
     grads = kernel_dirp_ff_bwd(load_library(), params, data, activation, gr,
@@ -1009,7 +1057,7 @@ def kernel_jac_fwd(lib, params, data: ResidualData, activation: str, stream=None
     """Launch K3's forward of ``lib`` (no device dispatch).  Returns r [K]."""
     hp, _, packed = _ff_packed(lib, params, False)
     contrib, r = _fwd_buffers(data)
-    ff_raise_on(params, lib.ff_jac_fwd(
+    raise_on_fit(params, lib.ff_jac_fwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(data.nl), packed.data_ptr(), contrib.data_ptr(), r.data_ptr(),
         *_ff_jac_args(data, params, activation, hp), stream), "jac_residual_fwd")
@@ -1021,13 +1069,13 @@ def kernel_jac_bwd(lib, params, data: ResidualData, activation: str, gr, stream=
     hp, _, packed = _ff_packed(lib, params, False)
     dev = data.xs.device
     blocks = ctypes.c_int(0)
-    ff_raise_on(params, lib.ff_jac_bwd_blocks(data.k, data.nq, data.xs.shape[0], data.d,
-                                              len(params) - 1, hp, ctypes.byref(blocks)),
-                "jac_residual_bwd_blocks")
+    raise_on_fit(params, lib.ff_jac_bwd_blocks(data.k, data.nq, data.xs.shape[0], data.d,
+                                               len(params) - 1, hp, ctypes.byref(blocks)),
+                 "jac_residual_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
-    ff_raise_on(params, lib.ff_jac_bwd(
+    raise_on_fit(params, lib.ff_jac_bwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(data.nl), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
         grad.data_ptr(), *_ff_jac_args(data, params, activation, hp), stream),
@@ -1039,7 +1087,7 @@ def jac_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
     """K3: r [K] of the jacobian-panel residual (nonlinear advection with
     ``data.nl``): the CUDA kernel for CUDA tensors, the plain version for CPU
     ones."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation, ff=True) == "cpu":
         return jac_residual_fwd_plain(params, data, activation)
     _check_jac_data(params, data, activation)
     r = kernel_jac_fwd(load_library(), params, data, activation,
@@ -1051,7 +1099,7 @@ def jac_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
 def jac_residual_bwd(params, data: ResidualData, activation: str, gr):
     """K3's parameter gradients for cotangent gr [K]; dispatch as
     ``jac_residual_fwd``."""
-    if _route(data) == "cpu":
+    if _route(data, params, activation, ff=True) == "cpu":
         return jac_residual_bwd_plain(params, data, activation, gr)
     _check_jac_data(params, data, activation)
     grads = kernel_jac_bwd(load_library(), params, data, activation, gr,

@@ -60,22 +60,26 @@ def vj_fwd_plain(params, xs_t, activation: str = "tanh"):
 
 def _packed_forward(wts, bs, xs_t, activation):
     """The panel-packed forward of ``_bwd_kernel``: per hidden layer the
-    activation a_l, the panels s_l = [a_l | J_l^1 .. J_l^n] [H, (1+n) P] and
-    the tangent pre-activations P_l^j (None for layer 0: the W_0 column)."""
+    pre-activation z_l, the activation a_l, the panels s_l = [a_l | J_l^1 ..
+    J_l^n] [H, (1+n) P] and the tangent pre-activations P_l^j (None for layer
+    0: the W_0 column)."""
     act, act_p, _ = _act_triple(activation)
     n_in, p = xs_t.shape
-    a = act(wts[0] @ xs_t + bs[0])
-    sp = act_p(a)
-    acts, pres = [a], [None]
+    z = wts[0] @ xs_t + bs[0]
+    a = act(z)
+    sp = act_p(z, a)
+    zs, acts, pres = [z], [a], [None]
     s_packed = [torch.cat([a] + [sp * wts[0][:, j:j + 1] for j in range(n_in)], dim=1)]
     for wt, b in zip(wts[1:-1], bs[1:-1]):
         zc = wt @ s_packed[-1]
-        a = act(zc[:, :p] + b)
-        sp = act_p(a)
+        z = zc[:, :p] + b
+        a = act(z)
+        sp = act_p(z, a)
+        zs.append(z)
         acts.append(a)
         pres.append(zc[:, p:])
         s_packed.append(torch.cat([a, sp.repeat(1, n_in) * zc[:, p:]], dim=1))
-    return acts, pres, s_packed
+    return zs, acts, pres, s_packed
 
 
 def vj_bwd_plain(params, xs_t, activation: str, g):
@@ -85,15 +89,15 @@ def vj_bwd_plain(params, xs_t, activation: str, g):
     _, act_p, act_pp = _act_triple(activation)
     wts, bs = _wt_layout(params)
     n_in, p = xs_t.shape
-    acts, pres, s_packed = _packed_forward(wts, bs, xs_t, activation)
+    zs, acts, pres, s_packed = _packed_forward(wts, bs, xs_t, activation)
     n = len(params)
     d_wts, d_bs = [None] * n, [None] * n
     d_wts[-1] = sum(g[j:j + 1] @ s_packed[-1][:, j * p:(j + 1) * p].T for j in range(1 + n_in))
     d_bs[-1] = g[0:1].sum(dim=1, keepdim=True)
     g_s = torch.cat([wts[-1].T * g[j:j + 1] for j in range(1 + n_in)], dim=1)
     for l in range(n - 2, -1, -1):
-        sp = act_p(acts[l])
-        spp = act_pp(acts[l], sp)
+        sp = act_p(zs[l], acts[l])
+        spp = act_pp(zs[l], acts[l], sp)
         ga, g_jac = g_s[:, :p], g_s[:, p:]
         acc = sum(g_jac[:, j * p:(j + 1) * p]
                   * (wts[0][:, j:j + 1] if l == 0 else pres[l][:, j * p:(j + 1) * p])
@@ -120,8 +124,8 @@ def vj_jvp_plain(params, xs_t, activation: str, tangent):
     z = wts[0] @ xs_t + bs[0]
     dz = dwts[0] @ xs_t + dbs[0]
     a = act(z)
-    sp = act_p(a)
-    dsp = act_pp(a, sp) * dz
+    sp = act_p(z, a)
+    dsp = act_pp(z, a, sp) * dz
     s = torch.cat([a] + [sp * wts[0][:, j:j + 1] for j in range(n_in)], dim=1)
     ds = torch.cat([sp * dz] + [dsp * wts[0][:, j:j + 1] + sp * dwts[0][:, j:j + 1]
                                 for j in range(n_in)], dim=1)
@@ -135,10 +139,11 @@ def _jvp_tail(wts, bs, dwts, dbs, s, ds, n_in, p, activation):
     for wt, b, dwt, db in zip(wts[1:-1], bs[1:-1], dwts[1:-1], dbs[1:-1]):
         zc = wt @ s
         dzc = dwt @ s + wt @ ds
-        a = act(zc[:, :p] + b)
+        z = zc[:, :p] + b
+        a = act(z)
         dz = dzc[:, :p] + db
-        sp = act_p(a)
-        dsp = act_pp(a, sp) * dz
+        sp = act_p(z, a)
+        dsp = act_pp(z, a, sp) * dz
         s = torch.cat([a, sp.repeat(1, n_in) * zc[:, p:]], dim=1)
         ds = torch.cat([sp * dz, dsp.repeat(1, n_in) * zc[:, p:]
                         + sp.repeat(1, n_in) * dzc[:, p:]], dim=1)
@@ -168,8 +173,9 @@ def ff_vj_fwd_plain(params, xs_t, bt, activation: str = "tanh"):
     wts, bs = _wt_layout(params)
     a, jac = _ff_embed(bt, xs_t)
     for wt, b in zip(wts[:-1], bs[:-1]):
-        a = act(wt @ a + b)
-        sp = act_p(a)
+        z = wt @ a + b
+        a = act(z)
+        sp = act_p(z, a)
         jac = [sp * (wt @ j) for j in jac]
     return torch.cat([wts[-1] @ a + bs[-1]] + [wts[-1] @ j for j in jac])
 
@@ -181,13 +187,15 @@ def ff_vj_bwd_plain(params, xs_t, bt, activation: str, g):
     wts, bs = _wt_layout(params)
     n_in = xs_t.shape[0]
     a0, j0 = _ff_embed(bt, xs_t)
-    acts, pres, jacs = [], [], []
+    zs, acts, pres, jacs = [], [], [], []
     a, jac = a0, j0
     for wt, b in zip(wts[:-1], bs[:-1]):
         pre = [wt @ j for j in jac]
-        a = act(wt @ a + b)
-        sp = act_p(a)
+        z = wt @ a + b
+        a = act(z)
+        sp = act_p(z, a)
         jac = [sp * q for q in pre]
+        zs.append(z)
         acts.append(a)
         pres.append(pre)
         jacs.append(jac)
@@ -199,8 +207,8 @@ def ff_vj_bwd_plain(params, xs_t, bt, activation: str, g):
     ga = wts[-1].T @ gu
     g_jac = [wts[-1].T @ gd for gd in gdu]
     for l in range(n - 2, -1, -1):
-        sp = act_p(acts[l])
-        spp = act_pp(acts[l], sp)
+        sp = act_p(zs[l], acts[l])
+        spp = act_pp(zs[l], acts[l], sp)
         gz = sp * ga
         for j in range(n_in):
             gz = gz + (g_jac[j] * pres[l][j]) * spp
@@ -226,8 +234,8 @@ def ff_vj_jvp_plain(params, xs_t, bt, activation: str, tangent):
     z = wts[0] @ a0 + bs[0]
     dz = dwts[0] @ a0 + dbs[0]
     a = act(z)
-    sp = act_p(a)
-    dsp = act_pp(a, sp) * dz
+    sp = act_p(z, a)
+    dsp = act_pp(z, a, sp) * dz
     pre = [wts[0] @ j for j in j0]
     dpre = [dwts[0] @ j for j in j0]
     s = torch.cat([a] + [sp * q for q in pre], dim=1)
@@ -247,14 +255,16 @@ def load_library() -> ctypes.CDLL:
     lib.vj_n_params_c.argtypes = [i32, i32]
     lib.vj_fwd.argtypes = [ptr] * 3 + [i64] + [i32] * 4 + [ptr]
     lib.vj_jvp.argtypes = [ptr] * 4 + [i64] + [i32] * 4 + [ptr]
-    lib.vj_bwd_blocks.argtypes = [i64, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.vj_bwd_blocks.argtypes = [i64, i32, i32, i32, i32, ctypes.POINTER(i32)]
     lib.vj_bwd.argtypes = [ptr] * 4 + [i32, ptr, i64] + [i32] * 4 + [ptr]
+    lib.vj_launch_shape.argtypes = [i32, i64] + [i32] * 4 + [ctypes.POINTER(i32)]
     lib.ff_n_params_c.argtypes = [i32] * 3
     lib.ff_vj_fwd.argtypes = [ptr] * 4 + [i64] + [i32] * 5 + [ptr]
     lib.ff_vj_jvp.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr]
     lib.ff_vj_bwd_blocks.argtypes = [i64] + [i32] * 4 + [ctypes.POINTER(i32)]
     lib.ff_vj_bwd.argtypes = [ptr] * 5 + [i32, ptr, i64] + [i32] * 5 + [ptr]
     for fn in (lib.vj_n_params_c, lib.vj_fwd, lib.vj_jvp, lib.vj_bwd_blocks, lib.vj_bwd,
+               lib.vj_launch_shape,
                lib.ff_n_params_c, lib.ff_vj_fwd, lib.ff_vj_jvp, lib.ff_vj_bwd_blocks,
                lib.ff_vj_bwd):
         fn.restype = i32
@@ -328,8 +338,11 @@ def _packed(lib, params):
     return hp, packed
 
 
-def _route(xs_t, activation) -> str:
-    _act_triple(activation)  # tanh | sigmoid on every route; sin comes with SIREN
+def _route(xs_t, params, activation, ff: bool = False) -> str:
+    """The device kind of xs_t ("cpu" or "cuda"), after refusing sin where the
+    card would take csrc/ff_mlp.cu (``fused_residual.refuse_ff_sin``)."""
+    _act_triple(activation)
+    fr.refuse_ff_sin(params, activation, ff)
     kind = xs_t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"value_and_jac: unsupported device '{kind}'")
@@ -343,7 +356,7 @@ def _stream(xs_t):
 def vj_fwd(params, xs_t, activation: str = "tanh"):
     """out [1 + n_in, P]: the CUDA kernel for CUDA tensors, the plain version
     for CPU ones."""
-    if _route(xs_t, activation) == "cpu":
+    if _route(xs_t, params, activation) == "cpu":
         return vj_fwd_plain(params, xs_t, activation)
     _check_kernel_args(params, xs_t)
     lib = load_library()
@@ -359,7 +372,7 @@ def vj_fwd(params, xs_t, activation: str = "tanh"):
 
 def vj_bwd(params, xs_t, activation: str, g):
     """Parameter gradients of <g, out>; dispatch as ``vj_fwd``."""
-    if _route(xs_t, activation) == "cpu":
+    if _route(xs_t, params, activation) == "cpu":
         return vj_bwd_plain(params, xs_t, activation, g)
     _check_kernel_args(params, xs_t)
     lib = load_library()
@@ -369,8 +382,10 @@ def vj_bwd(params, xs_t, activation: str, g):
     if tuple(g.shape) != (1 + n_in, p) or g.device != xs_t.device:
         raise ValueError(f"cotangent must be [{1 + n_in}, {p}] on {xs_t.device}")
     blocks = ctypes.c_int(0)
-    build.raise_on(lib.vj_bwd_blocks(p, n_in, len(params) - 1, hp, ctypes.byref(blocks)),
-                   "vj_bwd_blocks")
+    fr.raise_on_fit(params, lib.vj_bwd_blocks(p, n_in, len(params) - 1, hp,
+                                              ACTIVATIONS[activation], ctypes.byref(blocks)),
+                    f"vj_bwd_blocks, {activation}", fr.NO_TILE_FITS,
+                    "value_and_jac.cu's backward")
     npp = packed.numel()
     partials = torch.empty(blocks.value * npp, dtype=torch.float32, device=xs_t.device)
     grad = torch.empty(npp, dtype=torch.float32, device=xs_t.device)
@@ -384,7 +399,7 @@ def vj_bwd(params, xs_t, activation: str, g):
 
 def vj_jvp(params, xs_t, activation: str, tangent):
     """dout [1 + n_in, P] along ``tangent``; dispatch as ``vj_fwd``."""
-    if _route(xs_t, activation) == "cpu":
+    if _route(xs_t, params, activation) == "cpu":
         return vj_jvp_plain(params, xs_t, activation, tangent)
     _check_kernel_args(params, xs_t)
     lib = load_library()
@@ -403,6 +418,22 @@ def vj_jvp(params, xs_t, activation: str, tangent):
 vj_fwd.launches = 0
 vj_bwd.launches = 0
 vj_jvp.launches = 0
+
+
+def launch_shape(kind: str, params, xs_t, activation: str) -> dict:
+    """The launch shape csrc/value_and_jac.cu takes on the current card for K5's
+    forward ("fwd"), K6 ("jvp") or K5's backward ("bwd") of ``params`` on the points
+    xs_t [n_in, P]: threads per block, blocks resident per SM, warps per SM, blocks
+    of the grid, points per tile and shared memory bytes per block."""
+    shape = (ctypes.c_int * 5)()
+    n_in, p = xs_t.shape
+    fr.raise_on_fit(params, load_library().vj_launch_shape(
+        ("fwd", "jvp", "bwd").index(kind), p, n_in, len(params) - 1, padded_width(params),
+        ACTIVATIONS[activation], shape), f"vj_launch_shape, {activation}", fr.NO_TILE_FITS,
+        "value_and_jac.cu")
+    threads, per_sm, blocks, tile, smem = shape
+    return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
+            "blocks": blocks, "tile": tile, "smem_bytes": smem}
 
 
 def _as_params(flat):
@@ -474,7 +505,7 @@ def kernel_ff_vj_fwd(lib, params, xs_t, bt, activation: str, stream=None):
     btf = fr.ff_bt(bt, fp)  # held until the launch has read it
     out = torch.empty((1 + xs_t.shape[0], xs_t.shape[1]), dtype=torch.float32,
                       device=xs_t.device)
-    fr.ff_raise_on(params, lib.ff_vj_fwd(
+    fr.raise_on_fit(params, lib.ff_vj_fwd(
         xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), out.data_ptr(),
         *_ff_vj_args(params, xs_t, activation, hp, fp), stream), "ff_vj_fwd")
     return out
@@ -489,12 +520,12 @@ def kernel_ff_vj_bwd(lib, params, xs_t, bt, activation: str, g, stream=None):
     if tuple(g.shape) != (1 + n_in, p) or g.device != xs_t.device:
         raise ValueError(f"cotangent must be [{1 + n_in}, {p}] on {xs_t.device}")
     blocks = ctypes.c_int(0)
-    fr.ff_raise_on(params, lib.ff_vj_bwd_blocks(p, n_in, fr.ff_ke(fp), len(params) - 1, hp,
-                                                ctypes.byref(blocks)), "ff_vj_bwd_blocks")
+    fr.raise_on_fit(params, lib.ff_vj_bwd_blocks(p, n_in, fr.ff_ke(fp), len(params) - 1, hp,
+                                                 ctypes.byref(blocks)), "ff_vj_bwd_blocks")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32,
                            device=xs_t.device)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=xs_t.device)
-    fr.ff_raise_on(params, lib.ff_vj_bwd(
+    fr.raise_on_fit(params, lib.ff_vj_bwd(
         xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), g.data_ptr(), partials.data_ptr(),
         blocks.value, grad.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp), stream),
         "ff_vj_bwd")
@@ -508,7 +539,7 @@ def kernel_ff_vj_jvp(lib, params, xs_t, bt, activation: str, tangent, stream=Non
     btf = fr.ff_bt(bt, fp)  # held until the launch has read it
     dout = torch.empty((1 + xs_t.shape[0], xs_t.shape[1]), dtype=torch.float32,
                        device=xs_t.device)
-    fr.ff_raise_on(params, lib.ff_vj_jvp(
+    fr.raise_on_fit(params, lib.ff_vj_jvp(
         xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), dpacked.data_ptr(), dout.data_ptr(),
         *_ff_vj_args(params, xs_t, activation, hp, fp), stream), "ff_vj_jvp")
     return dout
@@ -522,7 +553,7 @@ def _ff_check(params, xs_t, bt, activation):
 
 def ff_vj_fwd(params, xs_t, bt, activation: str = "tanh"):
     """K7 forward: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
-    if _route(xs_t, activation) == "cpu":
+    if _route(xs_t, params, activation, ff=True) == "cpu":
         return ff_vj_fwd_plain(params, xs_t, bt, activation)
     _ff_check(params, xs_t, bt, activation)
     out = kernel_ff_vj_fwd(load_library(), params, xs_t, bt, activation, _stream(xs_t))
@@ -532,7 +563,7 @@ def ff_vj_fwd(params, xs_t, bt, activation: str = "tanh"):
 
 def ff_vj_bwd(params, xs_t, bt, activation: str, g):
     """K7 backward; dispatch as ``ff_vj_fwd``."""
-    if _route(xs_t, activation) == "cpu":
+    if _route(xs_t, params, activation, ff=True) == "cpu":
         return ff_vj_bwd_plain(params, xs_t, bt, activation, g)
     _ff_check(params, xs_t, bt, activation)
     grads = kernel_ff_vj_bwd(load_library(), params, xs_t, bt, activation, g, _stream(xs_t))
@@ -542,7 +573,7 @@ def ff_vj_bwd(params, xs_t, bt, activation: str, g):
 
 def ff_vj_jvp(params, xs_t, bt, activation: str, tangent):
     """K8; dispatch as ``ff_vj_fwd``."""
-    if _route(xs_t, activation) == "cpu":
+    if _route(xs_t, params, activation, ff=True) == "cpu":
         return ff_vj_jvp_plain(params, xs_t, bt, activation, tangent)
     _ff_check(params, xs_t, bt, activation)
     dout = kernel_ff_vj_jvp(load_library(), params, xs_t, bt, activation, tangent,
