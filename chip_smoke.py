@@ -38,16 +38,18 @@ is non-zero and no result line is printed):
                the LM calls them with.
 7a. siren   -- the main path with a SIREN net (activation "sin", ``init_siren`` at
                omega0 6): the sin instantiations of K1/K2 (fwd rtol 1e-5, bwd 1e-4) at
-               the bench mesh w48x2 and of K5 fwd (1e-5), bwd and K6 (1e-4) at its
-               points w48x3 against their plain versions, and K4 at hard 3dt d8/t6
-               w64x2 beside tanh's K4 there, each timed; the sin / tanh time ratios at
-               the same shapes.  Then from one ``init_siren`` theta at the bench mesh
-               w48x2: 20 Adam epochs through K1/K2 and 20 on the general path through
-               K5, each within rtol 2e-4 of the plain general path; 2 LM iterations (cg
-               20, k_chunks 16) through K5/K6 from where Adam ended, within rtol 2e-2 of
-               the plain LM, the loss not rising; 20 exact-BC Adam epochs (3-D transient,
-               d8/t6 w64x2) through K4 within rtol 2e-4 of the plain path.  Launch
-               counters are set to 0 before each run and read after it.
+               the bench mesh w48x2, of K5 fwd (1e-5), bwd and K6 (1e-4) at its points
+               w48x2 (the path's net) and w48x3 (the tanh rows' net), and K4 at hard 3dt
+               d8/t6 w64x2 beside tanh's K4 there, against their plain versions, each
+               timed; the sin / tanh time ratios at the same shapes.  Then from one
+               ``init_siren`` theta at the bench mesh w48x2: 20 Adam epochs through
+               K1/K2 and 20 on the general path through K5, each within rtol 2e-4 of the
+               plain general path; K5/K6 against plain at the LM's chunk shape from where
+               Adam ended; 2 LM iterations (cg 20, k_chunks 16) through K5/K6 from there,
+               within rtol 2e-2 of the plain LM, the loss not rising; 20 exact-BC Adam
+               epochs (3-D transient, d8/t6 w64x2) through K4 within rtol 2e-4 of the
+               plain path.  Launch counters are set to 0 before each run and read after
+               it.
 7b. resume  -- checkpoints and fault recovery on the main path: 40 Adam epochs at the
                bench shape (w20x2, save_freq 20) against 20 epochs in one ``VarNet``
                and a ``resume=True`` to 40 in a fresh one on the same folder, through
@@ -531,16 +533,17 @@ def phase_lm(xs_t, nq):
 # SIREN nets (activation "sin", omega0 6) on the main path: K1/K2, K4, K5/K6
 
 
-def phase_siren(data, xs_t):
-    """The main path with a SIREN net: the sin kernels against their plain versions
-    at the shapes the tanh rows are timed at (K1/K2 at d48/t32 w48x2, K5/K6 at the
-    d48/t32 points w48x3; K4 at hard 3dt d8/t6 w64x2, with tanh timed there too);
-    20 Adam epochs through K1/K2 from one ``init_siren`` theta against the plain
-    general path (rtol 2e-4), and through K5 (the general path on the kernels);
-    2 LM iterations (cg 20, k_chunks 16) from there through K5/K6 against the
-    plain LM (rtol 2e-2); 20 exact-BC Adam epochs through K4 against the plain
-    path.  Each path's launch counters are set to 0 just before its run and read
-    just after.  Returns the kernels' numbers and launches."""
+def phase_siren(data, xs_t, nq):
+    """The main path with a SIREN net: the sin kernels against their plain versions,
+    timed, at the shapes the path gives them (K1/K2 at d48/t32 w48x2, K5/K6 at the
+    d48/t32 points w48x2; K4 at hard 3dt d8/t6 w64x2, with tanh timed there too) and
+    K5/K6 also at w48x3, the tanh rows' net; 20 Adam epochs through K1/K2 from one
+    ``init_siren`` theta against the plain general path (rtol 2e-4), and through K5
+    (the general path on the kernels); K5/K6 at the LM's chunk shape from there
+    (untimed), then 2 LM iterations (cg 20, k_chunks 16) through K5/K6 against the
+    plain LM (rtol 2e-2); 20 exact-BC Adam epochs through K4 against the plain path.
+    Each path's launch counters are set to 0 just before its run and read just after.
+    Returns the kernels' numbers and launches."""
     import torch
 
     from varnet_tpu_torch.fem.assembly import pad_quad
@@ -549,6 +552,8 @@ def phase_siren(data, xs_t):
 
     t0 = time.perf_counter()
     k48 = phase_kernels(SIREN_NET, seed=31, activation="sin", data=data)
+    v48x2 = _vj_compare(_siren_net(3, SIREN_NET, 36)[0], xs_t, 37, "siren kernels-vj w48x2",
+                        timed=True, act="sin")
     v48 = _vj_compare(_siren_net(3, (48, 48, 48), 32)[0], xs_t, 33, "siren kernels-vj w48x3",
                       timed=True, act="sin")
     vh = _hard_vn("transient_ad_3d", (64, 64), HARD_3DT_SMALL, activation="sin")
@@ -568,7 +573,8 @@ def phase_siren(data, xs_t):
             shapes[f"dir_{kind}_{act}"] = fr.dir_launch_shape(kind, w48x2, data, act)
             shapes[f"dirp_{kind}_{act}"] = fr.dir_launch_shape(kind, params, hdata, act)
         for kind in ("fwd", "jvp", "bwd"):
-            shapes[f"vj_{kind}_{act}"] = vj.launch_shape(kind, w48x3, xs_t, act)
+            shapes[f"vj_{kind}_{act}"] = vj.launch_shape(kind, w48x2, xs_t, act)
+            shapes[f"vj_{kind}_{act}_w48x3"] = vj.launch_shape(kind, w48x3, xs_t, act)
     log("siren launch shapes", **{
         k: f"{v['threads']}thr,{v['blocks_per_sm']}/SM,T{v['tile']},{v['smem_bytes']}B"
         for k, v in shapes.items()})
@@ -596,6 +602,10 @@ def phase_siren(data, xs_t):
         loss_end_general_k5=f"{lg[-1]:.6e}", loss_end_plain=f"{lp[-1]:.6e}",
         steps_per_sec=f"{rk.steps_per_sec:.4f}")
 
+    # the chunk shape the LM gives K5/K6 (K padded to a multiple of k_chunks)
+    kc = -(-(xs_t.shape[1] // nq) // LM["k_chunks"])
+    _vj_compare(vk.theta, xs_t[:, :kc * nq].contiguous(), 38, "siren lm chunk-shape kernels",
+                False, act="sin")
     vj.vj_fwd.launches = vj.vj_bwd.launches = vj.vj_jvp.launches = 0
     _, mk, secs_k = _lm(vk.theta, True, SIREN_NET, "sin")
     lm_launches = {"vj_fwd": vj.vj_fwd.launches, "vj_bwd": vj.vj_bwd.launches,
@@ -629,7 +639,7 @@ def phase_siren(data, xs_t):
         **{f"dirp_{k}": v for k, v in k4.items()}, max_rel_diff=f"{worst_h:.3e}",
         loss_end_kernel=f"{runs[True][-1]:.6e}", loss_end_plain=f"{runs[False][-1]:.6e}",
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return {"k48": k48, "v48": v48, "dirp": dirp, "dirp_tanh": dirp_tanh, "shapes": shapes,
+    return {"k48": k48, "v48": v48, "v48x2": v48x2, "dirp": dirp, "dirp_tanh": dirp_tanh, "shapes": shapes,
             "p_hard": vh.static.n_test * vh.static.n_quad_per_test, "k_hard": vh.static.n_test,
             "launches": {**{f"dir_{k}": v for k, v in k12.items()},
                          **{f"dirp_{k}": v for k, v in k4.items()}, **lm_launches}}
@@ -1831,14 +1841,15 @@ def main():
     phase_accuracy()
     xs_t, nq = _bench_points()
     phase_kernels_vj((20, 20), xs_t)
-    phase_kernels_vj((48, 48), xs_t)
+    v48x2 = phase_kernels_vj((48, 48), xs_t)
     v48 = phase_kernels_vj((48, 48, 48), xs_t)
     lm_launches, lm_vn, lm_res = phase_lm(xs_t, nq)
-    siren = phase_siren(data, xs_t)
+    siren = phase_siren(data, xs_t, nq)
     # the sin kernels' times over tanh's at the same shape, in this call
     ratios = {f"dir_{k}_w48x2": siren["k48"][f"{k}_ms"] / k48_tanh[f"{k}_ms"]
               for k in ("fwd", "bwd")}
-    ratios.update({f"vj_{k}_w48x3": siren["v48"][k]["ms"] / v48[k]["ms"]
+    ratios.update({f"vj_{k}_{w}": siren[key][k]["ms"] / tanh[k]["ms"]
+                   for w, key, tanh in (("w48x2", "v48x2", v48x2), ("w48x3", "v48", v48))
                    for k in ("fwd", "bwd", "jvp")})
     ratios.update({f"dirp_{k}_d8t6": siren["dirp"][k]["ms"] / siren["dirp_tanh"][k]["ms"]
                    for k in ("fwd", "bwd")})
@@ -1920,8 +1931,8 @@ def main():
         for kind in ("fwd", "bwd")
     ]
     # the sin instantiations of the main path's kernels (phase siren): K1/K2 at d48/t32
-    # w48x2, K4 at hard 3dt d8/t6 w64x2, K5/K6 at d48/t32 w48x3; launches from the
-    # phase's Adam (K1/K2, K4) and LM (K5/K6) runs
+    # w48x2, K4 at hard 3dt d8/t6 w64x2, K5/K6 at the d48/t32 points w48x2; launches from
+    # the phase's Adam (K1/K2, K4) and LM (K5/K6, w48x2) runs
     sl = siren["launches"]
     k48s = siren["k48"]
     kernels += [
@@ -1939,7 +1950,7 @@ def main():
         for kind in ("fwd", "bwd")
     ] + [
         _entry(f"vj_{k}_sin", src + "value_and_jac.cu", mlp_py + line, sl[f"vj_{k}"],
-               siren["v48"][k], _bounds(k, (48, 48, 48), 3, 4, p_bench, 3))
+               siren["v48x2"][k], _bounds(k, SIREN_NET, 3, 4, p_bench, 3))
         for k, line in (("fwd", ":266"), ("bwd", ":825"), ("jvp", ":508"))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

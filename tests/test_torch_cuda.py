@@ -835,6 +835,23 @@ def test_dirp_refuses_nets_wider_than_64(cuda):
     assert fr._residual_fns(params, data) == (fr.dirp_residual_ff_fwd, fr.dirp_residual_ff_bwd)
 
 
+@pytest.mark.parametrize("mode", DIR_MODES)
+def test_backward_too_deep_for_a_block_raises_by_name(cuda, mode):
+    """A backward of which not even one tile fits a block's shared memory raises naming
+    width and depth, and launches nothing: K1/K4's sin backward at HP 64 x 6 (its cos z
+    rows), which tanh still fits, and K5's backward at HP 64 x 5 with n_in 4."""
+    params, data, gr = _dir_synth(mode, 3, (64,) * 6)
+    bwd = fr.dirp_residual_bwd if mode == "precoeff" else fr.dir_residual_bwd
+    _check_dir_bwd(mode, params, data, gr, "tanh")
+    before = (bwd.launches, vj.vj_bwd.launches)
+    with pytest.raises(ValueError, match="hidden width 64 at depth 6"):
+        bwd(params, data, "sin", gr)
+    vparams, xs_t, g, _ = _vj_case(4, (64,) * 5)
+    with pytest.raises(ValueError, match="hidden width 64 at depth 5"):
+        vj.vj_bwd(vparams, xs_t, "tanh", g)
+    assert (bwd.launches, vj.vj_bwd.launches) == before
+
+
 @pytest.mark.parametrize("widths", [(20, 20), (64, 64)])
 def test_k1_takes_four_inputs(cuda, widths):
     """The repair of the n_in <= 3 limit: K1/K2 on the 3-D transient penalty

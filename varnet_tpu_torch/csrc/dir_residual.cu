@@ -662,6 +662,7 @@ struct BwdGrid {
 template <int HP, bool SIN>
 int bwd_config(const VrProblem& pb, BwdGrid* out) {
   int best = 0, per_sm_best = 0;
+  bool fits = false;
   cudaError_t err;
   for (int T : kTileChoices)
     for (int threads : kTileThreads) {
@@ -673,6 +674,7 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
         return (int)err;
       const size_t smem = bwd_smem(HP, pb, T, threads, R);
       if (smem > kVjMaxSmem) continue;
+      fits = true;
       int per_sm = 0;
       if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
           cudaSuccess)
@@ -685,6 +687,7 @@ int bwd_config(const VrProblem& pb, BwdGrid* out) {
         *out = BwdGrid{T, threads, R, C, 0, 0, smem, per_sm};
       }
     }
+  if (!fits) return VJ_DOES_NOT_FIT;
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
   int n_sm = 0;
   if (const int e = vj_sm_count(&n_sm)) return e;

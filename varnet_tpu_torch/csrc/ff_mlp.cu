@@ -99,7 +99,7 @@
 // takes, of ng = 8 / WG .. 1, the one that keeps the most warps resident
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; on a tie the larger block: more points
 // per fetch of the weights); ff_launch_shape reports it.  Where not even ng 1 fits (a net
-// too deep for its width) the launchers return FF_DOES_NOT_FIT and launch nothing.
+// too deep for its width) the launchers return VJ_DOES_NOT_FIT and launch nothing.
 //
 // The weight gradient.  At the contaminant shape dW is 43,104 floats (172 KB): it does not
 // fit in shared memory beside the slots, nor in the registers of 8 warps (168 a thread)
@@ -134,7 +134,6 @@
 #define FF_MAX_IN 4
 #define FF_NCF (3 + FF_MAX_IN)  // per-point coefficient rows: cu, csrc, w N, c_0..c_3
 #define FF_MAX_THREADS 256      // a block's threads: ng groups of WG warps
-#define FF_DOES_NOT_FIT 1001    // launcher result: not even one group fits in shared memory
 
 // Measurement builds, never the default (scripts/ff_costs.py builds them with -D):
 //   FF_PHASE_CLOCK         thread 0 of every block of ff_fwd_kernel / ff_bwd_kernel adds
@@ -1077,7 +1076,7 @@ const void* tc_kernel(int kind) {
 // per SM, on a tie the larger block (more points per fetch of the weights); one wave of
 // persistent blocks, or fewer when there are fewer tiles (at least one: a backward with
 // P = 0 writes a zero partial).  From the mode and shapes alone, so a blocks query (null
-// pointers) sizes the grid as the launch does.  FF_DOES_NOT_FIT where not even one group
+// pointers) sizes the grid as the launch does.  VJ_DOES_NOT_FIT where not even one group
 // fits in shared memory.
 template <int NI>
 int tc_shape(int kind, const FfProblem& pb, TcShape* out) {
@@ -1102,7 +1101,7 @@ int tc_shape(int kind, const FfProblem& pb, TcShape* out) {
       *out = TcShape{ng, 32 * WG * ng, per_sm, 0, 0, smem};
     }
   }
-  if (!fits) return FF_DOES_NOT_FIT;
+  if (!fits) return VJ_DOES_NOT_FIT;
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
   int n_sm = 0;
   if (const int e = vj_sm_count(&n_sm)) return e;
@@ -1271,7 +1270,7 @@ int ff_launch_shape(int kind, int np, long long P, int ke, int n_hidden, int hp,
 }
 
 // K7 forward: out [1 + n_in][P] = (u, du/dxs) at the scaled points xs [n_in][P].
-// Returns a cudaError_t value, or FF_DOES_NOT_FIT (as every launcher below).
+// Returns a cudaError_t value, or VJ_DOES_NOT_FIT (as every launcher below).
 int ff_vj_fwd(const float* xs, const float* bt, const float* params, float* out, long long P,
               int n_in, int ke, int n_hidden, int hp, int act, void* stream) {
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;

@@ -41,6 +41,10 @@
 #include <math.h>
 
 #define VJ_MAX_IN 4
+// A launcher or block query's result where not even one block of the net fits in shared
+// memory (csrc/ff_mlp.cu, and the backwards of csrc/dir_residual.cu and
+// csrc/value_and_jac.cu): the net is too deep for its width.
+#define VJ_DOES_NOT_FIT 1001
 
 __host__ __device__ inline int vj_off_w(int hp, int l) {  // l >= 1
   return 5 * hp + (l - 1) * (hp * hp + hp);

@@ -556,10 +556,12 @@ int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
   int err = allow_smem(fn);
   if (err) return err;
   int best = 0, per_sm_best = 0;
+  bool fits = false;
   for (int T : kTileChoices)
     for (int threads : kTileThreads) {
       const size_t smem = smem_bytes(kind, HP, pb.n_hidden, pb.n_in, T, SIN);
       if (smem > kVjMaxSmem) continue;
+      fits = true;
       int per_sm = 0;
       if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                                      smem)))
@@ -572,6 +574,7 @@ int tile_grid(Kind kind, const VjProblem& pb, TileGrid* out) {
         *out = TileGrid{T, threads, 0, 0, smem, per_sm};
       }
     }
+  if (!fits) return VJ_DOES_NOT_FIT;
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
   int n_sm = 0;
   if ((err = vj_sm_count(&n_sm))) return err;

@@ -523,7 +523,7 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
     blocks = ctypes.c_int(0)
     raise_on_fit(params, lib.vr_dir_residual_bwd_blocks(
         data.k, data.nq, data.d, n_hidden, hp, ACTIVATIONS[activation], ctypes.byref(blocks)),
-        f"dir_residual_bwd_blocks, {activation}", NO_TILE_FITS, "dir_residual.cu's backward")
+        f"dir_residual.cu dir_residual_bwd_blocks, {activation}")
     npp = packed.numel()
     partials = torch.empty(blocks.value * npp, dtype=torch.float32, device=data.xs.device)
     grad = torch.empty(npp, dtype=torch.float32, device=data.xs.device)
@@ -538,12 +538,14 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
 
 def _route(data, params, activation, ff: bool = False) -> str:
     """The device kind of ``data`` ("cpu" or "cuda"), after refusing sin where
-    the card would take csrc/ff_mlp.cu (``ff``: the wrapper's kernels are
-    there; :func:`refuse_ff_sin`)."""
-    refuse_ff_sin(params, activation, ff or data.bt is not None)
+    the card would take csrc/ff_mlp.cu (:func:`refuse_ff_sin`).  A wrapper of
+    those kernels (``ff``) refuses it here on the CPU; on the card its
+    argument check (:func:`check_ff_args`) does."""
     kind = data.xs.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"fused residual: unsupported device '{kind}'")
+    if kind == "cpu" or not ff:
+        refuse_ff_sin(params, activation, ff or data.bt is not None)
     return kind
 
 
@@ -622,7 +624,7 @@ def kernel_dirp_bwd(lib, params, data: CoeffData, activation: str, gr, stream=No
     blocks = ctypes.c_int(0)
     raise_on_fit(params, lib.vr_dirp_residual_bwd_blocks(
         data.k, data.nq, len(params) - 1, hp, ACTIVATIONS[activation], ctypes.byref(blocks)),
-        f"dirp_residual_bwd_blocks, {activation}", NO_TILE_FITS, "dir_residual.cu's backward")
+        f"dir_residual.cu dirp_residual_bwd_blocks, {activation}")
     dev = data.xs.device
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
@@ -667,11 +669,10 @@ dirp_residual_bwd.launches = 0
 
 FF_MAX_HIDDEN = 256
 FF_MAX_FEATURES = 128
-FF_DOES_NOT_FIT = 1001  # csrc/ff_mlp.cu: not even one warp group fits in shared memory
-# cudaErrorInvalidConfiguration, which the backward's block queries of dir_residual.cu and
-# value_and_jac.cu return when no tile fits a block's shared memory (sin's backward keeps
-# one more row per point and hidden layer: cos z)
-NO_TILE_FITS = 9
+# csrc/tc3xtf32.cuh's VJ_DOES_NOT_FIT: not even one block of the net fits in shared memory
+# (ff_mlp.cu's launchers; the backward's block queries of dir_residual.cu and
+# value_and_jac.cu, where sin keeps one more row per point and hidden layer: cos z)
+DOES_NOT_FIT = 1001
 
 
 def ff_dims(params, embedded: bool = True):
@@ -770,16 +771,14 @@ def check_ff_args(params, bt, tensors, activation):
             raise ValueError("the Fourier-feature kernels take contiguous data")
 
 
-def raise_on_fit(params, err: int, what: str, no_fit: int = FF_DOES_NOT_FIT,
-                 kernels: str = "the Fourier-feature kernels"):
+def raise_on_fit(params, err: int, what: str):
     """Raise on a launcher's result: a ValueError naming the width and depth where
-    the net does not fit a block's shared memory (``no_fit``: csrc/ff_mlp.cu's
-    FF_DOES_NOT_FIT, or :data:`NO_TILE_FITS` from a backward's block query of
-    dir_residual.cu / value_and_jac.cu), else as ``build.raise_on``."""
-    if err == no_fit:
+    the net does not fit a block's shared memory (:data:`DOES_NOT_FIT`), else as
+    ``build.raise_on``."""
+    if err == DOES_NOT_FIT:
         widest = max(layer["w"].shape[1] for layer in params[:-1])
         raise ValueError(f"hidden width {widest} at depth {len(params) - 1} needs more shared "
-                         f"memory than a block has in {kernels} ({what})")
+                         f"memory than a block has ({what})")
     build.raise_on(err, what)
 
 
@@ -816,7 +815,7 @@ def dir_launch_shape(kind: str, params, data, activation: str) -> dict:
     raise_on_fit(params, load_library().vr_launch_shape(
         ("fwd", "bwd").index(kind), data.k, data.nq, 0 if pre else data.d, len(params) - 1,
         padded_width(params), ACTIVATIONS[activation], int(pre), shape),
-        f"dir_launch_shape, {activation}", NO_TILE_FITS, "dir_residual.cu's backward")
+        f"dir_residual.cu dir_launch_shape, {activation}")
     threads, per_sm, blocks, tile, smem = shape
     return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
             "blocks": blocks, "tile": tile, "smem_bytes": smem}

@@ -340,12 +340,15 @@ def _packed(lib, params):
 
 def _route(xs_t, params, activation, ff: bool = False) -> str:
     """The device kind of xs_t ("cpu" or "cuda"), after refusing sin where the
-    card would take csrc/ff_mlp.cu (``fused_residual.refuse_ff_sin``)."""
+    card would take csrc/ff_mlp.cu (``fused_residual.refuse_ff_sin``).  A wrapper
+    of those kernels (``ff``) refuses it here on the CPU; on the card its
+    argument check (``fused_residual.check_ff_args``) does."""
     _act_triple(activation)
-    fr.refuse_ff_sin(params, activation, ff)
     kind = xs_t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"value_and_jac: unsupported device '{kind}'")
+    if kind == "cpu" or not ff:
+        fr.refuse_ff_sin(params, activation, ff)
     return kind
 
 
@@ -384,8 +387,7 @@ def vj_bwd(params, xs_t, activation: str, g):
     blocks = ctypes.c_int(0)
     fr.raise_on_fit(params, lib.vj_bwd_blocks(p, n_in, len(params) - 1, hp,
                                               ACTIVATIONS[activation], ctypes.byref(blocks)),
-                    f"vj_bwd_blocks, {activation}", fr.NO_TILE_FITS,
-                    "value_and_jac.cu's backward")
+                    f"value_and_jac.cu vj_bwd_blocks, {activation}")
     npp = packed.numel()
     partials = torch.empty(blocks.value * npp, dtype=torch.float32, device=xs_t.device)
     grad = torch.empty(npp, dtype=torch.float32, device=xs_t.device)
@@ -407,10 +409,10 @@ def vj_jvp(params, xs_t, activation: str, tangent):
     dpacked = pack(tangent, hp)
     n_in, p = xs_t.shape
     dout = torch.empty((1 + n_in, p), dtype=torch.float32, device=xs_t.device)
-    build.raise_on(lib.vj_jvp(xs_t.data_ptr(), packed.data_ptr(), dpacked.data_ptr(),
-                              dout.data_ptr(), p, n_in, len(params) - 1, hp,
-                              ACTIVATIONS[activation], _stream(xs_t)),
-                   "vj_jvp")
+    fr.raise_on_fit(params, lib.vj_jvp(xs_t.data_ptr(), packed.data_ptr(), dpacked.data_ptr(),
+                                       dout.data_ptr(), p, n_in, len(params) - 1, hp,
+                                       ACTIVATIONS[activation], _stream(xs_t)),
+                    f"value_and_jac.cu vj_jvp, {activation}")
     vj_jvp.launches += 1
     return dout
 
@@ -429,8 +431,7 @@ def launch_shape(kind: str, params, xs_t, activation: str) -> dict:
     n_in, p = xs_t.shape
     fr.raise_on_fit(params, load_library().vj_launch_shape(
         ("fwd", "jvp", "bwd").index(kind), p, n_in, len(params) - 1, padded_width(params),
-        ACTIVATIONS[activation], shape), f"vj_launch_shape, {activation}", fr.NO_TILE_FITS,
-        "value_and_jac.cu")
+        ACTIVATIONS[activation], shape), f"value_and_jac.cu vj_launch_shape, {activation}")
     threads, per_sm, blocks, tile, smem = shape
     return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
             "blocks": blocks, "tile": tile, "smem_bytes": smem}
