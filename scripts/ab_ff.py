@@ -51,9 +51,11 @@ def ptxas():
     # registers and spill bytes of every ff_mlp.cu kernel instantiation
     out, name = {}, None
     for line in (build.build_dir() / "build.log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '_Z\\d+(ff_\\w+?_kernel)(?:ILi(\\d)E)?", line)
-        if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        m = re.search(r"Compiling entry function '_Z\\d+(ff_\\w+?_kernel)(?:ILi(\\d)E(Lb1E)?)?",
+                      line)
+        if m:  # the sin instantiations (bool template argument 1) as "<NI,sin>"
+            name = m.group(1) + (f"<{m.group(2)}{',sin' if m.group(3) else ''}>"
+                                 if m.group(2) else "")
             continue
         if name is None:
             continue

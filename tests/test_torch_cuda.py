@@ -247,26 +247,35 @@ def test_value_and_jac_function_rules_on_cuda(cuda):
 
 
 def test_value_and_jac_kernels_refuse_what_they_do_not_take(cuda):
-    """sin runs on K5 / K6 (against the plain versions as the sweeps hold them); a net
-    wider than 64 is refused, with sin by the message naming the slice that brings
-    csrc/ff_mlp.cu's sin mode."""
+    """sin runs on K5 / K6 (against the plain versions as the sweeps hold them); K5 / K6
+    refuse a net wider than 64, which ``value_and_jac`` routes to K7 / K8 instead, for
+    sin as for tanh (one K7 launch, against the plain value + jacobian)."""
+    from varnet_tpu_torch.models.mlp import mlp_value_and_jac
+
     params, xs_t, g, tangent = _vj_case(3, (20, 20))
     before = vj.vj_fwd.launches
     _check_fwd(params, xs_t, "sin")
     _check_bwd_jvp(params, xs_t, g, tangent, "sin")
     assert vj.vj_fwd.launches == before + 1
     wide, xs_w, _, _ = _vj_case(3, (72, 72))
-    with pytest.raises(ValueError):
-        vj.vj_fwd(wide, xs_w, "tanh")
-    with pytest.raises(ValueError, match="next slice"):
-        vj.vj_fwd(wide, xs_w, "sin")
+    for act in ("tanh", "sin"):
+        with pytest.raises(ValueError, match="hidden width 72"):
+            vj.vj_fwd(wide, xs_w, act)
+        before = (vj.vj_fwd.launches, vj.ff_vj_fwd.launches)
+        u, du = vj.value_and_jac(wide, xs_w.T, act)
+        torch.cuda.synchronize()
+        assert (vj.vj_fwd.launches, vj.ff_vj_fwd.launches) == (before[0], before[1] + 1)
+        ur, dur = mlp_value_and_jac(wide, xs_w.T, act)
+        assert max(_rel(u, ur), _rel(du, dur)) < 1e-5
 
 
 def test_sin_varnet_runs_on_the_kernels_and_nowhere_else(cuda):
     """A SIREN net on the card: Adam through K1/K2, LM through K5 / K6, exact BC through
-    K4, each following its plain path; Fourier features, the jacobian-panel residual
-    and hidden widths above 64 (csrc/ff_mlp.cu) raise naming the next slice, with no
-    launch and no fallback."""
+    K4, each following its plain path; and on csrc/ff_mlp.cu's sin kernels: Fourier
+    features (Adam through K2-FF, LM through K7 / K8), hidden widths above 64 (K2 and K7
+    / K8 without an embedding) and the jacobian-panel residual (K3), each within the
+    plain path's Adam (rtol 2e-4) and LM (2e-2) losses, with no launch of another
+    residual kernel and no fallback."""
     kw = dict(layer_width=(20, 20), disc_num=8, b_disc_num=6, t_disc_num=4, device=cuda,
               activation="sin")
     train = dict(epoch_num=5, weight=(1.0, 10.0, 10.0), save_freq=1, verbose=False,
@@ -295,11 +304,33 @@ def test_sin_varnet_runs_on_the_kernels_and_nowhere_else(cuda):
     assert np.isfinite(hard.train(epoch_num=3, save_freq=3, verbose=False,
                                   error_disc=16).losses[-1]["loss"])
     assert fr.dirp_residual_bwd.launches == before + 3
-    for bad in (dict(fourier_features=4), dict(layer_width=(72, 72)),
-                dict(fused_directional=False)):
-        vn = VarNet(pde, **{**kw, **bad})
-        with pytest.raises(ValueError, match="next slice"):
-            vn.train(**{**train, "epoch_num": 1})
+    counters = (fr.dir_residual_fwd, fr.dir_residual_ff_fwd, fr.jac_residual_fwd,
+                vj.vj_jvp, vj.ff_vj_jvp)
+    for extra, adam_fn, lm_fn in ((dict(fourier_features=4), fr.dir_residual_ff_fwd,
+                                   vj.ff_vj_jvp),
+                                  (dict(layer_width=(72, 72)), fr.dir_residual_ff_fwd,
+                                   vj.ff_vj_jvp),
+                                  (dict(fused_directional=False), fr.jac_residual_fwd,
+                                   vj.vj_jvp)):
+        runs = {}
+        for fused in (True, False):
+            vn = VarNet(pde, use_fused_residual=fused, use_pallas=fused, **{**kw, **extra})
+            before = [c.launches for c in counters]
+            adam = vn.train(**train)
+            mid = [c.launches for c in counters]
+            runs[fused] = (adam, vn.refine_lm(**lm))
+            after = [c.launches for c in counters]
+            adam_n = {c.__name__: m - b for c, b, m in zip(counters, before, mid) if m > b}
+            lm_n = {c.__name__: a - m for c, m, a in zip(counters, mid, after) if a > m}
+            if fused:
+                assert adam_n == {adam_fn.__name__: 5}, (extra, adam_n)
+                assert lm_n.get(lm_fn.__name__, 0) >= 10, (extra, lm_n)
+            else:
+                assert not adam_n and not lm_n, (extra, adam_n, lm_n)
+        for a, b, rtol in zip(runs[True], runs[False], (2e-4, 2e-2)):
+            np.testing.assert_allclose([r["loss"] for r in a.losses],
+                                       [r["loss"] for r in b.losses], rtol=rtol,
+                                       err_msg=str(extra))
 
 
 def test_refine_lm_on_cuda_goes_through_the_kernels(cuda):
@@ -346,7 +377,7 @@ def _ff_data(cuda, bt, scaled=False):
                                     has_react=False, device=cuda, fourier_bt=bt)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths,n_feat", FF_WIDTHS)
 def test_ff_residual_kernel_matches_plain(cuda, widths, n_feat, activation):
     """K2-FF: r within 1e-5 of the plain version relative to max |r| (angles up
@@ -367,7 +398,7 @@ def test_ff_residual_kernel_matches_plain(cuda, widths, n_feat, activation):
             assert _rel(g[k], p[k]) < 1e-4, (k, _rel(g[k], p[k]))
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths,n_feat", FF_WIDTHS)
 @pytest.mark.parametrize("n_in", [1, 3, 4])
 def test_ff_value_and_jac_kernels_match_plain(cuda, n_in, widths, n_feat, activation):
@@ -393,43 +424,59 @@ def test_ff_value_and_jac_kernels_match_plain(cuda, n_in, widths, n_feat, activa
             assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
-@pytest.mark.parametrize("mode", ["dir", "unit", "pre", "jac"])
+@pytest.mark.parametrize("mode", ["dir", "unit", "pre", "jac", "dir-sin", "unit-sin", "pre-sin",
+                                  "jac-sin"])
 def test_ff_backwards_are_deterministic(cuda, mode):
     """Fixed-order sums, no atomics: every mode's gradient is bit-identical across
     calls, which CG needs (K2-FF and K7 at the contaminant's w96x3 behind 128
-    features; wide K4 and K3 at w96x3)."""
+    features; wide K4 and K3 at w96x3), for tanh and, "-sin", the sin kernels."""
+    mode, _, sin = mode.partition("-")
+    act = sin or "tanh"
     if mode in ("dir", "unit"):
         params, bt, gen = _ff_params(128, (96, 96, 96))
         data = _ff_data(cuda, bt)
         if mode == "dir":
             gr = torch.randn(data.k, generator=gen).to(cuda)
-            run = lambda: fr.dir_residual_ff_bwd(params, data, "tanh", gr)         # noqa: E731
+            run = lambda: fr.dir_residual_ff_bwd(params, data, act, gr)           # noqa: E731
         else:
             g = torch.randn((4, data.xs.shape[1]), generator=gen).to(cuda)
-            run = lambda: vj.ff_vj_bwd(params, data.xs, bt, "tanh", g)            # noqa: E731
+            run = lambda: vj.ff_vj_bwd(params, data.xs, bt, act, g)              # noqa: E731
     else:
         params, _, data, gr = _ff_sweep_case(mode, None, 96, 3, 64, seed=5)
         fn = fr.dirp_residual_ff_bwd if mode == "pre" else fr.jac_residual_bwd
-        run = lambda: fn(params, data, "tanh", gr)                                # noqa: E731
+        run = lambda: fn(params, data, act, gr)                                  # noqa: E731
     for a, b in zip(run(), run()):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
 
 
 def test_ff_kernels_refuse_what_they_do_not_take(cuda):
     """An activation they do not have, a net wider than 256, and a 256-wide net too deep
-    for the backward's stacked slots (ValueErrors naming them, before any launch)."""
+    for the backward's stacked slots (ValueErrors naming them, before any launch).  sin
+    runs (against its plain version), and its backward keeps tanh's slots ([z; J]), so
+    it fits the depths tanh fits: 5 hidden layers at HP 256, not 6."""
     params, bt, _ = _ff_params(8, (16, 16))
     xs_t = torch.rand(3, 100, device=cuda)
-    with pytest.raises(ValueError):
-        vj.ff_vj_fwd(params, xs_t, bt, "sin")
+    with pytest.raises(ValueError, match="unknown activation"):
+        vj.ff_vj_fwd(params, xs_t, bt, "relu")
+    assert _rel(vj.ff_vj_fwd(params, xs_t, bt, "sin"),
+                vj.ff_vj_fwd_plain(params, xs_t, bt, "sin")) < 1e-5
     wide, wbt, _ = _ff_params(8, (257,))
     with pytest.raises(ValueError, match="hidden width 257"):
         vj.ff_vj_fwd(wide, xs_t, wbt, "tanh")
     deep, dbt, gen = _ff_params(8, (256,) * 6)
     g = torch.randn((4, 100), generator=gen).to(cuda)
-    with pytest.raises(ValueError, match="hidden width 256 at depth 6"):
-        vj.ff_vj_bwd(deep, xs_t, dbt, "tanh", g)
-    assert torch.isfinite(vj.ff_vj_fwd(deep, xs_t, dbt, "tanh")).all()
+    before = vj.ff_vj_bwd.launches
+    for act in ("tanh", "sin"):
+        with pytest.raises(ValueError, match="hidden width 256 at depth 6"):
+            vj.ff_vj_bwd(deep, xs_t, dbt, act, g)
+        assert torch.isfinite(vj.ff_vj_fwd(deep, xs_t, dbt, act)).all()
+    assert vj.ff_vj_bwd.launches == before
+    five = [{k: v for k, v in layer.items()} for layer in deep[:5]] + [
+        {"w": deep[-1]["w"], "b": deep[-1]["b"]}]
+    for a, b in zip(vj.ff_vj_bwd(five, xs_t, dbt, "sin", g),
+                    vj.ff_vj_bwd_plain(five, xs_t, dbt, "sin", g)):
+        for k in ("w", "b"):
+            assert _rel(a[k], b[k]) < 1e-4, (k, _rel(a[k], b[k]))
 
 
 @pytest.mark.parametrize("n_feat,hp", [(128, 96), (None, 256)], ids=["F128-w96x3", "F0-w251x3"])
@@ -906,7 +953,7 @@ def test_training_on_cuda_goes_through_k4(cuda, kind):
 # K4 for nets wider than 64 (ff_mlp.cu, precoeff mode)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(65, 65), (72, 72), (96, 96, 96), (128, 128), (20, 100)])
 @pytest.mark.parametrize("name,factory,kw,td,react,hard", DIRP_CASES,
                          ids=[c[0] for c in DIRP_CASES])
@@ -996,7 +1043,7 @@ JAC_CASES = [
 ]
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(8, 8), (32, 32, 32), (13, 48, 7), (96, 96), (128, 128)])
 @pytest.mark.parametrize("name,factory,kw,td,react", JAC_CASES, ids=[c[0] for c in JAC_CASES])
 def test_jac_kernel_matches_plain(cuda, name, factory, kw, td, react, widths, activation):
@@ -1121,7 +1168,7 @@ def _gate(err, own, gate):
 
 
 @pytest.mark.parametrize("nq", sorted(FF_SWEEP_NQ))
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("depth", [1, 3])
 @pytest.mark.parametrize("hp", FF_SWEEP_HP)
 @pytest.mark.parametrize("mode,n_feat", FF_SWEEP_MODES,
@@ -1186,7 +1233,7 @@ def test_ff_tensor_core_kernels_match_plain(cuda, mode, n_feat, hp, depth, activ
 
 
 @pytest.mark.parametrize("nq", sorted(FF_SWEEP_NQ))
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("depth", [1, 3])
 @pytest.mark.parametrize("hp", FF_SWEEP_HP)
 @pytest.mark.parametrize("n_feat", [None, 8, 128], ids=["F0", "F8", "F128"])

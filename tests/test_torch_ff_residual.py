@@ -4,8 +4,9 @@ forward against ``pallas_fused_residual(..., fourier_bt=bt)`` in interpret mode
 (the case of tests/test_pallas_residual.py:455-481: disc 8, t_disc 4, F 8, width
 16 x 2; rtol 1e-5), the closed-form backward against ``jax.grad`` of the JAX
 package's plain reference (ff_value_and_jac + weak_residual; rtol 1e-4: f32 sums
-over all points in another order), with and without input scaling.  The same B
-and theta, made with numpy, go into both packages."""
+over all points in another order), with and without input scaling, for tanh,
+sigmoid and sin (SIREN nets, layer 0 from SIREN's bound over the embedding inputs).
+The same B and theta, made with numpy, go into both packages."""
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +26,19 @@ from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
 
-def _theta(n_feat=8, widths=(16, 16), seed=0):
+def _theta(n_feat=8, widths=(16, 16), seed=0, siren=False):
+    """A seeded net behind 2 n_feat embedding inputs; ``siren``: its weights drawn from
+    SIREN's bounds at omega0 6 (``init_siren``), biases seeded as for the others."""
     rng = np.random.default_rng(seed)
     sizes = (2 * n_feat,) + widths + (1,)
-    return [{"w": (rng.standard_normal((a, c)) * np.sqrt(2.0 / (a + c))).astype(np.float32),
-             "b": (0.1 * rng.standard_normal(c)).astype(np.float32)}
-            for a, c in zip(sizes[:-1], sizes[1:])]
+    theta = [{"w": (rng.standard_normal((a, c)) * np.sqrt(2.0 / (a + c))).astype(np.float32),
+              "b": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+             for a, c in zip(sizes[:-1], sizes[1:])]
+    if siren:
+        for i, (layer, a) in enumerate(zip(theta, sizes[:-1])):
+            bound = 6.0 / a if i == 0 else np.sqrt(6.0 / a)
+            layer["w"] = rng.uniform(-bound, bound, layer["w"].shape).astype(np.float32)
+    return theta
 
 
 def _b(multiscale, n_feat=8, seed=3):
@@ -80,8 +88,24 @@ def test_forward_matches_pallas_interpret(mesh, multiscale, scaled):
                                atol=1e-5 * float(np.abs(np.asarray(r_ref)).max()))
 
 
+@pytest.mark.parametrize("multiscale", [False, True], ids=["single", "multi"])
+def test_sin_forward_matches_pallas_interpret(mesh, multiscale):
+    """A SIREN net (sin; layer 0 from SIREN's bound at omega0 6 over the 2F embedding
+    inputs) through K2-FF's plain version against the Pallas kernel with sin, scaled
+    inputs, at the tolerances above."""
+    jfd, fd = mesh
+    b, theta = _b(multiscale), _theta(siren=True)
+    quad, scale, shift, bt = _jax_args(jfd, b, True)
+    r_ref = pallas_fused_residual(jax.tree_util.tree_map(jnp.asarray, theta), quad, "sin",
+                                  scale, shift, time_dependent=True, tile=49, interpret=True,
+                                  fourier_bt=bt)
+    r = fr.dir_residual_ff_fwd(params_from_jax(theta), _port_data(fd, b, True), "sin")
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(r_ref)).max()))
+
+
 @pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "raw"])
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 def test_backward_matches_jax_grad_of_the_plain_reference(mesh, activation, scaled):
     _check_backward(mesh, activation, scaled, (16, 16))
 
@@ -122,7 +146,7 @@ def test_width_limit_and_routing_above_128():
 
 def _check_backward(mesh, activation, scaled, widths):
     jfd, fd = mesh
-    b, theta = _b(True), _theta(widths=widths, seed=1)
+    b, theta = _b(True), _theta(widths=widths, seed=1, siren=activation == "sin")
     quad, scale, shift, _ = _jax_args(jfd, b, scaled)
     st = jfd.static
     k, nq, _ = quad.coords.shape
@@ -182,8 +206,9 @@ def test_ff_data_layout_and_kernel_limits(mesh):
         fr.check_ff_args(params_from_jax(_theta(widths=(257, 8))), bt, (data.xs,), "tanh")
     with pytest.raises(ValueError, match="Fourier features"):
         fr.check_ff_args(params, torch.zeros(129, 3), (data.xs,), "tanh")
-    with pytest.raises(ValueError):
-        fr.check_ff_args(params, bt, (data.xs,), "sin")
+    fr.check_ff_args(params, bt, (data.xs,), "sin")
+    with pytest.raises(ValueError, match="unknown activation"):
+        fr.check_ff_args(params, bt, (data.xs,), "relu")
 
 
 def test_no_embedding_layout_and_routing(mesh):

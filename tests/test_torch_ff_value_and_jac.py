@@ -7,7 +7,9 @@ rules against autograd / ``torch.func.jvp`` of the plain forward.
 Tolerances as in tests/test_torch_value_and_jac.py: rtol 2e-5 for values and
 5e-4 for gradients and tangents (f32 sums in another order, one more layer of
 chain rule), each with an atol of the same fraction of the largest entry (the
-angles of the embedding reach tens of radians at raw inputs)."""
+angles of the embedding reach tens of radians at raw inputs).  Every case runs
+tanh, sigmoid and sin (the nets are seeded Glorot draws; the Pallas kernels take
+all three)."""
 
 import functools
 
@@ -53,12 +55,12 @@ def _leaves(params):
 
 
 @pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "raw"])
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 def test_port_matches_pallas_ff_interpret(activation, scaled):
     _check_against_pallas_ff(activation, scaled, (16, 16))
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(160,), (256, 256)], ids=["w160", "w256x2"])
 def test_wide_port_matches_pallas_ff_interpret(widths, activation):
     """Hidden widths above 128, which csrc/ff_mlp.cu runs at HP 160..256 (warp groups
@@ -106,7 +108,7 @@ def _check_against_pallas_ff(activation, scaled, widths):
     assert (vj.ff_vj_fwd.launches, vj.ff_vj_bwd.launches, vj.ff_vj_jvp.launches) == before
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("n_in,widths", [(1, (8,)), (3, (13, 20, 7)), (4, (16, 16))])
 def test_ff_function_rules_match_autograd(n_in, widths, activation):
     """FfValueAndJacFn's backward (K7's closed form) and jvp (K8) equal autograd
@@ -147,7 +149,7 @@ def test_ff_value_and_jac_matches_the_model_function():
     assert not u.requires_grad
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("widths", [(72, 40), (128,), (160,), (256, 256)])
 def test_no_embedding_matches_pallas_value_and_jac(widths, activation):
     """With bt None the K7 / K8 plain versions (and FfValueAndJacFn's rules) are

@@ -167,11 +167,11 @@ def test_unsupported_inputs_raise():
     params = params_from_jax(raw)
     with pytest.raises(ValueError, match="unknown activation"):
         fr.dir_residual_fwd(params, data, "relu")
-    # sin where the card would take csrc/ff_mlp.cu (hidden width > 64): refused on
-    # the CPU as there
-    wide = params_from_jax(_setup(*CASES[0][1:3], (72, 8))[2])
-    with pytest.raises(ValueError, match="sin on csrc/ff_mlp.cu"):
-        fr.dir_residual_fwd(wide, data, "sin")
+    # sin on a net wider than 64 (on the card csrc/ff_mlp.cu's K2 without an
+    # embedding) runs, and matches the JAX kernel at this file's tolerances
+    fd_w, st_w, wide, cw_w = _setup(*CASES[0][1:3], (72, 8), seed=2, siren=True)
+    r, grads = _port(fd_w, st_w, wide, cw_w, True, False, "sin")
+    _assert_match(r, grads, *_jax(fd_w, st_w, wide, cw_w, True, False, 1, "sin"))
     with pytest.raises(ValueError, match="hidden width"):
         fr._check_kernel_args(params_from_jax(_setup(*CASES[0][1:3], (72, 8))[2]), data,
                               "tanh")

@@ -4,7 +4,7 @@ varnet_tpu_torch.ops.fused_residual), on the CPU against the JAX package's
 ``pallas_fused_residual(..., directional=False, nl_vec=...)`` in interpret mode:
 the viscous-Burgers term u (b . grad u) in 1-D steady (n_in 1), 1-D transient and
 2-D (a vector b), reaction with and without it, a linear problem (nl off), a MOR
-input, raw coordinates (``input_scaling=False``) and the sigmoid.
+input, raw coordinates (``input_scaling=False``), the sigmoid and sin.
 
 Tolerances: r at rtol 1e-5 relative to max |r| and the gradients of a seeded
 cotangent . r at rtol 1e-4 of each leaf's max (those of the other residual
@@ -48,6 +48,12 @@ CASES = [
      "tanh"),
     ("raw-inputs", analytic.burgers_1d_transient, dict(disc_num=6, t_disc_num=4), True, False,
      False, "tanh"),
+    # sin (SIREN nets' activation; the seeded nets are the others')
+    ("front2d-sin", analytic.burgers_2d_front, dict(disc_num=4, b_disc_num=4, t_disc_num=3),
+     True, False, True, "sin"),
+    ("react-nl-sin", _burgers_react, dict(disc_num=8), False, True, True, "sin"),
+    ("transient1d-sin", analytic.burgers_1d_transient, dict(disc_num=6, t_disc_num=4), True,
+     False, True, "sin"),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -127,7 +133,7 @@ def test_width_256_matches_jax_kernel():
         np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
 
 
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in ("front2d", "react-nl", "mor2d")],
                          ids=["front2d", "react-nl", "mor2d"])
 def test_closed_form_backward_matches_autograd(case, activation):
@@ -189,8 +195,9 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="hidden width 264"):
         fr._check_jac_data(params_from_jax(_setup(*CASES[2][1:3], True, widths=(264,))[2]),
                            data, "tanh")
-    with pytest.raises(ValueError, match="sin"):
-        fr._check_jac_data(params_from_jax(raw), data, "sin")
+    fr._check_jac_data(params_from_jax(raw), data, "sin")
+    with pytest.raises(ValueError, match="unknown activation"):
+        fr._check_jac_data(params_from_jax(raw), data, "relu")
     with pytest.raises(ValueError, match="nl vector"):
         fr._check_jac_data(params_from_jax(raw), data._replace(nl=data.nl[:1]), "tanh")
     with pytest.raises(ValueError, match="entries"):

@@ -153,6 +153,21 @@ def test_sin_matches_jax_kernel(name, factory, kw, td, react, hard, widths):
         np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
 
 
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in ("2dt-hard", "2d-o2-hard")],
+                         ids=["2dt-hard", "2d-o2-hard"])
+def test_sin_wide_matches_jax_kernel(case):
+    """A SIREN net of hidden width 72, which the card runs on csrc/ff_mlp.cu's precoeff
+    mode (wide K4), through K4's plain version against the JAX kernel with sin, at the
+    tolerances above."""
+    _, factory, kw, td, react, hard, _ = case
+    fd, st, hq, raw, cw, scale, shift = _setup(factory, kw, hard, (72, 72), seed=4, siren=True)
+    r, grads = _port(fd, st, hq, raw, cw, td, react, scale, shift, "sin")
+    r_ref, g_ref = _jax(fd, hq, raw, cw, td, react, scale, shift, "sin")
+    np.testing.assert_allclose(r, r_ref, rtol=1e-5, atol=1e-5 * np.abs(r_ref).max())
+    for g, gr in zip(grads, g_ref):
+        np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-4 * np.abs(gr).max())
+
+
 def test_width_256_matches_jax_kernel():
     """At the widest hidden width csrc/ff_mlp.cu takes in precoeff mode (HP 256, warp
     groups of four on the card): exact BC on the order-2 2-D space, tolerances as above."""
@@ -206,12 +221,15 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="dirp_residual_ff_fwd"):
         fr._check_dirp_args(params_from_jax(_setup(*CASES[1][1:3], True, (72, 8))[3]), data,
                             "tanh")
-    # sin runs on K4 up to width 64; above, where the card would take csrc/ff_mlp.cu,
-    # it is refused on the CPU as there
+    # sin runs on K4 up to width 64, and above, where the card takes csrc/ff_mlp.cu's
+    # precoeff mode (a relu is refused on both)
     fr._check_dirp_args(params_from_jax(raw), data, "sin")
     wide = params_from_jax(_setup(*CASES[1][1:3], True, (72, 8))[3])
-    with pytest.raises(ValueError, match="sin on csrc/ff_mlp.cu"):
-        fr.dirp_residual_fwd(wide, data, "sin")
+    fr._check_dirp_ff_args(wide, data, "sin")
+    torch.testing.assert_close(fr.dirp_residual_fwd(wide, data, "sin"),
+                               fr.dir_residual_fwd_plain(wide, data, "sin"), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown activation"):
+        fr._check_dirp_ff_args(wide, data, "relu")
     fr._check_dirp_args(params_from_jax(raw), data, "tanh")
     with pytest.raises(ValueError, match="contiguous"):
         fr._check_dirp_args(params_from_jax(raw), data._replace(csrc=data.csrc[:-1]), "tanh")

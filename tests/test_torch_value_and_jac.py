@@ -150,22 +150,24 @@ def test_value_and_jac_matches_mlp_value_and_jac():
 
 
 def test_cpu_wrappers_launch_nothing_and_refuse_sin():
-    """The CPU route takes the plain versions and counts no launch, for sin too;
-    sin is refused where the card would take csrc/ff_mlp.cu (a hidden width
-    above 64, K7 / K8), on the CPU as there."""
+    """The CPU route takes the plain versions and counts no launch, for sin too,
+    also where the card takes csrc/ff_mlp.cu (a hidden width above 64, K7 / K8):
+    there the K7 plain version equals K5's; an unknown activation is refused."""
     params = params_from_jax(_theta(3, (8, 8)))
-    xs_t = torch.zeros(3, 10)
-    before = (vj.vj_fwd.launches, vj.vj_bwd.launches, vj.vj_jvp.launches)
+    xs_t = torch.from_numpy(_inputs(10)[0]).T.contiguous()
+    before = (vj.vj_fwd.launches, vj.vj_bwd.launches, vj.vj_jvp.launches,
+              vj.ff_vj_fwd.launches)
     for act in ("tanh", "sin"):
         vj.vj_fwd(params, xs_t, act)
         vj.vj_bwd(params, xs_t, act, torch.ones(4, 10))
         vj.vj_jvp(params, xs_t, act, params)
-    assert (vj.vj_fwd.launches, vj.vj_bwd.launches, vj.vj_jvp.launches) == before
     wide = params_from_jax(_theta(3, (72, 8)))
-    with pytest.raises(ValueError, match="sin on csrc/ff_mlp.cu"):
-        vj.vj_fwd(wide, xs_t, "sin")
-    with pytest.raises(ValueError, match="next slice"):
-        vj.ff_vj_fwd(params, xs_t, None, "sin")
+    torch.testing.assert_close(vj.ff_vj_fwd(wide, xs_t, None, "sin"),
+                               vj.vj_fwd(wide, xs_t, "sin"), rtol=2e-5, atol=2e-5)
+    assert (vj.vj_fwd.launches, vj.vj_bwd.launches, vj.vj_jvp.launches,
+            vj.ff_vj_fwd.launches) == before
+    with pytest.raises(ValueError, match="unknown activation"):
+        vj.ff_vj_fwd(params, xs_t, None, "relu")
 
 
 @pytest.mark.parametrize("widths", [(20, 20), (48, 48, 48)])

@@ -87,10 +87,9 @@ class VarNet:
       test_order:   1 = hat test space (the reference's); 2 = quadratic
                     Lagrange test space (per-node [K, nQ] test tables)
       activation:   'tanh' | 'sigmoid' | 'sin'.  sin (SIREN) nets are drawn by
-                    ``init_siren``; on CUDA they run on dir_residual.cu and
-                    value_and_jac.cu, and the csrc/ff_mlp.cu routes (Fourier
-                    features, the jacobian-panel residual K3, hidden widths
-                    65-256) refuse them until that file has a sin mode
+                    ``init_siren`` (layer 0 at the embedding's 2F inputs with
+                    Fourier features); on CUDA every kernel has a sin
+                    instantiation, so they take the routes tanh takes
       omega0:       SIREN's layer-0 frequency (activation 'sin' only)
       seed:         seed of the ``torch.Generator`` that draws the initial net
       device:       torch device of the fixed data, parameters and training;

@@ -1,6 +1,6 @@
 // 3xTF32 tensor-core tools for Hopper (sm_90a), and the stacked-panel layers built from
 // them, shared by csrc/value_and_jac.cu (K5 forward / backward, K6),
-// csrc/dir_residual.cu (K1/K4 forward / backward) and csrc/ff_mlp.cu (K2-FF, K7, K8, K3
+// csrc/dir_residual.cu (K1/K4 forward / backward) and csrc/ff_mlp.cuh (K2-FF, K7, K8, K3
 // and K4 for widths 65..256: the "ff" tools below); the launch shape of their warp-per-group
 // forwards; and the per-test-function sum of every residual forward (vr_qsum_kernel).
 //
@@ -31,7 +31,7 @@
 // zero-padded to HP (a multiple of 8, at most 64), n_in padded to 4:
 //   W0 [HP][4] | b0 [HP] | (W_l [HP][HP] | b_l [HP]) for l = 1..L-1 | w_out [HP] | b_out
 //   | pad to 4.         (W stored [fan_out][fan_in], i.e. w.T)
-// Gradients and parameter tangents use the same layout.  (csrc/ff_mlp.cu keeps its own
+// Gradients and parameter tangents use the same layout.  (csrc/ff_mlp.cuh keeps its own
 // packed layout, W [fan_in][fan_out]; its tools below read weights through the same
 // fragment loaders, whose lambdas name the layout.)
 
@@ -61,9 +61,9 @@ __host__ __device__ inline int vj_n_params(int hp, int n_hidden) {
 
 // act: 0 = tanh, 1 = sigmoid.  Derivatives are functions of the output a.  act 2 = sin
 // (SIREN nets): act' = cos z and act'' = -a, where cos z is no function of a; the kernels
-// of csrc/dir_residual.cu and csrc/value_and_jac.cu take it as instantiations of their
-// own (template flag SIN; vj_act_sp and the sin tools below), so the tanh / sigmoid code is as it
-// was; csrc/ff_mlp.cu refuses it.
+// of csrc/dir_residual.cu, csrc/value_and_jac.cu and csrc/ff_mlp.cuh take it as
+// instantiations of their own (template flag SIN; vj_act_sp and the sin tools below,
+// ff_mlp.cuh's own), so the tanh / sigmoid code is as it was.
 #define VJ_ACT_SIN 2
 
 __device__ __forceinline__ float vj_act(float z, int act) {
@@ -385,6 +385,8 @@ __device__ __forceinline__ void vj_cotangent_rows(float* Sl, const float* W, int
 // rows: A [rows][lda] read at columns i < 16 (columns i >= imax read as zero), B read as
 // b(r, j), row r < rows, column j < 8 NTU (both pre-offset to the block's columns); each
 // k-step's A fragment split once for all NTU column tiles.  ff_dw_rows: B [rows][ldb].
+// ff_dw_rows_ab: A read as a(i, r) too (the sin backward of csrc/ff_mlp.cuh, whose slots
+// keep z on their value rows, read as sin z).
 template <int NTU, class LoadB>
 __device__ __forceinline__ void ff_dw_rows_by(float (&acc)[NTU][4], const float* A, int lda,
                                               LoadB b, int rows, int imax = 16) {
@@ -395,6 +397,25 @@ __device__ __forceinline__ void ff_dw_rows_by(float (&acc)[NTU][4], const float*
     unsigned ah[4], al[4];
     vj_frag_a([&](int i, int r) { return i < imax ? A[(r0 + r) * lda + i] : 0.0f; }, 0, ah,
               al);
+#pragma unroll
+    for (int nt = 0; nt < NTU; ++nt) {
+      unsigned bh[2], bl[2];
+      vj_frag_b([&](int r, int j) { return b(r0 + r, j); }, 0, nt * 8, bh, bl);
+      float t[4];
+      vj_mma3z(t, ah, al, bh, bl);
+      vj_add(acc[nt], t);
+    }
+  }
+}
+
+template <int NTU, class LoadA, class LoadB>
+__device__ __forceinline__ void ff_dw_rows_ab(float (&acc)[NTU][4], LoadA a, LoadB b, int rows) {
+#pragma unroll
+  for (int nt = 0; nt < NTU; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll 2
+  for (int r0 = 0; r0 < rows; r0 += 8) {
+    unsigned ah[4], al[4];
+    vj_frag_a([&](int i, int r) { return a(i, r0 + r); }, 0, ah, al);
 #pragma unroll
     for (int nt = 0; nt < NTU; ++nt) {
       unsigned bh[2], bl[2];
@@ -470,7 +491,7 @@ __device__ __forceinline__ float vj_sin_operand(const float* S, const float* C, 
 }
 
 // ------------------------------------------------------------------------------------
-// The "ff" tools (csrc/ff_mlp.cu): hidden widths HP = 32..256 and layer-0 depths up to 256,
+// The "ff" tools (csrc/ff_mlp.cuh): hidden widths HP = 32..256 and layer-0 depths up to 256,
 // so the weights do not stay in shared memory: they stream through it in K-slices of
 // FF_SLICE rows (cp.async, double-buffered), and a warp takes 2 x 16 stacked rows of the
 // tile for its share of the HP / 8 output tiles (its A fragments split once for them,

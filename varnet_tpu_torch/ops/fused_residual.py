@@ -40,6 +40,8 @@ Two implementations share one signature:
 ``_bwd`` (K4 on ``ff_mlp.cu``, hidden width 65..256) and ``jac_residual_fwd`` /
 ``_bwd`` (K3) dispatch on the device of the data: CPU tensors take the plain
 version, CUDA tensors launch the kernel (or raise), anything else raises.
+Every one takes tanh, sigmoid and sin (SIREN nets; each CUDA source has sin
+instantiations of its own, ``ff_mlp.cu``'s in ``csrc/ff_mlp_sin.cu``).
 Each counts its kernel launches in ``.launches``.  ``DirResidualFn`` is the
 autograd glue for all of them (:func:`_residual_fns` picks the pair),
 ``fused_residual`` the loss's entry.  ``csrc/ff_mlp.cu`` also runs without an
@@ -246,20 +248,6 @@ def _act_triple(activation):
     raise ValueError(f"unknown activation '{activation}' (tanh|sigmoid|sin)")
 
 
-SIN_NEXT_SLICE = ("sin on csrc/ff_mlp.cu (Fourier features, the Burgers/jacobian residual "
-                  "K3, hidden widths 65-256) comes in the next slice")
-
-
-def refuse_ff_sin(params, activation, ff: bool):
-    """Raise on sin where the card would run csrc/ff_mlp.cu, which has no sin
-    mode yet: ``ff`` (an embedding, K3) or a hidden width above ``MAX_HIDDEN``.
-    Every wrapper calls it on both devices, so the CPU and the card take sin
-    at the same places."""
-    if activation == "sin" and (ff or (len(params) > 1 and max(
-            layer["w"].shape[1] for layer in params[:-1]) > MAX_HIDDEN)):
-        raise ValueError(SIN_NEXT_SLICE)
-
-
 def _dir_coeffs(data):
     """Per-point direction c [n_in, P], u coefficient cu [P] (or None) and
     source term csrc [P] — the math of ``_dir_coeffs``; a CoeffData (K4)
@@ -389,15 +377,15 @@ def load_library(defines: tuple = ()) -> ctypes.CDLL:
     lib.vr_dirp_residual_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 7 + [ptr]
     lib.ff_n_params_c.argtypes = [i32] * 3
     lib.ff_res_fwd.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
-    lib.ff_res_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    lib.ff_res_bwd_blocks.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
     lib.ff_res_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 10 + [ptr]
     lib.ff_pre_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-    lib.ff_pre_bwd_blocks.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ff_pre_bwd_blocks.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.ff_pre_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 6 + [ptr]
     lib.ff_jac_fwd.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
-    lib.ff_jac_bwd_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    lib.ff_jac_bwd_blocks.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
     lib.ff_jac_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 9 + [ptr]
-    lib.ff_launch_shape.argtypes = ([i32, i32, ctypes.c_int64] + [i32] * 3
+    lib.ff_launch_shape.argtypes = ([i32, i32, ctypes.c_int64] + [i32] * 4
                                     + [ctypes.POINTER(i32)] * 3)
     lib.vr_launch_shape.argtypes = [i32] * 8 + [ctypes.POINTER(i32)]
     for fn in (lib.vr_dir_residual_n_params, lib.vr_dir_residual_fwd,
@@ -536,22 +524,18 @@ def kernel_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None
     return unpack_grads(grad, params, hp)
 
 
-def _route(data, params, activation, ff: bool = False) -> str:
-    """The device kind of ``data`` ("cpu" or "cuda"), after refusing sin where
-    the card would take csrc/ff_mlp.cu (:func:`refuse_ff_sin`).  A wrapper of
-    those kernels (``ff``) refuses it here on the CPU; on the card its
-    argument check (:func:`check_ff_args`) does."""
+def _route(data) -> str:
+    """The device kind of ``data``: "cpu" (the plain versions) or "cuda" (the
+    kernels, for every activation); anything else raises."""
     kind = data.xs.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"fused residual: unsupported device '{kind}'")
-    if kind == "cpu" or not ff:
-        refuse_ff_sin(params, activation, ff or data.bt is not None)
     return kind
 
 
 def dir_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
     """r [K]: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
-    if _route(data, params, activation) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_kernel_args(params, data, activation)
     r = kernel_fwd(load_library(), params, data, activation,
@@ -562,7 +546,7 @@ def dir_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
 
 def dir_residual_bwd(params, data: ResidualData, activation: str, gr):
     """Parameter gradients for cotangent gr [K]; dispatch as dir_residual_fwd."""
-    if _route(data, params, activation) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_kernel_args(params, data, activation)
     grads = kernel_bwd(load_library(), params, data, activation, gr,
@@ -639,7 +623,7 @@ def kernel_dirp_bwd(lib, params, data: CoeffData, activation: str, gr, stream=No
 def dirp_residual_fwd(params, data: CoeffData, activation: str = "tanh"):
     """K4: r [K] from precomputed coefficients: the CUDA kernel for CUDA
     tensors, the plain version for CPU ones."""
-    if _route(data, params, activation) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_dirp_args(params, data, activation)
     r = kernel_dirp_fwd(load_library(), params, data, activation,
@@ -651,7 +635,7 @@ def dirp_residual_fwd(params, data: CoeffData, activation: str = "tanh"):
 def dirp_residual_bwd(params, data: CoeffData, activation: str, gr):
     """K4's parameter gradients for cotangent gr [K]; dispatch as
     ``dirp_residual_fwd``."""
-    if _route(data, params, activation) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_dirp_args(params, data, activation)
     grads = kernel_dirp_bwd(load_library(), params, data, activation, gr,
@@ -744,9 +728,8 @@ def ff_bt(bt: Optional[torch.Tensor], fp: int) -> Optional[torch.Tensor]:
 
 def check_ff_args(params, bt, tensors, activation):
     """Raise on what csrc/ff_mlp.cu does not take (``bt`` None: a net
-    without an embedding on the points ``tensors[0]`` [n_in, P]), sin among it."""
+    without an embedding on the points ``tensors[0]`` [n_in, P])."""
     _act_triple(activation)
-    refuse_ff_sin(params, activation, True)
     n_feat, n_in = (None, tensors[0].shape[0]) if bt is None else bt.shape
     if not 1 <= n_in <= 4:
         raise ValueError(f"the Fourier-feature kernels take 1 <= n_in <= 4, got {n_in}")
@@ -790,15 +773,17 @@ def _ff_packed(lib, params, embedded: bool = True):
     return hp, fp, packed
 
 
-def ff_launch_shape(kind: str, panels: int, p: int, ke: int, n_hidden: int, hp: int) -> dict:
+def ff_launch_shape(kind: str, panels: int, p: int, ke: int, n_hidden: int, hp: int,
+                    activation: str = "tanh") -> dict:
     """The launch shape csrc/ff_mlp.cu takes on the current card for its stacked
     forward (``kind`` "fwd") or backward ("bwd") over ``panels`` panels (K2-FF and
-    wide K4: 2; K7 and K3: 1 + n_in), or for K8 ("jvp", panels 1 + n_in): threads
-    per block, blocks resident per SM and blocks of the grid."""
+    wide K4: 2; K7 and K3: 1 + n_in), or for K8 ("jvp", panels 1 + n_in), of the
+    ``activation``'s instantiation: threads per block, blocks resident per SM and
+    blocks of the grid."""
     out = [ctypes.c_int(0) for _ in range(3)]
     build.raise_on(load_library().ff_launch_shape(
         ("fwd", "bwd", "jvp").index(kind), panels, p, ke, n_hidden, hp,
-        *map(ctypes.byref, out)),
+        ACTIVATIONS[activation], *map(ctypes.byref, out)),
         "ff_launch_shape")
     threads, per_sm, blocks = (v.value for v in out)
     return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
@@ -849,8 +834,9 @@ def kernel_ff_bwd(lib, params, data: ResidualData, activation: str, gr, stream=N
     bt = ff_bt(data.bt, fp)
     blocks = ctypes.c_int(0)
     raise_on_fit(params, lib.ff_res_bwd_blocks(data.k, data.nq, data.d, ff_ke(fp),
-                                               len(params) - 1, hp, ctypes.byref(blocks)),
-                 "dir_residual_ff_bwd_blocks")
+                                               len(params) - 1, hp, ACTIVATIONS[activation],
+                                               ctypes.byref(blocks)),
+                 f"dir_residual_ff_bwd_blocks, {activation}")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
@@ -870,7 +856,7 @@ def dir_residual_ff_fwd(params, data: ResidualData, activation: str = "tanh"):
     """K2-FF: r [K] of the Fourier-feature net (``data.bt`` set; None: a plain
     net through the same kernels): the CUDA kernel for CUDA tensors, the plain
     version for CPU ones."""
-    if _route(data, params, activation, ff=True) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_ff_data(params, data, activation)
     r = kernel_ff_fwd(load_library(), params, data, activation,
@@ -882,7 +868,7 @@ def dir_residual_ff_fwd(params, data: ResidualData, activation: str = "tanh"):
 def dir_residual_ff_bwd(params, data: ResidualData, activation: str, gr):
     """K2-FF's parameter gradients for cotangent gr [K]; dispatch as
     ``dir_residual_ff_fwd``."""
-    if _route(data, params, activation, ff=True) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_ff_data(params, data, activation)
     grads = kernel_ff_bwd(load_library(), params, data, activation, gr,
@@ -936,7 +922,8 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
     dev = data.xs.device
     blocks = ctypes.c_int(0)
     raise_on_fit(params, lib.ff_pre_bwd_blocks(data.k, data.nq, len(params) - 1, hp,
-                                               ctypes.byref(blocks)), "dirp_residual_ff_bwd_blocks")
+                                               ACTIVATIONS[activation], ctypes.byref(blocks)),
+                 f"dirp_residual_ff_bwd_blocks, {activation}")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
@@ -950,7 +937,7 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
 def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
     """K4 for a plain net of hidden width 65..256 (csrc/ff_mlp.cu): the CUDA
     kernel for CUDA tensors, the plain version for CPU ones."""
-    if _route(data, params, activation, ff=True) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_fwd_plain(params, data, activation)
     _check_dirp_ff_args(params, data, activation)
     r = kernel_dirp_ff_fwd(load_library(), params, data, activation,
@@ -962,7 +949,7 @@ def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
 def dirp_residual_ff_bwd(params, data: CoeffData, activation: str, gr):
     """Its parameter gradients for cotangent gr [K]; dispatch as
     ``dirp_residual_ff_fwd``."""
-    if _route(data, params, activation, ff=True) == "cpu":
+    if _route(data) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_dirp_ff_args(params, data, activation)
     grads = kernel_dirp_ff_bwd(load_library(), params, data, activation, gr,
@@ -1069,8 +1056,9 @@ def kernel_jac_bwd(lib, params, data: ResidualData, activation: str, gr, stream=
     dev = data.xs.device
     blocks = ctypes.c_int(0)
     raise_on_fit(params, lib.ff_jac_bwd_blocks(data.k, data.nq, data.xs.shape[0], data.d,
-                                               len(params) - 1, hp, ctypes.byref(blocks)),
-                 "jac_residual_bwd_blocks")
+                                               len(params) - 1, hp, ACTIVATIONS[activation],
+                                               ctypes.byref(blocks)),
+                 f"jac_residual_bwd_blocks, {activation}")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
@@ -1086,7 +1074,7 @@ def jac_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
     """K3: r [K] of the jacobian-panel residual (nonlinear advection with
     ``data.nl``): the CUDA kernel for CUDA tensors, the plain version for CPU
     ones."""
-    if _route(data, params, activation, ff=True) == "cpu":
+    if _route(data) == "cpu":
         return jac_residual_fwd_plain(params, data, activation)
     _check_jac_data(params, data, activation)
     r = kernel_jac_fwd(load_library(), params, data, activation,
@@ -1098,7 +1086,7 @@ def jac_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
 def jac_residual_bwd(params, data: ResidualData, activation: str, gr):
     """K3's parameter gradients for cotangent gr [K]; dispatch as
     ``jac_residual_fwd``."""
-    if _route(data, params, activation, ff=True) == "cpu":
+    if _route(data) == "cpu":
         return jac_residual_bwd_plain(params, data, activation, gr)
     _check_jac_data(params, data, activation)
     grads = kernel_jac_bwd(load_library(), params, data, activation, gr,

@@ -261,7 +261,7 @@ def load_library() -> ctypes.CDLL:
     lib.ff_n_params_c.argtypes = [i32] * 3
     lib.ff_vj_fwd.argtypes = [ptr] * 4 + [i64] + [i32] * 5 + [ptr]
     lib.ff_vj_jvp.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr]
-    lib.ff_vj_bwd_blocks.argtypes = [i64] + [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ff_vj_bwd_blocks.argtypes = [i64] + [i32] * 5 + [ctypes.POINTER(i32)]
     lib.ff_vj_bwd.argtypes = [ptr] * 5 + [i32, ptr, i64] + [i32] * 5 + [ptr]
     for fn in (lib.vj_n_params_c, lib.vj_fwd, lib.vj_jvp, lib.vj_bwd_blocks, lib.vj_bwd,
                lib.vj_launch_shape,
@@ -338,17 +338,13 @@ def _packed(lib, params):
     return hp, packed
 
 
-def _route(xs_t, params, activation, ff: bool = False) -> str:
-    """The device kind of xs_t ("cpu" or "cuda"), after refusing sin where the
-    card would take csrc/ff_mlp.cu (``fused_residual.refuse_ff_sin``).  A wrapper
-    of those kernels (``ff``) refuses it here on the CPU; on the card its
-    argument check (``fused_residual.check_ff_args``) does."""
+def _route(xs_t, activation) -> str:
+    """The device kind of xs_t: "cpu" (the plain versions) or "cuda" (the
+    kernels, for every activation of ``_act_triple``); anything else raises."""
     _act_triple(activation)
     kind = xs_t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"value_and_jac: unsupported device '{kind}'")
-    if kind == "cpu" or not ff:
-        fr.refuse_ff_sin(params, activation, ff)
     return kind
 
 
@@ -359,7 +355,7 @@ def _stream(xs_t):
 def vj_fwd(params, xs_t, activation: str = "tanh"):
     """out [1 + n_in, P]: the CUDA kernel for CUDA tensors, the plain version
     for CPU ones."""
-    if _route(xs_t, params, activation) == "cpu":
+    if _route(xs_t, activation) == "cpu":
         return vj_fwd_plain(params, xs_t, activation)
     _check_kernel_args(params, xs_t)
     lib = load_library()
@@ -375,7 +371,7 @@ def vj_fwd(params, xs_t, activation: str = "tanh"):
 
 def vj_bwd(params, xs_t, activation: str, g):
     """Parameter gradients of <g, out>; dispatch as ``vj_fwd``."""
-    if _route(xs_t, params, activation) == "cpu":
+    if _route(xs_t, activation) == "cpu":
         return vj_bwd_plain(params, xs_t, activation, g)
     _check_kernel_args(params, xs_t)
     lib = load_library()
@@ -401,7 +397,7 @@ def vj_bwd(params, xs_t, activation: str, g):
 
 def vj_jvp(params, xs_t, activation: str, tangent):
     """dout [1 + n_in, P] along ``tangent``; dispatch as ``vj_fwd``."""
-    if _route(xs_t, params, activation) == "cpu":
+    if _route(xs_t, activation) == "cpu":
         return vj_jvp_plain(params, xs_t, activation, tangent)
     _check_kernel_args(params, xs_t)
     lib = load_library()
@@ -522,7 +518,8 @@ def kernel_ff_vj_bwd(lib, params, xs_t, bt, activation: str, g, stream=None):
         raise ValueError(f"cotangent must be [{1 + n_in}, {p}] on {xs_t.device}")
     blocks = ctypes.c_int(0)
     fr.raise_on_fit(params, lib.ff_vj_bwd_blocks(p, n_in, fr.ff_ke(fp), len(params) - 1, hp,
-                                                 ctypes.byref(blocks)), "ff_vj_bwd_blocks")
+                                                 ACTIVATIONS[activation], ctypes.byref(blocks)),
+                    f"ff_vj_bwd_blocks, {activation}")
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32,
                            device=xs_t.device)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=xs_t.device)
@@ -554,7 +551,7 @@ def _ff_check(params, xs_t, bt, activation):
 
 def ff_vj_fwd(params, xs_t, bt, activation: str = "tanh"):
     """K7 forward: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
-    if _route(xs_t, params, activation, ff=True) == "cpu":
+    if _route(xs_t, activation) == "cpu":
         return ff_vj_fwd_plain(params, xs_t, bt, activation)
     _ff_check(params, xs_t, bt, activation)
     out = kernel_ff_vj_fwd(load_library(), params, xs_t, bt, activation, _stream(xs_t))
@@ -564,7 +561,7 @@ def ff_vj_fwd(params, xs_t, bt, activation: str = "tanh"):
 
 def ff_vj_bwd(params, xs_t, bt, activation: str, g):
     """K7 backward; dispatch as ``ff_vj_fwd``."""
-    if _route(xs_t, params, activation, ff=True) == "cpu":
+    if _route(xs_t, activation) == "cpu":
         return ff_vj_bwd_plain(params, xs_t, bt, activation, g)
     _ff_check(params, xs_t, bt, activation)
     grads = kernel_ff_vj_bwd(load_library(), params, xs_t, bt, activation, g, _stream(xs_t))
@@ -574,7 +571,7 @@ def ff_vj_bwd(params, xs_t, bt, activation: str, g):
 
 def ff_vj_jvp(params, xs_t, bt, activation: str, tangent):
     """K8; dispatch as ``ff_vj_fwd``."""
-    if _route(xs_t, params, activation, ff=True) == "cpu":
+    if _route(xs_t, activation) == "cpu":
         return ff_vj_jvp_plain(params, xs_t, bt, activation, tangent)
     _ff_check(params, xs_t, bt, activation)
     dout = kernel_ff_vj_jvp(load_library(), params, xs_t, bt, activation, tangent,
