@@ -44,9 +44,12 @@ is non-zero and no result line is printed):
                timed; the sin / tanh time ratios at the same shapes.  Then from one
                ``init_siren`` theta at the bench mesh w48x2: 20 Adam epochs through
                K1/K2 and 20 on the general path through K5, each within rtol 2e-4 of the
-               plain general path; K5/K6 against plain at the LM's chunk shape from where
-               Adam ended; 2 LM iterations (cg 20, k_chunks 16) through K5/K6 from there,
-               within rtol 2e-2 of the plain LM, the loss not rising; 20 exact-BC Adam
+               plain general path; 200 epochs through K1/K2 from the same init (from the
+               20-epoch end the plain LM's own spread under a 1e-7 move of theta is
+               1.8e-2, from here 7.2e-3: ``scripts/lm_spread.py``); K5/K6 against plain at
+               the LM's chunk shape from there; 2 LM iterations (cg 20, k_chunks 16)
+               through K5/K6 from there, within rtol 2e-2 of the plain LM, the loss not
+               rising; 20 exact-BC Adam
                epochs (3-D transient, d8/t6 w64x2) through K4 within rtol 2e-4 of the
                plain path.  Launch counters are set to 0 before each run and read after
                it.  Then siren-wide, a plain SIREN net 128 wide x 3 (the width SIREN nets
@@ -90,8 +93,8 @@ is non-zero and no result line is printed):
                against their plain versions, timed, and their launch shapes beside tanh's;
                ``VarNet(activation="sin")``'s net: 8 Adam epochs of the first causal window
                (t <= 0.25, d64/t10/b64) through K2-FF, 8 kernel vs plain at d16/t10 (rtol
-               2e-4), 2 LM iterations (cg 10) from there through K7 / K8 against plain
-               (rtol 2e-2).
+               2e-4), 2 LM iterations (cg 10) through K7 / K8 against plain (rtol 2e-2)
+               from 40 epochs through K2-FF at d16/t10.
 9. causal   -- the slice's main path: ``train_causal`` over windows 0.25 / 0.5 / 0.75 /
                1.0 at the full mesh and width on the kernel path (Adam lr 2e-3, decay
                0.4 every epochs / 4, weight (1, 10, 10)); K2-FF launches rise by >= 1
@@ -167,6 +170,28 @@ is non-zero and no result line is printed):
                rise, rel-L2 stays < 2e-4; the same on the plain path, whose losses agree
                within rtol 2e-2.
 
+21. inverse -- the flux, observation and inverse rows (no kernel of their own: they run
+               K1/K2, K4 and K5/K6), each path against its plain path.  neumann at the
+               ``neumann_2d`` CLI's shape (d30/b20 w20x2, weights (1, 10)): 1000 Adam
+               epochs through K1/K2 (loss_neu falls) beside 1000 on the all-Dirichlet
+               ``steady_ad_2d`` (the flux rows' cost), 20 kernel vs plain (rtol 2e-4); the
+               same through K4 with exact BC (200 + 20 epochs); a Robin variant's loss kernel vs plain (rtol
+               1e-5); LM 2 x cg 20 (lam0 0.1) through K5/K6 vs plain (rtol 2e-2).
+               inverse-source at ``benchmarks/inverse_source_accuracy.py``'s shape (d40/b40,
+               w32x2 + a (16, 16) source net, 400 observations, weights (1, 10, 100)): the
+               pinned ``theta_inverse_source_wobs100.npz`` re-scores (solution < 1e-3,
+               source < 1.2e-2); 100 Adam epochs through K1/K2 on a zeroed fixed source, and
+               100 without the source net and observations, with K1/K2's own time (the
+               step's share outside the kernels); 20 kernel vs plain, net and source leaves
+               moving; joint LM 2 x cg 20 from the pin vs plain.  inverse-flow at
+               ``benchmarks/inverse_flow.py``'s shape (contaminant_inlet_2d, d(32, 16)/t20,
+               w32x3, 300 observations of the shipped CN-FDM field, u_max trainable): 1000
+               Adam epochs through K5 (the general path), 20 kernel vs plain, LM 2 x cg 20
+               (lam0 0.1) vs plain; the ``inverse_coeff --recover kappa`` CLI's shape (d24,
+               w16x2): 20 epochs through K5 vs plain.  Every LM comparison runs after the
+               plain LM's own spread under a 1e-7 move of its start is measured below
+               1e-2, and needs an accepted step.
+
 Cuts: the contaminant recipe (``benchmarks/contaminant_causal.py``) runs 8000 Adam
 epochs per window and 12 LM iterations of cg 150; here 8 epochs per window and 2 LM
 iterations of cg 10 (widths, features, mesh and the rest of the recipe are as
@@ -179,7 +204,10 @@ recipe (12,000 Adam epochs, 40 LM iterations of cg 200) is cut to 100 epochs and
 iterations of cg 20 (k_chunks 16), never in width or mesh.  The SIREN runs on
 ``ff_mlp.cu`` hold the kernel path against the plain one at reduced meshes where the plain
 general path's panels at the full mesh would not fit the card: the contaminant window at
-d16/t10, the w128x3 flagship Adam at d24/t16.  The bounds (``_bounds``) count the layer
+d16/t10, the w128x3 flagship Adam at d24/t16.  The inverse recipes are cut in depth only:
+neumann 1000 + 20 of 30,000 epochs; inverse source 100 + 20 of 40,000 epochs and LM 2 x
+cg 20 of 30 x cg 120; inverse flow 1000 + 20 of 12,000 epochs and LM 2 x cg 20 of 20 x cg
+150.  The bounds (``_bounds``) count the layer
 products of each kernel's work at the timed shape (``sincosf`` is not counted).
 
 The line before last is the per-kernel JSON summary; the last line is
@@ -207,6 +235,7 @@ VJ_FWD_RTOL, VJ_RTOL = 1e-5, 1e-4  # K5 forward; K5 backward and K6 (longer f32 
 LM = dict(steps=2, cg_iters=20, k_chunks=16)
 OMEGA0 = 6.0                     # SIREN's layer-0 frequency (VarNet's default)
 SIREN_NET = (48, 48)             # the siren phase's net: Adam through K1/K2, LM K5/K6
+SIREN_LM_START = 200             # Adam epochs before the siren LM (its spread, 7a)
 
 
 def log(phase, **nums):
@@ -368,21 +397,49 @@ def _bench_vn(widths, mesh=None, theta=None, **kw):
     return vn
 
 
-def _kernel_vs_plain(make, epochs, label, counters, **train_kw):
+def _clone(theta):
+    from varnet_tpu_torch.models.mlp import tree_map
+
+    return tree_map(lambda v: v.clone(), theta)
+
+
+def _with_theta(vn, theta):
+    vn.theta = _clone(theta)
+    return vn
+
+
+def _moved(a, b):
+    """The largest change of any leaf between two parameter trees."""
+    from varnet_tpu_torch.models.mlp import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _kernel_vs_plain(make, epochs, label, counters, start=None, **train_kw):
     """``epochs`` Adam epochs of ``make(fused)`` on the kernel path (the launches of
     ``counters`` set to 0 just before and read just after: each at least one per epoch)
     and on the plain path, the losses within rtol 2e-4 and the kernel's finite:
-    (losses kernel, losses plain, launches, the kernel run's VarNet)."""
+    (losses kernel, losses plain, launches, the kernel run's VarNet).  ``start``: both
+    runs start from a copy of this theta, and every leaf group of it ('net', and an
+    inverse problem's 'src' / 'kap' / 'vel') must move on both paths (no gradient lost
+    on the card)."""
     import torch
 
     runs, launches, vk = {}, None, None
     for fused in (True, False):
-        vn = make(fused)
+        vn = make(fused) if start is None else _with_theta(make(fused), start)
         for c in counters:
             c.launches = 0
         res = vn.train(epoch_num=epochs, save_freq=1, verbose=False, **train_kw)
         torch.cuda.synchronize()
         runs[fused] = _losses(res)
+        if start is not None:
+            groups = start if isinstance(start, dict) else {"net": start}
+            theta = vn.theta if isinstance(vn.theta, dict) else {"net": vn.theta}
+            still = [k for k in groups if not _moved(theta[k], groups[k]) > 0.0]
+            if still:
+                raise AssertionError(f"{label}: leaves {still} did not move on the "
+                                     f"{'kernel' if fused else 'plain'} path")
         if fused:
             launches = {c.__name__: c.launches for c in counters}
             vk, steps_per_sec = vn, res.steps_per_sec
@@ -407,8 +464,7 @@ def _lm_vs_plain(make, theta, lm, label, counters, **kw):
 
     runs = {}
     for use_pallas in (True, False):
-        vn = make(use_pallas)
-        vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
+        vn = _with_theta(make(use_pallas), theta)
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
@@ -598,9 +654,9 @@ def phase_siren(data, xs_t, nq):
     d48/t32 points w48x2; K4 at hard 3dt d8/t6 w64x2, with tanh timed there too) and
     K5/K6 also at w48x3, the tanh rows' net; 20 Adam epochs through K1/K2 from one
     ``init_siren`` theta against the plain general path (rtol 2e-4), and through K5
-    (the general path on the kernels); K5/K6 at the LM's chunk shape from there
-    (untimed), then 2 LM iterations (cg 20, k_chunks 16) through K5/K6 against the
-    plain LM (rtol 2e-2); 20 exact-BC Adam epochs through K4 against the plain path.
+    (the general path on the kernels); 200 epochs through K1/K2 from the same init, the
+    LM's start; K5/K6 at the LM's chunk shape from there (untimed), then 2 LM iterations
+    (cg 20, k_chunks 16) through K5/K6 against the plain LM (rtol 2e-2); 20 exact-BC Adam epochs through K4 against the plain path.
     Each path's launch counters are set to 0 just before its run and read just after.
     Returns the kernels' numbers and launches."""
     import torch
@@ -661,17 +717,22 @@ def phase_siren(data, xs_t, nq):
         loss_end_general_k5=f"{lg[-1]:.6e}", loss_end_plain=f"{lp[-1]:.6e}",
         steps_per_sec=f"{rk.steps_per_sec:.4f}")
 
+    # the LM's start: 200 Adam epochs from the same init through K1/K2.  From the 20-epoch
+    # end the plain LM alone moves 1.803e-2 when theta moves by 1e-7, from here 7.227e-3
+    # (scripts/lm_spread.py --widths 48,48 --seed 35 --adam 200)
+    vl, rl = _train(SIREN_NET, theta, SIREN_LM_START, SIREN_LM_START, True, activation="sin")
+    l_start = rl.losses[-1]["loss"]
     # the chunk shape the LM gives K5/K6 (K padded to a multiple of k_chunks)
     kc = -(-(xs_t.shape[1] // nq) // LM["k_chunks"])
-    _vj_compare(vk.theta, xs_t[:, :kc * nq].contiguous(), 38, "siren lm chunk-shape kernels",
+    _vj_compare(vl.theta, xs_t[:, :kc * nq].contiguous(), 38, "siren lm chunk-shape kernels",
                 False, act="sin")
     lm_launches, _, mk, _ = _lm_vs_plain(
         lambda use_pallas: _bench_vn(SIREN_NET, activation="sin", use_pallas=use_pallas),
-        vk.theta, LM, "siren lm", (vj.vj_fwd, vj.vj_bwd, vj.vj_jvp), weight=WEIGHT,
+        vl.theta, LM, "siren lm", (vj.vj_fwd, vj.vj_bwd, vj.vj_jvp), weight=WEIGHT,
         error_disc=96, error_times=7)
     mlk = _losses(mk)
-    if not mlk[-1] <= lk[-1] * (1 + 1e-5):
-        raise AssertionError(f"sin LM: kernel {mlk} from the Adam end loss {lk[-1]}")
+    if not mlk[-1] <= l_start * (1 + 1e-5):
+        raise AssertionError(f"sin LM: kernel {mlk} from the Adam end loss {l_start}")
     log("siren lm kernel", rel_l2=f"{mk.errors[-1]:.6e}")
 
     _, _, k4, _ = _kernel_vs_plain(
@@ -694,6 +755,7 @@ def phase_siren(data, xs_t, nq):
 
 SIREN_FF_NET = (96, 96, 96)       # the contaminant recipe's net, behind its 128 features
 SIREN_WIDE = (128, 128, 128)      # a plain SIREN net at the width such nets are used at
+SIREN_CONT_LM_START = 40          # Adam epochs before the d16/t10 LM comparison (its spread)
 WIDE_SMALL = dict(disc_num=24, b_disc_num=24, t_disc_num=16)  # its kernel-vs-plain Adam
 
 
@@ -737,7 +799,8 @@ def phase_siren_contaminant(ctx):
     iterations (cg 10, k_chunks 16) from there at the full mesh (d64/t40) through K7 / K8,
     the path's launches; then, for the comparisons with the plain path (whose panels
     at the full mesh would not fit the card), 8 Adam epochs kernel vs plain at d16/t10
-    (rtol 2e-4) and 2 LM iterations from there kernel vs plain (rtol 2e-2)."""
+    (rtol 2e-4) and 2 LM iterations kernel vs plain (rtol 2e-2) from 40 epochs through
+    K2-FF at d16/t10 (from 8 the plain LM's own 1e-7 spread is 2.6e-2)."""
     import torch
 
     from varnet_tpu_torch.ops import fused_residual as fr
@@ -800,12 +863,17 @@ def phase_siren_contaminant(ctx):
         return _contaminant(CONT_SMALL, t_final=0.25, activation="sin", use_fused_residual=fused,
                             use_pallas=fused, optimizer=opt)
 
-    _, _, _, vk = _kernel_vs_plain(small, CAUSAL["epochs"],
-                                   "siren contaminant kernel vs plain d16/t10",
-                                   (fr.dir_residual_ff_fwd, fr.dir_residual_ff_bwd), weight=WEIGHT)
+    _kernel_vs_plain(small, CAUSAL["epochs"], "siren contaminant kernel vs plain d16/t10",
+                     (fr.dir_residual_ff_fwd, fr.dir_residual_ff_bwd), weight=WEIGHT)
+    # the LM comparison's start: 40 epochs through K2-FF.  From the 8-epoch end the plain
+    # LM alone moves 2.560e-2 when theta moves by 1e-7, from here 4.0e-6
+    # (scripts/lm_spread.py --case contaminant --adam 40 --cg 10)
+    vl = small(True)
+    vl.train(epoch_num=SIREN_CONT_LM_START, weight=WEIGHT, save_freq=SIREN_CONT_LM_START,
+             verbose=False)
     _lm_vs_plain(lambda use_pallas: _contaminant(CONT_SMALL, t_final=0.25, activation="sin",
                                                  use_pallas=use_pallas),
-                 vk.theta, LM_FF, "siren contaminant lm kernel vs plain d16/t10",
+                 vl.theta, LM_FF, "siren contaminant lm kernel vs plain d16/t10",
                  (vj.ff_vj_fwd, vj.ff_vj_bwd, vj.ff_vj_jvp), weight=WEIGHT)
     secs = time.perf_counter() - t0
     log("siren contaminant", seconds=f"{secs:.1f}")
@@ -1548,8 +1616,8 @@ def phase_kernels_nq1296():
     _residual_compare(params, data, gen, "kernels-nq1296 K4 hard order-2 w64x2", timed=False)
 
 
-def _losses(res):
-    return np.array([r["loss"] for r in res.losses])
+def _losses(res, key="loss"):
+    return np.array([r[key] for r in res.losses])
 
 
 def phase_hard_train(vn3):
@@ -1967,6 +2035,344 @@ def phase_burgers_lm():
 
 
 # ---------------------------------------------------------------------------
+# 21. inverse: the flux, observation and inverse rows on the kernels
+
+NEU_MESH = dict(layer_width=(20, 20), disc_num=30, b_disc_num=20)   # the neumann_2d CLI
+NEU_W = (1.0, 10.0)
+# the main path's runs; the comparisons start where they ended: penalty 1000 epochs, the
+# LM's start (from 200, LM at lam0 1e-3 and 0.1 rejects steps on an H100), hard 200 (from
+# 1000, a fresh Adam's 20 epochs raise loss_neu)
+NEU_EPOCHS = {"penalty": 1000, "hard": 200}
+ROBIN = dict(alpha=1.5, flux=0.5)
+SRC_MESH = dict(layer_width=(32, 32), disc_num=40, b_disc_num=40)  # inverse_source_accuracy.py
+SRC_W = (1.0, 10.0, 100.0)
+SRC_THETA = os.path.join(RESULTS, "theta_inverse_source_wobs100.npz")
+SRC_EPOCHS = 100
+SRC_LM = dict(steps=2, cg_iters=20, k_chunks=4)
+FLOW_MESH = dict(layer_width=(32, 32, 32), disc_num=(32, 16), b_disc_num=32, t_disc_num=20)
+FLOW_W = (1.0, 10.0, 10.0, 30.0)              # benchmarks/inverse_flow.py, w_obs 30
+FLOW_FDM = os.path.join(ROOT, "benchmarks", "data", "contaminant_inlet_fdm.npz")
+FLOW_EPOCHS = 1000
+# lam0 0.1: from these starts LM at refine_lm's 1e-3 rejects both steps (on an H100)
+FLOW_LM = dict(steps=2, cg_iters=20, k_chunks=2, lam0=0.1)
+COEFF_MESH = dict(layer_width=(16, 16), disc_num=24)     # the inverse_coeff CLI
+INV_LM = dict(steps=2, cg_iters=20, lam0=0.1)
+SPREAD_EPS = 1e-7
+SPREAD_MAX = 1e-2    # half the LM gate: a start whose own spread is larger is no test
+
+
+def _lm_accepted(res, lm, label):
+    """The LM iterations of ``res`` that were accepted (the damping falls after one);
+    raises if none was, since a comparison of rejected steps compares only the start."""
+    lams = [lm.get("lam0", 1e-3)] + [r["lam"] for r in res.losses]
+    accepted = sum(b < a for a, b in zip(lams, lams[1:]))
+    if accepted < 1:
+        raise AssertionError(f"{label}: every LM step was rejected (lam {lams})")
+    return accepted
+
+
+def _lm_spread(make, theta, lm, label, **kw):
+    """The plain LM's own spread at theta: the largest relative distance between the
+    losses of ``lm`` from theta and from theta (1 + 1e-7 n), n seeded standard normal
+    (``scripts/lm_spread.py``'s measure).  Raises above SPREAD_MAX."""
+    import torch
+
+    from varnet_tpu_torch.models.mlp import tree_map
+
+    gen = torch.Generator().manual_seed(7)
+    runs = []
+    for eps in (0.0, SPREAD_EPS):
+        vn = make(False)
+        vn.theta = tree_map(
+            lambda v: v * (1 + eps * torch.randn(v.shape, generator=gen).to(v.device)), theta)
+        runs.append(_losses(vn.refine_lm(save_freq=1, verbose=False, **lm, **kw)))
+    spread = float(np.max(np.abs(runs[1] - runs[0]) / np.abs(runs[0])))
+    log(label, eps=SPREAD_EPS, max_rel_diff=f"{spread:.3e}")
+    if not spread <= SPREAD_MAX:
+        raise AssertionError(f"{label}: the plain LM moves {spread:.3e} under a {SPREAD_EPS} "
+                             f"perturbation of its start (> {SPREAD_MAX})")
+    return spread
+
+
+def _flow_obs():
+    """300 observations of the shipped CN-FDM inlet field (t > 0), plume-weighted as
+    ``benchmarks/inverse_flow.py`` draws them (half the largest |u| per slice, half
+    uniform, seed 7)."""
+    from varnet_tpu_torch.fem.assembly import PointData
+
+    z = np.load(FLOW_FDM)
+    xs, times, u = z["x"], z["times"], z["u"]
+    rng = np.random.default_rng(7)
+    coords, vals = [], []
+    n_t = 300 // max(len(times) - 1, 1)
+    for s, t in enumerate(times):
+        if t <= 0:
+            continue
+        top = np.argsort(-np.abs(u[s]))[:max(n_t // 2, 1)]
+        uni = rng.choice(len(xs), size=max(n_t - len(top), 1), replace=False)
+        sel = np.unique(np.concatenate([top, uni]))
+        coords.append(np.concatenate([xs[sel], np.full((len(sel), 1), t)], axis=1))
+        vals.append(u[s][sel])
+    vals = np.concatenate(vals).astype(np.float32)
+    return PointData(np.concatenate(coords).astype(np.float32), vals,
+                     np.ones(len(vals), np.float32))
+
+
+def _poiseuille(phi, x, t):
+    """The trainable channel flow (4 u_max y (1 - y), 0), u_max = phi[0]."""
+    import torch
+
+    vx = 4.0 * phi[0] * x[:, 1] * (1.0 - x[:, 1])
+    return torch.stack([vx, torch.zeros_like(vx)], dim=-1)
+
+
+def phase_inverse():
+    """The flux, observation and inverse rows at the repo's recipes' shapes.
+
+    neumann (the ``neumann_2d`` CLI: ``steady_ad_2d_neumann``, d30/b20, w20x2, weights
+    (1, 10), the CLI's Adam): 1000 Adam epochs through K1/K2 (the main path; loss_neu
+    falls), 1000 on ``steady_ad_2d`` (all Dirichlet) at the same shape for the flux
+    rows' cost, 20 epochs kernel vs plain from there (rtol 2e-4; loss_neu falls); the
+    same in hard mode on K4 (200 epochs), the flux rows on the transformed u; the Robin variant's loss
+    at the penalty theta, kernel vs plain (rtol 1e-5); 2 LM iterations (cg 20, lam0 0.1)
+    through K5/K6 against the plain LM (rtol 2e-2), after the plain LM's own 1e-7 spread
+    there is measured below 1e-2; at least one LM step accepted.
+    inverse-source (``benchmarks/inverse_source_accuracy.py``: d40/b40, w32x2 + a (16, 16)
+    source net, 400 observations, weights (1, 10, 100)): the pinned
+    ``theta_inverse_source_wobs100.npz`` re-scores (solution < 1e-3, source < 1.2e-2);
+    100 Adam epochs through K1/K2 with the fixed source zeroed (the main path), and
+    100 without the source net and observation rows, each with its steps/s, and K1/K2's
+    own time at that shape (the step's share outside the kernels); 20 epochs
+    kernel vs plain (rtol 2e-4), net and source leaves moving on both; joint {net, src} LM
+    (cg 20, k_chunks 4) from the pinned theta, kernel vs plain (rtol 2e-2), after its
+    spread check, a step accepted.
+    inverse-flow (``benchmarks/inverse_flow.py``: ``contaminant_inlet_2d``, d(32, 16)/t20,
+    w32x3, 300 observations of the shipped CN-FDM field, u_max trainable from 0.5): 1000
+    Adam epochs on the general path through K5 (the main path), 20 kernel vs plain (rtol
+    2e-4), the vel leaf moving; LM (cg 20, k_chunks 2, lam0 0.1) through K5/K6 vs plain
+    (rtol 2e-2) after its spread check, a step accepted; the ``inverse_coeff --recover
+    kappa`` CLI shape (d24, w16x2, 25 observations): 20 epochs through K5 vs plain.
+    Returns the phase's numbers."""
+    import dataclasses
+
+    import torch
+
+    from varnet_tpu_torch import VarNet, load_theta_npz, params_from_jax
+    from varnet_tpu_torch.examples.inverse_coeff import KAPPA_TRUE, softplus_kappa
+    from varnet_tpu_torch.fem.assembly import PointData, pad_quad
+    from varnet_tpu_torch.models.source import make_mlp_source
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.ops import value_and_jac as vj
+    from varnet_tpu_torch.problems import analytic
+    from varnet_tpu_torch.problems.adpde import RobinBC
+    from varnet_tpu_torch.train.optim import OptimizerConfig
+    from varnet_tpu_torch.utils.helpers import rel_l2_error
+
+    t0 = time.perf_counter()
+    out = {}
+    vjs = (vj.vj_fwd, vj.vj_bwd, vj.vj_jvp)
+    k12 = (fr.dir_residual_fwd, fr.dir_residual_bwd)
+    k4 = (fr.dirp_residual_fwd, fr.dirp_residual_bwd)
+
+    # --- neumann ---------------------------------------------------------------
+    neu_opt = OptimizerConfig(lr=1e-3, decay_rate=0.4, decay_steps=5000)  # the CLI's
+
+    def neumann(kernels=True, hard=False, pde=None):
+        return VarNet(pde or analytic.steady_ad_2d_neumann()["pde"], device="cuda",
+                      hard_bc=hard, optimizer=neu_opt, use_fused_residual=kernels,
+                      use_pallas=kernels, **NEU_MESH)
+
+    ends = {}
+    for hard, counters in ((False, k12), (True, k4)):
+        mode = "hard" if hard else "penalty"
+        vn = neumann(hard=hard)
+        for c in counters:
+            c.launches = 0
+        res = vn.train(epoch_num=NEU_EPOCHS[mode], weight=NEU_W, save_freq=20, verbose=False,
+                       error_disc=32)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        neu = _losses(res, "loss_neu")
+        if min(launches.values()) < NEU_EPOCHS[mode] or not (np.all(np.isfinite(neu))
+                                                            and neu[-1] < neu[0]):
+            raise AssertionError(f"neumann {mode}: launches {launches}, loss_neu {neu}")
+        log(f"inverse neumann {mode}", mesh="d30/b20", widths="20x20", epochs=NEU_EPOCHS[mode],
+            **launches, loss_neu_epoch_20=f"{neu[0]:.6e}", loss_neu_end=f"{neu[-1]:.6e}",
+            loss_end=f"{res.losses[-1]['loss']:.6e}", rel_l2=f"{res.errors[-1]:.6e}",
+            steps_per_sec=f"{res.steps_per_sec:.4f}")
+        out[f"neumann_{mode}_steps_per_sec"] = res.steps_per_sec
+        _, _, _, vk = _kernel_vs_plain(lambda kernels: neumann(kernels, hard), 20,
+                                       f"inverse neumann {mode} kernel vs plain", counters,
+                                       start=vn.theta, weight=NEU_W, error_disc=16)
+        neu = _losses(vk.train_result, "loss_neu")
+        if not neu[-1] < neu[0]:
+            raise AssertionError(f"neumann {mode} kernel: loss_neu did not fall: {neu}")
+        ends[mode] = vk.theta
+    vd = VarNet(analytic.steady_ad_2d()["pde"], device="cuda", optimizer=neu_opt, **NEU_MESH)
+    rd = vd.train(epoch_num=NEU_EPOCHS["penalty"], weight=NEU_W, save_freq=20, verbose=False,
+                  error_disc=16)
+    out["dirichlet_steps_per_sec"] = rd.steps_per_sec
+    log("inverse neumann vs dirichlet", steps_per_sec_neumann=(
+        f"{out['neumann_penalty_steps_per_sec']:.4f}"),
+        steps_per_sec_dirichlet=f"{rd.steps_per_sec:.4f}",
+        flux_cost=f"{rd.steps_per_sec / out['neumann_penalty_steps_per_sec']:.4f}")
+
+    base = analytic.steady_ad_2d_neumann()["pde"]
+    robin = dataclasses.replace(base, bcs=[base.bcs[0], RobinBC(**ROBIN)] + list(base.bcs[2:]))
+    at = {}
+    for kernels in (True, False):
+        vr = _with_theta(neumann(kernels, pde=robin), ends["penalty"])
+        fr.dir_residual_fwd.launches = 0
+        at[kernels] = vr.train(epoch_num=1, weight=NEU_W, save_freq=1, verbose=False,
+                               error_disc=8).losses[0]
+        if kernels and fr.dir_residual_fwd.launches < 1:
+            raise AssertionError("Robin loss: K1/K2 not launched")
+    worst = max(abs(at[True][k] - at[False][k]) / abs(at[False][k]) for k in at[False])
+    if not worst <= 1e-5:
+        raise AssertionError(f"Robin loss kernel {at[True]} vs plain {at[False]}: {worst:.3e}")
+    log("inverse robin loss kernel vs plain", **ROBIN, max_rel_diff=f"{worst:.3e}",
+        loss_neu=f"{at[True]['loss_neu']:.6e}", loss=f"{at[True]['loss']:.6e}")
+
+    _lm_spread(neumann, ends["penalty"], INV_LM, "inverse neumann lm spread", weight=NEU_W,
+               error_disc=16)
+    lm_neu, _, rk, _ = _lm_vs_plain(neumann, ends["penalty"], INV_LM,
+                                    "inverse neumann lm kernel vs plain", vjs, weight=NEU_W,
+                                    error_disc=16)
+    out["neumann_lm_s_per_iter"] = (rk.wall_times[-1] - rk.wall_times[0]) / (INV_LM["steps"] - 1)
+    log("inverse neumann lm", s_per_iter=f"{out['neumann_lm_s_per_iter']:.4f}",
+        accepted=_lm_accepted(rk, INV_LM, "inverse neumann lm"))
+    del vn, vk, vd, vr
+    torch.cuda.empty_cache()
+
+    # --- inverse source --------------------------------------------------------
+    case = analytic.inverse_source_2d(kappa=0.1, n_obs=400)
+    pde = case["pde"]
+    lo, hi = pde.domain.bounds
+    src_fn, phi0 = make_mlp_source(torch.Generator().manual_seed(1), 2, hidden=(16, 16),
+                                   lo=lo, hi=hi)
+    obs = PointData(case["obs_x"], case["obs_u"], np.ones(case["obs_x"].shape[0]))
+    src_opt = OptimizerConfig(lr=2e-3, decay_rate=0.4, decay_steps=8000)  # 40,000 epochs / 5
+
+    def inv_src(kernels=True, hooks=True):
+        kw = dict(source_fn=src_fn, source_init=phi0, obs_data=obs) if hooks else {}
+        return VarNet(pde, device="cuda", optimizer=src_opt, use_fused_residual=kernels,
+                      use_pallas=kernels, **SRC_MESH, **kw)
+
+    pinned = params_from_jax(load_theta_npz(SRC_THETA), device="cuda")
+    vp = _with_theta(inv_src(), pinned)
+    pts, mask = pde.domain.grid_in_domain((97, 97))
+    pts = pts[mask]
+    u_err = rel_l2_error(vp.evaluate(pts), case["c_ex"](pts))
+    s_err = rel_l2_error(vp.evaluate_field("source", pts), case["s_true"](pts))
+    if not (u_err < 1e-3 and s_err < 1.2e-2):
+        raise AssertionError(f"inverse-source pin: solution {u_err:.4e} (< 1e-3), source "
+                             f"{s_err:.4e} (< 1.2e-2)")
+    log("inverse source pin", u_rel_l2=f"{u_err:.6e}", source_rel_l2=f"{s_err:.6e}")
+    out.update(pin_u=u_err, pin_source=s_err)
+
+    vs = inv_src()
+    if vs._fused_kind != "dir":
+        raise AssertionError(f"inverse source takes {vs._fused_kind}, not K1/K2")
+    for c in k12:
+        c.launches = 0
+    rs = vs.train(epoch_num=SRC_EPOCHS, weight=SRC_W, save_freq=SRC_EPOCHS // 5, verbose=False,
+                  error_disc=32)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in k12}
+    ls = _losses(rs)
+    if min(launches.values()) < SRC_EPOCHS or not (np.all(np.isfinite(ls)) and ls[-1] < ls[0]):
+        raise AssertionError(f"inverse source adam: launches {launches}, losses {ls}")
+    rn = inv_src(hooks=False).train(epoch_num=SRC_EPOCHS, weight=(1.0, 10.0),
+                                    save_freq=SRC_EPOCHS, verbose=False, error_disc=16)
+    out.update(source_steps_per_sec=rs.steps_per_sec, no_source_steps_per_sec=rn.steps_per_sec)
+    # K1/K2's own time at this shape (the data with the source zeroed, as the step runs
+    # them), against the step's: the share of the step outside the kernels
+    quad = pad_quad(vs.fixed.quad, 1)
+    data = fr.prepare_residual_data(vs._to_device(quad._replace(src=np.zeros_like(quad.src))),
+                                    vs.scale, vs.shift, time_dependent=False, has_react=False,
+                                    device="cuda")
+    net = vs.theta["net"]
+    gr = torch.randn(data.k, generator=torch.Generator().manual_seed(3)).cuda()
+    k_ms = (_median_ms(lambda: fr.dir_residual_fwd(net, data, "tanh"))
+            + _median_ms(lambda: fr.dir_residual_bwd(net, data, "tanh", gr)))
+    out["source_outside_k12"] = 1.0 - k_ms * rs.steps_per_sec / 1e3
+    log("inverse source adam", mesh="d40/b40", widths="32x32+src16x16", epochs=SRC_EPOCHS,
+        **launches, loss_start=f"{ls[0]:.6e}", loss_end=f"{ls[-1]:.6e}",
+        loss_obs_end=f"{rs.losses[-1]['loss_obs']:.6e}",
+        steps_per_sec=f"{rs.steps_per_sec:.4f}",
+        steps_per_sec_no_source_no_obs=f"{rn.steps_per_sec:.4f}",
+        source_cost=f"{rn.steps_per_sec / rs.steps_per_sec:.4f}", k12_ms=f"{k_ms:.4f}",
+        share_outside_k12=f"{out['source_outside_k12']:.4f}")
+    _kernel_vs_plain(inv_src, 20, "inverse source adam kernel vs plain", k12, start=vs.theta,
+                     weight=SRC_W, error_disc=16)
+    _lm_spread(inv_src, pinned, SRC_LM, "inverse source lm spread", weight=SRC_W, error_disc=16)
+    lm_src, _, rk, _ = _lm_vs_plain(inv_src, pinned, SRC_LM, "inverse source lm kernel vs plain",
+                                    vjs, weight=SRC_W, error_disc=32)
+    per_it = (rk.wall_times[-1] - rk.wall_times[0]) / (SRC_LM["steps"] - 1)
+    out["source_lm_s_per_iter"] = per_it
+    log("inverse source lm", s_per_iter=f"{per_it:.4f}", rel_l2=f"{rk.errors[-1]:.6e}",
+        accepted=_lm_accepted(rk, SRC_LM, "inverse source lm"))
+    del vp, vs
+    torch.cuda.empty_cache()
+
+    # --- inverse flow and coefficient -----------------------------------------
+    flow_obs = _flow_obs()
+    flow_opt = OptimizerConfig(lr=2e-3, decay_rate=0.1, decay_steps=3000)   # 12,000 / 4
+
+    def flow(use_pallas=True):
+        return VarNet(analytic.contaminant_inlet_2d(kappa=0.03, u_max=1.0)["pde"],
+                      device="cuda", vel_fn=_poiseuille, vel_init=np.array([0.5]),
+                      obs_data=flow_obs, optimizer=flow_opt, use_pallas=use_pallas, **FLOW_MESH)
+
+    vf = flow()
+    if vf._fused_kind is not None:
+        raise AssertionError(f"inverse flow takes {vf._fused_kind}, not the general path")
+    for c in vjs:
+        c.launches = 0
+    rf = vf.train(epoch_num=FLOW_EPOCHS, weight=FLOW_W, save_freq=FLOW_EPOCHS // 5,
+                  verbose=False)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in vjs[:2]}
+    lf = _losses(rf)
+    if min(launches.values()) < FLOW_EPOCHS or not (np.all(np.isfinite(lf)) and lf[-1] < lf[0]):
+        raise AssertionError(f"inverse flow adam: launches {launches}, losses {lf}")
+    out["flow_steps_per_sec"] = rf.steps_per_sec
+    log("inverse flow adam", mesh="d32x16/t20", widths="32x32x32", epochs=FLOW_EPOCHS,
+        points=vf.static.n_test * vf.static.n_quad_per_test, **launches,
+        loss_start=f"{lf[0]:.6e}", loss_end=f"{lf[-1]:.6e}",
+        u_max=f"{float(vf.theta['vel'][0]):.6f}", steps_per_sec=f"{rf.steps_per_sec:.4f}")
+    _, _, _, vk = _kernel_vs_plain(flow, 20, "inverse flow adam kernel vs plain", vjs[:2],
+                                   start=vf.theta, weight=FLOW_W)
+    _lm_spread(flow, vk.theta, FLOW_LM, "inverse flow lm spread", weight=FLOW_W)
+    lm_flow, vl, rk, _ = _lm_vs_plain(flow, vk.theta, FLOW_LM,
+                                      "inverse flow lm kernel vs plain", vjs, weight=FLOW_W)
+    per_it = (rk.wall_times[-1] - rk.wall_times[0]) / (FLOW_LM["steps"] - 1)
+    out["flow_lm_s_per_iter"] = per_it
+    log("inverse flow lm", s_per_iter=f"{per_it:.4f}", u_max=f"{float(vl.theta['vel'][0]):.6f}",
+        accepted=_lm_accepted(rk, FLOW_LM, "inverse flow lm"))
+    del vf, vk, vl
+    torch.cuda.empty_cache()
+
+    c = analytic.steady_ad_1d(kappa=KAPPA_TRUE)
+    xs = np.linspace(0.05, 0.95, 25)[:, None]
+    coeff_obs = PointData(xs.astype(np.float32), c["c_ex"](xs).astype(np.float32),
+                          np.ones(25, np.float32))
+
+    def coeff(kernels=True):
+        return VarNet(c["pde"], device="cuda", obs_data=coeff_obs, diff_fn=softplus_kappa,
+                      diff_init=np.array([np.log(np.expm1(0.4 * KAPPA_TRUE))]),
+                      optimizer=OptimizerConfig(lr=1e-3, decay_rate=0.4, decay_steps=1000),
+                      use_pallas=kernels, **COEFF_MESH)
+
+    _kernel_vs_plain(coeff, 20, "inverse coeff kappa adam kernel vs plain", vjs[:2],
+                     start=coeff().theta, weight=(1.0, 10.0, 10.0), error_disc=16)
+    secs = time.perf_counter() - t0
+    log("inverse", seconds=f"{secs:.1f}")
+    out.update(seconds=secs, lm={"neumann": lm_neu, "source": lm_src, "flow": lm_flow})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 
 PEAK_F32 = 67e12   # FLOP/s, f32 outside the tensor cores (H100 SXM data sheet)
@@ -2086,6 +2492,7 @@ def main():
     jac_launches = phase_burgers_train()
     phase_burgers_accuracy()
     phase_burgers_lm()
+    inverse = phase_inverse()
     # the sin kernels of ff_mlp.cu over tanh's at the same shapes, in this call
     ratios = {f"{k}_contaminant": siren_ff["out"][k]["ms"] / ff[k]["ms"]
               for k in ("ff_res_fwd", "ff_res_bwd", "ff_vj_fwd", "ff_vj_bwd", "ff_vj_jvp")}
@@ -2097,7 +2504,8 @@ def main():
     siren_ff_s = sum(d["seconds"] for d in (siren_ff, siren_wide, siren_k4, siren_k3))
     log("done", seconds=f"{time.perf_counter() - t0:.1f}",
         burgers_seconds=f"{time.perf_counter() - t_burgers:.1f}",
-        resume_seconds=f"{resume_s:.1f}", siren_ff_mlp_seconds=f"{siren_ff_s:.1f}")
+        resume_seconds=f"{resume_s:.1f}", siren_ff_mlp_seconds=f"{siren_ff_s:.1f}",
+        inverse_seconds=f"{inverse['seconds']:.1f}")
 
     p_bench, k_bench = k20["points"], k20["k"]
     src = "varnet_tpu_torch/csrc/"

@@ -1356,3 +1356,85 @@ def test_lm_retries_a_real_oom_with_k_chunks_doubled(cuda, tmp_path, monkeypatch
     assert seen["k"] == [2, 4] and seen["oom"] == 1
     assert res.epochs == [2, 3]
     np.testing.assert_allclose(res.losses[-1]["loss"], r_ref.losses[-1]["loss"], rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# The flux, observation and inverse rows on the card: each path's kernels against
+# its plain path (Adam rtol 2e-4, LM rtol 2e-2), with the launches counted.
+
+
+def _inverse_vn(case, device, use_kernels):
+    """(VarNet, Adam weights) of one inverse / flux case on ``device``; the plain path
+    (``use_kernels`` False) takes no fused residual and no value + jacobian kernel."""
+    from varnet_tpu_torch.examples.inverse_coeff import constant_vel, softplus_kappa
+    from varnet_tpu_torch.fem.assembly import PointData
+    from varnet_tpu_torch.models.source import make_mlp_source
+    from varnet_tpu_torch.problems import analytic
+
+    kw = dict(device=device, use_fused_residual=use_kernels, use_pallas=use_kernels,
+              layer_width=(16, 16))
+    if case.startswith("neumann"):
+        return VarNet(analytic.steady_ad_2d_neumann()["pde"], disc_num=8, b_disc_num=6,
+                      hard_bc=case.endswith("hard"), **kw), (1.0, 10.0)
+    if case.startswith("source"):
+        inv = analytic.inverse_source_2d(n_obs=25)
+        lo, hi = inv["pde"].domain.bounds
+        fn, phi0 = make_mlp_source(torch.Generator().manual_seed(1), 2, hidden=(8, 8), lo=lo,
+                                   hi=hi)
+        obs = PointData(inv["obs_x"], inv["obs_u"], np.ones(len(inv["obs_u"])))
+        return VarNet(inv["pde"], disc_num=8, b_disc_num=6, source_fn=fn, source_init=phi0,
+                      obs_data=obs, hard_bc=case.endswith("hard"), **kw), (1.0, 10.0, 100.0)
+    c = analytic.steady_ad_1d(kappa=0.08)
+    xs = np.linspace(0.05, 0.95, 25)[:, None]
+    obs = PointData(xs, c["c_ex"](xs), np.ones(25))
+    hook = (dict(diff_fn=softplus_kappa, diff_init=np.array([np.log(np.expm1(0.03))]))
+            if case == "kappa" else dict(vel_fn=constant_vel, vel_init=np.array([0.5])))
+    return VarNet(c["pde"], disc_num=16, obs_data=obs, **hook, **kw), (1.0, 10.0, 10.0)
+
+
+INVERSE_CASES = {  # case -> the Adam step's counted kernels
+    "neumann": ("dir_residual_fwd", "dir_residual_bwd"),
+    "neumann-hard": ("dirp_residual_fwd", "dirp_residual_bwd"),
+    "source": ("dir_residual_fwd", "dir_residual_bwd"),
+    "source-hard": ("dirp_residual_fwd", "dirp_residual_bwd"),
+    "kappa": ("vj_fwd", "vj_bwd"),
+    "vel": ("vj_fwd", "vj_bwd"),
+}
+
+
+@pytest.mark.parametrize("case", list(INVERSE_CASES))
+def test_inverse_rows_adam_and_lm_on_the_kernels_match_plain(cuda, case):
+    """10 Adam epochs through the case's kernel (each launched every epoch) against
+    the plain path, every trainable leaf moving on both; then 2 LM iterations
+    through K5/K6 against the plain LM."""
+    counters = [getattr(fr if name.startswith("dir") else vj, name)
+                for name in INVERSE_CASES[case]]
+    runs = {}
+    for use_kernels in (True, False):
+        vn, w = _inverse_vn(case, cuda, use_kernels)
+        start = vn._params(None)
+        before = [c.launches for c in counters]
+        res = vn.train(epoch_num=10, weight=w, save_freq=1, verbose=False, error_disc=8)
+        runs[use_kernels] = (vn, w, [r["loss"] for r in res.losses])
+        if use_kernels:
+            assert min(c.launches - b for c, b in zip(counters, before)) >= 10
+        if isinstance(vn.theta, dict):
+            for key in vn.theta:
+                moved = max(float((a - b).abs().max()) for a, b in
+                            zip(_tree_leaves(vn.theta[key]), _tree_leaves(start[key])))
+                assert moved > 0.0, (case, use_kernels, key)
+    np.testing.assert_allclose(runs[True][2], runs[False][2], rtol=2e-4)
+    lm = dict(steps=2, cg_iters=10, save_freq=1, verbose=False, error_disc=8)
+    (vk, w, _), (vp, _, _) = runs[True], runs[False]
+    vp.theta = vk.theta
+    before = [c.launches for c in (vj.vj_fwd, vj.vj_bwd, vj.vj_jvp)]
+    lk = [r["loss"] for r in vk.refine_lm(weight=w, **lm).losses]
+    assert min(c.launches - b for c, b in zip((vj.vj_fwd, vj.vj_bwd, vj.vj_jvp), before)) >= 20
+    np.testing.assert_allclose(lk, [r["loss"] for r in vp.refine_lm(weight=w, **lm).losses],
+                               rtol=2e-2)
+
+
+def _tree_leaves(tree):
+    from varnet_tpu_torch.models.mlp import tree_leaves
+
+    return tree_leaves(tree)

@@ -1,4 +1,4 @@
-"""The port's eleven example CLIs (``varnet_tpu_torch/examples``) on the CPU.
+"""The port's fourteen example CLIs (``varnet_tpu_torch/examples``) on the CPU.
 
 Each runs end to end with ``--device cpu`` at a tiny size in a subprocess, as a
 user would call it (the counterpart of ``tests/test_examples.py``);
@@ -13,12 +13,14 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 
 import varnet_tpu.examples.common as jax_common
 from varnet_tpu.api import VarNet as JaxVarNet
 from varnet_tpu.train.trainer import TrainResult as JaxTrainResult
+from varnet_tpu_torch.models.mlp import params_to_numpy
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 TINY = ["--epochs", "2", "--save-freq", "2", "--width", "8", "--layers", "2",
@@ -37,9 +39,12 @@ CLIS = {
     "burgers_1d": ["--disc", "6", "--tdisc", "3"],
     "contaminant_2d": ["--disc", "5", "--tdisc", "3", "--volumetric-source", "--causal",
                        "2", "--ff", "4"],
+    "neumann_2d": ["--disc", "6", "--lm-steps", "1", "--lm-cg", "2"],
+    "inverse_source": ["--disc", "6", "--n-obs", "25", "--lm-steps", "1", "--lm-cg", "2"],
+    "inverse_coeff": ["--disc", "8", "--lm-steps", "1", "--lm-cg", "2"],
 }
 NEW = ("ad1d_steady", "ad1d_transient", "ad2d_steady", "ad2d_transient", "ad3d_steady",
-       "ad3d_prism", "lshape_2d", "mor_1d")
+       "ad3d_prism", "lshape_2d", "mor_1d", "neumann_2d", "inverse_source", "inverse_coeff")
 
 
 def _run(name, args, timeout=240):
@@ -66,6 +71,10 @@ def test_cli_runs(name):
     if name == "mor_1d":
         assert set(summary[1]["per_sample_rel_l2"]) == {"0.5", "1.0"}
         assert set(summary[1]["holdout_rel_l2"]) == {"0.75"}
+    if name == "inverse_source":
+        assert np.isfinite(summary[1]["source_rel_l2"])
+    if name == "inverse_coeff":
+        assert summary[1]["recover"] == "kappa" and np.isfinite(summary[1]["recovered"])
 
 
 def test_cli_folder_and_resume(tmp_path):
@@ -116,6 +125,9 @@ class _Untrained(JaxVarNet):
         self.train_result = JaxTrainResult()
         return self.train_result
 
+    def refine_lm(self, *args, **kw):
+        return self.train(*args, **kw)
+
 
 @pytest.mark.parametrize("name", NEW)
 def test_cli_fixed_data_matches_jax(name, monkeypatch):
@@ -127,8 +139,10 @@ def test_cli_fixed_data_matches_jax(name, monkeypatch):
     monkeypatch.setattr(jax_common, "VarNet", _Untrained)
     ref = importlib.import_module(f"varnet_tpu.examples.{name}").main(args)
     assert port.layer_width == tuple(ref.layer_width)
-    for part in ("quad", "bc", "ic"):
-        ours, theirs = getattr(port.fixed, part), getattr(ref.fixed, part)
+    parts = [(part, getattr(port.fixed, part), getattr(ref.fixed, part))
+             for part in ("quad", "bc", "ic", "neu")]
+    parts.append(("obs_data", port.obs_data, ref.obs_data))
+    for part, ours, theirs in parts:
         assert (ours is None) == (theirs is None), part
         if ours is None:
             continue
@@ -136,3 +150,6 @@ def test_cli_fixed_data_matches_jax(name, monkeypatch):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                           err_msg=f"{name}: {part}.{field}")
     assert port.config_dict() == json.loads(json.dumps(ref.config_dict()))
+    # an inverse problem's theta: the same leaves, in the same ravel order
+    assert jax.tree_util.tree_structure(params_to_numpy(port.theta)) == (
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(np.asarray, ref.theta)))

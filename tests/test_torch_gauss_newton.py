@@ -195,8 +195,6 @@ def test_segmented_cg_matches_one_segment_with_exact_count(problem):
 
 
 def test_unported_options_raise(problem):
-    with pytest.raises(NotImplementedError, match="source_fn"):
-        gn.make_residual_fn(problem["static"], source_fn=lambda *a: 0.0)
     with pytest.raises(TypeError):
         gn.make_residual_fn(problem["static"], no_such_option=True)
     with pytest.raises(ValueError, match="leaf_segments"):

@@ -142,12 +142,6 @@ def test_hard_loss_refuses_unfolded_fused_data():
         loss(None, fd.quad, fd.bc, None, (1.0, 1.0), None)
 
 
-def test_flux_rows_with_hard_bc_are_not_ported():
-    with pytest.raises(NotImplementedError, match="Neumann/Robin flux rows"):
-        VarNet(analytic.steady_ad_2d_neumann()["pde"], disc_num=4, b_disc_num=4,
-               device="cpu", hard_bc=True)
-
-
 MESH = dict(layer_width=(12, 12), disc_num=8, b_disc_num=6)
 TRAIN = dict(epoch_num=20, save_freq=1, verbose=False, error_disc=16)
 

@@ -92,9 +92,5 @@ def test_loss_and_grads_match_jax(name, factory, kw, weights, widths, fused):
 
 def test_unported_options_raise():
     st = build_fixed_data(steady_adr_1d()["pde"], 8).static
-    with pytest.raises(NotImplementedError, match="source_fn"):
-        make_loss_fn(st, source_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="has_obs"):  # hard_mode is ported
-        make_loss_fn(st, has_obs=True)
     with pytest.raises(TypeError, match="bogus"):
         make_loss_fn(st, bogus=1)

@@ -6,7 +6,10 @@ through viscous Burgers (Adam on K3's route, LM, ``test_residuals``) and the
 ``burgers_1d`` CLI with ``--hard-bc``, nor through checkpoints, resume and fault
 recovery (``train`` / ``refine_lm`` with ``folderpath``, ``resume`` and
 ``max_retries``, ``load_model``, ``train_causal(resume=True)``, the improve-only
-theta guard) and the CLIs this slice adds, with ``--folder`` and ``--resume``."""
+theta guard) and the CLIs added with them, with ``--folder`` and ``--resume``, nor
+through the flux, observation and inverse rows (``neumann_2d`` with ``--hard-bc``,
+``inverse_coeff --recover vel``, ``inverse_source`` with ``--folder`` and
+``--resume``)."""
 
 import os
 import subprocess
@@ -89,6 +92,14 @@ for cli, extra in ((mor_1d, ["--disc", "6"]), (ad3d_prism, ["--disc", "4", "--ha
             "--device", "cpu", "--folder", tmp + "/" + cli.__name__] + extra
     cli.main(argv)
     cli.main(argv[:1] + ["3"] + argv[2:] + ["--resume"])
+from varnet_tpu_torch.examples import inverse_coeff, inverse_source, neumann_2d
+tiny = ["--epochs", "2", "--save-freq", "1", "--width", "4", "--bdisc", "3", "--disc", "4",
+        "--lm-steps", "1", "--lm-cg", "2", "--device", "cpu"]
+neumann_2d.main(tiny + ["--hard-bc"])
+inverse_coeff.main(tiny + ["--recover", "vel"])
+argv = tiny + ["--n-obs", "16", "--folder", tmp + "/inv"]
+inverse_source.main(argv)
+inverse_source.main(argv[:1] + ["3"] + argv[2:] + ["--resume"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

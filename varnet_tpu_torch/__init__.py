@@ -10,7 +10,10 @@ backward and its parameter-tangent JVP through three more
 plain PyTorch versions.  A net behind a fixed random-Fourier-feature embedding
 (``VarNet(fourier_features=...)``, the contaminant recipe of
 ``train/causal.py::train_causal``) runs through the kernels of
-``csrc/ff_mlp.cu`` (K2-FF, K7, K8).  The JAX package ``varnet_tpu`` is the
+``csrc/ff_mlp.cu`` (K2-FF, K7, K8).  Neumann / Robin boundary data add flux
+penalty rows; inverse problems (``VarNet(source_fn=, diff_fn=, vel_fn=,
+obs_data=)``, ``models/source.py``) train a source, diffusivity or velocity
+with the net against observation rows.  The JAX package ``varnet_tpu`` is the
 reference this port is tested against; this package imports no JAX.
 """
 
@@ -31,7 +34,8 @@ from .models.mlp import (
     params_to_numpy,
     ravel_params,
 )
-from .problems.adpde import ADPDE, MORVar
+from .models.source import make_gaussian_source, make_mlp_source, make_mlp_source_xt
+from .problems.adpde import ADPDE, MORVar, NeumannBC, RobinBC
 from .train.loss import make_loss_fn
 from .train.causal import train_causal
 from .train.optim import OptimizerConfig, make_optimizer
@@ -42,6 +46,8 @@ __all__ = [
     "VarNet",
     "ADPDE",
     "MORVar",
+    "NeumannBC",
+    "RobinBC",
     "Domain1D",
     "RectangleDomain2D",
     "MasterElement",
@@ -56,6 +62,9 @@ __all__ = [
     "make_fourier_features",
     "ff_apply",
     "ff_value_and_jac",
+    "make_mlp_source",
+    "make_mlp_source_xt",
+    "make_gaussian_source",
     "train_causal",
     "make_input_scaling",
     "mlp_apply",

@@ -34,7 +34,14 @@ import numpy as np
 import torch
 
 from .fem.adaptive import refine_fixed
-from .fem.assembly import FixedData, _pad_axis0, build_fixed_data, pad_points, pad_quad
+from .fem.assembly import (
+    FixedData,
+    _pad_axis0,
+    build_fixed_data,
+    pad_flux,
+    pad_points,
+    pad_quad,
+)
 from .fem.hardbc import HardBC, HardQuad, hard_transform, tables_to
 from .models.mlp import (
     ff_apply,
@@ -46,12 +53,14 @@ from .models.mlp import (
     make_input_scaling,
     mlp_apply,
     mlp_value_and_jac,
-    params_from_jax,
+    net_of,
     ravel_params,
+    tree_leaves,
+    tree_map,
 )
 from .ops import value_and_jac as vj
 from .ops.fused_residual import prepare_residual_coeffs, prepare_residual_data
-from .ops.residual import support_volume, weak_residual
+from .ops.residual import hook_fields, support_volume, weak_residual
 from .problems.adpde import ADPDE, NeumannBC, RobinBC
 from .train.checkpoint import (
     list_checkpoint_steps,
@@ -63,7 +72,7 @@ from .train.checkpoint import (
 )
 from .train.fault import is_transient_device_error
 from .train.gauss_newton import LMState, make_lm_step, make_residual_fn
-from .train.loss import make_loss_fn
+from .train.loss import make_loss_fn, obs_weight_slots
 from .train.optim import OptimizerConfig, make_optimizer
 from .train.trainer import TrainResult, make_train_step, split_batches, split_rows
 from .utils.helpers import matmul_precision_scope, rel_l2_error
@@ -138,6 +147,28 @@ class VarNet:
                     CPU); "auto" = on a CUDA device.  False takes
                     ``mlp_value_and_jac`` (``ff_value_and_jac``) under
                     autograd.  (The JAX package's name for its Pallas kernels.)
+
+      Inverse problems (theta becomes ``{'net': [...], 'src': ..., 'kap': ...,
+      'vel': ...}``, each hook's leaf trained with the net; hooks take torch
+      tensors ``f(leaf, x [P, d], t [P] or None)``):
+      source_fn:    trainable source ``source_fn(phi, x, t) -> [P]`` in place of
+                    the problem's (``models/source.py``); theta['src'] starts at
+                    ``source_init``.  The fused residual integrates a zeroed
+                    source and the loss adds the trainable one's term
+      diff_fn:      trainable diffusivity ``diff_fn(psi, x, t) -> [P]``;
+                    theta['kap'] starts at ``diff_init``.  Not with Neumann /
+                    Robin data, whose normals are scaled by the fixed kappa
+      vel_fn:       trainable velocity ``vel_fn(phi, x, t) -> [P, d]``;
+                    theta['vel'] starts at ``vel_init``.  A trainable kappa or
+                    velocity takes the general value + jacobian path (K5 on CUDA)
+      obs_data:     a PointData of observations: the loss gains
+                    w_obs * mean |u - u_obs|^2 (the transformed u with
+                    ``hard_bc``), w_obs the 4th weight (a steady problem's 3rd)
+
+    Neumann / Robin boundary data (``NeumannBC`` / ``RobinBC``) add the flux
+    penalty w_bc * mean |alpha u + kappa du/dn - g|^2 over the flux points, on
+    the transformed u with ``hard_bc``, through the plain value + jacobian chain
+    (the batch is boundary-sized).
     """
 
     def __init__(
@@ -163,12 +194,28 @@ class VarNet:
         fused_precoeff: bool = False,
         fused_directional: bool = True,
         omega0: float = 6.0,
+        source_fn=None,
+        source_init: Any = None,
+        diff_fn=None,
+        diff_init: Any = None,
+        vel_fn=None,
+        vel_init: Any = None,
+        obs_data=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VarNet(device='cuda'): no CUDA device is available")
         if fused_precoeff and not fused_directional:
             raise ValueError("fused_precoeff=True requires fused_directional=True")
+        for fn, init, name in ((source_fn, source_init, "source"), (diff_fn, diff_init, "diff"),
+                               (vel_fn, vel_init, "vel")):
+            if fn is not None and init is None:
+                raise ValueError(f"{name}_fn requires {name}_init")
+        if diff_fn is not None and any(isinstance(g, (NeumannBC, RobinBC)) for g in pde.bcs):
+            raise ValueError("diff_fn (trainable kappa) is incompatible with Neumann/Robin BCs: "
+                             "FluxData bakes kappa-scaled normals at assembly time")
+        self.source_fn, self.diff_fn, self.vel_fn = source_fn, diff_fn, vel_fn
+        self.obs_data = obs_data
         self.pde = pde
         # the constant Burgers direction b (None: a linear problem); its term is
         # bilinear in (u, grad u), so only the jacobian-panel residual K3 carries it
@@ -195,12 +242,6 @@ class VarNet:
         )
         # exact BC/IC: the host-side transform builder; its tables are built at
         # the (padded) quad coords when a run needs them (_hard_tables)
-        # the flux penalty and the LM flux rows are not ported: refuse rather
-        # than train a problem without its Neumann/Robin conditions
-        if any(isinstance(g, (NeumannBC, RobinBC)) for g in pde.bcs):
-            raise NotImplementedError(
-                "Neumann/Robin flux rows are not ported to varnet_tpu_torch yet, in penalty "
-                "or hard_bc mode (the loss's flux penalty and the LM residual's flux rows)")
         self.hard = None
         if hard_bc:
             self.hard = HardBC(pde)
@@ -226,10 +267,18 @@ class VarNet:
                                                    fourier_scale).to(self.device)
         net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
         if activation == "sin":
-            self.theta = init_siren(gen, net_in, self.layer_width, omega0=float(omega0),
-                                    device=self.device)
+            net = init_siren(gen, net_in, self.layer_width, omega0=float(omega0),
+                             device=self.device)
         else:
-            self.theta = init_mlp(gen, net_in, self.layer_width, device=self.device)
+            net = init_mlp(gen, net_in, self.layer_width, device=self.device)
+        hooks = {"src": (source_fn, source_init), "kap": (diff_fn, diff_init),
+                 "vel": (vel_fn, vel_init)}
+        self.theta = net
+        if any(fn is not None for fn, _ in hooks.values()):
+            self.theta = {"net": net}
+            for leaf, (fn, init) in hooks.items():
+                if fn is not None:
+                    self.theta[leaf] = self._as_tensors(init)
         self.input_scaling = bool(input_scaling)
         self.scale = self.shift = None
         if self.input_scaling:
@@ -285,8 +334,10 @@ class VarNet:
         folds into K4 only (directional, plain net, linear problem); the
         nonlinear term rides K3 only (no embedding, no precoeff fold); a
         Fourier-feature net takes the directional layout only, without the
-        precoeff fold or per-node tables; per-node tables need the fold."""
-        if not self.use_fused_residual:
+        precoeff fold or per-node tables; per-node tables need the fold; a
+        trainable diffusivity or velocity multiplies what the kernels bake into
+        their data, so it takes the general path."""
+        if not self.use_fused_residual or self.diff_fn is not None or self.vel_fn is not None:
             return None
         precoeff = self._precoeff_selected
         embedded = self.fourier_b is not None
@@ -328,11 +379,39 @@ class VarNet:
         k = quad_h.coords.shape[0]
         return HardQuad(*(None if a is None else _pad_axis0(a, k) for a in self._hard_cache[1]))
 
+    def _rows(self):
+        """The full-batch rows besides BC/IC, as keyword arguments of the loss and
+        the LM residual, on the device: ``obs`` (the observations), ``neu`` (the
+        Neumann/Robin flux points) and, with exact BC, their transform tables
+        ``hard_obs`` (HardPts) and ``hard_neu`` (HardQuad, built host-side in
+        f64 at the flux coords: their rows see the transformed u)."""
+        obs_h = None if self.obs_data is None else pad_points(self.obs_data, 1)
+        neu_h = None if self.fixed.neu is None else pad_flux(self.fixed.neu, 1)
+        rows = {"obs": None if obs_h is None else self._to_device(obs_h),
+                "neu": None if neu_h is None else self._to_device(neu_h)}
+        if self.hard is not None:
+            rows["hard_obs"] = (None if obs_h is None
+                                else tables_to(self.hard.points(obs_h.coords), self.device))
+            rows["hard_neu"] = (None if neu_h is None
+                                else tables_to(self.hard.tables(neu_h.coords), self.device))
+        return rows
+
+    def _hook_kwargs(self):
+        """The trainable-field and observation arguments of ``make_loss_fn`` /
+        ``make_residual_fn``; the flux rows take the plain value + jacobian
+        chain (the batch is boundary-sized)."""
+        has_obs = self.obs_data is not None
+        return dict(source_fn=self.source_fn, diff_fn=self.diff_fn, vel_fn=self.vel_fn,
+                    has_obs=has_obs,
+                    n_obs_real=int(np.sum(self.obs_data.mask)) if has_obs else 0,
+                    flux_value_and_jac=self._value_and_jac(False))
+
     # ------------------------------------------------------------------ #
     # training
 
     def _to_device(self, arrays):
-        """A QuadData / PointData of host arrays as f32 tensors on the device."""
+        """A QuadData / PointData / FluxData of host arrays as f32 tensors on the
+        device."""
         return type(arrays)(*(torch.from_numpy(np.array(a, dtype=np.float32)).to(self.device)
                               for a in arrays))
 
@@ -357,8 +436,10 @@ class VarNet:
     ) -> TrainResult:
         """Run the training loop (reference ``VarNet.train``).
 
-        weight:      (w_int, w_bc[, w_ic]) loss weights
-        batch_num:   interior mini-batches per epoch
+        weight:      (w_int, w_bc[, w_ic][, w_obs]) loss weights (a steady
+                     problem's third is w_obs; the flux rows share w_bc)
+        batch_num:   interior mini-batches per epoch (observation and flux
+                     rows stay full-batch, as BC/IC)
         save_freq:   report / checkpoint period (epochs)
         folderpath:  case directory for the checkpoints (``ckpt_<epoch>/`` with
                      theta and the optimizer state, a meta sidecar with the
@@ -457,22 +538,24 @@ class VarNet:
     def _train_impl(self, epoch_num, weight, batch_num, save_freq, folderpath, resume,
                     verbose, error_disc, error_times, target_error):
         td = self.static.time_dependent
-        if weight is None:
-            weight = (1.0, 1.0) + ((1.0,) if td else ())
-        w_full = [float(w) for w in weight] + [0.0] * (3 - len(weight))
-
+        w_full = self._weights(weight)
+        kind = self._fused_kind
         quad_h = pad_quad(self.fixed.quad, batch_num)
+        if kind is not None and self.source_fn is not None:
+            # the trainable source enters the weak form linearly: the kernel
+            # integrates a zeroed source and the loss adds the trainable one's term
+            quad_h = quad_h._replace(src=np.zeros_like(quad_h.src))
         quad_d = self._to_device(quad_h)
         bc_d = self._to_device(pad_points(self.fixed.bc, 1))
         ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
-        kind = self._fused_kind
+        rows = self._rows()
 
         loss_fn = make_loss_fn(self.static, activation=self.activation,
                                has_react=self.has_react, fused=kind is not None,
                                device=self.device, input_scaling=self.input_scaling,
                                value_and_jac=self._value_and_jac(self.use_pallas),
                                apply_fn=self._apply_fn(), hard_mode=self.hard is not None,
-                               nl_vec=self.nl_vec)
+                               nl_vec=self.nl_vec, **self._hook_kwargs())
         # one host f64 table build serves the K4 fold or the general path's tables
         hard_h = self._hard_tables(quad_h)
         if batch_num == 1:
@@ -507,10 +590,8 @@ class VarNet:
             prepared = [prepare(q, h) for q, h in zip(quads, hards)]
             hard_d = [hard_tensors(h) for h in hards]
 
-        theta = [{k: v.clone().requires_grad_(True) for k, v in layer.items()}
-                 for layer in self._params(None)]
-        optimizer = make_optimizer(self.optimizer_cfg,
-                                   [layer[k] for layer in theta for k in ("w", "b")])
+        theta = tree_map(lambda v: v.clone().requires_grad_(True), self._params(None))
+        optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(theta))
         start_epoch = 0
         if resume:
             try:
@@ -526,9 +607,8 @@ class VarNet:
                           "starting fresh")
             if state is not None:
                 with torch.no_grad():   # in place: the leaves keep requires_grad
-                    for layer, stored in zip(theta, state["theta"]):
-                        for k in ("w", "b"):
-                            layer[k].copy_(stored[k])
+                    for leaf, stored in zip(tree_leaves(theta), tree_leaves(state["theta"])):
+                        leaf.copy_(stored)
                 optimizer.load_state_dict(state["opt_state"])
                 start_epoch = step
                 if verbose:
@@ -545,7 +625,7 @@ class VarNet:
         timed_epochs = 0
         report_overhead = 0.0   # host + eval time excluded from throughput
         for epoch in range(start_epoch + 1, start_epoch + epoch_num + 1):
-            aux = step_fn(theta, quads, bc_d, ic_d, w_full, prepared, hard_d)
+            aux = step_fn(theta, quads, bc_d, ic_d, w_full, prepared, hard_d, **rows)
             if t_start is None:
                 self._sync()
                 t_start = time.perf_counter()
@@ -585,7 +665,7 @@ class VarNet:
         result.steps_per_sec = result.total_steps / total_time if total_time > 0 else 0.0
         result.quad_evals_per_sec = (
             timed_epochs * n_real_quad / total_time if total_time > 0 else 0.0)
-        self.theta = [{k: v.detach() for k, v in layer.items()} for layer in theta]
+        self.theta = tree_map(torch.Tensor.detach, theta)
         self.train_result = result
         if folderpath is not None:
             with open(os.path.join(folderpath, "train_result.json"), "w") as f:
@@ -621,7 +701,7 @@ class VarNet:
         from an Adam-trained state.
 
         steps:       LM iterations; cg_iters CG iterations each
-        weight:      (w_int, w_bc[, w_ic]) loss weights
+        weight:      (w_int, w_bc[, w_ic][, w_obs]) loss weights, as ``train``
         save_freq:   report period (iterations): loss, lam and rel-L2
         lam0:        initial damping
         k_chunks:    interior evaluated in that many checkpointed chunks of the
@@ -709,30 +789,25 @@ class VarNet:
     def _refine_lm_impl(self, steps, weight, cg_iters, save_freq, verbose, error_disc,
                         error_times, lam0, target_error, k_chunks, cg_segment, precond,
                         precond_mode, folderpath=None, step_offset=0) -> TrainResult:
-        td = self.static.time_dependent
-        if weight is None:
-            weight = (1.0, 1.0) + ((1.0,) if td else ())
-        w_full = [float(w) for w in weight] + [0.0] * (4 - len(weight))
-        if not td:
-            w_full = [w_full[0], w_full[1], 0.0, w_full[2]]
-
+        w_full = self._weights(weight)
         quad_h = pad_quad(self.fixed.quad, k_chunks)
         quad_d = self._to_device(quad_h)
         bc_d = self._to_device(pad_points(self.fixed.bc, 1))
         ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
         hard_h = self._hard_tables(quad_h)
         hard_d = None if hard_h is None else tables_to(hard_h, self.device)
+        rows = self._rows()
         res_fn = make_residual_fn(
             self.static, activation=self.activation, k_chunks=k_chunks,
             value_and_jac=self._value_and_jac(self.use_pallas),
             has_react=self.has_react, device=self.device,
             input_scaling=self.input_scaling, apply_fn=self._apply_fn(),
-            hard_mode=self.hard is not None, nl_vec=self.nl_vec)
+            hard_mode=self.hard is not None, nl_vec=self.nl_vec, **self._hook_kwargs())
         theta0 = self._params(None)
         flat0, unravel = ravel_params(theta0)
 
         def closure(flat):
-            return res_fn(unravel(flat), quad_d, bc_d, ic_d, w_full, hard=hard_d)
+            return res_fn(unravel(flat), quad_d, bc_d, ic_d, w_full, hard=hard_d, **rows)
 
         lm_step = make_lm_step(closure, cg_iters=cg_iters, cg_segment=cg_segment,
                                precond=precond, leaf_segments=leaf_segments(theta0),
@@ -772,8 +847,7 @@ class VarNet:
                     if verbose:
                         print(f"[varnet/lm] target {target_error:.1e} reached")
                     break
-        self.theta = [{k: v.detach().clone() for k, v in layer.items()}
-                      for layer in unravel(state.flat)]
+        self.theta = tree_map(lambda v: v.detach().clone(), unravel(state.flat))
         result.total_steps = step_offset + steps
         self.train_result = result
         return result
@@ -797,15 +871,13 @@ class VarNet:
             "n_test": self.static.n_test,
             "time_dependent": self.static.time_dependent,
             "hard_bc": self.hard is not None,
-            "param_count": int(sum(np.prod(v.shape) for layer in self.theta
-                                   for v in layer.values())),
+            "param_count": int(sum(v.numel() for v in tree_leaves(net_of(self.theta)))),
         }
 
     def _save(self, folderpath, step, theta, meta, optimizer=None):
         """One checkpoint (theta, the optimizer's state when given), its meta
         sidecar and ``config.json``."""
-        state = {"theta": [{k: v.detach().clone() for k, v in layer.items()}
-                           for layer in theta]}
+        state = {"theta": tree_map(lambda v: v.detach().clone(), theta)}
         if optimizer is not None:
             state["opt_state"] = optimizer.state_dict()
         save_checkpoint(folderpath, step, state, config=self.config_dict())
@@ -842,8 +914,7 @@ class VarNet:
                     raise ValueError(f"checkpoint config mismatch on '{k}': "
                                      f"{stored.get(k)} != {ours[k]}")
         theta = self._params(None)
-        optimizer = make_optimizer(self.optimizer_cfg,
-                                   [layer[k] for layer in theta for k in ("w", "b")])
+        optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(theta))
         state, step = load_checkpoint(folderpath, {"theta": theta,
                                                    "opt_state": optimizer.state_dict()},
                                       step, map_location=self.device)
@@ -855,13 +926,27 @@ class VarNet:
     # evaluation
 
     def _params(self, theta):
-        """theta (None = current; torch tensors or a JAX-layout NumPy list) as
-        tensors on the device."""
-        theta = self.theta if theta is None else theta
-        if isinstance(theta[0]["w"], torch.Tensor):
-            return [{k: v.detach().to(self.device) for k, v in layer.items()}
-                    for layer in theta]
-        return params_from_jax(theta, device=self.device)
+        """theta (None = current; a parameter tree of torch tensors, or of NumPy
+        or JAX arrays in the JAX layout) as tensors on the device."""
+        return self._as_tensors(self.theta if theta is None else theta)
+
+    def _as_tensors(self, tree):
+        """A tree of tensors or arrays as f32 tensors on the device (tensors
+        already there are not copied)."""
+        def leaf(a):
+            if isinstance(a, torch.Tensor):
+                return a.detach().to(device=self.device, dtype=torch.float32)
+            return torch.as_tensor(np.array(a), dtype=torch.float32, device=self.device)
+
+        return tree_map(leaf, tree)
+
+    def _weights(self, weight):
+        """The 4-slot loss weights (w_int, w_bc, w_ic, w_obs) of a call's
+        ``weight`` (default 1 for every term the problem has)."""
+        td = self.static.time_dependent
+        if weight is None:
+            weight = (1.0,) * (2 + td + (self.obs_data is not None))
+        return obs_weight_slots(weight, td)
 
     def evaluate(self, x: np.ndarray, t: Optional[np.ndarray] = None,
                  mu: Optional[np.ndarray] = None, theta: Any = None,
@@ -873,7 +958,7 @@ class VarNet:
         mu: [P, n_mor] or [n_mor] (parametric problems).  Large point sets
         are evaluated in chunks of ``chunk`` points."""
         coords = self._make_coords(x, t, mu)
-        net = self._params(theta)
+        net = net_of(self._params(theta))
         apply = self._apply_fn()
         outs = []
         with torch.no_grad(), matmul_precision_scope():
@@ -884,6 +969,28 @@ class VarNet:
                 outs.append(u.double().cpu().numpy())
         u = np.concatenate(outs) if outs else np.zeros(0)
         return u if self.hard is None else self._hard_combine(coords, u)
+
+    def evaluate_field(self, which: str, x: np.ndarray, t: Optional[np.ndarray] = None,
+                       theta: Any = None) -> np.ndarray:
+        """A recovered trainable field at points (inverse problems; reference
+        ``VarNet.evaluate_field``): ``which`` is 'source', 'kappa' or 'vel' and
+        needs its hook (``source_fn`` / ``diff_fn`` / ``vel_fn``).  x: [P, d];
+        t: scalar or [P] (time-dependent problems).  Returns [P] (source,
+        kappa) or [P, d] (vel), evaluated in f32 as the loss evaluates it."""
+        fn, leaf = {"source": (self.source_fn, "src"), "kappa": (self.diff_fn, "kap"),
+                    "vel": (self.vel_fn, "vel")}[which]
+        if fn is None:
+            raise ValueError(f"evaluate_field('{which}') requires the corresponding "
+                             "trainable hook (source_fn/diff_fn/vel_fn)")
+        theta = self._params(theta)
+        x = np.atleast_2d(np.asarray(x, np.float32))
+        t_d = None
+        if self.static.time_dependent and t is not None:
+            t_d = torch.as_tensor(np.broadcast_to(np.asarray(t, np.float32), (x.shape[0],)),
+                                  device=self.device)
+        with torch.no_grad(), matmul_precision_scope():
+            out = fn(theta[leaf], torch.as_tensor(x, device=self.device), t_d)
+        return out.detach().cpu().numpy()
 
     def _hard_combine(self, coords: np.ndarray, u: np.ndarray) -> np.ndarray:
         """The exact-BC ansatz A + B u applied to raw net outputs on the host,
@@ -948,7 +1055,8 @@ class VarNet:
     def _residual_densities(self, quad, k_real, theta, chunk, matmul_precision):
         """``test_residuals`` against any quadrature layout (the train mesh's
         or a finer probe mesh's, ``residual_adequacy``)."""
-        net = self._params(theta)
+        theta = self._params(theta)
+        net = net_of(theta)
         d, td, n_in = self.static.n_space, self.static.time_dependent, self.static.n_inputs
         vj_fn = self._value_and_jac(False)
         need_u = self.has_react or self.nl_vec is not None
@@ -968,8 +1076,8 @@ class VarNet:
                 coords_c = np.asarray(quad.coords[sl]).astype(np.float32)
                 c, nq = coords_c.shape[0], coords_c.shape[1]
                 tbls = [dev(a[sl] if per_node else a) for a in (quad.N, quad.dN, quad.w)]
-                u, du = vj_fn(net, dev(coords_c).reshape(c * nq, n_in), self.activation,
-                              self.scale, self.shift)
+                flat = dev(coords_c).reshape(c * nq, n_in)
+                u, du = vj_fn(net, flat, self.activation, self.scale, self.shift)
                 grad_u = du[:, :d].reshape(c, nq, d)
                 u_t = du[:, d].reshape(c, nq) if td else None
                 u = u.reshape(c, nq)
@@ -977,8 +1085,10 @@ class VarNet:
                     # tables at the f32 coords, as the JAX package builds them here
                     hq = tables_to(self.hard.tables(coords_c), self.device)
                     u, grad_u, u_t = hard_transform(u, grad_u, u_t, hq)
-                r = weak_residual(grad_u, *tbls, dev(quad.kappa[sl]), dev(quad.vel[sl]),
-                                  dev(quad.src[sl]), u_t, u=u if need_u else None,
+                kappa, vel, src = hook_fields(
+                    theta, flat, d, td, dev(quad.kappa[sl]), dev(quad.vel[sl]),
+                    dev(quad.src[sl]), self.source_fn, self.diff_fn, self.vel_fn)
+                r = weak_residual(grad_u, *tbls, kappa, vel, src, u_t, u=u if need_u else None,
                                   react=dev(quad.react[sl]) if self.has_react else None,
                                   nl_vec=nl)
                 out[sl] = (r / support_volume(tbls[2])).double().cpu().numpy()

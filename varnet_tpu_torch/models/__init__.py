@@ -7,3 +7,4 @@ from .mlp import (
     params_from_jax,
     params_to_numpy,
 )
+from .source import make_gaussian_source, make_mlp_source, make_mlp_source_xt

@@ -3,7 +3,9 @@ embedding) with a forward-mode value + input-jacobian.
 
 PyTorch counterpart of ``varnet_tpu/models/mlp.py``.  Parameters keep the
 JAX package's layout so the two compare like for like: a plain list of
-``{'w': [fan_in, fan_out], 'b': [fan_out]}`` tensors.  Inputs may be
+``{'w': [fan_in, fan_out], 'b': [fan_out]}`` tensors, or for an inverse
+problem a dict ``{'net': [...], 'src': ..., 'kap': ..., 'vel': ...}`` of such
+trees, flattened in JAX's ``ravel_pytree`` order.  Inputs may be
 affinely scaled to [-1, 1]; jacobians are chain-ruled back to the ORIGINAL
 coordinates, so the PDE machinery never sees the scaling.
 """
@@ -73,44 +75,72 @@ def init_siren(
     return params
 
 
-def params_from_jax(params, device=None, dtype=torch.float32) -> Params:
-    """A JAX-layout parameter list (``[{'w': [in, out], 'b': [out]}, ...]`` of
-    NumPy or JAX arrays, e.g. from ``load_theta_npz``) as torch tensors."""
-    return [
-        {k: torch.as_tensor(np.array(layer[k]), dtype=dtype, device=device) for k in ("w", "b")}
-        for layer in params
-    ]
+def tree_leaves(tree) -> list:
+    """The leaves of a nest of dicts, lists and tuples in the order of JAX's
+    ``tree_leaves``: dict keys sorted, sequences in order, None no leaf."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
-def params_to_numpy(params) -> list:
-    """Inverse of :func:`params_from_jax`: host NumPy arrays, same layout."""
-    return [{k: layer[k].detach().cpu().numpy() for k in ("w", "b")} for layer in params]
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nest of dicts, lists and tuples, in
+    :func:`tree_leaves` order (so a stateful ``fn`` can rebuild a tree from a
+    leaf sequence); the structure is kept, None stays None."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
 
 
-def ravel_params(params: Params):
-    """(flat, unravel): the parameters as one flat vector in the order of JAX's
-    ``ravel_pytree`` -- per layer ``b`` before ``w`` (dict keys sorted), ``w``
-    row-major [fan_in, fan_out] -- and the inverse, which returns views of the
-    vector it is given (so gradients and forward-mode tangents of the vector
-    reach every leaf)."""
-    shapes = [(tuple(layer["b"].shape), tuple(layer["w"].shape)) for layer in params]
-    flat = torch.cat([layer[k].reshape(-1) for layer in params for k in ("b", "w")])
+def params_from_jax(params, device=None, dtype=torch.float32):
+    """A JAX-layout parameter tree (``[{'w': [in, out], 'b': [out]}, ...]``,
+    or an inverse problem's ``{'net': [...], 'src': ..., ...}``, of NumPy or
+    JAX arrays, e.g. from ``load_theta_npz``) as torch tensors."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device), params)
 
-    def unravel(vec: torch.Tensor) -> Params:
-        out, i = [], 0
-        for bs, ws in shapes:
-            nb, nw = math.prod(bs), math.prod(ws)
-            out.append({"b": vec[i:i + nb].view(bs), "w": vec[i + nb:i + nb + nw].view(ws)})
-            i += nb + nw
-        return out
+
+def params_to_numpy(params):
+    """Inverse of :func:`params_from_jax`: host NumPy arrays, same tree."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def ravel_params(params):
+    """(flat, unravel): the parameter tree (a layer list, or a dict of such
+    trees) as one flat vector in the order of JAX's ``ravel_pytree`` -- dict
+    keys sorted (per layer ``b`` before ``w``; ``kap < net < src < vel``), each
+    leaf row-major -- and the inverse, which returns views of the vector it is
+    given (so gradients and forward-mode tangents of the vector reach every
+    leaf)."""
+    leaves = tree_leaves(params)
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
+
+    def unravel(vec: torch.Tensor):
+        spans = iter(zip(shapes, np.cumsum([0] + [math.prod(sh) for sh in shapes]).tolist()))
+
+        def take(_leaf):
+            shape, lo = next(spans)
+            return vec[lo:lo + math.prod(shape)].view(shape)
+
+        return tree_map(take, params)
 
     return flat, unravel
 
 
-def leaf_segments(params: Params) -> np.ndarray:
+def leaf_segments(params) -> np.ndarray:
     """Leaf id of every entry of the ``ravel_params`` vector."""
-    sizes = [layer[k].numel() for layer in params for k in ("b", "w")]
+    sizes = [leaf.numel() for leaf in tree_leaves(params)]
     return np.repeat(np.arange(len(sizes)), sizes)
+
+
+def net_of(theta):
+    """The trial net of a parameter tree: ``theta['net']`` for an inverse
+    problem's dict, else theta itself (a layer list)."""
+    return theta["net"] if isinstance(theta, dict) and "net" in theta else theta
 
 
 def make_input_scaling(lo, hi, dtype=torch.float32, device=None):

@@ -72,3 +72,20 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     real (unpadded) point count."""
     err = (pred - target) * mask
     return torch.sum(err * err) / denom
+
+
+def hook_fields(theta, flat, d: int, td: bool, kappa, vel, src, source_fn=None, diff_fn=None,
+                vel_fn=None):
+    """(kappa, vel, src) at the quadrature points ``flat`` [K nQ, n_in], each
+    trainable hook's field in place of the fixed one: ``source_fn(theta['src'],
+    x, t)``, ``diff_fn(theta['kap'], x, t)`` and ``vel_fn(theta['vel'], x, t)``
+    (x the spatial coordinates, t the time column or None), reshaped onto the
+    fixed fields' [K, nQ(, d)] shapes."""
+    x, t = flat[:, :d], (flat[:, d] if td else None)
+    if source_fn is not None:
+        src = source_fn(theta["src"], x, t).reshape(src.shape)
+    if diff_fn is not None:
+        kappa = diff_fn(theta["kap"], x, t).reshape(kappa.shape)
+    if vel_fn is not None:
+        vel = vel_fn(theta["vel"], x, t).reshape(vel.shape)
+    return kappa, vel, src

@@ -5,9 +5,13 @@ device).
 The variational loss is a nonlinear least-squares problem,
 
     L(theta) = || r_full(theta) ||^2,
-    r_full = [ sqrt(w_int/K) r_k / vol_k,  sqrt(w_bc/N_bc) e_bc,  sqrt(w_ic/N_ic) e_ic ],
+    r_full = [ sqrt(w_int/K) r_k / vol_k,  sqrt(w_bc/N_bc) e_bc,  sqrt(w_ic/N_ic) e_ic,
+               sqrt(w_obs/N_obs) e_obs,  sqrt(w_bc/N_neu) e_neu ],
 
-(exact BC/IC, ``hard_mode``: the interior rows alone, of u = A + B n),
+(exact BC/IC, ``hard_mode``: the BC/IC rows drop out, and the interior,
+observation and flux rows are of u = A + B n; an inverse problem's theta
+carries its trainable source / diffusivity / velocity leaves, raveled with the
+net),
 so Gauss-Newton curvature J^T J is applied matrix-free: J v by forward mode
 (``torch.autograd.forward_ad`` dual tensors) and J^T w by a retained reverse
 pass, once each per CG iteration.  With ``value_and_jac`` from
@@ -31,18 +35,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..fem.assembly import ProblemStatic
 from ..fem.hardbc import hard_transform
-from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac
-from ..ops.residual import support_volume, weak_residual
+from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac, net_of
+from ..ops.residual import hook_fields, support_volume, weak_residual
+from .loss import flux_error, obs_values
 
-# make_residual_fn options of the JAX package that the port does not carry yet
-# argument -> the feature it needs, not ported yet
-UNPORTED = {
-    "source_fn": "the trainable source of the inverse source problem",
-    "diff_fn": "the trainable diffusivity of the inverse coefficient problem",
-    "vel_fn": "the trainable velocity of the inverse coefficient problem",
-    "has_obs": "observation rows",
-    "neu": "Neumann/Robin flux rows",
-}
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
 
 
@@ -57,11 +53,18 @@ def make_residual_fn(
     apply_fn: Callable = mlp_apply,
     hard_mode: bool = False,
     nl_vec=None,
-    **unported,
+    source_fn: Optional[Callable] = None,
+    diff_fn: Optional[Callable] = None,
+    vel_fn: Optional[Callable] = None,
+    has_obs: bool = False,
+    n_obs_real: int = 1,
+    flux_value_and_jac: Optional[Callable] = None,
 ):
     """Weighted residual VECTOR ``residual_fn(theta, quad, bc, ic=None,
-    weights=(1, 1, 1, 0), hard=None) -> r_full`` with sum(r^2) == the total
-    loss of ``make_loss_fn`` (its normalized-residual convention).  Inputs
+    weights=(1, 1, 1, 0), hard=None, obs=None, neu=None, hard_obs=None,
+    hard_neu=None) -> r_full`` with sum(r^2) == the total loss of
+    ``make_loss_fn`` (its normalized-residual convention), whose arguments
+    these are.  Inputs
     are scaled onto [-1, 1] as in the JAX package unless ``input_scaling``
     is False; ``apply_fn`` evaluates the net at the BC/IC points.
 
@@ -75,20 +78,21 @@ def make_residual_fn(
     ``nl_vec`` (the constant [d] Burgers direction b) adds the nonlinear
     advection term u (b . grad u), of the transformed u in hard mode; J v and
     J^T w still run through ``value_and_jac`` (K6 and K5's backward).
+    ``source_fn`` / ``diff_fn`` / ``vel_fn`` replace the fixed source,
+    diffusivity and velocity per chunk by the trainable fields of theta's
+    ``src`` / ``kap`` / ``vel`` leaves; the flux rows (``neu``) take
+    ``flux_value_and_jac`` (the plain matmul chain by default), the
+    observation rows (``has_obs``, weight ``weights[3]``) ``apply_fn``.
     """
-    unknown = sorted(set(unported) - set(UNPORTED))
-    if unknown:
-        raise TypeError(f"make_residual_fn got unexpected arguments {unknown}")
-    asked = sorted(k for k, v in unported.items() if v not in (None, False))
-    if asked:
-        raise NotImplementedError("not ported to varnet_tpu_torch yet: " + "; ".join(
-            f"{UNPORTED[k]} ({k})" for k in asked))
     d = static.n_space
     td = static.time_dependent
     n_in = static.n_inputs
     n_bc = float(max(static.n_bc, 1))
     n_ic = float(max(static.n_ic, 1))
     n_k = float(max(static.n_test, 1))
+    n_obs = float(max(int(n_obs_real), 1))
+    n_neu = float(max(static.n_neu, 1))
+    flux_vj = flux_value_and_jac or mlp_value_and_jac
     scale = shift = None
     if input_scaling:
         scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
@@ -96,14 +100,17 @@ def make_residual_fn(
           else torch.as_tensor(np.asarray(nl_vec), dtype=torch.float32, device=device))
     need_u = has_react or nl is not None
 
-    def interior(net, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq):
+    def interior(theta, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq):
         k, nq = coords.shape[0], coords.shape[1]
-        u, du = value_and_jac(net, coords.reshape(k * nq, n_in), activation, scale, shift)
+        flat = coords.reshape(k * nq, n_in)
+        u, du = value_and_jac(net_of(theta), flat, activation, scale, shift)
         grad_u = du[:, :d].reshape(k, nq, d)
         u_t = du[:, d].reshape(k, nq) if td else None
         u = u.reshape(k, nq)
         if hard_mode:
             u, grad_u, u_t = hard_transform(u, grad_u, u_t, hq)
+        kappa, vel, src = hook_fields(theta, flat, d, td, kappa, vel, src, source_fn, diff_fn,
+                                      vel_fn)
         r = weak_residual(
             grad_u, n_tbl, dn_tbl, w_tbl, kappa, vel, src, u_t,
             u=u if need_u else None,
@@ -112,7 +119,8 @@ def make_residual_fn(
         )
         return (r / support_volume(w_tbl)) * mask
 
-    def residual_fn(theta, quad, bc, ic=None, weights=(1.0, 1.0, 1.0, 0.0), hard=None):
+    def residual_fn(theta, quad, bc, ic=None, weights=(1.0, 1.0, 1.0, 0.0), hard=None,
+                    obs=None, neu=None, hard_obs=None, hard_neu=None):
         fields = [getattr(quad, f) for f in _CHUNKED]
         tables = (quad.N, quad.dN, quad.w)
         if k_chunks == 1:
@@ -136,12 +144,22 @@ def make_residual_fn(
                     parts.append(interior(theta, *chunk))
             r = torch.cat(parts)
         parts = [math.sqrt(weights[0] / n_k) * r]
+        net = net_of(theta)
         if not hard_mode:
-            u_bc = apply_fn(theta, bc.coords, activation, scale, shift)
+            u_bc = apply_fn(net, bc.coords, activation, scale, shift)
             parts.append(math.sqrt(weights[1] / n_bc) * (u_bc - bc.values) * bc.mask)
             if ic is not None:
-                u_ic = apply_fn(theta, ic.coords, activation, scale, shift)
+                u_ic = apply_fn(net, ic.coords, activation, scale, shift)
                 parts.append(math.sqrt(weights[2] / n_ic) * (u_ic - ic.values) * ic.mask)
+        if has_obs:
+            if obs is None:
+                # dropping the data rows would polish an objective without them
+                raise ValueError("has_obs=True but the obs batch is None")
+            u_obs = obs_values(net, obs, apply_fn, activation, scale, shift, hard_obs)
+            parts.append(math.sqrt(weights[3] / n_obs) * (u_obs - obs.values) * obs.mask)
+        if neu is not None:
+            err = flux_error(net, neu, d, activation, scale, shift, flux_vj, hard_neu)
+            parts.append(math.sqrt(weights[1] / n_neu) * err * neu.mask)
         return torch.cat(parts)
 
     return residual_fn

@@ -105,7 +105,8 @@ class RMSpropEpsInSqrt(torch.optim.Optimizer):
 
 class Optimizer:
     """One update per :meth:`step` from the parameters' ``.grad``: global-norm
-    clip, then the optimizer, then the per-step schedule."""
+    clip, then the optimizer, then the per-step schedule.  ``params`` are the
+    leaves of the parameter tree (``models/mlp.py::tree_leaves``)."""
 
     def __init__(self, cfg: OptimizerConfig, params):
         self.params = list(params)
@@ -127,8 +128,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
+        for p in self.params:
+            # a leaf the loss did not reach has a zero gradient, as in optax
+            # (its Adam moments decay and its count advances with the rest)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.clip is not None:
-            # on the device, no host sync: factor 1 below the clip norm
+            # over every leaf (an inverse problem's source, diffusivity and
+            # velocity too, as optax's chain), on the device with no host
+            # sync: factor 1 below the clip norm
             norm = torch.sqrt(sum(torch.sum(p.grad * p.grad) for p in self.params))
             factor = torch.clamp(self.clip / norm, max=1.0)
             for p in self.params:

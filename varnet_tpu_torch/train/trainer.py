@@ -4,7 +4,8 @@ PyTorch counterpart of ``varnet_tpu/train/trainer.py``.  The step runs
 eagerly; parameters are leaf tensors that the optimizer updates IN PLACE
 (the JAX step returns new, donated buffers instead).  ``batch_num > 1``
 loops over interior mini-batches inside the epoch, as the JAX step's
-``lax.scan`` does; BC/IC penalty points stay full-batch.  Per-node test
+``lax.scan`` does; BC/IC penalty points, observation and flux rows stay
+full-batch.  Per-node test
 tables (order-2 test spaces, refined hats) and the exact-BC quad tables split
 with the test functions they belong to.
 """
@@ -46,15 +47,17 @@ def split_batches(quad: QuadData, batch_num: int) -> List[QuadData]:
 def make_train_step(loss_fn: Callable, optimizer, batch_num: int = 1):
     """Build the per-epoch update.
 
-    Returns ``epoch_step(theta, quad, bc, ic, weights, prepared, hard=None)
-    -> aux``: one optimizer update per mini-batch; ``quad``/``prepared``/
-    ``hard`` are lists of per-batch items when ``batch_num > 1``.  ``aux``
-    holds detached loss tensors (batch means), still on the device.
+    Returns ``epoch_step(theta, quad, bc, ic, weights, prepared, hard=None,
+    **rows) -> aux``: one optimizer update per mini-batch; ``quad``/``prepared``/
+    ``hard`` are lists of per-batch items when ``batch_num > 1``, and ``rows``
+    (the loss's full-batch ``obs`` / ``neu`` / ``hard_obs`` / ``hard_neu``) go
+    to every one.  ``aux`` holds detached loss tensors (batch means), still on
+    the device.
     """
 
-    def one_update(theta, quad, bc, ic, weights, prepared, hard=None):
+    def one_update(theta, quad, bc, ic, weights, prepared, hard=None, **rows):
         optimizer.zero_grad()
-        total, aux = loss_fn(theta, quad, bc, ic, weights, prepared, hard)
+        total, aux = loss_fn(theta, quad, bc, ic, weights, prepared, hard, **rows)
         total.backward()
         optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
@@ -62,9 +65,9 @@ def make_train_step(loss_fn: Callable, optimizer, batch_num: int = 1):
     if batch_num == 1:
         return one_update
 
-    def epoch_step(theta, quads, bc, ic, weights, prepared, hard=None):
+    def epoch_step(theta, quads, bc, ic, weights, prepared, hard=None, **rows):
         hards = [None] * len(quads) if hard is None else hard
-        auxes = [one_update(theta, qb, bc, ic, weights, pb, hb)
+        auxes = [one_update(theta, qb, bc, ic, weights, pb, hb, **rows)
                  for qb, pb, hb in zip(quads, prepared, hards)]
         return {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
 

@@ -59,19 +59,38 @@ def load_observations_csv(
     return point_data_from_arrays(raw[:, list(coord_cols)], raw[:, v])
 
 
+# the leaves of an inverse problem's theta dict (``VarNet(source_fn=, diff_fn=, vel_fn=)``)
+THETA_KEYS = ("kap", "net", "src", "vel")
+
+
 def save_theta_npz(path: str, theta, prefix: str = "") -> None:
-    """Persist an MLP parameter list ``[{'w','b'}, ...]`` (NumPy arrays or
-    torch tensors) as a flat npz."""
+    """Persist a parameter tree as a flat npz: an MLP layer list ``[{'w','b'},
+    ...]`` as ``{prefix}l{i}_w`` / ``{prefix}l{i}_b``; an inverse problem's
+    ``{'net': ..., 'src': ..., 'kap': ..., 'vel': ...}`` with each entry under
+    ``{prefix}{key}_`` (``net_l0_w``, ``src_l0_w``, the JAX package's pair for
+    the inverse source net; an array leaf as ``{prefix}{key}``, a dict of
+    arrays as ``{prefix}{key}_{name}``).  NumPy arrays or torch tensors."""
     np.savez(path, **theta_npz_dict(theta, prefix))
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def theta_npz_dict(theta, prefix: str = "") -> dict:
     """The flat key->array dict for ``save_theta_npz``."""
-    def host(v):
-        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-
+    if isinstance(theta, dict):
+        out = {}
+        for key, sub in theta.items():
+            if isinstance(sub, (list, tuple)):
+                out.update(theta_npz_dict(sub, f"{prefix}{key}_"))
+            elif isinstance(sub, dict):
+                out.update({f"{prefix}{key}_{k}": _host(v) for k, v in sub.items()})
+            else:
+                out[f"{prefix}{key}"] = _host(sub)
+        return out
     return {
-        f"{prefix}l{i}_{k}": host(v)
+        f"{prefix}l{i}_{k}": _host(v)
         for i, layer in enumerate(theta)
         for k, v in layer.items()
     }
@@ -79,13 +98,28 @@ def theta_npz_dict(theta, prefix: str = "") -> dict:
 
 def load_theta_npz(path, prefix: str = ""):
     """Inverse of :func:`save_theta_npz`: a list of ``{'w', 'b'}`` NumPy
-    arrays.  ``path`` may be a filename or an already-opened ``NpzFile``."""
+    arrays, or the dict of an inverse problem's theta when the file holds
+    ``{prefix}net_`` entries and no bare layers.  ``path`` may be a filename or
+    an already-opened ``NpzFile``."""
     z = np.load(path) if isinstance(path, (str, os.PathLike)) else path
     n_layers = sum(
         1 for f in z.files
         if f.startswith(f"{prefix}l") and f.endswith("_w")
         and f[len(prefix):].count("_") == 1
     )
+    if n_layers == 0 and any(f.startswith(f"{prefix}net_") for f in z.files):
+        out = {}
+        for key in THETA_KEYS:
+            sub = f"{prefix}{key}"
+            if f"{sub}_l0_w" in z.files:
+                out[key] = load_theta_npz(z, f"{sub}_")
+            elif sub in z.files:
+                out[key] = z[sub]
+            else:
+                names = [f[len(sub) + 1:] for f in z.files if f.startswith(sub + "_")]
+                if names:
+                    out[key] = {n: z[f"{sub}_{n}"] for n in names}
+        return out
     return [
         {"w": z[f"{prefix}l{i}_w"], "b": z[f"{prefix}l{i}_b"]}
         for i in range(n_layers)
