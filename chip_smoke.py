@@ -191,6 +191,24 @@ is non-zero and no result line is printed):
                w16x2): 20 epochs through K5 vs plain.  Every LM comparison runs after the
                plain LM's own spread under a 1e-7 move of its start is measured below
                1e-2, and needs an accepted step.
+22. rest    -- the rest of the single-device API (no kernel of its own: K1/K2 and K5).
+               ``train_ensemble`` with E = 4 members at the bench shape (d48/t32 w20x2),
+               50 epochs: K1/K2 launched at least E x epochs times, each member's theta
+               within 2e-4 (of its max) of the same member trained alone through
+               ``train``, steps/s and quad evals/s beside ``train``'s.  ``refine_lbfgs``,
+               10 iterations at d48/t32 w48x2 (the time-to-target net, full batch) from
+               200 Adam epochs through K1/K2, through K5 fwd / bwd: s / iteration and loss
+               evaluations per iteration, and their ratio to K5 fwd + bwd's time at that
+               net (the kernels-vj w48x2 line); 3 iterations from the same start at
+               d16/t10 on the kernel and the plain path, losses and end thetas within
+               1e-3.  ``evaluate_grad`` through K5's forward against the plain chain
+               (rtol 1e-5 of each field's max) at 400,000 points on the pinned
+               ``flagship_theta_1.0e-04`` net and the exact-BC ``theta_hardbc_2d`` net.
+               A 10-epoch ``torch.profiler`` window of an Adam run whose Chrome trace
+               names ``vr_fwd_kernel`` and ``vr_bwd_kernel`` once per epoch each, and a
+               3-epoch window of the general path naming ``vj_fwd_kernel`` and
+               ``vj_bwd_kernel``; a NaN leaf under ``debug_nans`` raises
+               ``FloatingPointError`` and leaves autograd's anomaly mode off.
 
 Cuts: the contaminant recipe (``benchmarks/contaminant_causal.py``) runs 8000 Adam
 epochs per window and 12 LM iterations of cg 150; here 8 epochs per window and 2 LM
@@ -207,8 +225,10 @@ general path's panels at the full mesh would not fit the card: the contaminant w
 d16/t10, the w128x3 flagship Adam at d24/t16.  The inverse recipes are cut in depth only:
 neumann 1000 + 20 of 30,000 epochs; inverse source 100 + 20 of 40,000 epochs and LM 2 x
 cg 20 of 30 x cg 120; inverse flow 1000 + 20 of 12,000 epochs and LM 2 x cg 20 of 20 x cg
-150.  The bounds (``_bounds``) count the layer
-products of each kernel's work at the timed shape (``sincosf`` is not counted).
+150.  The rest phase cuts the ensemble to 50 epochs and L-BFGS to 10 iterations (the
+JAX package's default is 500), never in width or mesh.  The bounds (``_bounds``) count
+the layer products of each kernel's work at the timed shape (``sincosf`` is not
+counted).
 
 The line before last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2373,6 +2393,185 @@ def phase_inverse():
 
 
 # ---------------------------------------------------------------------------
+# the rest of the single-device API: ensembles, L-BFGS, evaluate_grad, the hooks
+
+ENS = dict(n_members=4, epochs=50)            # the bench shape, d48/t32 w20x2
+LBFGS_NET = (48, 48)                          # the time-to-target recipe's net
+LBFGS = dict(adam=200, steps=10, plain_steps=3)
+LBFGS_SMALL = dict(disc_num=16, b_disc_num=16, t_disc_num=10)   # its kernel-vs-plain run
+GRAD_POINTS = 400_000
+PROFILE_DIR = os.path.join(ROOT, "build", "chip_smoke_profile")
+
+
+def _theta_gap(a, b):
+    """max |a - b| over max |b| across the leaves of two parameter trees."""
+    from varnet_tpu_torch.models.mlp import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return (max(float((x - y).abs().max()) for x, y in zip(la, lb))
+            / max(float(y.abs().max()) for y in lb))
+
+
+def _grad_compare(vn_kernel, vn_plain, x, t, label):
+    """``evaluate_grad`` through K5's forward against the plain chain (rtol 1e-5 of
+    each field's max); the K5 forward launches of the kernel call."""
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    vj.vj_fwd.launches = 0
+    ours = vn_kernel.evaluate_grad(x, t)
+    launches = vj.vj_fwd.launches
+    ref = vn_plain.evaluate_grad(x, t)
+    errs = {k: float(np.abs(ours[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
+    if launches < 1 or not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"{label}: evaluate_grad vs plain {errs}, K5 fwd launches "
+                             f"{launches}")
+    log(label, points=len(x), vj_fwd=launches, **{f"{k}_rel_err": f"{v:.3e}"
+                                                   for k, v in errs.items()})
+    return errs
+
+
+def phase_rest():
+    """The rest of the single-device API on the card: ``train_ensemble`` (E = 4, 50
+    epochs at the bench shape through K1/K2: each member within 2e-4 of the same member
+    trained alone through ``train``; steps/s and quad evals/s beside ``train``'s),
+    ``refine_lbfgs`` (10 iterations at d48/t32 w48x2 from 200 Adam epochs, through K5
+    fwd / bwd: s / iteration and loss evaluations per iteration; 3 iterations kernel vs
+    plain at d16/t10 from the same start, losses within rtol 1e-3), ``evaluate_grad``
+    through K5's forward against the plain chain (rtol 1e-5) on the pinned
+    ``flagship_theta_1.0e-04`` net and the exact-BC ``theta_hardbc_2d`` net, a profiled
+    10-epoch Adam run whose Chrome trace names K1/K2 (``vr_fwd_kernel``,
+    ``vr_bwd_kernel``) and a profiled general-path run naming K5's, and ``debug_nans``
+    raising on a NaN theta.  Each run's launch
+    counters are set to 0 just before it and read just after."""
+    import shutil
+
+    import torch
+
+    from varnet_tpu_torch import load_theta_npz, params_from_jax
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    t0 = time.perf_counter()
+    out = {}
+    # ensemble: E members one after another through K1/K2, against each alone
+    vn = _bench_vn((20, 20))
+    e, epochs = ENS["n_members"], ENS["epochs"]
+    fr.dir_residual_fwd.launches = fr.dir_residual_bwd.launches = 0
+    res = vn.train_ensemble(epoch_num=epochs, n_members=e, weight=WEIGHT, save_freq=epochs,
+                            verbose=False)
+    torch.cuda.synchronize()
+    ens_launches = {"fwd": fr.dir_residual_fwd.launches, "bwd": fr.dir_residual_bwd.launches}
+    if min(ens_launches.values()) < e * epochs:
+        raise AssertionError(f"ensemble: K1/K2 launches {ens_launches} < {e * epochs}")
+    members = params_from_jax(vn._ensemble_thetas, device="cuda")
+    gaps, alone = [], []
+    for i in range(e):
+        single = _bench_vn((20, 20), theta=_clone(vn._init_member(i)))
+        r1 = single.train(epoch_num=epochs, weight=WEIGHT, save_freq=epochs, verbose=False)
+        torch.cuda.synchronize()
+        alone.append(r1)
+        gaps.append(_theta_gap([{k: v[i] for k, v in layer.items()} for layer in members],
+                               single.theta))
+    losses = res.member_losses[-1]
+    if not (max(gaps) <= 2e-4 and np.all(np.isfinite(losses))):
+        raise AssertionError(f"ensemble members vs alone: theta gaps {gaps}, losses {losses}")
+    train_sps = statistics.median(r.steps_per_sec for r in alone)
+    train_qps = statistics.median(r.quad_evals_per_sec for r in alone)
+    out["ensemble"] = dict(steps_per_sec=res.steps_per_sec,
+                           quad_evals_per_sec=res.quad_evals_per_sec,
+                           train_steps_per_sec=train_sps, train_quad_evals_per_sec=train_qps)
+    log("rest ensemble", members=e, epochs=epochs, **ens_launches,
+        max_theta_gap=f"{max(gaps):.3e}", best_member=res.best_member,
+        best_rel_l2=f"{res.best_error:.4e}", steps_per_sec=f"{res.steps_per_sec:.4f}",
+        quad_evals_per_sec=f"{res.quad_evals_per_sec:.6e}",
+        train_steps_per_sec=f"{train_sps:.4f}", train_quad_evals_per_sec=f"{train_qps:.6e}",
+        steps_ratio=f"{res.steps_per_sec / train_sps:.4f}",
+        quad_evals_ratio=f"{res.quad_evals_per_sec / train_qps:.4f}")
+    del vn, members
+    # L-BFGS from 200 Adam epochs at the time-to-target net, full batch through K5
+    start, _ = _train(LBFGS_NET, None, LBFGS["adam"], LBFGS["adam"], True)
+    start = _clone(start.theta)
+    lb = _bench_vn(LBFGS_NET, theta=start)
+    vj.vj_fwd.launches = vj.vj_bwd.launches = 0
+    steps = LBFGS["steps"]
+    rl = lb.refine_lbfgs(steps=steps, weight=WEIGHT, save_freq=steps, verbose=False)
+    torch.cuda.synchronize()
+    evals = {"fwd": vj.vj_fwd.launches, "bwd": vj.vj_bwd.launches}
+    if evals["fwd"] < steps + 1 or evals["bwd"] != evals["fwd"] or not (
+            np.isfinite(rl.losses[-1]["loss"]) and rl.errors[-1] < 1.0):
+        raise AssertionError(f"lbfgs: K5 launches {evals}, {rl.losses}, rel-L2 {rl.errors}")
+    s_iter = rl.wall_times[-1] / (steps - 1)
+    out["lbfgs"] = dict(s_per_iter=s_iter, evals_per_iter=(evals["fwd"] - 1) / steps,
+                        points=lb.static.n_test * lb.static.n_quad_per_test)
+    log("rest lbfgs", steps=steps, vj_fwd=evals["fwd"], vj_bwd=evals["bwd"],
+        evals_per_iter=f"{out['lbfgs']['evals_per_iter']:.3f}", s_per_iter=f"{s_iter:.4f}",
+        loss_last_start=f"{rl.losses[-1]['loss']:.6e}", rel_l2=f"{rl.errors[-1]:.4e}",
+        points=out["lbfgs"]["points"])
+    del lb
+    runs, ends = {}, {}
+    for use_pallas in (True, False):
+        small = _bench_vn(LBFGS_NET, mesh=LBFGS_SMALL, theta=start, use_pallas=use_pallas)
+        vj.vj_fwd.launches = 0
+        runs[use_pallas] = _losses(small.refine_lbfgs(
+            steps=LBFGS["plain_steps"], weight=WEIGHT, save_freq=1, verbose=False))
+        ends[use_pallas] = small.theta
+        if use_pallas and vj.vj_fwd.launches < LBFGS["plain_steps"]:
+            raise AssertionError(f"lbfgs d16/t10: K5 fwd launches {vj.vj_fwd.launches}")
+    worst = float(np.max(np.abs(runs[True] - runs[False]) / np.abs(runs[False])))
+    # the BC / IC rows dominate this loss: the end thetas show the interior's gradients
+    gap = _theta_gap(ends[True], ends[False])
+    if not (worst <= 1e-3 and gap <= 1e-3):
+        raise AssertionError(f"lbfgs kernel {runs[True]} vs plain {runs[False]}: {worst:.3e}, "
+                             f"theta gap {gap:.3e}")
+    log("rest lbfgs kernel vs plain", mesh="d16/t10", losses_kernel=",".join(
+        f"{v:.6e}" for v in runs[True]), losses_plain=",".join(f"{v:.6e}" for v in runs[False]),
+        max_rel_diff=f"{worst:.3e}", theta_gap=f"{gap:.3e}")
+    # evaluate_grad through K5's forward against the plain chain
+    rng = np.random.default_rng(0)
+    x, t = rng.uniform(0.0, 1.0, (GRAD_POINTS, 2)), rng.uniform(0.0, 1.0, GRAD_POINTS)
+    pinned = params_from_jax(load_theta_npz(PINNED), device="cuda")
+    small = dict(disc_num=8, b_disc_num=8, t_disc_num=4)   # the points are the test's own
+    out["grad"] = _grad_compare(*(_bench_vn((48, 48, 48), mesh=small, theta=pinned,
+                                            use_pallas=k) for k in (True, False)),
+                                x, t * 0.5, "rest evaluate_grad pinned")
+    hard = load_theta_npz(os.path.join(RESULTS, "theta_hardbc_2d.npz"))
+    hvs = [_hard_vn("steady_ad_2d", (48, 48), dict(disc_num=8), use_pallas=k)
+           for k in (True, False)]
+    for h in hvs:
+        h.theta = params_from_jax(hard, device="cuda")
+    out["grad_hard"] = _grad_compare(*hvs, x, None, "rest evaluate_grad hard 2d")
+    # the profiler: 10 Adam epochs after the warm-up one, the K1/K2 kernels by name;
+    # 3 epochs of the general path, K5's
+    found = {}
+    for fused, epochs, kernels in ((True, 10, ("vr_fwd_kernel", "vr_bwd_kernel")),
+                                   (False, 3, ("vj_fwd_kernel", "vj_bwd_kernel"))):
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+        pv = _bench_vn((20, 20), use_fused_residual=fused)
+        pv.train(epoch_num=epochs + 1, weight=WEIGHT, save_freq=epochs + 1, verbose=False,
+                 profile_dir=PROFILE_DIR, profile_steps=epochs)
+        (trace,) = os.listdir(PROFILE_DIR)
+        with open(os.path.join(PROFILE_DIR, trace)) as f:
+            names = [str(ev.get("name", "")) for ev in json.load(f)["traceEvents"]]
+        counts = {k: sum(k in n for n in names) for k in kernels}
+        if min(counts.values()) < epochs:
+            raise AssertionError(f"profile trace {trace}: kernel events {counts}")
+        found.update(counts)
+    # debug_nans: a NaN leaf raises FloatingPointError, anomaly mode left as found
+    pv.theta[0]["w"][0, 0] = float("nan")
+    try:
+        pv.train(epoch_num=2, weight=WEIGHT, save_freq=2, verbose=False, debug_nans=True)
+        raise AssertionError("debug_nans: a NaN theta trained without an error")
+    except FloatingPointError as err:
+        nan_msg = str(err).splitlines()[0]
+    if torch.is_anomaly_enabled():
+        raise AssertionError("debug_nans left autograd's anomaly mode on")
+    out["seconds"] = time.perf_counter() - t0
+    log("rest hooks", trace=trace, **found, nan_error=repr(nan_msg[:60]),
+        seconds=f"{out['seconds']:.1f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 
 PEAK_F32 = 67e12   # FLOP/s, f32 outside the tensor cores (H100 SXM data sheet)
@@ -2493,6 +2692,11 @@ def main():
     phase_burgers_accuracy()
     phase_burgers_lm()
     inverse = phase_inverse()
+    rest = phase_rest()
+    # L-BFGS s / iteration over its evaluations x K5 fwd + bwd at the same net and points
+    k5 = v48x2["fwd"]["ms"] + v48x2["bwd"]["ms"]
+    log("rest lbfgs / K5", k5_fwd_bwd_ms=f"{k5:.4f}",
+        ratio=f"{1e3 * rest['lbfgs']['s_per_iter'] / (rest['lbfgs']['evals_per_iter'] * k5):.4f}")
     # the sin kernels of ff_mlp.cu over tanh's at the same shapes, in this call
     ratios = {f"{k}_contaminant": siren_ff["out"][k]["ms"] / ff[k]["ms"]
               for k in ("ff_res_fwd", "ff_res_bwd", "ff_vj_fwd", "ff_vj_bwd", "ff_vj_jvp")}
@@ -2505,7 +2709,7 @@ def main():
     log("done", seconds=f"{time.perf_counter() - t0:.1f}",
         burgers_seconds=f"{time.perf_counter() - t_burgers:.1f}",
         resume_seconds=f"{resume_s:.1f}", siren_ff_mlp_seconds=f"{siren_ff_s:.1f}",
-        inverse_seconds=f"{inverse['seconds']:.1f}")
+        inverse_seconds=f"{inverse['seconds']:.1f}", rest_seconds=f"{rest['seconds']:.1f}")
 
     p_bench, k_bench = k20["points"], k20["k"]
     src = "varnet_tpu_torch/csrc/"

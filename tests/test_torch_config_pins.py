@@ -14,8 +14,8 @@ same theta on the same points:
   package draws it, which a ``torch.Generator`` cannot reproduce: the test
   draws it with the reference and passes it as ``fourier_b=``; the causal
   nets' B is the committed ``contaminant_causal_fourier_b.npy``;
-* (slow) the 9.91% obstacle theta against the reference's CN-FDM oracle at
-  320 x 160 x 800.  Its flux walls are refused by the port's ``VarNet``, and
+* (slow) the 9.91% obstacle theta against the CN-FDM oracle (the port's copy
+  of the reference's solver) at 320 x 160 x 800.  Its flux walls are refused by the port's ``VarNet``, and
   evaluation does not need them (exact BC imposes the Dirichlet walls only), so
   the port scores it on the same problem with those walls left free.
 """
@@ -177,21 +177,27 @@ def test_obstacle_dense_lm_pin():
     reference's CN-FDM oracle at 320 x 160 x 800 (t > 0 samples, in-domain
     nodes), as ``benchmarks/obstacle_refine.py`` scores it; bound 0.105."""
     from benchmarks.obstacle_validation import ROD_HI, ROD_LO, build_pde
-    from varnet_tpu.problems.classical import solve_ad_fdm_2d
     from varnet_tpu_torch.geometry.domain import RectangleDomain2D
-    from varnet_tpu_torch.problems.adpde import ADPDE
+    from varnet_tpu_torch.problems import solve_ad_fdm_2d
+    from varnet_tpu_torch.problems.adpde import ADPDE, NeumannBC
 
     sys.path.insert(0, ROOT)
     jpde = build_pde()
-    times = np.linspace(0.0, 1.0, 6)
-    oracle = solve_ad_fdm_2d(jpde, nx=320, ny=160, nt=800, sample_times=times)
-    mask = jpde.domain.in_domain(oracle["x"])
     hole = np.array([[ROD_LO[0], ROD_LO[1]], [ROD_HI[0], ROD_LO[1]],
                      [ROD_HI[0], ROD_HI[1]], [ROD_LO[0], ROD_HI[1]]])
 
     def rod_g(x, t):
         return 1.0 - np.exp(-8.0 * np.asarray(t)) * np.ones(np.atleast_2d(x).shape[0])
 
+    # the oracle: the port's solver on the port's copy of build_pde's problem
+    # (zero-flux bottom and top walls, free outflow, the inlet, the rod)
+    opde = ADPDE(RectangleDomain2D((0.0, 0.0), (2.0, 1.0), holes=[hole]), diff=0.05,
+                 vel=np.array([1.0, 0.0]), source=0.0,
+                 bcs=[NeumannBC(0.0), None, NeumannBC(0.0), 0.0] + [rod_g] * 4,
+                 t_interval=(0.0, 1.0), ic=0.0)
+    times = np.linspace(0.0, 1.0, 6)
+    oracle = solve_ad_fdm_2d(opde, nx=320, ny=160, nt=800, sample_times=times)
+    mask = opde.domain.in_domain(oracle["x"])
     # the same problem with the zero-flux walls (bottom, top) left free
     pde = ADPDE(RectangleDomain2D((0.0, 0.0), (2.0, 1.0), holes=[hole]), diff=0.05,
                 vel=np.array([1.0, 0.0]), source=0.0, bcs=[None, None, None, 0.0] + [rod_g] * 4,

@@ -111,11 +111,44 @@ def test_cli_resume_needs_folder():
 @pytest.mark.parametrize("flag,feature", [(["--ensemble", "2"], "train_ensemble"),
                                           (["--plot"], "sim_res"),
                                           (["--devices", "2"], "multi-device")])
-def test_unported_flags_name_their_feature(flag, feature):
+def test_unported_flags_name_their_feature(flag, feature, monkeypatch, tmp_path):
+    """The flags the port once refused: ``--ensemble`` and ``--plot`` now reach
+    their feature (``train_ensemble``, ``sim_res``); ``--devices`` above 1 still
+    exits naming the missing one."""
     from varnet_tpu_torch.examples import ad1d_steady
 
-    with pytest.raises(SystemExit, match=feature):
-        ad1d_steady.main(TINY + ["--disc", "6", "--device", "cpu"] + flag)
+    argv = TINY + ["--disc", "6", "--device", "cpu", "--folder", str(tmp_path)] + flag
+    if feature == "multi-device":
+        with pytest.raises(SystemExit, match=feature):
+            ad1d_steady.main(argv)
+        return
+    from varnet_tpu_torch import VarNet
+
+    called, original = [], getattr(VarNet, feature)
+    monkeypatch.setattr(VarNet, feature,
+                        lambda self, *a, **kw: called.append(feature) or original(self, *a, **kw))
+    ad1d_steady.main(argv)
+    assert called == [feature]
+
+
+def test_cli_ensemble_and_plot(tmp_path, capsys):
+    """``--ensemble 2`` prints the JAX runner's summary keys and ``--plot
+    --folder`` writes the solution plots; ``--ensemble`` with ``--resume`` exits
+    with the JAX runner's message."""
+    from varnet_tpu_torch.examples import ad1d_steady, ad2d_transient
+
+    folder = str(tmp_path / "case")
+    vn = ad2d_transient.main(TINY + ["--disc", "5", "--tdisc", "3", "--ensemble", "2",
+                                     "--plot", "--folder", folder, "--device", "cpu"])
+    summary = _summary(capsys.readouterr().out)[0]
+    assert set(summary) == {"best_rel_l2", "best_member", "member_rel_l2", "final_loss",
+                            "quad_evals_per_sec", "steps_per_sec"}
+    assert len(summary["member_rel_l2"]) == 2 and np.isfinite(summary["final_loss"])
+    assert summary["best_member"] in (0, 1) and vn._ensemble_thetas is not None
+    assert {"sol_anim.gif", "error_table.json"} <= set(os.listdir(folder))
+    with pytest.raises(SystemExit, match="--ensemble does not support --resume"):
+        ad1d_steady.main(TINY + ["--disc", "6", "--ensemble", "2", "--resume", "--folder",
+                                 folder, "--device", "cpu"])
 
 
 class _Untrained(JaxVarNet):

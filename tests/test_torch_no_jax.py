@@ -9,7 +9,9 @@ recovery (``train`` / ``refine_lm`` with ``folderpath``, ``resume`` and
 theta guard) and the CLIs added with them, with ``--folder`` and ``--resume``, nor
 through the flux, observation and inverse rows (``neumann_2d`` with ``--hard-bc``,
 ``inverse_coeff --recover vel``, ``inverse_source`` with ``--folder`` and
-``--resume``)."""
+``--resume``), nor through ensembles, L-BFGS, ``evaluate_grad``, the profiler and
+NaN hooks, ``sim_res``, the classical solver and the ``--ensemble`` / ``--plot``
+CLI flags."""
 
 import os
 import subprocess
@@ -100,6 +102,24 @@ inverse_coeff.main(tiny + ["--recover", "vel"])
 argv = tiny + ["--n-obs", "16", "--folder", tmp + "/inv"]
 inverse_source.main(argv)
 inverse_source.main(argv[:1] + ["3"] + argv[2:] + ["--resume"])
+ev = VarNet(transient_ad_2d()["pde"], layer_width=(8, 8), disc_num=4, b_disc_num=4,
+            t_disc_num=3, device="cpu")
+ev.train_ensemble(epoch_num=2, n_members=2, save_freq=2, verbose=False, error_disc=4,
+                  error_times=2)
+ev.evaluate_ensemble([[0.5, 0.5]], t=0.2)
+for use_pallas in (True, False):
+    ev.use_pallas = use_pallas
+    ev.refine_lbfgs(steps=2, save_freq=2, verbose=False, error_disc=4, error_times=2)
+    ev.evaluate_grad([[0.5, 0.5]], t=0.2)
+hv.evaluate_grad([[0.5, 0.5]], t=0.2)
+ev.train(epoch_num=3, save_freq=3, verbose=False, error_disc=4, error_times=2,
+         profile_dir=tmp + "/prof", profile_steps=1, debug_nans=True, normalize_residual=False)
+ev.sim_res(tmp + "/plots", disc=4, n_times=2)
+from varnet_tpu_torch.problems import solve_ad_fdm_2d
+solve_ad_fdm_2d(transient_ad_2d()["pde"], nx=6, ny=6, nt=4)
+ad2d_transient.main(["--epochs", "2", "--save-freq", "1", "--width", "4", "--bdisc", "3",
+                     "--disc", "4", "--tdisc", "3", "--ensemble", "2", "--plot", "--folder",
+                     tmp + "/ens", "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

@@ -13,8 +13,11 @@ plain PyTorch versions.  A net behind a fixed random-Fourier-feature embedding
 ``csrc/ff_mlp.cu`` (K2-FF, K7, K8).  Neumann / Robin boundary data add flux
 penalty rows; inverse problems (``VarNet(source_fn=, diff_fn=, vel_fn=,
 obs_data=)``, ``models/source.py``) train a source, diffusivity or velocity
-with the net against observation rows.  The JAX package ``varnet_tpu`` is the
-reference this port is tested against; this package imports no JAX.
+with the net against observation rows.  Ensembles (``VarNet.train_ensemble``),
+L-BFGS (``VarNet.refine_lbfgs``, optax's method), ``evaluate_grad`` and the solution
+plots (``VarNet.sim_res``, matplotlib on demand) run on the same kernels.  The JAX
+package ``varnet_tpu`` is the reference this port is tested against; this package
+imports no JAX.
 """
 
 from .api import VarNet

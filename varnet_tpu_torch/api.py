@@ -1,24 +1,27 @@
 """High-level orchestrator: the ``VarNet`` class.
 
 PyTorch counterpart of ``varnet_tpu/api.py``: same constructor and
-``train`` / ``refine_lm`` / ``evaluate`` / ``compute_error`` /
-``refine_tests`` / ``train_adaptive`` call shapes, one explicit device.  Fixed
+``train`` / ``train_ensemble`` / ``refine_lm`` / ``refine_lbfgs`` / ``evaluate`` /
+``evaluate_ensemble`` / ``evaluate_grad`` / ``compute_error`` / ``refine_tests`` /
+``train_adaptive`` / ``sim_res`` call shapes, one explicit device.  Fixed
 data is assembled once on the host, moved to the device and kept there; the
 fused residual's data layout is prepared once per ``train`` call.  On a CUDA
 device the Adam step's interior residual runs through the hand-written kernels
 of ``ops/fused_residual.py`` (K1/K2; K2-FF for a net behind a Fourier-feature
 embedding; K4, the precoeff residual, for exact BC/IC and per-node test
 tables; K3, the jacobian-panel residual, for nonlinear advection: viscous
-Burgers, ``ADPDE(nl_adv=b)``), and the value + jacobian evaluation of the LM refinement and of the
-Adam general path through those of ``ops/value_and_jac.py`` (K5 forward and
-backward, K6 JVP; K7/K8 with the embedding); on the CPU through their plain
-versions.  ``train`` and ``refine_lm`` checkpoint into a case folder
+Burgers, ``ADPDE(nl_adv=b)``), and the value + jacobian evaluation of the LM and
+L-BFGS refinements, of the Adam general path and of ``evaluate_grad`` through those
+of ``ops/value_and_jac.py`` (K5 forward and backward, K6 JVP; K7/K8 with the
+embedding); on the CPU through their plain versions.  An ensemble's members run
+one after another through the same kernels.  ``train`` and ``refine_lm`` checkpoint into a case folder
 (``train/checkpoint.py``), resume from it with global step numbering, and retry
 transient device faults (``train/fault.py``), as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -28,7 +31,7 @@ import shutil
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +57,7 @@ from .models.mlp import (
     mlp_apply,
     mlp_value_and_jac,
     net_of,
+    params_to_numpy,
     ravel_params,
     tree_leaves,
     tree_map,
@@ -74,7 +78,14 @@ from .train.fault import is_transient_device_error
 from .train.gauss_newton import LMState, make_lm_step, make_residual_fn
 from .train.loss import make_loss_fn, obs_weight_slots
 from .train.optim import OptimizerConfig, make_optimizer
-from .train.trainer import TrainResult, make_train_step, split_batches, split_rows
+from .train.lbfgs import LBFGS, lbfgs_iteration
+from .train.trainer import (
+    EnsembleResult,
+    TrainResult,
+    make_train_step,
+    split_batches,
+    split_rows,
+)
 from .utils.helpers import matmul_precision_scope, rel_l2_error
 
 # quadrature points per host call of the exact-BC table build: chunks small
@@ -82,6 +93,69 @@ from .utils.helpers import matmul_precision_scope, rel_l2_error
 # array operations); the tables are per point, so chunking changes no value
 HARD_TABLE_CHUNK = 1 << 16
 HARD_TABLE_THREADS = 8
+
+
+def _finite_loss(loss_fn, now):
+    """``loss_fn`` raising ``FloatingPointError`` on a non-finite total, before
+    its backward runs (``train(debug_nans=True)``; ``now['epoch']`` names the
+    epoch)."""
+    def checked(*args, **kw):
+        total, aux = loss_fn(*args, **kw)
+        if not bool(torch.isfinite(total)):
+            raise FloatingPointError(f"debug_nans: non-finite loss {float(total.detach())} "
+                                     f"at epoch {now['epoch']}")
+        return total, aux
+
+    return checked
+
+
+@contextlib.contextmanager
+def _nan_checks(now):
+    """Autograd's anomaly mode for the scope (the previous mode restored after),
+    its report of a NaN in a backward raised as ``FloatingPointError`` naming
+    ``now['epoch']``; every other error, a kernel's own among them, passes
+    unchanged."""
+    with torch.autograd.set_detect_anomaly(True):
+        try:
+            yield
+        except RuntimeError as err:
+            if "returned nan values" not in str(err):
+                raise
+            raise FloatingPointError(f"debug_nans: NaN in the backward at epoch "
+                                     f"{now['epoch']}: {err}") from err
+
+
+class _TraceWindow:
+    """A ``torch.profiler`` trace of ``steps`` epochs, from ``start(epoch)`` (after
+    the warm-up step) to ``stop``, written as a Chrome trace into ``folder``:
+    the host's ops and, on a CUDA device, every kernel by name."""
+
+    def __init__(self, folder, steps, device):
+        self.folder, self.steps, self.device = folder, int(steps), device
+        self.prof, self.first, self.end = None, 0, 0
+
+    def start(self, epoch):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.start()
+        self.first, self.end = epoch + 1, epoch + self.steps
+
+    def after(self, epoch):
+        if self.prof is not None and epoch >= self.end:
+            self.stop()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.folder, exist_ok=True)
+        self.prof.export_chrome_trace(
+            os.path.join(self.folder, f"trace_from_epoch_{self.first}.json"))
+        self.prof = None
 
 
 class VarNet:
@@ -265,20 +339,11 @@ class VarNet:
         elif fourier_features is not None:
             self.fourier_b = make_fourier_features(gen, n_in, int(fourier_features),
                                                    fourier_scale).to(self.device)
-        net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
-        if activation == "sin":
-            net = init_siren(gen, net_in, self.layer_width, omega0=float(omega0),
-                             device=self.device)
-        else:
-            net = init_mlp(gen, net_in, self.layer_width, device=self.device)
-        hooks = {"src": (source_fn, source_init), "kap": (diff_fn, diff_init),
-                 "vel": (vel_fn, vel_init)}
-        self.theta = net
-        if any(fn is not None for fn, _ in hooks.values()):
-            self.theta = {"net": net}
-            for leaf, (fn, init) in hooks.items():
-                if fn is not None:
-                    self.theta[leaf] = self._as_tensors(init)
+        self._net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
+        self.omega0 = float(omega0)
+        self._hook_inits = {"src": (source_fn, source_init), "kap": (diff_fn, diff_init),
+                            "vel": (vel_fn, vel_init)}
+        self.theta = self._draw_theta(gen)
         self.input_scaling = bool(input_scaling)
         self.scale = self.shift = None
         if self.input_scaling:
@@ -286,6 +351,31 @@ class VarNet:
                 self.static.input_lo, self.static.input_hi, device=self.device)
         self.opt_state = None   # the optimizer state of the last load_model
         self.train_result: Optional[TrainResult] = None
+        self._ensemble_thetas = None   # the stacked members of the last train_ensemble
+
+    def _draw_theta(self, gen: torch.Generator):
+        """A fresh theta: the net drawn from ``gen`` (``init_siren`` for sin, else
+        ``init_mlp``, at the embedding's width with Fourier features) and the
+        hooks' initial leaves."""
+        if self.activation == "sin":
+            net = init_siren(gen, self._net_in, self.layer_width, omega0=self.omega0,
+                             device=self.device)
+        else:
+            net = init_mlp(gen, self._net_in, self.layer_width, device=self.device)
+        if all(fn is None for fn, _ in self._hook_inits.values()):
+            return net
+        theta = {"net": net}
+        for leaf, (fn, init) in self._hook_inits.items():
+            if fn is not None:
+                theta[leaf] = self._as_tensors(init)
+        return theta
+
+    def _init_member(self, i: int):
+        """Member ``i``'s initial theta (``train_ensemble``), drawn as the
+        constructor draws one, from a generator of its own seeded from
+        (seed, i); the Fourier embedding B is the instance's, shared."""
+        seed = int(np.random.SeedSequence([self.seed, int(i)]).generate_state(1)[0])
+        return self._draw_theta(torch.Generator().manual_seed(seed))
 
     @property
     def fourier_bt(self) -> Optional[torch.Tensor]:
@@ -430,7 +520,13 @@ class VarNet:
         verbose: bool = True,
         error_disc: int = 64,
         error_times: int = 5,
+        value_and_jac: Optional[Callable] = None,
         target_error: Optional[float] = None,
+        normalize_residual: bool = True,
+        profile_dir: Optional[str] = None,
+        profile_steps: int = 10,
+        debug_nans: bool = False,
+        matmul_precision: Optional[str] = None,
         max_retries: int = 0,
         retry_backoff: float = 30.0,
     ) -> TrainResult:
@@ -451,14 +547,30 @@ class VarNet:
                      ``epoch_num`` makes the call a no-op that restores theta
                      and leaves the folder alone, so a recovery loop can re-run
                      the same command; an empty folder starts fresh
+        value_and_jac: an override of the general path's value + jacobian
+                     ``f(net, x, activation, scale, shift) -> (u, du/dx)``;
+                     given, the step takes the general path (no fused residual)
         target_error: optional early-stop threshold on rel-L2 error
+        normalize_residual: the interior term as the mean of the support-volume
+                     normalized r_k^2 (default); False: the reference's raw
+                     sum of r_k^2 (``train/loss.py``)
+        profile_dir: a ``torch.profiler`` trace of ``profile_steps`` epochs after
+                     the first (warm-up) one, written as a Chrome trace
+                     (``trace_from_epoch_<first>.json``) into this directory;
+                     on a CUDA device it holds the kernels by name
+        debug_nans:  for this call, autograd's anomaly mode (restored after)
+                     and a finiteness check of every step's loss: a non-finite
+                     loss, or a NaN that anomaly mode finds in a backward,
+                     raises ``FloatingPointError`` naming the epoch (the type
+                     JAX's ``jax_debug_nans`` raises).  The check syncs the
+                     device every step
+        matmul_precision: None / 'highest' / 'float32': every matmul in full
+                     f32 (TF32 off), the port's only precision; reduced values
+                     raise
         max_retries: on a transient device fault (``train/fault.py``),
                      re-enter the loop up to this many times, resuming from
                      the newest checkpoint when ``folderpath`` is set
         retry_backoff: seconds to sleep before each retry
-
-        Matmuls outside the kernel run with TF32 off (exact f32), as the
-        kernel does on the CUDA cores.
         """
         if resume and folderpath is None:
             raise ValueError("resume=True requires folderpath (nothing to resume from)")
@@ -483,10 +595,19 @@ class VarNet:
             return self.train_result
 
         def attempt_fn():
-            with matmul_precision_scope():
-                return self._train_impl(st["epochs"], weight, int(batch_num), save_freq,
-                                        folderpath, st["resume"], verbose, error_disc,
-                                        error_times, target_error)
+            now = {"epoch": 0}   # the epoch running, for debug_nans' messages
+            trace = (None if profile_dir is None
+                     else _TraceWindow(profile_dir, profile_steps, self.device))
+            try:
+                with matmul_precision_scope(matmul_precision or "highest"), (
+                        _nan_checks(now) if debug_nans else contextlib.nullcontext()):
+                    return self._train_impl(st["epochs"], weight, int(batch_num), save_freq,
+                                            folderpath, st["resume"], verbose, error_disc,
+                                            error_times, target_error, value_and_jac,
+                                            normalize_residual, debug_nans, now, trace)
+            finally:
+                if trace is not None:
+                    trace.stop()
 
         def on_fault(_attempt):
             now = newest()
@@ -535,11 +656,15 @@ class VarNet:
             if retry_backoff > 0:
                 time.sleep(float(retry_backoff))
 
-    def _train_impl(self, epoch_num, weight, batch_num, save_freq, folderpath, resume,
-                    verbose, error_disc, error_times, target_error):
+    def _adam_data(self, kind, batch_num, normalize_residual=True, value_and_jac=None):
+        """The device data and loss of an Adam run on the interior residual
+        ``kind`` (``_fused_kind``, or None for the general path): ``(loss_fn,
+        args)``, where ``loss_fn(theta, *args, **rows)`` is one step's loss:
+        ``args`` = (quad, bc, ic, prepared, hard), each per mini-batch (a list)
+        for ``batch_num > 1``; the weights go between ic and prepared.
+        ``value_and_jac`` overrides the general path's value + jacobian
+        (default: the kernels' on ``use_pallas``, else the plain chain)."""
         td = self.static.time_dependent
-        w_full = self._weights(weight)
-        kind = self._fused_kind
         quad_h = pad_quad(self.fixed.quad, batch_num)
         if kind is not None and self.source_fn is not None:
             # the trainable source enters the weak form linearly: the kernel
@@ -548,14 +673,14 @@ class VarNet:
         quad_d = self._to_device(quad_h)
         bc_d = self._to_device(pad_points(self.fixed.bc, 1))
         ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
-        rows = self._rows()
 
         loss_fn = make_loss_fn(self.static, activation=self.activation,
                                has_react=self.has_react, fused=kind is not None,
                                device=self.device, input_scaling=self.input_scaling,
-                               value_and_jac=self._value_and_jac(self.use_pallas),
+                               value_and_jac=value_and_jac or self._value_and_jac(self.use_pallas),
                                apply_fn=self._apply_fn(), hard_mode=self.hard is not None,
-                               nl_vec=self.nl_vec, **self._hook_kwargs())
+                               nl_vec=self.nl_vec, normalize_residual=normalize_residual,
+                               **self._hook_kwargs())
         # one host f64 table build serves the K4 fold or the general path's tables
         hard_h = self._hard_tables(quad_h)
         if batch_num == 1:
@@ -565,7 +690,7 @@ class VarNet:
             hards = [None] * batch_num if hard_h is None else split_rows(hard_h, batch_num)
 
         def prepare(q, hq):
-            # the fused kernel's data layout, ONCE per train call (not per step)
+            # the fused kernel's data layout, ONCE per run (not per step)
             if kind == "precoeff":
                 return prepare_residual_coeffs(q, self.scale, self.shift, time_dependent=td,
                                                has_react=self.has_react, hard=hq,
@@ -589,6 +714,19 @@ class VarNet:
         else:
             prepared = [prepare(q, h) for q, h in zip(quads, hards)]
             hard_d = [hard_tensors(h) for h in hards]
+        return loss_fn, (quads, bc_d, ic_d, prepared, hard_d)
+
+    def _train_impl(self, epoch_num, weight, batch_num, save_freq, folderpath, resume,
+                    verbose, error_disc, error_times, target_error, value_and_jac,
+                    normalize_residual, debug_nans, now, trace):
+        w_full = self._weights(weight)
+        # an explicit value + jacobian takes the general path, as in the JAX package
+        kind = self._fused_kind if value_and_jac is None else None
+        loss_fn, (quads, bc_d, ic_d, prepared, hard_d) = self._adam_data(
+            kind, batch_num, normalize_residual, value_and_jac)
+        rows = self._rows()
+        if debug_nans:
+            loss_fn = _finite_loss(loss_fn, now)
 
         theta = tree_map(lambda v: v.clone().requires_grad_(True), self._params(None))
         optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(theta))
@@ -625,12 +763,17 @@ class VarNet:
         timed_epochs = 0
         report_overhead = 0.0   # host + eval time excluded from throughput
         for epoch in range(start_epoch + 1, start_epoch + epoch_num + 1):
+            now["epoch"] = epoch
             aux = step_fn(theta, quads, bc_d, ic_d, w_full, prepared, hard_d, **rows)
             if t_start is None:
                 self._sync()
                 t_start = time.perf_counter()
+                if trace is not None:
+                    trace.start(epoch)
             else:
                 timed_epochs += 1
+            if trace is not None:
+                trace.after(epoch)
             last = epoch == start_epoch + epoch_num
             if epoch % int(save_freq) == 0 or last:
                 # drain the queued device work first so it counts as training time
@@ -670,6 +813,137 @@ class VarNet:
         if folderpath is not None:
             with open(os.path.join(folderpath, "train_result.json"), "w") as f:
                 json.dump(result.as_dict(), f, indent=2)
+        return result
+
+    # ------------------------------------------------------------------ #
+    # ensembles
+
+    def train_ensemble(
+        self,
+        epoch_num: int,
+        n_members: int = 8,
+        weight: Optional[Sequence[float]] = None,
+        batch_num: int = 1,
+        save_freq: int = 500,
+        verbose: bool = True,
+        error_disc: int = 64,
+        error_times: int = 5,
+        select: str = "error",
+        matmul_precision: Optional[str] = None,
+        normalize_residual: bool = True,
+    ) -> EnsembleResult:
+        """Train ``n_members`` independently seeded nets side by side (reference
+        ``VarNet.train_ensemble``): seed-variance measurement, best-of-E
+        selection, and a spread for ``evaluate_ensemble``.
+
+        Member i starts from ``_init_member(i)``.  The loss is the sum of the
+        member losses, so each member's gradient is its own, and one optimizer
+        steps over every member's leaves: Adam, RMSProp and SGD are elementwise,
+        so that is E independent optimizers.  ``grad_clip`` would couple the
+        members through the joint norm and is refused.  With ``batch_num == 1``
+        and a fused residual (``_fused_kind``) the members run one after another
+        through the fused kernels (K1/K2, K2-FF, K3 or K4), as the JAX package's
+        ``lax.map`` runs them; otherwise each member takes the general path (K5
+        on ``use_pallas``), where the JAX package vmaps: the same sum.
+
+        select: 'error' (rel-L2 against ``pde.c_ex``, the default) or 'loss', the
+        winner's criterion.  After the run ``self.theta`` is the winner,
+        ``self.opt_state`` is None and ``self._ensemble_thetas`` holds every
+        member, stacked on a leading axis as host NumPy arrays (``save_theta_npz``
+        / ``load_theta_npz`` round-trip it).  ``steps_per_sec`` counts ensemble
+        steps, ``quad_evals_per_sec`` member evaluations (x E), report overhead
+        excluded.
+        """
+        if int(n_members) < 2:
+            raise ValueError("train_ensemble needs n_members >= 2")
+        if select not in ("error", "loss"):
+            raise ValueError("select must be 'error' or 'loss'")
+        if self.optimizer_cfg.grad_clip is not None:
+            raise ValueError("grad_clip couples ensemble members through the joint "
+                             "global norm; use grad_clip=None with train_ensemble")
+        with matmul_precision_scope(matmul_precision or "highest"):
+            return self._train_ensemble_impl(int(epoch_num), int(n_members), weight,
+                                             int(batch_num), int(save_freq), verbose,
+                                             error_disc, error_times, select,
+                                             normalize_residual)
+
+    def _train_ensemble_impl(self, epoch_num, e, weight, batch_num, save_freq, verbose,
+                             error_disc, error_times, select, normalize_residual):
+        w_full = self._weights(weight)
+        kind = self._fused_kind if batch_num == 1 else None
+        loss_fn, (quads, bc_d, ic_d, prepared, hard_d) = self._adam_data(
+            kind, batch_num, normalize_residual)
+        rows = self._rows()
+
+        def ens_loss(members, quad, bc, ic, weights, prep, hard=None, **kw):
+            totals = torch.stack([loss_fn(th, quad, bc, ic, weights, prep, hard, **kw)[0]
+                                  for th in members])
+            # the sum: each member's gradient stays its own
+            return totals.sum(), {"member_loss": totals}
+
+        members = [tree_map(lambda v: v.clone().requires_grad_(True),
+                            self._as_tensors(self._init_member(i))) for i in range(e)]
+        optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(members))
+        step_fn = make_train_step(ens_loss, optimizer, batch_num=batch_num)
+
+        result = EnsembleResult(n_members=e)
+        n_real_quad = self.static.n_test * self.static.n_quad_per_test
+        t_start = None
+        timed_epochs = 0
+        report_overhead = 0.0
+        for epoch in range(1, epoch_num + 1):
+            aux = step_fn(members, quads, bc_d, ic_d, w_full, prepared, hard_d, **rows)
+            if t_start is None:
+                self._sync()
+                t_start = time.perf_counter()
+            else:
+                timed_epochs += 1
+            if epoch % save_freq == 0 or epoch == epoch_num:
+                self._sync()
+                t_rep = time.perf_counter()
+                losses = [float(v) for v in aux["member_loss"]]
+                errs = [self.compute_error(th, disc=error_disc, n_times=error_times)
+                        for th in members]
+                elapsed = time.perf_counter() - t_start
+                result.epochs.append(epoch)
+                result.member_losses.append(losses)
+                result.member_errors.append(
+                    [float("nan") if v is None else float(v) for v in errs])
+                result.wall_times.append(elapsed)
+                if verbose:
+                    lo = int(np.argmin(losses))
+                    err_s = ("n/a" if errs[0] is None else
+                             f"best {np.nanmin(result.member_errors[-1]):.3e}"
+                             f" / worst {np.nanmax(result.member_errors[-1]):.3e}")
+                    print(f"[varnet/ens] epoch {epoch:7d}  loss [{min(losses):.4e} .. "
+                          f"{max(losses):.4e}] (member {lo} lowest)  relL2 {err_s}  "
+                          f"({elapsed:.1f}s)", flush=True)
+                report_overhead += time.perf_counter() - t_rep
+
+        self._sync()
+        total_time = time.perf_counter() - t_start - report_overhead if t_start else 0.0
+        result.steps_per_sec = timed_epochs * batch_num / total_time if total_time > 0 else 0.0
+        result.quad_evals_per_sec = (
+            timed_epochs * e * n_real_quad / total_time if total_time > 0 else 0.0)
+
+        final_errs = result.member_errors[-1] if result.member_errors else []
+        if select == "error" and final_errs and not all(np.isnan(v) for v in final_errs):
+            best = int(np.nanargmin(final_errs))
+            result.best_error = float(final_errs[best])
+        else:
+            best = int(np.argmin(result.member_losses[-1]))
+            if final_errs and not np.isnan(final_errs[best]):
+                result.best_error = float(final_errs[best])
+        result.best_member = best
+        self.theta = tree_map(lambda v: v.detach().clone(), members[best])
+        self.opt_state = None   # the joint state does not transfer to train()
+        columns = iter([np.stack(col) for col in
+                        zip(*(tree_leaves(params_to_numpy(m)) for m in members))])
+        self._ensemble_thetas = tree_map(lambda _: next(columns), members[0])
+        if verbose:
+            print(f"[varnet/ens] selected member {best}"
+                  + ("" if result.best_error is None else f" (relL2 {result.best_error:.3e})"),
+                  flush=True)
         return result
 
     # ------------------------------------------------------------------ #
@@ -853,6 +1127,90 @@ class VarNet:
         return result
 
     # ------------------------------------------------------------------ #
+    # L-BFGS refinement
+
+    def refine_lbfgs(
+        self,
+        steps: int = 500,
+        weight: Optional[Sequence[float]] = None,
+        save_freq: int = 100,
+        verbose: bool = True,
+        error_disc: int = 64,
+        error_times: int = 5,
+        memory_size: int = 20,
+        target_error: Optional[float] = None,
+        matmul_precision: Optional[str] = "highest",
+        normalize_residual: bool = True,
+    ) -> TrainResult:
+        """L-BFGS polish after Adam (reference ``VarNet.refine_lbfgs``): full
+        batch, ``optax.lbfgs(memory_size=)``'s two-loop recursion and zoom line
+        search (``train/lbfgs.py``).  The loss is the general path's: its value +
+        jacobian through K5's forward and backward on ``use_pallas`` (K7 with an
+        embedding), the plain chain otherwise.  Each line-search step evaluates
+        the loss and its gradient once; the last one's carry into the next
+        iteration.  ``losses`` hold the loss at the start of each reported
+        iteration, the rel-L2 is that of the iterate after it.
+
+        Start it from a mid-converged Adam state: from a deeply converged one
+        (loss near the f32 line search's resolution) the zoom search cannot
+        certify descent and stalls.
+        """
+        with matmul_precision_scope(matmul_precision):
+            return self._refine_lbfgs_impl(int(steps), weight, int(save_freq), verbose,
+                                           error_disc, error_times, int(memory_size),
+                                           target_error, normalize_residual)
+
+    def _refine_lbfgs_impl(self, steps, weight, save_freq, verbose, error_disc, error_times,
+                           memory_size, target_error, normalize_residual) -> TrainResult:
+        w_full = self._weights(weight)
+        loss_fn, (quad_d, bc_d, ic_d, _, hard_d) = self._adam_data(None, 1, normalize_residual)
+        rows = self._rows()
+        flat, unravel = ravel_params(self._params(None))
+
+        def value_and_grad(vec):
+            vec = vec.detach().requires_grad_(True)
+            with torch.enable_grad():
+                total, _ = loss_fn(unravel(vec), quad_d, bc_d, ic_d, w_full, None, hard_d,
+                                   **rows)
+                (grad,) = torch.autograd.grad(total, vec)
+            return total.detach(), grad
+
+        lbfgs = LBFGS(flat.numel(), memory_size, device=self.device, dtype=flat.dtype)
+        value = grad = None
+        result = TrainResult()
+        t_start = None
+        for it in range(1, steps + 1):
+            if value is None or not math.isfinite(float(value)):
+                # optax.value_and_grad_from_state: the line search's last
+                # evaluation serves the next iteration unless it is not finite
+                value, grad = value_and_grad(flat)
+            start_value = value
+            flat, ls = lbfgs_iteration(value_and_grad, lbfgs, flat, value, grad)
+            value, grad = ls.value, ls.grad
+            if t_start is None:
+                self._sync()
+                t_start = time.perf_counter()
+            if it % save_freq == 0 or it == steps:
+                loss = float(start_value)
+                err = self.compute_error(unravel(flat), disc=error_disc, n_times=error_times)
+                result.epochs.append(it)
+                result.losses.append({"loss": loss})
+                result.errors.append(err if err is not None else float("nan"))
+                result.wall_times.append(time.perf_counter() - t_start)
+                if verbose:
+                    err_s = f"{err:.3e}" if err is not None else "n/a"
+                    print(f"[varnet/lbfgs] it {it:6d}  loss {loss:.4e}  relL2 {err_s}"
+                          f"  ({result.wall_times[-1]:.1f}s)", flush=True)
+                if target_error is not None and err is not None and err < target_error:
+                    if verbose:
+                        print(f"[varnet/lbfgs] target {target_error:.1e} reached")
+                    break
+        self.theta = tree_map(lambda v: v.detach().clone(), unravel(flat))
+        result.total_steps = steps
+        self.train_result = result
+        return result
+
+    # ------------------------------------------------------------------ #
     # persistence
 
     def config_dict(self) -> Dict[str, Any]:
@@ -991,6 +1349,61 @@ class VarNet:
         with torch.no_grad(), matmul_precision_scope():
             out = fn(theta[leaf], torch.as_tensor(x, device=self.device), t_d)
         return out.detach().cpu().numpy()
+
+    def evaluate_ensemble(self, x: np.ndarray, t: Optional[np.ndarray] = None,
+                          mu: Optional[np.ndarray] = None, thetas: Any = None,
+                          chunk: int = 1 << 20, matmul_precision: Optional[str] = "highest",
+                          return_members: bool = False):
+        """Ensemble mean and spread of u at points (reference
+        ``VarNet.evaluate_ensemble``): every member of the last
+        ``train_ensemble`` (or of a stacked ``thetas`` tree with a leading
+        member axis) through ``evaluate``; returns ``(mean [P], std [P])``, and
+        the ``[E, P]`` member matrix with ``return_members``."""
+        thetas = self._ensemble_thetas if thetas is None else thetas
+        if thetas is None:
+            raise ValueError("no ensemble available: run train_ensemble first or pass "
+                             "a stacked thetas pytree")
+        e = tree_leaves(thetas)[0].shape[0]
+        with matmul_precision_scope(matmul_precision):
+            members = np.stack([self.evaluate(x, t=t, mu=mu, chunk=chunk,
+                                              theta=tree_map(lambda a: a[i], thetas))
+                                for i in range(e)])
+        mean, std = members.mean(axis=0), members.std(axis=0)
+        if return_members:
+            return mean, std, members
+        return mean, std
+
+    def evaluate_grad(self, x: np.ndarray, t: Optional[np.ndarray] = None,
+                      mu: Optional[np.ndarray] = None, theta: Any = None,
+                      matmul_precision: Optional[str] = "highest",
+                      chunk: int = 1 << 20) -> Dict[str, np.ndarray]:
+        """u and its input derivatives at points (reference
+        ``VarNet.evaluate_grad``): ``{"u": [P], "grad": [P, d]}`` and ``"u_t":
+        [P]`` for a time-dependent problem, with the exact-BC ansatz applied on
+        the host in f64; conventions as ``evaluate``, in chunks of ``chunk``
+        points.  The value + jacobian runs through K5's forward on
+        ``use_pallas`` (K7 with an embedding), the plain chain otherwise."""
+        coords = self._make_coords(x, t, mu)
+        net = net_of(self._params(theta))
+        vj_fn = self._value_and_jac(self.use_pallas)
+        us, dus = [], []
+        with torch.no_grad(), matmul_precision_scope(matmul_precision):
+            for s in range(0, coords.shape[0], chunk):
+                block = torch.as_tensor(coords[s:s + chunk], dtype=torch.float32,
+                                        device=self.device)
+                u, du = vj_fn(net, block, self.activation, self.scale, self.shift)
+                us.append(u.double().cpu().numpy())
+                dus.append(du.double().cpu().numpy())
+        u = np.concatenate(us) if us else np.zeros(0)
+        du = np.concatenate(dus) if dus else np.zeros((0, coords.shape[1]))
+        d = self.static.n_space
+        grad, u_t = du[:, :d], (du[:, d] if self.static.time_dependent else None)
+        if self.hard is not None:
+            u, grad, u_t = hard_transform(u, grad, u_t, self.hard.tables(coords))
+        out = {"u": u, "grad": grad}
+        if self.static.time_dependent:
+            out["u_t"] = u_t
+        return out
 
     def _hard_combine(self, coords: np.ndarray, u: np.ndarray) -> np.ndarray:
         """The exact-BC ansatz A + B u applied to raw net outputs on the host,
@@ -1201,3 +1614,19 @@ class VarNet:
                                              n_test=info["n_test"])
         self.train_result = merged
         return merged
+
+    # ------------------------------------------------------------------ #
+    # visualization
+
+    def sim_res(self, folderpath: str, disc: int = 64, n_times: int = 5):
+        """Render solution plots into the case folder (reference ``VarNet.simRes``,
+        ``viz/plot.py``).  matplotlib is imported here, on demand: without it
+        this raises an ``ImportError`` that names it."""
+        try:
+            from .viz.plot import plot_solution
+        except ModuleNotFoundError as err:
+            if not (err.name or "").startswith("matplotlib"):
+                raise
+            raise ImportError("VarNet.sim_res needs matplotlib, which is not installed "
+                              "here") from err
+        return plot_solution(self, folderpath, disc=disc, n_times=n_times)

@@ -6,9 +6,11 @@
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--folder`` holds the
 checkpoints (``ckpt_<epoch>/``, meta sidecars, ``config.json``), the training log
 and the result; ``--resume`` continues from its newest checkpoint toward the
-TOTAL ``--epochs`` (a no-op once they are done).  Flags whose machinery is not
-ported yet are accepted by the parser (the JAX package's command lines stay
-valid) and refused with the name of the missing feature.
+TOTAL ``--epochs`` (a no-op once they are done).  ``--ensemble N`` (N >= 2)
+trains N seeded nets side by side and keeps the best (``train_ensemble``);
+``--plot`` renders ``sim_res``'s plots into ``--folder``.  ``--devices`` above 1
+is accepted by the parser (the JAX package's command lines stay valid) and
+refused with the name of the missing feature.
 """
 
 from __future__ import annotations
@@ -21,8 +23,6 @@ from ..train.optim import OptimizerConfig
 
 # flag -> (value that asks for it, the feature it needs)
 UNPORTED = {
-    "ensemble": (lambda v: v >= 2, "ensemble training (train_ensemble)"),
-    "plot": (True, "solution plots (sim_res)"),
     "devices": (lambda v: v is not None and v != 1, "multi-device training"),
 }
 
@@ -47,16 +47,19 @@ def make_parser(desc: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--lm-cg", type=int, default=50)
     p.add_argument("--lm-precond", type=int, default=0,
                    help="Jacobi-PCG probes inside LM (0 = plain CG)")
-    p.add_argument("--ensemble", type=int, default=0, help="not ported yet")
+    p.add_argument("--ensemble", type=int, default=0,
+                   help="train E independently seeded nets side by side and keep the "
+                        "best (train_ensemble)")
     p.add_argument("--batch-num", type=int, default=1)
     p.add_argument("--save-freq", type=int, default=defaults.get("save_freq", 2000))
     p.add_argument("--folder", type=str, default=None,
-                   help="case folder for checkpoints and logs")
+                   help="case folder for checkpoints, logs and plots")
     p.add_argument("--resume", action="store_true",
                    help="continue from the newest checkpoint in --folder")
     p.add_argument("--target", type=float, default=None,
                    help="early-stop rel-L2 error target")
-    p.add_argument("--plot", action="store_true", help="not ported yet")
+    p.add_argument("--plot", action="store_true",
+                   help="render sim_res plots into --folder (needs matplotlib)")
     p.add_argument("--test-order", type=int, default=1, choices=(1, 2),
                    help="test-function order: 1 = hats (reference), 2 = quadratic Lagrange")
     p.add_argument("--hard-bc", action="store_true",
@@ -112,23 +115,53 @@ def run_case(pde, args, weight, t_disc_num=None, **varnet_kwargs) -> VarNet:
         hard_bc=getattr(args, "hard_bc", False),
         **varnet_kwargs,
     )
-    res = vn.train(
-        epoch_num=args.epochs,
-        weight=weight,
-        batch_num=args.batch_num,
-        save_freq=args.save_freq,
-        folderpath=args.folder,
-        resume=args.resume,
-        target_error=args.target,
-    )
-    summary = {
-        "best_rel_l2": res.best_error(),
-        "final_loss": res.losses[-1]["loss"] if res.losses else None,
-        "quad_evals_per_sec": res.quad_evals_per_sec,
-        "steps_per_sec": res.steps_per_sec,
-    }
+    n_ens = getattr(args, "ensemble", 0)
+    if n_ens >= 2:
+        if args.resume:
+            raise SystemExit("--ensemble does not support --resume "
+                             "(members re-initialize per run)")
+        res_e = vn.train_ensemble(
+            epoch_num=args.epochs,
+            n_members=n_ens,
+            weight=weight,
+            batch_num=args.batch_num,
+            save_freq=args.save_freq,
+            matmul_precision=getattr(args, "precision", None),
+        )
+        summary = {
+            "best_rel_l2": res_e.best_error,
+            "best_member": res_e.best_member,
+            "member_rel_l2": res_e.member_errors[-1],
+            "final_loss": min(res_e.member_losses[-1]),
+            "quad_evals_per_sec": res_e.quad_evals_per_sec,
+            "steps_per_sec": res_e.steps_per_sec,
+        }
+    else:
+        res = vn.train(
+            epoch_num=args.epochs,
+            weight=weight,
+            batch_num=args.batch_num,
+            save_freq=args.save_freq,
+            folderpath=args.folder,
+            resume=args.resume,
+            target_error=args.target,
+            matmul_precision=getattr(args, "precision", None),
+        )
+        summary = {
+            "best_rel_l2": res.best_error(),
+            "final_loss": res.losses[-1]["loss"] if res.losses else None,
+            "quad_evals_per_sec": res.quad_evals_per_sec,
+            "steps_per_sec": res.steps_per_sec,
+        }
     r_lm = refine(vn, args, weight)
     if r_lm is not None:
         summary["lm_best_rel_l2"] = r_lm.best_error()
     print(json.dumps(summary))
+    plot(vn, args)
     return vn
+
+
+def plot(vn: VarNet, args) -> None:
+    """``--plot --folder``: the solution plots of ``sim_res`` into the folder."""
+    if getattr(args, "plot", False) and args.folder:
+        vn.sim_res(args.folder)

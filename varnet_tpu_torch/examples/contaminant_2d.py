@@ -15,7 +15,7 @@ multi-scale Fourier basis), the recipe of ``benchmarks/contaminant_causal.py``:
 import json
 
 from ..problems.analytic import contaminant_inlet_2d, contaminant_transport_2d
-from .common import make_parser, optimizer_of, refine, refuse_unported, run_case
+from .common import make_parser, optimizer_of, plot, refine, refuse_unported, run_case
 
 
 def main(argv=None):
@@ -74,6 +74,7 @@ def _run_causal(args, kap, extra):
     if r_lm is not None and r_lm.losses:
         summary["lm_final_loss"] = r_lm.losses[-1]["loss"]
     print(json.dumps(summary))
+    plot(vn, args)
     return vn
 
 

@@ -6,3 +6,4 @@ from .analytic import (
     transient_ad_1d,
     transient_ad_2d,
 )
+from .classical import solve_ad_fdm_2d

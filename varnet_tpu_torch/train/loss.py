@@ -1,7 +1,7 @@
 """Variational (weak-form) total loss: the penalty form of
 ``varnet_tpu/train/loss.py`` and its exact-BC/IC form (``hard_mode``).
 
-    L(theta) = w_int * mean_k |r_k / vol_k|^2
+    L(theta) = w_int * mean_k |r_k / vol_k|^2       (or sum_k r_k^2 unnormalized)
              + w_bc  * mean_bc |u - g|^2
              + w_ic  * mean_ic |u - u0|^2
              + w_bc  * mean_neu |alpha u + dirs . grad u - g_n|^2   (Neumann/Robin)
@@ -87,6 +87,7 @@ def make_loss_fn(
     has_obs: bool = False,
     n_obs_real: int = 1,
     flux_value_and_jac: Optional[Callable] = None,
+    normalize_residual: bool = True,
 ):
     """Build ``loss_fn(theta, quad, bc, ic=None, weights=(1, 1, 1), prepared=None,
     hard=None, obs=None, neu=None, hard_obs=None, hard_neu=None) -> (total, aux)``
@@ -117,6 +118,10 @@ def make_loss_fn(
     with ``prepared`` built from a zeroed ``quad.src``.
     ``has_obs``: observation rows against ``obs``, over ``n_obs_real`` real
     points, weighted by ``weights[3]`` (weights is then the 4-slot vector).
+    ``normalize_residual``: r_k divided by its test function's support volume
+    and the sum of squares by the real test-function count (the default);
+    False gives the reference's raw masked sum of r_k^2.  Either way outside
+    the kernels.
     """
     if fused and (diff_fn is not None or vel_fn is not None):
         # the fused kernels integrate the FIXED kappa / velocity: accepting a
@@ -178,11 +183,14 @@ def make_loss_fn(
                 react=quad.react if has_react else None,
                 nl_vec=nl,
             )
-        # r_k scales with the test-function support volume (per node for
-        # per-node tables); the mean over the real test-function count makes
-        # the loss mesh-size independent
-        r = r / support_volume(quad.w)
-        loss_int = masked_sum_sq(r, quad.mask) / float(max(static.n_test, 1))
+        if normalize_residual:
+            # r_k scales with the test-function support volume (per node for
+            # per-node tables); the mean over the real test-function count
+            # makes the loss mesh-size independent
+            r = r / support_volume(quad.w)
+            loss_int = masked_sum_sq(r, quad.mask) / float(max(static.n_test, 1))
+        else:
+            loss_int = masked_sum_sq(r, quad.mask)
 
         if hard_mode:  # exact by construction; the aux keys stay for logging
             loss_bc = torch.zeros_like(loss_int)

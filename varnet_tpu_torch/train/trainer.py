@@ -100,3 +100,35 @@ class TrainResult:
     def best_error(self) -> Optional[float]:
         return min(self.errors) if self.errors else None
 
+
+
+@dataclass
+class EnsembleResult:
+    """History of a multi-seed ensemble run (``VarNet.train_ensemble``): E
+    independently seeded nets trained side by side, one optimizer update per
+    step over all of them."""
+
+    epochs: List[int] = field(default_factory=list)
+    member_losses: List[List[float]] = field(default_factory=list)  # [T][E]
+    member_errors: List[List[float]] = field(default_factory=list)  # [T][E]
+    wall_times: List[float] = field(default_factory=list)
+    best_member: int = 0
+    best_error: Optional[float] = None
+    n_members: int = 0
+    # member-evaluations/s: epochs * E * n_quad / wall (each member
+    # evaluates every quad point every epoch)
+    quad_evals_per_sec: float = 0.0
+    steps_per_sec: float = 0.0
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "epochs": self.epochs,
+            "member_losses": self.member_losses,
+            "member_errors": self.member_errors,
+            "wall_times": self.wall_times,
+            "best_member": self.best_member,
+            "best_error": self.best_error,
+            "n_members": self.n_members,
+            "quad_evals_per_sec": self.quad_evals_per_sec,
+            "steps_per_sec": self.steps_per_sec,
+        }
