@@ -209,6 +209,17 @@ is non-zero and no result line is printed):
                3-epoch window of the general path naming ``vj_fwd_kernel`` and
                ``vj_bwd_kernel``; a NaN leaf under ``debug_nans`` raises
                ``FloatingPointError`` and leaves autograd's anomaly mode off.
+23. multi   -- data parallel (``varnet_tpu_torch/parallel/mesh.py``) on the one card: the
+               bench-shape Adam (20 epochs through K1/K2) and the w48x3 LM from the
+               flagship 8.3e-4 theta (2 x cg 20, k_chunks 16, through K5/K6) with no
+               process group, then under an NCCL group of world size 1 (losses and end
+               theta equal to the bit, 20 and 45 all-reduces), then on two ranks, two
+               processes sharing ``cuda:0`` through gloo (NCCL takes one GPU per rank):
+               losses within rtol 2e-4 (Adam) and 2e-2 (LM) of the no-group run, the
+               same all-reduce census, each rank launching K1/K2 once per epoch and
+               K5/K6 at least steps x cg_iters times; steps/s of the three beside the
+               card's name and power limit (two processes sharing one card: not a
+               scaling figure).  Multi-GPU NCCL is not run: the machine has one card.
 
 Cuts: the contaminant recipe (``benchmarks/contaminant_causal.py``) runs 8000 Adam
 epochs per window and 12 LM iterations of cg 150; here 8 epochs per window and 2 LM
@@ -410,8 +421,8 @@ def _bench_vn(widths, mesh=None, theta=None, **kw):
     from varnet_tpu_torch import VarNet
     from varnet_tpu_torch.problems.analytic import transient_ad_2d
 
-    vn = VarNet(transient_ad_2d()["pde"], layer_width=widths, device="cuda", **(mesh or BENCH),
-                **kw)
+    kw.setdefault("device", "cuda")
+    vn = VarNet(transient_ad_2d()["pde"], layer_width=widths, **(mesh or BENCH), **kw)
     if theta is not None:
         vn.theta = [{k: v.clone() for k, v in layer.items()} for layer in theta]
     return vn
@@ -2572,6 +2583,195 @@ def phase_rest():
 
 
 # ---------------------------------------------------------------------------
+# multi: data parallel through parallel/mesh.py on one card
+
+MULTI_ADAM_EPOCHS = 20            # bench-shape Adam, d48/t32 w20x2, through K1/K2
+MULTI_LM_NET = (48, 48, 48)       # LM from the flagship 8.3e-4 theta, through K5/K6 (LM)
+
+
+def _multi_runs(census, kinds=("adam", "lm")):
+    """The multi phase's runs in this process, on ``cuda:0``: "adam", 20 bench-shape
+    Adam epochs from the seed-0 net; "lm", LM (``LM``) from ``LM_START``; "lm_precond",
+    the same LM with 2 Jacobi probes (elementwise diagonal).  Each run's K1/K2 or K5/K6 counters are set to 0
+    just before it and read just after, and its ``torch.distributed.all_reduce`` calls
+    counted into ``census``.  Returns {kind: ...}: losses, launches, all-reduces,
+    steps/s, end theta."""
+    import torch
+
+    from varnet_tpu_torch import load_theta_npz, params_from_jax
+    from varnet_tpu_torch.models.mlp import ravel_params
+    from varnet_tpu_torch.ops import fused_residual as fr
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    out = {}
+    for kind in kinds:
+        counters = ((fr.dir_residual_fwd, fr.dir_residual_bwd) if kind == "adam"
+                    else (vj.vj_fwd, vj.vj_bwd, vj.vj_jvp))
+        # the elementwise diagonal: the per-leaf mode sums with index_add_, whose
+        # CUDA atomics add in an order that varies from run to run
+        precond = dict(precond=2, precond_mode="diag") if kind == "lm_precond" else {}
+        if kind == "adam":
+            vn = _bench_vn((20, 20), device="cuda:0")
+            call = lambda: vn.train(epoch_num=MULTI_ADAM_EPOCHS, weight=WEIGHT, save_freq=1,
+                                    verbose=False, error_disc=8, error_times=2)
+        else:
+            vn = _bench_vn(MULTI_LM_NET, device="cuda:0",
+                           theta=params_from_jax(load_theta_npz(LM_START), device="cuda:0"))
+            call = lambda: vn.refine_lm(save_freq=1, verbose=False, weight=WEIGHT,
+                                        error_disc=8, error_times=2, **LM, **precond)
+        for c in counters:
+            c.launches = 0
+        census[0] = 0
+        res = call()
+        torch.cuda.synchronize()
+        out[kind] = {"losses": _losses(res).tolist(), "all_reduce": census[0],
+                     "launches": {c.__name__: c.launches for c in counters},
+                     "steps_per_sec": res.steps_per_sec, "n_shards": vn.n_shards,
+                     "theta": ravel_params(vn.theta)[0].cpu().numpy()}
+        del vn
+    return out
+
+
+def _counting_all_reduce():
+    """Wrap ``torch.distributed.all_reduce`` with a counter: [calls]."""
+    import torch
+
+    census, inner = [0], torch.distributed.all_reduce
+
+    def counted(*a, **k):
+        census[0] += 1
+        return inner(*a, **k)
+
+    torch.distributed.all_reduce = counted
+    return census
+
+
+def multi_child(rank, world, port, out_path):
+    """One rank of the multi phase's gloo group on ``cuda:0``: ``_multi_runs``, its
+    losses, launches and all-reduce counts written to ``out_path`` (JSON)."""
+    import torch
+
+    from varnet_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed("gloo", f"tcp://localhost:{port}", world_size=world, rank=rank)
+    try:
+        out = _multi_runs(_counting_all_reduce())
+    finally:
+        torch.distributed.destroy_process_group()
+    for run in out.values():
+        run["theta"] = run["theta"].tolist()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_multi():
+    """Data parallel (``parallel/mesh.py``) on the one card.  (a) The bench-shape Adam
+    (20 epochs through K1/K2) and the LM (2 x cg 20 at w48x3 through K5/K6), also with
+    2 Jacobi probes (elementwise diagonal), with no process group, then under an NCCL group of world size 1:
+    the same losses and end theta to the bit, one all-reduce per Adam update and
+    1 + steps x (2 + cg_iters) in each LM (the probes ride the init's all-reduce).  (b) The same two runs on two ranks, two processes sharing ``cuda:0``
+    through gloo (NCCL refuses two ranks on one GPU): losses within rtol 2e-4 (Adam)
+    and 2e-2 (LM) of the no-group run, the same census, and each rank launching K1/K2
+    at least once per epoch and K5/K6 steps x cg_iters times on its half of the
+    test functions.  A child's failure fails the phase.  steps/s of the two ranks are
+    of two processes sharing one card, not a scaling figure."""
+    import tempfile
+
+    import torch
+
+    from varnet_tpu_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    lm_reduces = 1 + LM["steps"] * (2 + LM["cg_iters"])   # the start loss, then per iteration
+    census = _counting_all_reduce()
+    kinds = ("adam", "lm", "lm_precond")
+    alone = _multi_runs(census, kinds)
+    if any(alone[k]["all_reduce"] for k in alone):
+        raise AssertionError(f"no group: all-reduces {[alone[k]['all_reduce'] for k in alone]}")
+    initialize_distributed("nccl", f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        nccl = _multi_runs(census, kinds)
+    finally:
+        torch.distributed.destroy_process_group()
+    for kind, need in (("adam", MULTI_ADAM_EPOCHS), ("lm", lm_reduces),
+                       ("lm_precond", lm_reduces)):
+        a, b = alone[kind], nccl[kind]
+        if not (a["losses"] == b["losses"] and np.array_equal(a["theta"], b["theta"])
+                and np.all(np.isfinite(a["losses"])) and b["all_reduce"] == need
+                and b["n_shards"] == 1):
+            raise AssertionError(f"multi nccl world 1 {kind}: losses {b['losses']} vs "
+                                 f"{a['losses']}, theta equal "
+                                 f"{np.array_equal(a['theta'], b['theta'])}, all-reduces "
+                                 f"{b['all_reduce']} (need {need})")
+    log("multi nccl world 1", adam_all_reduce=nccl["adam"]["all_reduce"],
+        lm_all_reduce=nccl["lm"]["all_reduce"], bit_equal=True,
+        adam_loss_end=f"{nccl['adam']['losses'][-1]:.6e}",
+        lm_loss_end=f"{nccl['lm']['losses'][-1]:.6e}",
+        lm_precond_all_reduce=nccl["lm_precond"]["all_reduce"],
+        lm_precond_loss_end=f"{nccl['lm_precond']['losses'][-1]:.6e}")
+
+    port, tmp = _free_port(), tempfile.mkdtemp(prefix="multi_", dir=os.path.join(ROOT, "build"))
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    code = "import sys, chip_smoke as c; c.multi_child(int(sys.argv[1]), 2, sys.argv[2], sys.argv[3])"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port), outs[r]], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multi rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    worst = {}
+    for kind, band, need in (("adam", 2e-4, MULTI_ADAM_EPOCHS), ("lm", 2e-2, lm_reduces)):
+        ref = np.asarray(alone[kind]["losses"])
+        got = np.asarray(ranks[0][kind]["losses"])
+        worst[kind] = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        min_launch = MULTI_ADAM_EPOCHS if kind == "adam" else LM["steps"] * LM["cg_iters"]
+        bad = [r for r, run in enumerate(ranks)
+               if run[kind]["all_reduce"] != need or run[kind]["n_shards"] != 2
+               or min(run[kind]["launches"].values()) < min_launch
+               or run[kind]["losses"] != ranks[0][kind]["losses"]
+               or run[kind]["theta"] != ranks[0][kind]["theta"]]
+        if bad or not (np.all(np.isfinite(got)) and worst[kind] <= band):
+            raise AssertionError(f"multi 2 ranks {kind}: ranks {bad} off (census, launches or "
+                                 f"disagreement): {[run[kind]['all_reduce'] for run in ranks]}"
+                                 f" all-reduces, launches "
+                                 f"{[run[kind]['launches'] for run in ranks]}, losses {got} "
+                                 f"vs {ref} ({worst[kind]:.3e} > {band})")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    secs = time.perf_counter() - t0
+    log("multi 2 ranks gloo cuda:0", adam_max_rel_diff=f"{worst['adam']:.3e}",
+        lm_max_rel_diff=f"{worst['lm']:.3e}",
+        adam_all_reduce=ranks[0]["adam"]["all_reduce"], lm_all_reduce=ranks[0]["lm"]["all_reduce"],
+        **{f"rank{r}_{k}": v for r, run in enumerate(ranks)
+           for k, v in {**run["adam"]["launches"], **run["lm"]["launches"]}.items()},
+        lm_losses=",".join(f"{v:.6e}" for v in ranks[0]["lm"]["losses"]))
+    log("multi steps/s", card=repr(card),
+        two_ranks_sharing_one_card=f"{ranks[0]['adam']['steps_per_sec']:.4f}",
+        one_process=f"{alone['adam']['steps_per_sec']:.4f}",
+        nccl_world_1=f"{nccl['adam']['steps_per_sec']:.4f}", seconds=f"{secs:.1f}")
+    return {"seconds": secs}
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 
 PEAK_F32 = 67e12   # FLOP/s, f32 outside the tensor cores (H100 SXM data sheet)
@@ -2693,6 +2893,7 @@ def main():
     phase_burgers_lm()
     inverse = phase_inverse()
     rest = phase_rest()
+    multi = phase_multi()
     # L-BFGS s / iteration over its evaluations x K5 fwd + bwd at the same net and points
     k5 = v48x2["fwd"]["ms"] + v48x2["bwd"]["ms"]
     log("rest lbfgs / K5", k5_fwd_bwd_ms=f"{k5:.4f}",
@@ -2709,7 +2910,8 @@ def main():
     log("done", seconds=f"{time.perf_counter() - t0:.1f}",
         burgers_seconds=f"{time.perf_counter() - t_burgers:.1f}",
         resume_seconds=f"{resume_s:.1f}", siren_ff_mlp_seconds=f"{siren_ff_s:.1f}",
-        inverse_seconds=f"{inverse['seconds']:.1f}", rest_seconds=f"{rest['seconds']:.1f}")
+        inverse_seconds=f"{inverse['seconds']:.1f}", rest_seconds=f"{rest['seconds']:.1f}",
+        multi_seconds=f"{multi['seconds']:.1f}")
 
     p_bench, k_bench = k20["points"], k20["k"]
     src = "varnet_tpu_torch/csrc/"

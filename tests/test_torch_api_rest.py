@@ -34,17 +34,7 @@ from varnet_tpu_torch.models.mlp import make_input_scaling, mlp_value_and_jac
 from varnet_tpu_torch.ops.fused_residual import prepare_residual_data
 from varnet_tpu_torch.problems import analytic
 from varnet_tpu_torch.train.loss import make_loss_fn
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread for this module's runs (their tensors are small, and
-    several test processes share the machine's cores); the setting is restored
-    after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 MESH = dict(layer_width=(10, 10), disc_num=6, b_disc_num=5, t_disc_num=3)

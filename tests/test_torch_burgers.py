@@ -29,6 +29,7 @@ from varnet_tpu_torch.ops.fused_residual import prepare_residual_data
 from varnet_tpu_torch.ops.residual import weak_residual
 from varnet_tpu_torch.problems import analytic
 from varnet_tpu_torch.train.loss import make_loss_fn
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("per_node", [False, True], ids=["shared", "per-node"])

@@ -16,6 +16,8 @@ from varnet_tpu.problems.analytic import contaminant_transport_2d as jax_contami
 from varnet_tpu_torch import VarNet, params_from_jax
 from varnet_tpu_torch.problems.analytic import contaminant_transport_2d
 from varnet_tpu_torch.train.causal import train_causal
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 NET = dict(layer_width=(16, 16), disc_num=8, b_disc_num=4, t_disc_num=4,
            fourier_features=8, fourier_scale=[0.5, 2.0], input_scaling=False)

@@ -34,6 +34,8 @@ from varnet_tpu_torch.train.checkpoint import (
     load_meta,
 )
 from varnet_tpu_torch.utils import io as port_io
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 STEADY = dict(layer_width=(8, 8), disc_num=12, device="cpu")
 TRAIN = dict(weight=(1.0, 1.0), verbose=False, error_disc=16)

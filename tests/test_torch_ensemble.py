@@ -15,7 +15,6 @@ within rtol 2e-4; the stacked members round-trip through the npz helpers."""
 import jax
 import numpy as np
 import pytest
-import torch
 
 from varnet_tpu.api import VarNet as JaxVarNet
 from varnet_tpu.problems.analytic import transient_ad_2d as jax_transient_ad_2d
@@ -23,17 +22,7 @@ from varnet_tpu.train.optim import OptimizerConfig as JaxOptimizerConfig
 from varnet_tpu_torch import OptimizerConfig, VarNet, load_theta_npz, save_theta_npz
 from varnet_tpu_torch.models.mlp import tree_leaves
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread for this module's runs (their tensors are small, and
-    several test processes share the machine's cores); the setting is restored
-    after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 MESH = dict(layer_width=(12, 12), disc_num=6, b_disc_num=5, t_disc_num=3)

@@ -113,13 +113,16 @@ def test_cli_resume_needs_folder():
                                           (["--devices", "2"], "multi-device")])
 def test_unported_flags_name_their_feature(flag, feature, monkeypatch, tmp_path):
     """The flags the port once refused: ``--ensemble`` and ``--plot`` now reach
-    their feature (``train_ensemble``, ``sim_res``); ``--devices`` above 1 still
-    exits naming the missing one."""
+    their feature (``train_ensemble``, ``sim_res``); ``--devices`` above 1 runs
+    under torchrun (``tests/test_torch_distributed.py``), and without torchrun's
+    environment exits with the torchrun command that starts it."""
     from varnet_tpu_torch.examples import ad1d_steady
 
     argv = TINY + ["--disc", "6", "--device", "cpu", "--folder", str(tmp_path)] + flag
     if feature == "multi-device":
-        with pytest.raises(SystemExit, match=feature):
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        with pytest.raises(SystemExit, match=f"{feature}.*torchrun --nproc_per_node 2 -m "
+                                             r"varnet_tpu_torch\.examples\..* --devices 2"):
             ad1d_steady.main(argv)
         return
     from varnet_tpu_torch import VarNet

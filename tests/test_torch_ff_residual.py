@@ -24,6 +24,7 @@ from varnet_tpu_torch.fem.assembly import build_fixed_data
 from varnet_tpu_torch.models.mlp import make_input_scaling, params_from_jax
 from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 def _theta(n_feat=8, widths=(16, 16), seed=0, siren=False):

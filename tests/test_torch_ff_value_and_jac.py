@@ -24,6 +24,8 @@ from varnet_tpu.models.mlp import make_input_scaling as jax_scaling
 from varnet_tpu.ops.pallas_mlp import pallas_ff_value_and_jac, pallas_ff_value_and_jac_jvp
 from varnet_tpu_torch.models.mlp import make_input_scaling, params_from_jax
 from varnet_tpu_torch.ops import value_and_jac as vj
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 LO, HI = np.array([0.0, 0.0, 0.0, -1.0]), np.array([2.0, 1.0, 1.0, 1.0])
 

@@ -35,6 +35,8 @@ from varnet_tpu_torch.ops.fused_residual import prepare_residual_coeffs, prepare
 from varnet_tpu_torch.problems import analytic
 from varnet_tpu_torch.problems.adpde import RobinBC
 from varnet_tpu_torch.train.loss import make_loss_fn
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 FLUX = ["steady_ad_1d_neumann", "steady_ad_2d_neumann"]
 MESH = dict(disc_num=4, b_disc_num=4, device="cpu")

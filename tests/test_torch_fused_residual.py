@@ -23,6 +23,8 @@ from varnet_tpu.problems.analytic import (steady_ad_1d, steady_adr_1d, transient
                                          transient_ad_3d)
 from varnet_tpu_torch.models.mlp import params_from_jax
 from varnet_tpu_torch.ops import fused_residual as fr
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 CASES = [  # name, factory, assembly kwargs, time-dependent, reaction, widths
     ("2dt", transient_ad_2d, dict(disc_num=8, b_disc_num=6, t_disc_num=4), True, False,

@@ -28,6 +28,8 @@ from varnet_tpu_torch.ops.value_and_jac import value_and_jac
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
 from varnet_tpu_torch.train import gauss_newton as gn
 from varnet_tpu_torch.train.loss import make_loss_fn
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 WEIGHTS = [1.0, 10.0, 10.0, 0.0]
 VJ = {"general": mlp_value_and_jac, "kernel_fn": value_and_jac}
@@ -141,7 +143,8 @@ def test_jv_and_jtw_match_jax(problem, vj, k_chunks):
 
 def test_probe_estimator_and_leaf_reduce_match_jax(problem):
     """Given the same Rademacher matrix (drawn in JAX), the diag(J^T J)
-    estimate and its per-leaf reduction agree."""
+    estimate (the probes' mean square, then its floor) and its per-leaf
+    reduction agree."""
     closure, flat, jclosure, jflat = _closures(problem)
     jr, jpullback = jax.vjp(jclosure, jflat)
     n_r, n_probes = jr.shape[0], 4
@@ -149,7 +152,7 @@ def test_probe_estimator_and_leaf_reduce_match_jax(problem):
     jdiag = jgn._diag_probe_est(jpullback, n_r, n_probes, jnp.float32, key)
     z = np.array(jax.random.rademacher(key, (n_probes, n_r), dtype=jnp.float32))
     _, pullback = gn.linearize(closure, flat)
-    diag = gn._diag_probe_est(pullback, torch.from_numpy(z))
+    diag = gn._floor_diag(gn._diag_probe_est(pullback, torch.from_numpy(z)))
     _close(diag.numpy(), jdiag, 1e-4)
 
     segs = leaf_segments(params_from_jax(problem["raw"]))

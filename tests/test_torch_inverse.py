@@ -41,6 +41,8 @@ from varnet_tpu_torch.problems import analytic
 from varnet_tpu_torch.train.loss import make_loss_fn, obs_weight_slots
 from varnet_tpu_torch.utils.helpers import rel_l2_error
 from varnet_tpu_torch.utils.io import load_theta_npz
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmarks",
                        "results")

@@ -26,6 +26,7 @@ from varnet_tpu.ops.pallas_residual import pallas_fused_residual
 from varnet_tpu.problems import analytic
 from varnet_tpu_torch.models.mlp import params_from_jax
 from varnet_tpu_torch.ops import fused_residual as fr
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 def _burgers_react():

@@ -29,17 +29,7 @@ from varnet_tpu.problems.analytic import transient_ad_2d as jax_transient_ad_2d
 from varnet_tpu_torch import VarNet, params_from_jax
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
 from varnet_tpu_torch.train.lbfgs import LBFGS, lbfgs_iteration
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread for this module's runs (their tensors are small, and
-    several test processes share the machine's cores); the setting is restored
-    after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 RNG = np.random.default_rng(7)

@@ -12,6 +12,8 @@ from varnet_tpu.api import VarNet as JaxVarNet
 from varnet_tpu.problems.analytic import transient_ad_2d as jax_transient_ad_2d
 from varnet_tpu_torch import VarNet, params_from_jax
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 MESH = dict(layer_width=(20, 20), disc_num=8, b_disc_num=6, t_disc_num=4)
 LM = dict(steps=2, weight=(1.0, 10.0, 10.0), cg_iters=5, save_freq=1, verbose=False,

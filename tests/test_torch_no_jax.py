@@ -11,7 +11,9 @@ through the flux, observation and inverse rows (``neumann_2d`` with ``--hard-bc`
 ``inverse_coeff --recover vel``, ``inverse_source`` with ``--folder`` and
 ``--resume``), nor through ensembles, L-BFGS, ``evaluate_grad``, the profiler and
 NaN hooks, ``sim_res``, the classical solver and the ``--ensemble`` / ``--plot``
-CLI flags."""
+CLI flags, nor through the data-parallel layer (``parallel/mesh.py``: Adam with
+mini-batches, an ensemble, LM with probes and L-BFGS under a one-rank gloo group)
+and a float64 run."""
 
 import os
 import subprocess
@@ -120,6 +122,24 @@ solve_ad_fdm_2d(transient_ad_2d()["pde"], nx=6, ny=6, nt=4)
 ad2d_transient.main(["--epochs", "2", "--save-freq", "1", "--width", "4", "--bdisc", "3",
                      "--disc", "4", "--tdisc", "3", "--ensemble", "2", "--plot", "--folder",
                      tmp + "/ens", "--device", "cpu"])
+import torch
+from varnet_tpu_torch.parallel import initialize_distributed
+sys.path.insert(0, "tests")
+from _torch_dist_runs import free_port
+port = free_port()
+assert initialize_distributed("gloo", f"tcp://localhost:{port}", world_size=1, rank=0) == 1
+dv = VarNet(transient_ad_2d()["pde"], layer_width=(8, 8), disc_num=4, b_disc_num=4,
+            t_disc_num=3, device="cpu", n_devices=1)
+assert dv.mesh.distributed
+dv.train(epoch_num=2, batch_num=2, save_freq=2, verbose=False, error_disc=4, error_times=2)
+dv.train_ensemble(epoch_num=1, n_members=2, save_freq=1, verbose=False, error_disc=4,
+                  error_times=2)
+dv.refine_lm(steps=1, cg_iters=2, precond=2, verbose=False, error_disc=4, error_times=2)
+dv.refine_lbfgs(steps=1, save_freq=1, verbose=False, error_disc=4, error_times=2)
+torch.distributed.destroy_process_group()
+VarNet(transient_ad_2d()["pde"], layer_width=(8, 8), disc_num=4, b_disc_num=4, t_disc_num=3,
+       device="cpu", dtype=torch.float64).train(epoch_num=1, save_freq=1, verbose=False,
+                                                error_disc=4, error_times=2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "varnet_tpu"))
 print("IMPORTED:", bad)

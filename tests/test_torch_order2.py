@@ -22,6 +22,8 @@ from varnet_tpu_torch.ops.fused_residual import prepare_residual_coeffs
 from varnet_tpu_torch.ops.residual import weak_residual
 from varnet_tpu_torch.problems import analytic
 from varnet_tpu_torch.train.loss import make_loss_fn
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 MESHES = [
     ("transient_ad_2d", dict(disc_num=6, b_disc_num=4, t_disc_num=4)),

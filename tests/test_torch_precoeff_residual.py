@@ -32,6 +32,8 @@ from varnet_tpu.problems.analytic import (
 )
 from varnet_tpu_torch.models.mlp import params_from_jax
 from varnet_tpu_torch.ops import fused_residual as fr
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 # name, factory, assembly kwargs, time-dependent, reaction, hard, widths
 CASES = [

@@ -38,6 +38,8 @@ from varnet_tpu_torch.models.mlp import init_mlp, make_input_scaling, params_to_
 from varnet_tpu_torch.ops.fused_residual import prepare_residual_data
 from varnet_tpu_torch.problems import analytic
 from varnet_tpu_torch.train.loss import make_loss_fn
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 MESH = dict(layer_width=(16, 16), disc_num=8, b_disc_num=6, t_disc_num=4, activation="sin")
 ADAM = dict(epoch_num=20, weight=(1.0, 10.0, 10.0), save_freq=1, verbose=False,

@@ -42,6 +42,7 @@ import torch
 from varnet_tpu_torch.ops import fused_residual as fr
 from varnet_tpu_torch.ops import value_and_jac as vj
 from varnet_tpu_torch.ops.fused_residual import _act_triple
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 def _act_of_a(name):

@@ -17,6 +17,8 @@ from varnet_tpu_torch import VarNet
 from varnet_tpu_torch.models.mlp import params_from_jax, params_to_numpy
 from varnet_tpu_torch.problems.analytic import transient_ad_2d
 from varnet_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+from _torch_threads import _one_intra_op_thread  # noqa: F401
+
 
 OPT_CASES = {
     "adam": dict(name="adam", lr=1e-2),

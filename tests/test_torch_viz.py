@@ -12,23 +12,12 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
 
 from varnet_tpu.api import VarNet as JaxVarNet
 from varnet_tpu.problems import analytic as jax_analytic
 from varnet_tpu_torch import VarNet, params_from_jax
 from varnet_tpu_torch.problems import analytic
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread for this module's runs (their tensors are small, and
-    several test processes share the machine's cores); the setting is restored
-    after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _one_intra_op_thread  # noqa: F401
 
 
 CASES = {  # factory name, mesh

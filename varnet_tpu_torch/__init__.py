@@ -15,15 +15,31 @@ penalty rows; inverse problems (``VarNet(source_fn=, diff_fn=, vel_fn=,
 obs_data=)``, ``models/source.py``) train a source, diffusivity or velocity
 with the net against observation rows.  Ensembles (``VarNet.train_ensemble``),
 L-BFGS (``VarNet.refine_lbfgs``, optax's method), ``evaluate_grad`` and the solution
-plots (``VarNet.sim_res``, matplotlib on demand) run on the same kernels.  The JAX
-package ``varnet_tpu`` is the reference this port is tested against; this package
-imports no JAX.
+plots (``VarNet.sim_res``, matplotlib on demand) run on the same kernels.  Under a
+``torch.distributed`` process group (``parallel/mesh.py``, ``VarNet(n_devices=)``,
+torchrun) every training entry point runs data parallel, each rank on its block of
+the test functions.  The JAX package ``varnet_tpu`` is the reference this port is
+tested against; this package imports no JAX.
 """
 
 from .api import VarNet
-from .fem.assembly import FixedData, PointData, ProblemStatic, QuadData, build_fixed_data
+from .fem.assembly import (
+    FixedData,
+    FluxData,
+    PointData,
+    ProblemStatic,
+    QuadData,
+    build_fixed_data,
+)
 from .fem.element import HatQuadrature, MasterElement
-from .geometry.domain import Domain1D, RectangleDomain2D
+from .geometry.domain import (
+    BoxDomain3D,
+    BoxDomainND,
+    Domain1D,
+    PolygonDomain2D,
+    PrismDomain3D,
+    RectangleDomain2D,
+)
 from .models.mlp import (
     ff_apply,
     ff_value_and_jac,
@@ -52,6 +68,10 @@ __all__ = [
     "NeumannBC",
     "RobinBC",
     "Domain1D",
+    "BoxDomain3D",
+    "BoxDomainND",
+    "PolygonDomain2D",
+    "PrismDomain3D",
     "RectangleDomain2D",
     "MasterElement",
     "HatQuadrature",
@@ -59,6 +79,7 @@ __all__ = [
     "FixedData",
     "QuadData",
     "PointData",
+    "FluxData",
     "ProblemStatic",
     "init_mlp",
     "init_siren",

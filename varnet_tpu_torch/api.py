@@ -17,6 +17,13 @@ embedding); on the CPU through their plain versions.  An ensemble's members run
 one after another through the same kernels.  ``train`` and ``refine_lm`` checkpoint into a case folder
 (``train/checkpoint.py``), resume from it with global step numbering, and retry
 transient device faults (``train/fault.py``), as the JAX package's do.
+
+Data parallel (``parallel/mesh.py``, ``n_devices``): under an initialized
+``torch.distributed`` group each rank holds its contiguous block of the
+test-function axis (and of the BC / IC / observation / flux rows), runs the
+same kernels on it, and the Adam, ensemble, LM and L-BFGS steps sum their
+per-rank parts with packed all-reduces; evaluation runs whole on every rank,
+and rank 0 alone writes the case folder.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from .fem.adaptive import refine_fixed
 from .fem.assembly import (
     FixedData,
+    QuadData,
     _pad_axis0,
     build_fixed_data,
     pad_flux,
@@ -65,6 +73,18 @@ from .models.mlp import (
 from .ops import value_and_jac as vj
 from .ops.fused_residual import prepare_residual_coeffs, prepare_residual_data
 from .ops.residual import hook_fields, support_volume, weak_residual
+from .parallel.mesh import (
+    all_reduce_sum,
+    barrier,
+    default_device,
+    make_mesh,
+    replicate,
+    shard_flux,
+    shard_hard,
+    shard_points,
+    shard_quad,
+    shard_rows,
+)
 from .problems.adpde import ADPDE, NeumannBC, RobinBC
 from .train.checkpoint import (
     list_checkpoint_steps,
@@ -83,8 +103,9 @@ from .train.trainer import (
     EnsembleResult,
     TrainResult,
     make_train_step,
-    split_batches,
-    split_rows,
+    pad_axis1,
+    pad_batched_axis1,
+    reshape_batches,
 )
 from .utils.helpers import matmul_precision_scope, rel_l2_error
 
@@ -176,7 +197,18 @@ class VarNet:
       omega0:       SIREN's layer-0 frequency (activation 'sin' only)
       seed:         seed of the ``torch.Generator`` that draws the initial net
       device:       torch device of the fixed data, parameters and training;
-                    'cuda' raises when no GPU is present (no fallback)
+                    'cuda' raises when no GPU is present (no fallback); under
+                    a process group 'cuda' is this rank's ``cuda:LOCAL_RANK``
+      n_devices:    data-parallel ranks (``parallel/mesh.py``): None takes the
+                    world size of the initialized default process group (1
+                    without one); another value must equal it.  With a group
+                    every step sums its ranks' parts by all-reduce (also at
+                    world size 1); without one no collective runs
+      dtype:        parameter and compute dtype (torch.float32 default).  The
+                    kernels are f32-only: another dtype takes the general
+                    path through the plain chain, and an explicit
+                    ``use_pallas=True`` / ``use_fused_residual=True`` with it
+                    raises
       optimizer:    OptimizerConfig (Adam by default)
       input_scaling: inputs scaled onto [-1, 1] from the domain bounds (the
                     JAX package's default); False feeds raw coordinates to
@@ -214,11 +246,11 @@ class VarNet:
 
       use_fused_residual: interior residual through the fused residual
                     (kernel on CUDA, plain version on CPU); False takes the
-                    general value + jacobian path
+                    general value + jacobian path; "auto" = at float32
       use_pallas:   the value + jacobian evaluation of ``refine_lm`` and of
                     the Adam general path through ``ops/value_and_jac.py``
                     (kernels K5/K6 or K7/K8 on CUDA, their plain versions on
-                    CPU); "auto" = on a CUDA device.  False takes
+                    CPU); "auto" = on a CUDA device at float32.  False takes
                     ``mlp_value_and_jac`` (``ff_value_and_jac``) under
                     autograd.  (The JAX package's name for its Pallas kernels.)
 
@@ -258,7 +290,7 @@ class VarNet:
         seed: int = 0,
         device="cuda",
         optimizer: Optional[OptimizerConfig] = None,
-        use_fused_residual: bool = True,
+        use_fused_residual="auto",
         use_pallas="auto",
         input_scaling: bool = True,
         fourier_features: Optional[int] = None,
@@ -275,10 +307,23 @@ class VarNet:
         vel_fn=None,
         vel_init: Any = None,
         obs_data=None,
+        n_devices: Optional[int] = None,
+        dtype=torch.float32,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VarNet(device='cuda'): no CUDA device is available")
+        if self.device.type == "cuda" and self.device.index is None and (
+                torch.distributed.is_initialized()):
+            self.device = default_device()
+        self.mesh = make_mesh(n_devices, device=self.device)
+        self.n_shards = self.mesh.n_shards
+        self.dtype = dtype
+        f32 = dtype == torch.float32
+        for name, value in (("use_pallas", use_pallas), ("use_fused_residual", use_fused_residual)):
+            if value is True and not f32:
+                raise ValueError(f"{name}=True needs dtype=torch.float32 (the kernels are "
+                                 f"f32-only), got dtype={dtype}")
         if fused_precoeff and not fused_directional:
             raise ValueError("fused_precoeff=True requires fused_directional=True")
         for fn, init, name in ((source_fn, source_init, "source"), (diff_fn, diff_init, "diff"),
@@ -306,9 +351,10 @@ class VarNet:
         self.activation = activation
         self.seed = int(seed)
         self.optimizer_cfg = optimizer or OptimizerConfig()
-        self.use_fused_residual = bool(use_fused_residual)
+        self.use_fused_residual = (f32 if use_fused_residual == "auto"
+                                   else bool(use_fused_residual))
         self.fused_precoeff = bool(fused_precoeff)
-        self.use_pallas = (self.device.type == "cuda" if use_pallas == "auto"
+        self.use_pallas = (self.device.type == "cuda" and f32 if use_pallas == "auto"
                            else bool(use_pallas))
         self.has_react = not (
             pde.react is None
@@ -331,24 +377,24 @@ class VarNet:
         self.fourier_b = None
         n_in = self.static.n_inputs
         if fourier_b is not None:
-            b_mat = torch.as_tensor(np.asarray(fourier_b), dtype=torch.float32)
+            b_mat = torch.as_tensor(np.asarray(fourier_b), dtype=dtype)
             if b_mat.ndim != 2 or b_mat.shape[0] != n_in or (
                     fourier_features is not None and b_mat.shape[1] != int(fourier_features)):
                 raise ValueError(f"fourier_b must be [{n_in}, F], got {tuple(b_mat.shape)}")
             self.fourier_b = b_mat.to(self.device)
         elif fourier_features is not None:
             self.fourier_b = make_fourier_features(gen, n_in, int(fourier_features),
-                                                   fourier_scale).to(self.device)
+                                                   fourier_scale).to(self.device, dtype)
         self._net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
         self.omega0 = float(omega0)
         self._hook_inits = {"src": (source_fn, source_init), "kap": (diff_fn, diff_init),
                             "vel": (vel_fn, vel_init)}
-        self.theta = self._draw_theta(gen)
+        self.theta = replicate(self._draw_theta(gen), self.mesh)
         self.input_scaling = bool(input_scaling)
         self.scale = self.shift = None
         if self.input_scaling:
             self.scale, self.shift = make_input_scaling(
-                self.static.input_lo, self.static.input_hi, device=self.device)
+                self.static.input_lo, self.static.input_hi, dtype=dtype, device=self.device)
         self.opt_state = None   # the optimizer state of the last load_model
         self.train_result: Optional[TrainResult] = None
         self._ensemble_thetas = None   # the stacked members of the last train_ensemble
@@ -359,9 +405,10 @@ class VarNet:
         hooks' initial leaves."""
         if self.activation == "sin":
             net = init_siren(gen, self._net_in, self.layer_width, omega0=self.omega0,
-                             device=self.device)
+                             dtype=self.dtype, device=self.device)
         else:
-            net = init_mlp(gen, self._net_in, self.layer_width, device=self.device)
+            net = init_mlp(gen, self._net_in, self.layer_width, dtype=self.dtype,
+                           device=self.device)
         if all(fn is None for fn, _ in self._hook_inits.values()):
             return net
         theta = {"net": net}
@@ -474,17 +521,28 @@ class VarNet:
         the LM residual, on the device: ``obs`` (the observations), ``neu`` (the
         Neumann/Robin flux points) and, with exact BC, their transform tables
         ``hard_obs`` (HardPts) and ``hard_neu`` (HardQuad, built host-side in
-        f64 at the flux coords: their rows see the transformed u)."""
-        obs_h = None if self.obs_data is None else pad_points(self.obs_data, 1)
-        neu_h = None if self.fixed.neu is None else pad_flux(self.fixed.neu, 1)
-        rows = {"obs": None if obs_h is None else self._to_device(obs_h),
-                "neu": None if neu_h is None else self._to_device(neu_h)}
+        f64 at the flux coords: their rows see the transformed u).  Each padded
+        to the rank count, this rank's block."""
+        n = self.n_shards
+        obs_h = None if self.obs_data is None else pad_points(self.obs_data, n)
+        neu_h = None if self.fixed.neu is None else pad_flux(self.fixed.neu, n)
+        rows = {"obs": None if obs_h is None else shard_points(obs_h, self.mesh, self.dtype),
+                "neu": None if neu_h is None else shard_flux(neu_h, self.mesh, self.dtype)}
         if self.hard is not None:
-            rows["hard_obs"] = (None if obs_h is None
-                                else tables_to(self.hard.points(obs_h.coords), self.device))
-            rows["hard_neu"] = (None if neu_h is None
-                                else tables_to(self.hard.tables(neu_h.coords), self.device))
+            _, rows["hard_obs"], rows["hard_neu"] = shard_hard(
+                (None, None if obs_h is None else self.hard.points(obs_h.coords),
+                 None if neu_h is None else self.hard.tables(neu_h.coords)),
+                self.mesh, self.dtype)
         return rows
+
+    def _points(self):
+        """The BC and IC penalty rows (IC None for a steady problem), padded to
+        the rank count, this rank's block on the device."""
+        n = self.n_shards
+        bc = shard_points(pad_points(self.fixed.bc, n), self.mesh, self.dtype)
+        ic = (None if self.fixed.ic is None
+              else shard_points(pad_points(self.fixed.ic, n), self.mesh, self.dtype))
+        return bc, ic
 
     def _hook_kwargs(self):
         """The trainable-field and observation arguments of ``make_loss_fn`` /
@@ -499,11 +557,21 @@ class VarNet:
     # ------------------------------------------------------------------ #
     # training
 
+    @property
+    def _np_dtype(self):
+        """The NumPy dtype of the instance's dtype."""
+        return torch.empty(0, dtype=self.dtype).numpy().dtype
+
     def _to_device(self, arrays):
-        """A QuadData / PointData / FluxData of host arrays as f32 tensors on the
-        device."""
-        return type(arrays)(*(torch.from_numpy(np.array(a, dtype=np.float32)).to(self.device)
+        """A QuadData / PointData / FluxData of host arrays, whole, as tensors of
+        the instance's dtype on the device."""
+        return type(arrays)(*(torch.from_numpy(np.array(a, dtype=self._np_dtype)).to(self.device)
                               for a in arrays))
+
+    def _tables(self, hq):
+        """Exact-BC tables of host arrays (None passes) as tensors of the
+        instance's dtype on the device."""
+        return None if hq is None else tables_to(hq, self.device, self.dtype)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -574,6 +642,8 @@ class VarNet:
         """
         if resume and folderpath is None:
             raise ValueError("resume=True requires folderpath (nothing to resume from)")
+        self._check_retries(max_retries)
+        verbose = verbose and self.mesh.is_main
 
         def newest():
             steps = list_checkpoint_steps(folderpath) if folderpath else []
@@ -623,6 +693,16 @@ class VarNet:
         return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
                                      verbose, label="", include_oom=False)
 
+    def _check_retries(self, max_retries):
+        """Retries are one process's: under several ranks one rank retrying alone
+        would wait forever in the others' collectives.  A fault there raises on
+        its rank, and torchrun (``--max-restarts``) restarts every rank, which
+        continue from the case folder with ``resume=True``."""
+        if int(max_retries) and self.mesh.distributed:
+            raise ValueError("max_retries > 0 is not supported under a process group: "
+                             "relaunch every rank (torchrun --max-restarts) with "
+                             "resume=True and a folderpath instead")
+
     def _retry_transient(self, attempt_fn, on_fault, max_retries, retry_backoff, verbose,
                          label, include_oom):
         """Shared transient-fault retry loop: runs ``attempt_fn()``; on a
@@ -663,16 +743,32 @@ class VarNet:
         ``args`` = (quad, bc, ic, prepared, hard), each per mini-batch (a list)
         for ``batch_num > 1``; the weights go between ic and prepared.
         ``value_and_jac`` overrides the general path's value + jacobian
-        (default: the kernels' on ``use_pallas``, else the plain chain)."""
+        (default: the kernels' on ``use_pallas``, else the plain chain).
+
+        Padding is the JAX package's: to ``batch_num`` (or the rank count), then,
+        for mini-batches, each batch's test axis to the rank count, so batch
+        membership does not depend on the number of ranks; the data are this
+        rank's block, and the kernels' layouts are prepared from it."""
         td = self.static.time_dependent
-        quad_h = pad_quad(self.fixed.quad, batch_num)
+        n = self.n_shards
+        quad_h = pad_quad(self.fixed.quad, batch_num if batch_num > 1 else n)
         if kind is not None and self.source_fn is not None:
             # the trainable source enters the weak form linearly: the kernel
             # integrates a zeroed source and the loss adds the trainable one's term
             quad_h = quad_h._replace(src=np.zeros_like(quad_h.src))
-        quad_d = self._to_device(quad_h)
-        bc_d = self._to_device(pad_points(self.fixed.bc, 1))
-        ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
+        # one host f64 table build serves the K4 fold or the general path's tables
+        hard_h = self._hard_tables(quad_h)
+        batched = batch_num > 1
+        if batched:
+            quad_h = pad_batched_axis1(reshape_batches(quad_h, batch_num), n)
+            hard_h = None if hard_h is None else HardQuad(*(
+                None if a is None
+                else pad_axis1(a.reshape((batch_num, -1) + a.shape[1:]), quad_h.coords.shape[1])
+                for a in hard_h))
+        quad_d = shard_quad(quad_h, self.mesh, self.dtype, batched=batched)
+        hard_h = None if hard_h is None else HardQuad(*(
+            None if a is None else shard_rows(a, self.mesh, 1 if batched else 0) for a in hard_h))
+        bc_d, ic_d = self._points()
 
         loss_fn = make_loss_fn(self.static, activation=self.activation,
                                has_react=self.has_react, fused=kind is not None,
@@ -680,14 +776,17 @@ class VarNet:
                                value_and_jac=value_and_jac or self._value_and_jac(self.use_pallas),
                                apply_fn=self._apply_fn(), hard_mode=self.hard is not None,
                                nl_vec=self.nl_vec, normalize_residual=normalize_residual,
-                               **self._hook_kwargs())
-        # one host f64 table build serves the K4 fold or the general path's tables
-        hard_h = self._hard_tables(quad_h)
-        if batch_num == 1:
+                               dtype=self.dtype, **self._hook_kwargs())
+        if not batched:
             quads, hards = quad_d, hard_h
         else:
-            quads = split_batches(quad_d, batch_num)
-            hards = [None] * batch_num if hard_h is None else split_rows(hard_h, batch_num)
+            per_node = quad_d.tables_per_node
+            quads = [QuadData(*(a[b] if f not in ("N", "dN", "w") or per_node else a
+                                for f, a in zip(QuadData._fields, quad_d)))
+                     for b in range(batch_num)]
+            hards = [None if hard_h is None
+                     else HardQuad(*(None if a is None else a[b] for a in hard_h))
+                     for b in range(batch_num)]
 
         def prepare(q, hq):
             # the fused kernel's data layout, ONCE per run (not per step)
@@ -707,9 +806,9 @@ class VarNet:
 
         def hard_tensors(hq):
             # the general path's tables (the fused path has them folded in)
-            return None if hq is None or kind is not None else tables_to(hq, self.device)
+            return None if kind is not None else self._tables(hq)
 
-        if batch_num == 1:
+        if not batched:
             prepared, hard_d = prepare(quads, hards), hard_tensors(hards)
         else:
             prepared = [prepare(q, h) for q, h in zip(quads, hards)]
@@ -728,7 +827,8 @@ class VarNet:
         if debug_nans:
             loss_fn = _finite_loss(loss_fn, now)
 
-        theta = tree_map(lambda v: v.clone().requires_grad_(True), self._params(None))
+        theta = tree_map(lambda v: v.clone().requires_grad_(True),
+                         replicate(self._params(None), self.mesh))
         optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(theta))
         start_epoch = 0
         if resume:
@@ -751,13 +851,14 @@ class VarNet:
                 start_epoch = step
                 if verbose:
                     print(f"[varnet] resumed from epoch {step} in {folderpath}")
-        step_fn = make_train_step(loss_fn, optimizer, batch_num=batch_num)
+        step_fn = make_train_step(loss_fn, optimizer, batch_num=batch_num, mesh=self.mesh)
 
         result = TrainResult()
         log_path = None
         if folderpath is not None:
             os.makedirs(folderpath, exist_ok=True)
             log_path = os.path.join(folderpath, "train_log.jsonl")
+        main = self.mesh.is_main
         n_real_quad = self.static.n_test * self.static.n_quad_per_test
         t_start = None          # set after the first (warm-up) step
         timed_epochs = 0
@@ -793,9 +894,11 @@ class VarNet:
                           + (f"  ic {aux_host['loss_ic']:.3e}" if "loss_ic" in aux_host else "")
                           + f"  relL2 {err_s}  ({elapsed:.1f}s)", flush=True)
                 if log_path is not None:
-                    with open(log_path, "a") as f:
-                        f.write(json.dumps({"epoch": epoch, "err": err, **aux_host}) + "\n")
-                    self._save(folderpath, epoch, theta, {"seed": self.seed}, optimizer)
+                    if main:
+                        with open(log_path, "a") as f:
+                            f.write(json.dumps({"epoch": epoch, "err": err, **aux_host}) + "\n")
+                        self._save(folderpath, epoch, theta, {"seed": self.seed}, optimizer)
+                    barrier(self.mesh)
                 report_overhead += time.perf_counter() - t_rep
                 if target_error is not None and err is not None and err < target_error:
                     if verbose:
@@ -811,8 +914,10 @@ class VarNet:
         self.theta = tree_map(torch.Tensor.detach, theta)
         self.train_result = result
         if folderpath is not None:
-            with open(os.path.join(folderpath, "train_result.json"), "w") as f:
-                json.dump(result.as_dict(), f, indent=2)
+            if main:
+                with open(os.path.join(folderpath, "train_result.json"), "w") as f:
+                    json.dump(result.as_dict(), f, indent=2)
+            barrier(self.mesh)
         return result
 
     # ------------------------------------------------------------------ #
@@ -863,7 +968,8 @@ class VarNet:
                              "global norm; use grad_clip=None with train_ensemble")
         with matmul_precision_scope(matmul_precision or "highest"):
             return self._train_ensemble_impl(int(epoch_num), int(n_members), weight,
-                                             int(batch_num), int(save_freq), verbose,
+                                             int(batch_num), int(save_freq),
+                                             verbose and self.mesh.is_main,
                                              error_disc, error_times, select,
                                              normalize_residual)
 
@@ -882,9 +988,10 @@ class VarNet:
             return totals.sum(), {"member_loss": totals}
 
         members = [tree_map(lambda v: v.clone().requires_grad_(True),
-                            self._as_tensors(self._init_member(i))) for i in range(e)]
+                            replicate(self._as_tensors(self._init_member(i)), self.mesh))
+                   for i in range(e)]
         optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(members))
-        step_fn = make_train_step(ens_loss, optimizer, batch_num=batch_num)
+        step_fn = make_train_step(ens_loss, optimizer, batch_num=batch_num, mesh=self.mesh)
 
         result = EnsembleResult(n_members=e)
         n_real_quad = self.static.n_test * self.static.n_quad_per_test
@@ -1012,6 +1119,8 @@ class VarNet:
         """
         if resume and folderpath is None:
             raise ValueError("resume=True requires folderpath (nothing to resume from)")
+        self._check_retries(max_retries)
+        verbose = verbose and self.mesh.is_main
         lm_folder = None if folderpath is None else os.path.join(folderpath, "lm")
         st = {"steps": int(steps), "lam": float(lam0), "k": int(k_chunks), "offset": 0}
 
@@ -1033,11 +1142,13 @@ class VarNet:
                       f"(lam {st['lam']:.1e})")
             if st["steps"] <= 0:
                 return done()
-        elif lm_folder is not None and list_checkpoint_steps(lm_folder):
-            shutil.rmtree(lm_folder)
-            if verbose:
-                print(f"[varnet/lm] cleared stale LM checkpoints in {lm_folder} (fresh "
-                      "run; pass resume=True to continue them instead)")
+        elif lm_folder is not None:
+            if self.mesh.is_main and list_checkpoint_steps(lm_folder):
+                shutil.rmtree(lm_folder)
+                if verbose:
+                    print(f"[varnet/lm] cleared stale LM checkpoints in {lm_folder} (fresh "
+                          "run; pass resume=True to continue them instead)")
+            barrier(self.mesh)
 
         def attempt_fn():
             with matmul_precision_scope(matmul_precision):
@@ -1064,20 +1175,22 @@ class VarNet:
                         error_times, lam0, target_error, k_chunks, cg_segment, precond,
                         precond_mode, folderpath=None, step_offset=0) -> TrainResult:
         w_full = self._weights(weight)
-        quad_h = pad_quad(self.fixed.quad, k_chunks)
-        quad_d = self._to_device(quad_h)
-        bc_d = self._to_device(pad_points(self.fixed.bc, 1))
-        ic_d = None if self.fixed.ic is None else self._to_device(pad_points(self.fixed.ic, 1))
+        # each rank's block of the test functions splits into k_chunks chunks
+        quad_h = pad_quad(self.fixed.quad, self.n_shards * k_chunks)
+        quad_d = shard_quad(quad_h, self.mesh, self.dtype)
+        bc_d, ic_d = self._points()
         hard_h = self._hard_tables(quad_h)
-        hard_d = None if hard_h is None else tables_to(hard_h, self.device)
+        hard_d = None if hard_h is None else shard_hard((hard_h, None, None), self.mesh,
+                                                        self.dtype)[0]
         rows = self._rows()
         res_fn = make_residual_fn(
             self.static, activation=self.activation, k_chunks=k_chunks,
             value_and_jac=self._value_and_jac(self.use_pallas),
             has_react=self.has_react, device=self.device,
             input_scaling=self.input_scaling, apply_fn=self._apply_fn(),
-            hard_mode=self.hard is not None, nl_vec=self.nl_vec, **self._hook_kwargs())
-        theta0 = self._params(None)
+            hard_mode=self.hard is not None, nl_vec=self.nl_vec, dtype=self.dtype,
+            **self._hook_kwargs())
+        theta0 = replicate(self._params(None), self.mesh)
         flat0, unravel = ravel_params(theta0)
 
         def closure(flat):
@@ -1085,12 +1198,12 @@ class VarNet:
 
         lm_step = make_lm_step(closure, cg_iters=cg_iters, cg_segment=cg_segment,
                                precond=precond, leaf_segments=leaf_segments(theta0),
-                               precond_mode=precond_mode)
+                               precond_mode=precond_mode, mesh=self.mesh)
         with torch.no_grad():
             r0 = closure(flat0)
         state = LMState(flat=flat0,
-                        lam=torch.tensor(lam0, dtype=torch.float32, device=self.device),
-                        loss=torch.dot(r0, r0))
+                        lam=torch.tensor(lam0, dtype=self.dtype, device=self.device),
+                        loss=all_reduce_sum(torch.dot(r0, r0), self.mesh))
 
         result = TrainResult()
         t_start = None
@@ -1115,8 +1228,10 @@ class VarNet:
                 if folderpath is not None:
                     # lam in the sidecar makes the restart exact: a resumed run
                     # re-enters with the damping it stopped at
-                    self._save(folderpath, it_g, theta_now,
-                               {"lam": lam, "loss": loss, "phase": "lm"})
+                    if self.mesh.is_main:
+                        self._save(folderpath, it_g, theta_now,
+                                   {"lam": lam, "loss": loss, "phase": "lm"})
+                    barrier(self.mesh)
                 if target_error is not None and err is not None and err < target_error:
                     if verbose:
                         print(f"[varnet/lm] target {target_error:.1e} reached")
@@ -1156,7 +1271,8 @@ class VarNet:
         certify descent and stalls.
         """
         with matmul_precision_scope(matmul_precision):
-            return self._refine_lbfgs_impl(int(steps), weight, int(save_freq), verbose,
+            return self._refine_lbfgs_impl(int(steps), weight, int(save_freq),
+                                           verbose and self.mesh.is_main,
                                            error_disc, error_times, int(memory_size),
                                            target_error, normalize_residual)
 
@@ -1165,7 +1281,7 @@ class VarNet:
         w_full = self._weights(weight)
         loss_fn, (quad_d, bc_d, ic_d, _, hard_d) = self._adam_data(None, 1, normalize_residual)
         rows = self._rows()
-        flat, unravel = ravel_params(self._params(None))
+        flat, unravel = ravel_params(replicate(self._params(None), self.mesh))
 
         def value_and_grad(vec):
             vec = vec.detach().requires_grad_(True)
@@ -1173,7 +1289,11 @@ class VarNet:
                 total, _ = loss_fn(unravel(vec), quad_d, bc_d, ic_d, w_full, None, hard_d,
                                    **rows)
                 (grad,) = torch.autograd.grad(total, vec)
-            return total.detach(), grad
+            # this rank's share of the loss and its gradient: [grad, value] in
+            # one all-reduce (the identity without a group), so the line search
+            # sees the same sums on every rank
+            packed = all_reduce_sum(torch.cat([grad, total.detach()[None]]), self.mesh)
+            return packed[-1], packed[:-1]
 
         lbfgs = LBFGS(flat.numel(), memory_size, device=self.device, dtype=flat.dtype)
         value = grad = None
@@ -1289,12 +1409,12 @@ class VarNet:
         return self._as_tensors(self.theta if theta is None else theta)
 
     def _as_tensors(self, tree):
-        """A tree of tensors or arrays as f32 tensors on the device (tensors
-        already there are not copied)."""
+        """A tree of tensors or arrays as tensors of the instance's dtype on the
+        device (tensors already there are not copied)."""
         def leaf(a):
             if isinstance(a, torch.Tensor):
-                return a.detach().to(device=self.device, dtype=torch.float32)
-            return torch.as_tensor(np.array(a), dtype=torch.float32, device=self.device)
+                return a.detach().to(device=self.device, dtype=self.dtype)
+            return torch.as_tensor(np.array(a), dtype=self.dtype, device=self.device)
 
         return tree_map(leaf, tree)
 
@@ -1308,20 +1428,24 @@ class VarNet:
 
     def evaluate(self, x: np.ndarray, t: Optional[np.ndarray] = None,
                  mu: Optional[np.ndarray] = None, theta: Any = None,
-                 chunk: int = 1 << 20) -> np.ndarray:
-        """u_theta at points (reference ``VarNet.evaluate``), the net in exact
-        f32; with exact BC the ansatz A + B n is applied on the host in f64.
+                 chunk: int = 1 << 20, matmul_precision: Optional[str] = "highest") -> np.ndarray:
+        """u_theta at points (reference ``VarNet.evaluate``), the net in the
+        instance's dtype (exact f32 by default); with exact BC the ansatz A + B n
+        is applied on the host in f64.  Every rank evaluates in full, with no
+        collective.
 
         x: [P, d]; t: scalar or [P] (time-dependent problems);
         mu: [P, n_mor] or [n_mor] (parametric problems).  Large point sets
-        are evaluated in chunks of ``chunk`` points."""
+        are evaluated in chunks of ``chunk`` points.  ``matmul_precision``:
+        'highest' / 'float32' (TF32 off) or None (the flags as they are);
+        reduced values raise, as in ``train``."""
         coords = self._make_coords(x, t, mu)
         net = net_of(self._params(theta))
         apply = self._apply_fn()
         outs = []
-        with torch.no_grad(), matmul_precision_scope():
+        with torch.no_grad(), matmul_precision_scope(matmul_precision):
             for s in range(0, coords.shape[0], chunk):
-                block = torch.as_tensor(coords[s:s + chunk], dtype=torch.float32,
+                block = torch.as_tensor(coords[s:s + chunk], dtype=self.dtype,
                                         device=self.device)
                 u = apply(net, block, self.activation, self.scale, self.shift)
                 outs.append(u.double().cpu().numpy())
@@ -1341,13 +1465,13 @@ class VarNet:
             raise ValueError(f"evaluate_field('{which}') requires the corresponding "
                              "trainable hook (source_fn/diff_fn/vel_fn)")
         theta = self._params(theta)
-        x = np.atleast_2d(np.asarray(x, np.float32))
+        x = torch.as_tensor(np.atleast_2d(np.asarray(x, self._np_dtype)), device=self.device)
         t_d = None
         if self.static.time_dependent and t is not None:
-            t_d = torch.as_tensor(np.broadcast_to(np.asarray(t, np.float32), (x.shape[0],)),
+            t_d = torch.as_tensor(np.broadcast_to(np.asarray(t, self._np_dtype), (x.shape[0],)),
                                   device=self.device)
         with torch.no_grad(), matmul_precision_scope():
-            out = fn(theta[leaf], torch.as_tensor(x, device=self.device), t_d)
+            out = fn(theta[leaf], x, t_d)
         return out.detach().cpu().numpy()
 
     def evaluate_ensemble(self, x: np.ndarray, t: Optional[np.ndarray] = None,
@@ -1389,7 +1513,7 @@ class VarNet:
         us, dus = [], []
         with torch.no_grad(), matmul_precision_scope(matmul_precision):
             for s in range(0, coords.shape[0], chunk):
-                block = torch.as_tensor(coords[s:s + chunk], dtype=torch.float32,
+                block = torch.as_tensor(coords[s:s + chunk], dtype=self.dtype,
                                         device=self.device)
                 u, du = vj_fn(net, block, self.activation, self.scale, self.shift)
                 us.append(u.double().cpu().numpy())
@@ -1474,14 +1598,14 @@ class VarNet:
         vj_fn = self._value_and_jac(False)
         need_u = self.has_react or self.nl_vec is not None
         nl = (None if self.nl_vec is None
-              else torch.as_tensor(np.asarray(self.nl_vec), dtype=torch.float32,
+              else torch.as_tensor(np.asarray(self.nl_vec), dtype=self.dtype,
                                    device=self.device))
         per_node = quad.tables_per_node
         chunk = max(1, min(int(chunk), k_real))
         out = np.empty(k_real, dtype=np.float64)
 
         def dev(a):
-            return torch.from_numpy(np.array(a, dtype=np.float32)).to(self.device)
+            return torch.from_numpy(np.array(a, dtype=self._np_dtype)).to(self.device)
 
         with torch.no_grad(), matmul_precision_scope(matmul_precision or "highest"):
             for lo in range(0, k_real, chunk):
@@ -1496,7 +1620,7 @@ class VarNet:
                 u = u.reshape(c, nq)
                 if self.hard is not None:
                     # tables at the f32 coords, as the JAX package builds them here
-                    hq = tables_to(self.hard.tables(coords_c), self.device)
+                    hq = self._tables(self.hard.tables(coords_c))
                     u, grad_u, u_t = hard_transform(u, grad_u, u_t, hq)
                 kappa, vel, src = hook_fields(
                     theta, flat, d, td, dev(quad.kappa[sl]), dev(quad.vel[sl]),

@@ -8,23 +8,29 @@ checkpoints (``ckpt_<epoch>/``, meta sidecars, ``config.json``), the training lo
 and the result; ``--resume`` continues from its newest checkpoint toward the
 TOTAL ``--epochs`` (a no-op once they are done).  ``--ensemble N`` (N >= 2)
 trains N seeded nets side by side and keeps the best (``train_ensemble``);
-``--plot`` renders ``sim_res``'s plots into ``--folder``.  ``--devices`` above 1
-is accepted by the parser (the JAX package's command lines stay valid) and
-refused with the name of the missing feature.
+``--plot`` renders ``sim_res``'s plots into ``--folder``.
+
+``--devices N`` above 1 trains data parallel over N ranks, one process per
+device, started by torchrun::
+
+    torchrun --nproc_per_node N -m varnet_tpu_torch.examples.ad2d_transient --devices N
+
+(NCCL on CUDA devices, rank r on ``cuda:r``; gloo with ``--device cpu``).  Rank 0
+alone prints the summary and writes the plots.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
+
+import torch.distributed as dist
 
 from ..api import VarNet
+from ..parallel.mesh import initialize_distributed
 from ..train.optim import OptimizerConfig
-
-# flag -> (value that asks for it, the feature it needs)
-UNPORTED = {
-    "devices": (lambda v: v is not None and v != 1, "multi-device training"),
-}
 
 
 def make_parser(desc: str, **defaults) -> argparse.ArgumentParser:
@@ -66,19 +72,38 @@ def make_parser(desc: str, **defaults) -> argparse.ArgumentParser:
                    help="exact Dirichlet-BC/IC imposition (u = G + tau D net; the BC/IC "
                         "penalty rows drop out)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--devices", type=int, default=None, help="one device only for now")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel ranks (> 1: launch under torchrun with "
+                        "--nproc_per_node of the same count)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device ('cuda' needs an NVIDIA GPU; 'cpu' for small runs)")
     return p
 
 
-def refuse_unported(args) -> None:
-    """Exit with a message naming the missing feature of each unported flag asked for."""
-    for name, (asks, feature) in UNPORTED.items():
-        value = getattr(args, name, None)
-        if (asks(value) if callable(asks) else value == asks):
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported to varnet_tpu_torch "
-                             f"yet: it needs {feature}")
+def setup_devices(args) -> None:
+    """``--devices N`` > 1: join torchrun's process group (gloo for ``--device
+    cpu``) and check that it has N ranks; without torchrun's environment exit
+    with the command that starts one."""
+    n = getattr(args, "devices", None)
+    if n is None or n == 1:
+        return
+    if "WORLD_SIZE" not in os.environ and not dist.is_initialized():
+        spec = getattr(sys.modules["__main__"], "__spec__", None)
+        module = "varnet_tpu_torch.examples.<case>"
+        if spec is not None and spec.name.startswith("varnet_tpu_torch.examples."):
+            module = spec.name
+        raise SystemExit(f"--devices {n}: multi-device training runs one process per device "
+                         f"under torchrun: torchrun --nproc_per_node {n} -m {module} "
+                         f"--devices {n} ...")
+    world = initialize_distributed(backend="gloo" if args.device == "cpu" else None)
+    if world != n:
+        raise SystemExit(f"--devices {n} but torchrun started {world} processes")
+
+
+def report(summary: dict) -> None:
+    """Print the run's JSON summary (on rank 0 only under a process group)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(summary))
 
 
 def optimizer_of(args) -> OptimizerConfig:
@@ -101,7 +126,7 @@ def refine(vn: VarNet, args, weight, folderpath=None):
 
 
 def run_case(pde, args, weight, t_disc_num=None, **varnet_kwargs) -> VarNet:
-    refuse_unported(args)
+    setup_devices(args)
     vn = VarNet(
         pde,
         layer_width=(args.width,) * args.layers,
@@ -111,6 +136,7 @@ def run_case(pde, args, weight, t_disc_num=None, **varnet_kwargs) -> VarNet:
         test_order=args.test_order,
         seed=args.seed,
         device=args.device,
+        n_devices=args.devices,
         optimizer=optimizer_of(args),
         hard_bc=getattr(args, "hard_bc", False),
         **varnet_kwargs,
@@ -156,12 +182,14 @@ def run_case(pde, args, weight, t_disc_num=None, **varnet_kwargs) -> VarNet:
     r_lm = refine(vn, args, weight)
     if r_lm is not None:
         summary["lm_best_rel_l2"] = r_lm.best_error()
-    print(json.dumps(summary))
+    report(summary)
     plot(vn, args)
     return vn
 
 
 def plot(vn: VarNet, args) -> None:
-    """``--plot --folder``: the solution plots of ``sim_res`` into the folder."""
-    if getattr(args, "plot", False) and args.folder:
+    """``--plot --folder``: the solution plots of ``sim_res`` into the folder
+    (rank 0's)."""
+    if getattr(args, "plot", False) and args.folder and (
+            not dist.is_initialized() or dist.get_rank() == 0):
         vn.sim_res(args.folder)

@@ -12,10 +12,8 @@ multi-scale Fourier basis), the recipe of ``benchmarks/contaminant_causal.py``:
         --disc 64 --tdisc 40 --bdisc 64 --lr 2e-3 --epochs 8000 --lm-steps 12
 """
 
-import json
-
 from ..problems.analytic import contaminant_inlet_2d, contaminant_transport_2d
-from .common import make_parser, optimizer_of, plot, refine, refuse_unported, run_case
+from .common import make_parser, optimizer_of, plot, refine, report, run_case, setup_devices
 
 
 def main(argv=None):
@@ -54,7 +52,7 @@ def main(argv=None):
 def _run_causal(args, kap, extra):
     from ..train.causal import train_causal
 
-    refuse_unported(args)
+    setup_devices(args)
     w = (1.0, 10.0, 10.0)
     vn, stages = train_causal(
         lambda t_end: contaminant_transport_2d(
@@ -64,7 +62,7 @@ def _run_causal(args, kap, extra):
         varnet_kwargs=dict(
             layer_width=(args.width,) * args.layers, disc_num=args.disc,
             b_disc_num=args.bdisc, seed=args.seed, device=args.device,
-            optimizer=optimizer_of(args), **extra),
+            n_devices=args.devices, optimizer=optimizer_of(args), **extra),
         train_kwargs=dict(batch_num=args.batch_num, save_freq=args.save_freq),
         folderpath=args.folder,
         resume=args.resume,
@@ -73,7 +71,7 @@ def _run_causal(args, kap, extra):
     r_lm = refine(vn, args, w, folderpath=args.folder)
     if r_lm is not None and r_lm.losses:
         summary["lm_final_loss"] = r_lm.losses[-1]["loss"]
-    print(json.dumps(summary))
+    report(summary)
     plot(vn, args)
     return vn
 

@@ -10,14 +10,12 @@ jacobian path (K5 on the card; K5/K6 in LM):
     python -m varnet_tpu_torch.examples.inverse_coeff --recover kappa
 """
 
-import json
-
 import numpy as np
 import torch
 
 from ..fem.assembly import PointData
 from ..problems.analytic import steady_ad_1d
-from .common import make_parser, run_case
+from .common import make_parser, report, run_case
 
 KAPPA_TRUE = 0.08
 
@@ -59,11 +57,11 @@ def main(argv=None):
     # run_case runs Adam and (lm_steps > 0) the LM polish
     vn = run_case(case["pde"], args, weight=(1.0, 10.0, 10.0), obs_data=obs, **kw)
     c = float(np.ravel(vn.evaluate_field(args.recover, np.zeros((1, 1))))[0])
-    print(json.dumps({
+    report({
         "recover": args.recover, "true": true,
         "init": float(args.init_frac * true),
         "recovered": c, "rel_err": abs(c - true) / true,
-    }))
+    })
     return vn
 
 

@@ -9,8 +9,6 @@ with the fixed source zeroed; the source net's term is added outside the kernel:
     python -m varnet_tpu_torch.examples.inverse_source --epochs 40000 --disc 30
 """
 
-import json
-
 import numpy as np
 import torch
 
@@ -18,7 +16,7 @@ from ..fem.assembly import PointData
 from ..models.source import make_mlp_source
 from ..problems.analytic import inverse_source_2d
 from ..utils.helpers import rel_l2_error
-from .common import make_parser, run_case
+from .common import make_parser, report, run_case
 
 
 def main(argv=None):
@@ -47,7 +45,7 @@ def main(argv=None):
     pts, mask = pde.domain.grid_in_domain((65, 65))
     pts = pts[mask]
     s_err = rel_l2_error(vn.evaluate_field("source", pts), case["s_true"](pts))
-    print(json.dumps({"source_rel_l2": s_err}))
+    report({"source_rel_l2": s_err})
     return vn
 
 

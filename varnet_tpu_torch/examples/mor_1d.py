@@ -8,14 +8,12 @@ between them (held out), against the analytic solution.
     python -m varnet_tpu_torch.examples.mor_1d --vels 0.5,1.0,1.5,2.0
 """
 
-import json
-
 import numpy as np
 
 from ..geometry.domain import Domain1D
 from ..problems.adpde import ADPDE, MORVar
 from ..utils.helpers import rel_l2_error
-from .common import make_parser, run_case
+from .common import make_parser, report, run_case
 
 
 def main(argv=None):
@@ -54,7 +52,7 @@ def main(argv=None):
         return out
 
     holdout = [0.5 * (a + b) for a, b in zip(vels[:-1], vels[1:])]
-    print(json.dumps({"per_sample_rel_l2": score(vels), "holdout_rel_l2": score(holdout)}))
+    report({"per_sample_rel_l2": score(vels), "holdout_rel_l2": score(holdout)})
     return vn
 
 

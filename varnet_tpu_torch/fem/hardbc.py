@@ -107,14 +107,15 @@ def hard_transform(u, grad_u, u_t, hq):
     return u_new, grad_new, ut_new
 
 
-def tables_to(hq, device=None):
-    """A HardQuad / HardPts of host arrays as f32 tensors on ``device`` (cast
-    to f32 on the host, as the JAX package casts before device placement;
-    None fields stay None)."""
+def tables_to(hq, device=None, dtype=None):
+    """A HardQuad / HardPts of host arrays as tensors of ``dtype`` (default
+    f32) on ``device`` (cast on the host, as the JAX package casts before
+    device placement; None fields stay None)."""
     import torch
 
+    np_dtype = np.float32 if dtype is None else torch.empty(0, dtype=dtype).numpy().dtype
     return type(hq)(*(None if a is None
-                      else torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+                      else torch.from_numpy(np.array(a, dtype=np_dtype)).to(device)
                       for a in hq))
 
 

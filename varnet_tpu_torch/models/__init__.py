@@ -4,6 +4,7 @@ from .mlp import (
     make_input_scaling,
     mlp_apply,
     mlp_value_and_jac,
+    param_count,
     params_from_jax,
     params_to_numpy,
 )

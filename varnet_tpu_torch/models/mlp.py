@@ -143,6 +143,11 @@ def net_of(theta):
     return theta["net"] if isinstance(theta, dict) and "net" in theta else theta
 
 
+def param_count(params: Params) -> int:
+    """The number of scalars in a net's weights and biases."""
+    return int(sum(np.prod(p["w"].shape) + np.prod(p["b"].shape) for p in params))
+
+
 def make_input_scaling(lo, hi, dtype=torch.float32, device=None):
     """Affine map of inputs onto [-1, 1]: x_n = (x - shift) * scale."""
     lo = torch.as_tensor(np.asarray(lo), dtype=dtype, device=device)

@@ -1,6 +1,6 @@
 """Levenberg-Marquardt refinement (matrix-free Gauss-Newton + CG): the PyTorch
 port of ``varnet_tpu/train/gauss_newton.py`` (penalty and exact-BC forms, one
-device).
+device or data parallel over ranks).
 
 The variational loss is a nonlinear least-squares problem,
 
@@ -21,6 +21,13 @@ rule is K6, the reverse rule K5's backward.
 The JAX step is one jitted program; here it runs eagerly, with every quantity
 (parameters, damping, loss, CG state) kept on the device, so the host never
 waits on the card inside a step.
+
+Data parallel (a distributed ``mesh``, the JAX package's
+``_make_lm_step_sharded``): the closure gives this rank's slice of the residual
+rows, J v stays local, J^T (J v) is summed over the ranks once per CG
+application; the init packs b, the probe diagonal and r.r into one all-reduce
+and the accept reduces the candidate loss: 2 + cg_iters all-reduces per LM
+iteration, and every rank takes the same decision from the same sums.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ..fem.assembly import ProblemStatic
 from ..fem.hardbc import hard_transform
 from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac, net_of
 from ..ops.residual import hook_fields, support_volume, weak_residual
+from ..parallel.mesh import all_reduce_sum
 from .loss import flux_error, obs_values
 
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
@@ -59,6 +67,7 @@ def make_residual_fn(
     has_obs: bool = False,
     n_obs_real: int = 1,
     flux_value_and_jac: Optional[Callable] = None,
+    dtype=torch.float32,
 ):
     """Weighted residual VECTOR ``residual_fn(theta, quad, bc, ic=None,
     weights=(1, 1, 1, 0), hard=None, obs=None, neu=None, hard_obs=None,
@@ -83,6 +92,7 @@ def make_residual_fn(
     ``src`` / ``kap`` / ``vel`` leaves; the flux rows (``neu``) take
     ``flux_value_and_jac`` (the plain matmul chain by default), the
     observation rows (``has_obs``, weight ``weights[3]``) ``apply_fn``.
+    ``dtype``: that of the input scaling and the Burgers direction (the data's).
     """
     d = static.n_space
     td = static.time_dependent
@@ -95,9 +105,10 @@ def make_residual_fn(
     flux_vj = flux_value_and_jac or mlp_value_and_jac
     scale = shift = None
     if input_scaling:
-        scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
+        scale, shift = make_input_scaling(static.input_lo, static.input_hi, dtype=dtype,
+                                          device=device)
     nl = (None if nl_vec is None
-          else torch.as_tensor(np.asarray(nl_vec), dtype=torch.float32, device=device))
+          else torch.as_tensor(np.asarray(nl_vec), dtype=dtype, device=device))
     need_u = has_react or nl is not None
 
     def interior(theta, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq):
@@ -176,22 +187,29 @@ LAM_UP, LAM_DOWN = 4.0, 0.5      # damping after a rejected / an accepted step
 
 
 def rademacher_probes(n_probes: int, n_r: int, dtype=torch.float32,
-                      device=None) -> torch.Tensor:
+                      device=None, rank: int = 0) -> torch.Tensor:
     """[n_probes, n_r] Rademacher (+-1) probes from a ``torch.Generator``
     seeded ``_PROBE_KEY_SEED`` (fixed, as JAX's fixed key: the estimator is
     unbiased for any realization, and a frozen one keeps LM iterations
-    reproducible)."""
-    gen = torch.Generator().manual_seed(_PROBE_KEY_SEED)
+    reproducible); rank r > 0 of a data-parallel run seeds
+    ``_PROBE_KEY_SEED + r``, so the ranks' probes are independent (the JAX
+    package folds the shard index into its key)."""
+    gen = torch.Generator().manual_seed(_PROBE_KEY_SEED + int(rank))
     z = torch.randint(0, 2, (n_probes, n_r), generator=gen) * 2 - 1
     return z.to(dtype=dtype, device=device)
 
 
 def _diag_probe_est(pullback, z):
     """Hutchinson estimate of diag(J^T J) from the probes z [n_probes, n_r]
-    through the pullback: E[(J^T z)_j^2] = sum_i J_ij^2.  A relative floor
-    guards against the rare probe-cancellation underestimate."""
+    through the pullback: E[(J^T z)_j^2] = sum_i J_ij^2 (before the floor,
+    which :func:`_floor_diag` applies after any sum over ranks)."""
     q = torch.stack([pullback(zz) for zz in z])
-    diag = torch.mean(q * q, dim=0)
+    return torch.mean(q * q, dim=0)
+
+
+def _floor_diag(diag):
+    """A relative floor on the diagonal estimate: it guards against the rare
+    probe-cancellation underestimate."""
     return torch.maximum(diag, 1e-4 * torch.mean(diag))
 
 
@@ -233,6 +251,7 @@ def make_lm_step(
     precond: int = 0,
     leaf_segments=None,
     precond_mode: str = "diag",
+    mesh=None,
 ):
     """One Levenberg-Marquardt iteration on RAVELED parameters:
     ``step(LMState) -> LMState``.
@@ -251,6 +270,9 @@ def make_lm_step(
     ``cg_iters`` in total), re-linearizing at the start of each after the
     first (which reuses the linearization that gave b), as the JAX package's
     host-looped segments do; 0 runs them all on one linearization.
+
+    mesh: a distributed ``parallel.mesh.Mesh`` makes ``residual_closure`` this
+    rank's residual slice and sums across ranks as the module docstring says.
     """
     if precond and precond_mode == "leaf" and leaf_segments is None:
         raise ValueError(
@@ -260,27 +282,19 @@ def make_lm_step(
     segs = None if leaf_segments is None else torch.as_tensor(np.asarray(leaf_segments),
                                                               dtype=torch.long)
     n_leaves = 0 if segs is None else int(segs.max()) + 1
+    rank = 0 if mesh is None else mesh.rank
 
     def loss_of(flat):
         with torch.no_grad():
             r = residual_closure(flat)
-        return torch.dot(r, r)
-
-    def make_minv(pullback, r, lam):
-        if not n_probes:
-            return None
-        diag = _diag_probe_est(pullback, rademacher_probes(n_probes, r.shape[0], r.dtype,
-                                                           r.device))
-        if precond_mode == "leaf":
-            diag = _leaf_reduce_diag(diag, segs.to(diag.device), n_leaves)
-        return 1.0 / (diag + lam)
+        return all_reduce_sum(torch.dot(r, r), mesh)
 
     def cg_run(flat, lam, pullback, carry, minv, n):
         # Preconditioned CG on (J^T J + lam I) with M^{-1} = minv (elementwise);
         # minv=None is plain CG (z == res).
         x, p, res, rz = carry
         for _ in range(n):
-            ap = pullback(jvp(residual_closure, flat, p)) + lam * p
+            ap = all_reduce_sum(pullback(jvp(residual_closure, flat, p)), mesh) + lam * p
             alpha = rz / torch.clamp_min(torch.dot(p, ap), 1e-30)
             x = x + alpha * p
             res = res - alpha * ap
@@ -291,11 +305,26 @@ def make_lm_step(
         return x, p, res, rz
 
     def cg_init(flat, lam):
+        # b, the probes' mean square (J^T z)^2 and r.r in ONE all-reduce (the
+        # identity without a group); the floor and the per-leaf means come
+        # after the sum, so they see every rank's rows (the ranks' independent
+        # probes give an unbiased sum)
         r, pullback = linearize(residual_closure, flat)
         b = -pullback(r)
-        minv = make_minv(pullback, r, lam)
+        n = b.shape[0]
+        parts = [b]
+        if n_probes:
+            z = rademacher_probes(n_probes, r.shape[0], r.dtype, r.device, rank=rank)
+            parts.append(_diag_probe_est(pullback, z))
+        packed = all_reduce_sum(torch.cat(parts + [torch.dot(r, r)[None]]), mesh)
+        b, loss, minv = packed[:n], packed[-1], None
+        if n_probes:
+            diag = _floor_diag(packed[n:2 * n])
+            if precond_mode == "leaf":
+                diag = _leaf_reduce_diag(diag, segs.to(diag.device), n_leaves)
+            minv = 1.0 / (diag + lam)
         z0 = b if minv is None else minv * b
-        return (torch.zeros_like(b), z0, b, torch.dot(b, z0)), torch.dot(r, r), minv, pullback
+        return (torch.zeros_like(b), z0, b, torch.dot(b, z0)), loss, minv, pullback
 
     def accept(flat, lam, loss, delta):
         cand = flat + delta

@@ -88,6 +88,7 @@ def make_loss_fn(
     n_obs_real: int = 1,
     flux_value_and_jac: Optional[Callable] = None,
     normalize_residual: bool = True,
+    dtype=torch.float32,
 ):
     """Build ``loss_fn(theta, quad, bc, ic=None, weights=(1, 1, 1), prepared=None,
     hard=None, obs=None, neu=None, hard_obs=None, hard_neu=None) -> (total, aux)``
@@ -122,6 +123,7 @@ def make_loss_fn(
     and the sum of squares by the real test-function count (the default);
     False gives the reference's raw masked sum of r_k^2.  Either way outside
     the kernels.
+    ``dtype``: that of the input scaling and the Burgers direction (the data's).
     """
     if fused and (diff_fn is not None or vel_fn is not None):
         # the fused kernels integrate the FIXED kappa / velocity: accepting a
@@ -136,9 +138,10 @@ def make_loss_fn(
     n_neu = float(max(static.n_neu, 1))
     scale = shift = None
     if input_scaling:
-        scale, shift = make_input_scaling(static.input_lo, static.input_hi, device=device)
+        scale, shift = make_input_scaling(static.input_lo, static.input_hi, dtype=dtype,
+                                          device=device)
     nl = (None if nl_vec is None
-          else torch.as_tensor(np.asarray(nl_vec), dtype=torch.float32, device=device))
+          else torch.as_tensor(np.asarray(nl_vec), dtype=dtype, device=device))
     need_u = has_react or nl is not None
     flux_vj = flux_value_and_jac or mlp_value_and_jac
 

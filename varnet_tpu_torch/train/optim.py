@@ -4,7 +4,8 @@
 * adam: :class:`AdamF32BiasCorrection` (b1 0.9, b2 0.999, eps 1e-8).  optax
   computes the bias corrections 1 - b^t in f32, where 1 - 0.999 is off by
   4.7e-5; ``torch.optim.Adam`` computes them in f64, and the two land 2e-5
-  apart (relative) after 10 steps.  The port keeps optax's numerics.
+  apart (relative) after 10 steps.  The port keeps optax's numerics: f32 bias
+  corrections, and f64 ones for f64 parameters, as optax's under JAX's x64.
 * rmsprop: optax.rmsprop decays by 0.9 and adds eps INSIDE the square root
   (``g / sqrt(nu + eps)``); ``torch.optim.RMSprop`` adds it outside, so
   :class:`RMSpropEpsInSqrt` implements optax's form.
@@ -48,10 +49,11 @@ class OptimizerConfig:
 
 
 class AdamF32BiasCorrection(torch.optim.Optimizer):
-    """optax.adam: m_hat / (sqrt(v_hat) + eps) with f32 bias corrections.
+    """optax.adam: m_hat / (sqrt(v_hat) + eps) with the bias corrections in
+    JAX's default float: f32, or f64 for f64 parameters (JAX with x64 on).
 
     One ``torch._foreach_*`` launch per elementwise op over all parameters; the
-    bias corrections are host f32 scalars, so a step copies nothing to the device."""
+    bias corrections are host scalars, so a step copies nothing to the device."""
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
@@ -70,9 +72,10 @@ class AdamF32BiasCorrection(torch.optim.Optimizer):
             gs = [p.grad for p in ps]
             ms = [self.state[p]["m"] for p in ps]
             vs = [self.state[p]["v"] for p in ps]
-            count = np.float32(self.state[ps[0]]["count"])
-            bc1 = float(np.float32(1.0) - np.float32(b1) ** count)
-            bc2 = float(np.float32(1.0) - np.float32(b2) ** count)
+            ft = np.float64 if ps[0].dtype == torch.float64 else np.float32
+            count = ft(self.state[ps[0]]["count"])
+            bc1 = float(ft(1.0) - ft(b1) ** count)
+            bc2 = float(ft(1.0) - ft(b2) ** count)
             torch._foreach_mul_(ms, b1)
             torch._foreach_add_(ms, gs, alpha=1.0 - b1)
             torch._foreach_mul_(vs, b2)

@@ -1,4 +1,4 @@
-"""Training step + result record (single device).
+"""Training step + result record.
 
 PyTorch counterpart of ``varnet_tpu/train/trainer.py``.  The step runs
 eagerly; parameters are leaf tensors that the optimizer updates IN PLACE
@@ -8,6 +8,11 @@ loops over interior mini-batches inside the epoch, as the JAX step's
 full-batch.  Per-node test
 tables (order-2 test spaces, refined hats) and the exact-BC quad tables split
 with the test functions they belong to.
+
+Data parallel (``parallel/mesh.py``): each rank's loss is its shard's share of
+the global loss (the loss normalizes by the global counts), and after the
+backward ONE ``dist.all_reduce`` sums the packed gradients and loss terms, as
+the JAX step's single packed ``psum``.
 """
 
 from __future__ import annotations
@@ -15,36 +20,77 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from ..fem.assembly import QuadData
+from ..fem.assembly import QuadData, _pad_to_multiple
+from ..parallel.mesh import all_reduce_sum
 
 
-def split_rows(rows, batch_num: int) -> list:
-    """Split a NamedTuple of arrays with a leading test-function axis K (a
-    QuadData's node arrays, HardQuad tables; None fields stay None) into
-    ``batch_num`` contiguous mini-batches."""
-    k = next(a for a in rows if a is not None).shape[0]
-    if k % batch_num != 0:
-        raise ValueError(f"test-function count {k} not divisible by batch_num "
-                         f"{batch_num}; pad with pad_quad(quad, batch_num)")
-    kb = k // batch_num
-    return [type(rows)(*(None if a is None else a[b * kb:(b + 1) * kb] for a in rows))
-            for b in range(batch_num)]
+def reshape_batches(quad: QuadData, batch_num: int) -> QuadData:
+    """Host arrays: split the leading test-function axis K into [batch_num,
+    K // batch_num] (the JAX package's ``_tree_reshape_batches``); shared [nQ]
+    tables are left as they are."""
+    k = quad.coords.shape[0]
+    if k % batch_num:
+        raise ValueError(f"test-function count {k} not divisible by batch_num {batch_num}; "
+                         f"pad with pad_quad(quad, batch_num)")
+
+    def r(a, per_node):
+        return a.reshape((batch_num, k // batch_num) + a.shape[1:]) if per_node else a
+
+    per_node = quad.tables_per_node
+    return QuadData(*(r(a, f not in ("N", "dN", "w") or per_node)
+                      for f, a in zip(QuadData._fields, quad)))
 
 
-def split_batches(quad: QuadData, batch_num: int) -> List[QuadData]:
-    """Split the leading test-function axis K into ``batch_num`` contiguous
-    mini-batches (the reference's ``ManageTrainData`` batching); shared [nQ]
-    tables are the same object in every batch, per-node [K, nQ] tables split
-    with their test functions."""
-    if quad.tables_per_node:
-        return split_rows(quad, batch_num)
-    return [b._replace(N=quad.N, dN=quad.dN, w=quad.w)
-            for b in split_rows(quad._replace(N=None, dN=None, w=None), batch_num)]
+def pad_axis1(a: np.ndarray, target: int, fill_zero: bool = False) -> np.ndarray:
+    """Pad axis 1 of a batched [B, Kb, ...] host array to ``target`` with each
+    batch's row 0 (zeros with ``fill_zero``)."""
+    kb = a.shape[1]
+    if kb == target:
+        return a
+    filler = np.repeat(a[:, :1], target - kb, axis=1)
+    if fill_zero:
+        filler = np.zeros_like(filler)
+    return np.concatenate([a, filler], axis=1)
 
 
-def make_train_step(loss_fn: Callable, optimizer, batch_num: int = 1):
+def pad_batched_axis1(quad: QuadData, multiple: int) -> QuadData:
+    """Pad the per-batch test axis of a batched host QuadData ([B, Kb, ...]) to
+    a multiple of the shard count (the JAX package's ``_pad_batched_axis1``).
+
+    Mini-batch membership is fixed by the batch split BEFORE this padding, so
+    the same real test functions land in the same batch for any number of
+    ranks; only the masked filler rows (each batch's row 0, zero mask) differ.
+    """
+    target = _pad_to_multiple(quad.coords.shape[1], multiple)
+    per_node = quad.tables_per_node
+    return QuadData(*(a if f in ("N", "dN", "w") and not per_node
+                      else pad_axis1(a, target, fill_zero=f == "mask")
+                      for f, a in zip(QuadData._fields, quad)))
+
+
+def reduce_grads_and_aux(params, aux: dict, mesh) -> dict:
+    """Sum every parameter's gradient and the loss terms ``aux`` over the ranks
+    with ONE all-reduce of a packed tensor; the gradients are replaced by their
+    sums (a leaf the loss did not reach counts as zero), the summed ``aux`` is
+    returned."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    vals = [v.detach().reshape(-1).to(grads[0].dtype) for v in aux.values()]
+    packed = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + vals), mesh)
+    offset = 0
+    for p, g in zip(params, grads):
+        p.grad = packed[offset:offset + g.numel()].view_as(g)
+        offset += g.numel()
+    out = {}
+    for (k, v), flat in zip(aux.items(), vals):
+        out[k] = packed[offset:offset + flat.numel()].reshape(v.shape).to(v.dtype)
+        offset += flat.numel()
+    return out
+
+
+def make_train_step(loss_fn: Callable, optimizer, batch_num: int = 1, mesh=None):
     """Build the per-epoch update.
 
     Returns ``epoch_step(theta, quad, bc, ic, weights, prepared, hard=None,
@@ -52,13 +98,18 @@ def make_train_step(loss_fn: Callable, optimizer, batch_num: int = 1):
     ``hard`` are lists of per-batch items when ``batch_num > 1``, and ``rows``
     (the loss's full-batch ``obs`` / ``neu`` / ``hard_obs`` / ``hard_neu``) go
     to every one.  ``aux`` holds detached loss tensors (batch means), still on
-    the device.
+    the device.  With a distributed ``mesh`` the data are this rank's shard and
+    each update runs one all-reduce (``reduce_grads_and_aux``) before the
+    optimizer steps; ``aux`` is then global.
     """
+    distributed = mesh is not None and mesh.distributed
 
     def one_update(theta, quad, bc, ic, weights, prepared, hard=None, **rows):
         optimizer.zero_grad()
         total, aux = loss_fn(theta, quad, bc, ic, weights, prepared, hard, **rows)
         total.backward()
+        if distributed:
+            aux = reduce_grads_and_aux(optimizer.params, aux, mesh)
         optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 

@@ -1,6 +1,7 @@
-"""Shared helpers (the subset of ``varnet_tpu/utils/helpers.py`` the port
-needs; ``pair_mats``, ``rel_l2_error`` and ``cartesian_grid`` are copied
-verbatim, pure NumPy)."""
+"""Shared helpers (the port of ``varnet_tpu/utils/helpers.py``; ``is_none``,
+``is_empty``, ``vstack``, ``hstack``, ``pair_mats``, ``rel_l2_error`` and
+``cartesian_grid`` are copied verbatim, pure NumPy; XLA's compilation cache has
+no counterpart here)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,39 @@ def matmul_precision_scope(precision: Optional[str] = "highest"):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def is_none(x) -> bool:
+    """None-tolerant emptiness check (reference UF.isnone equivalent)."""
+    return x is None
+
+
+def is_empty(x) -> bool:
+    """True for None, empty sequences, and zero-size arrays."""
+    if x is None:
+        return True
+    if isinstance(x, np.ndarray):
+        return x.size == 0
+    try:
+        return len(x) == 0
+    except TypeError:
+        return False
+
+
+def vstack(arrays):
+    """None-tolerant vstack (reference UF.vstack equivalent)."""
+    arrays = [np.atleast_2d(a) for a in arrays if not is_empty(a)]
+    if not arrays:
+        return None
+    return np.vstack(arrays)
+
+
+def hstack(arrays):
+    """None-tolerant hstack (reference UF.hstack equivalent)."""
+    arrays = [a for a in arrays if not is_empty(a)]
+    if not arrays:
+        return None
+    return np.hstack(arrays)
 
 
 def pair_mats(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -175,3 +175,15 @@ def persist_theta_if_better(path, theta, rel_l2, prefix: str = "", write_fn=None
         print(f"[persist_theta] wrote {os.path.basename(path)} (rel-L2 {rel_l2:.3e})",
               flush=True)
     return True
+
+
+def save_solution_csv(path: str, coords: np.ndarray, values: np.ndarray,
+                      header: Optional[str] = None):
+    """Write a solution field as CSV rows [coords..., u]."""
+    coords = np.atleast_2d(coords)
+    data = np.concatenate([coords, np.asarray(values).reshape(-1, 1)], axis=1)
+    if header is None:
+        names = [f"x{i}" for i in range(coords.shape[1])] + ["u"]
+        header = ",".join(names)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savetxt(path, data, delimiter=",", header=header, comments="")
