@@ -108,6 +108,7 @@ from .train.trainer import (
     reshape_batches,
 )
 from .utils.helpers import matmul_precision_scope, rel_l2_error
+from .utils import spans
 
 # quadrature points per host call of the exact-BC table build: chunks small
 # enough for the caches, built by a few threads (NumPy releases the GIL in its
@@ -149,17 +150,22 @@ def _nan_checks(now):
 class _TraceWindow:
     """A ``torch.profiler`` trace of ``steps`` epochs, from ``start(epoch)`` (after
     the warm-up step) to ``stop``, written as a Chrome trace into ``folder``:
-    the host's ops and, on a CUDA device, every kernel by name."""
+    the host's ops, on a CUDA device every kernel by name, and the program's
+    spans (``utils/spans.py``, recorded over the same epochs) as complete
+    events on a ``varnet`` track."""
 
     def __init__(self, folder, steps, device):
         self.folder, self.steps, self.device = folder, int(steps), device
         self.prof, self.first, self.end = None, 0, 0
+        self.scope = self.rec = None
 
     def start(self, epoch):
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self.prof = torch.profiler.profile(activities=acts)
+        self.scope = contextlib.ExitStack()
+        self.rec = self.scope.enter_context(spans.record())
         self.prof.start()
         self.first, self.end = epoch + 1, epoch + self.steps
 
@@ -173,10 +179,17 @@ class _TraceWindow:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prof.stop()
+        self.scope.close()
         os.makedirs(self.folder, exist_ok=True)
-        self.prof.export_chrome_trace(
-            os.path.join(self.folder, f"trace_from_epoch_{self.first}.json"))
-        self.prof = None
+        path = os.path.join(self.folder, f"trace_from_epoch_{self.first}.json")
+        self.prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        trace["traceEvents"].extend(
+            spans.chrome_events(self.rec.spans, trace.get("baseTimeNanoseconds", 0)))
+        with open(path, "w") as f:
+            json.dump(trace, f)
+        self.prof = self.scope = self.rec = None
 
 
 class VarNet:
@@ -360,41 +373,45 @@ class VarNet:
             pde.react is None
             or (np.isscalar(pde.react) and float(pde.react) == 0.0)
         )
-        # exact BC/IC: the host-side transform builder; its tables are built at
-        # the (padded) quad coords when a run needs them (_hard_tables)
-        self.hard = None
-        if hard_bc:
-            self.hard = HardBC(pde)
-        self._hard_cache = None
-        self.hard_table_seconds = 0.0
-        self.fixed: FixedData = build_fixed_data(
-            pde, disc_num, b_disc_num=self.b_disc_num, t_disc_num=self.t_disc_num,
-            integ_p_num=self.integ_p_num, pad_multiple=1, test_order=self.test_order,
-        )
-        self.static = self.fixed.static
-        gen = torch.Generator().manual_seed(self.seed)
-        # the embedding is drawn before the net, as the JAX package splits its key
-        self.fourier_b = None
-        n_in = self.static.n_inputs
-        if fourier_b is not None:
-            b_mat = torch.as_tensor(np.asarray(fourier_b), dtype=dtype)
-            if b_mat.ndim != 2 or b_mat.shape[0] != n_in or (
-                    fourier_features is not None and b_mat.shape[1] != int(fourier_features)):
-                raise ValueError(f"fourier_b must be [{n_in}, F], got {tuple(b_mat.shape)}")
-            self.fourier_b = b_mat.to(self.device)
-        elif fourier_features is not None:
-            self.fourier_b = make_fourier_features(gen, n_in, int(fourier_features),
-                                                   fourier_scale).to(self.device, dtype)
-        self._net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
-        self.omega0 = float(omega0)
-        self._hook_inits = {"src": (source_fn, source_init), "kap": (diff_fn, diff_init),
-                            "vel": (vel_fn, vel_init)}
-        self.theta = replicate(self._draw_theta(gen), self.mesh)
-        self.input_scaling = bool(input_scaling)
-        self.scale = self.shift = None
-        if self.input_scaling:
-            self.scale, self.shift = make_input_scaling(
-                self.static.input_lo, self.static.input_hi, dtype=dtype, device=self.device)
+        with spans.span("varnet.build"):
+            # exact BC/IC: the host-side transform builder; its tables are built at
+            # the (padded) quad coords when a run needs them (_hard_tables)
+            self.hard = None
+            if hard_bc:
+                self.hard = HardBC(pde)
+            self._hard_cache = None
+            self.hard_table_seconds = 0.0
+            with spans.span("build.assembly"):
+                self.fixed: FixedData = build_fixed_data(
+                    pde, disc_num, b_disc_num=self.b_disc_num, t_disc_num=self.t_disc_num,
+                    integ_p_num=self.integ_p_num, pad_multiple=1, test_order=self.test_order,
+                )
+            self.static = self.fixed.static
+            with spans.span("build.to_device"):
+                gen = torch.Generator().manual_seed(self.seed)
+                # the embedding is drawn before the net, as the JAX package splits its key
+                self.fourier_b = None
+                n_in = self.static.n_inputs
+                if fourier_b is not None:
+                    b_mat = torch.as_tensor(np.asarray(fourier_b), dtype=dtype)
+                    if b_mat.ndim != 2 or b_mat.shape[0] != n_in or (
+                            fourier_features is not None
+                            and b_mat.shape[1] != int(fourier_features)):
+                        raise ValueError(f"fourier_b must be [{n_in}, F], got {tuple(b_mat.shape)}")
+                    self.fourier_b = b_mat.to(self.device)
+                elif fourier_features is not None:
+                    self.fourier_b = make_fourier_features(gen, n_in, int(fourier_features),
+                                                           fourier_scale).to(self.device, dtype)
+                self._net_in = n_in if self.fourier_b is None else 2 * self.fourier_b.shape[1]
+                self.omega0 = float(omega0)
+                self._hook_inits = {"src": (source_fn, source_init), "kap": (diff_fn, diff_init),
+                                    "vel": (vel_fn, vel_init)}
+                self.theta = replicate(self._draw_theta(gen), self.mesh)
+                self.input_scaling = bool(input_scaling)
+                self.scale = self.shift = None
+                if self.input_scaling:
+                    self.scale, self.shift = make_input_scaling(
+                        self.static.input_lo, self.static.input_hi, dtype=dtype, device=self.device)
         self.opt_state = None   # the optimizer state of the last load_model
         self.train_result: Optional[TrainResult] = None
         self._ensemble_thetas = None   # the stacked members of the last train_ensemble
@@ -625,7 +642,11 @@ class VarNet:
         profile_dir: a ``torch.profiler`` trace of ``profile_steps`` epochs after
                      the first (warm-up) one, written as a Chrome trace
                      (``trace_from_epoch_<first>.json``) into this directory;
-                     on a CUDA device it holds the kernels by name
+                     on a CUDA device it holds the kernels by name.  The
+                     program's spans over those epochs (``train.epoch``,
+                     ``train.drain``, ``train.report``: ``utils/spans.py``)
+                     are on its ``varnet`` track, on the clock of the
+                     kernels beside them
         debug_nans:  for this call, autograd's anomaly mode (restored after)
                      and a finiteness check of every step's loss: a non-finite
                      loss, or a NaN that anomaly mode finds in a backward,
@@ -690,8 +711,9 @@ class VarNet:
             st["resume"], st["epochs"] = False, int(epoch_num)
             return "restarting from in-memory state (no checkpoint yet)"
 
-        return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
-                                     verbose, label="", include_oom=False)
+        with spans.span("train.call"):
+            return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
+                                         verbose, label="", include_oom=False)
 
     def _check_retries(self, max_retries):
         """Retries are one process's: under several ranks one rank retrying alone
@@ -818,56 +840,59 @@ class VarNet:
     def _train_impl(self, epoch_num, weight, batch_num, save_freq, folderpath, resume,
                     verbose, error_disc, error_times, target_error, value_and_jac,
                     normalize_residual, debug_nans, now, trace):
-        w_full = self._weights(weight)
-        # an explicit value + jacobian takes the general path, as in the JAX package
-        kind = self._fused_kind if value_and_jac is None else None
-        loss_fn, (quads, bc_d, ic_d, prepared, hard_d) = self._adam_data(
-            kind, batch_num, normalize_residual, value_and_jac)
-        rows = self._rows()
-        if debug_nans:
-            loss_fn = _finite_loss(loss_fn, now)
+        with spans.timed("train.prepare") as prepare:
+            w_full = self._weights(weight)
+            # an explicit value + jacobian takes the general path, as in the JAX package
+            kind = self._fused_kind if value_and_jac is None else None
+            loss_fn, (quads, bc_d, ic_d, prepared, hard_d) = self._adam_data(
+                kind, batch_num, normalize_residual, value_and_jac)
+            rows = self._rows()
+            if debug_nans:
+                loss_fn = _finite_loss(loss_fn, now)
 
-        theta = tree_map(lambda v: v.clone().requires_grad_(True),
-                         replicate(self._params(None), self.mesh))
-        optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(theta))
-        start_epoch = 0
-        if resume:
-            try:
-                state, step = load_checkpoint(
-                    folderpath, {"theta": theta, "opt_state": optimizer.state_dict()},
-                    map_location=self.device)
-            except FileNotFoundError:
-                # nothing persisted yet (the previous attempt died before its
-                # first checkpoint): start fresh, so a recovery loop progresses
-                state, step = None, 0
-                if verbose:
-                    print(f"[varnet] resume: no checkpoints in {folderpath} yet, "
-                          "starting fresh")
-            if state is not None:
-                with torch.no_grad():   # in place: the leaves keep requires_grad
-                    for leaf, stored in zip(tree_leaves(theta), tree_leaves(state["theta"])):
-                        leaf.copy_(stored)
-                optimizer.load_state_dict(state["opt_state"])
-                start_epoch = step
-                if verbose:
-                    print(f"[varnet] resumed from epoch {step} in {folderpath}")
-        step_fn = make_train_step(loss_fn, optimizer, batch_num=batch_num, mesh=self.mesh)
+            theta = tree_map(lambda v: v.clone().requires_grad_(True),
+                             replicate(self._params(None), self.mesh))
+            optimizer = make_optimizer(self.optimizer_cfg, tree_leaves(theta))
+            start_epoch = 0
+            if resume:
+                try:
+                    state, step = load_checkpoint(
+                        folderpath, {"theta": theta, "opt_state": optimizer.state_dict()},
+                        map_location=self.device)
+                except FileNotFoundError:
+                    # nothing persisted yet (the previous attempt died before its
+                    # first checkpoint): start fresh, so a recovery loop progresses
+                    state, step = None, 0
+                    if verbose:
+                        print(f"[varnet] resume: no checkpoints in {folderpath} yet, "
+                              "starting fresh")
+                if state is not None:
+                    with torch.no_grad():   # in place: the leaves keep requires_grad
+                        for leaf, stored in zip(tree_leaves(theta), tree_leaves(state["theta"])):
+                            leaf.copy_(stored)
+                    optimizer.load_state_dict(state["opt_state"])
+                    start_epoch = step
+                    if verbose:
+                        print(f"[varnet] resumed from epoch {step} in {folderpath}")
+            step_fn = make_train_step(loss_fn, optimizer, batch_num=batch_num, mesh=self.mesh)
 
-        result = TrainResult()
-        log_path = None
-        if folderpath is not None:
-            os.makedirs(folderpath, exist_ok=True)
-            log_path = os.path.join(folderpath, "train_log.jsonl")
-        main = self.mesh.is_main
-        n_real_quad = self.static.n_test * self.static.n_quad_per_test
+            result = TrainResult()
+            log_path = None
+            if folderpath is not None:
+                os.makedirs(folderpath, exist_ok=True)
+                log_path = os.path.join(folderpath, "train_log.jsonl")
+            main = self.mesh.is_main
+            n_real_quad = self.static.n_test * self.static.n_quad_per_test
         t_start = None          # set after the first (warm-up) step
         timed_epochs = 0
-        report_overhead = 0.0   # host + eval time excluded from throughput
+        report_seconds = 0.0    # the reports' host + eval time, left out of the rate
         for epoch in range(start_epoch + 1, start_epoch + epoch_num + 1):
             now["epoch"] = epoch
-            aux = step_fn(theta, quads, bc_d, ic_d, w_full, prepared, hard_d, **rows)
+            with spans.span("train.epoch"):
+                aux = step_fn(theta, quads, bc_d, ic_d, w_full, prepared, hard_d, **rows)
             if t_start is None:
-                self._sync()
+                with spans.span("train.drain"):
+                    self._sync()
                 t_start = time.perf_counter()
                 if trace is not None:
                     trace.start(epoch)
@@ -878,39 +903,44 @@ class VarNet:
             last = epoch == start_epoch + epoch_num
             if epoch % int(save_freq) == 0 or last:
                 # drain the queued device work first so it counts as training time
-                self._sync()
-                t_rep = time.perf_counter()
-                aux_host = {k: float(v) for k, v in aux.items()}
-                err = self.compute_error(theta, disc=error_disc, n_times=error_times)
-                elapsed = time.perf_counter() - t_start
-                result.epochs.append(epoch)
-                result.losses.append(aux_host)
-                result.errors.append(err if err is not None else float("nan"))
-                result.wall_times.append(elapsed)
-                if verbose:
-                    err_s = f"{err:.3e}" if err is not None else "n/a"
-                    print(f"[varnet] epoch {epoch:7d}  loss {aux_host['loss']:.4e}"
-                          f"  int {aux_host['loss_int']:.3e}  bc {aux_host['loss_bc']:.3e}"
-                          + (f"  ic {aux_host['loss_ic']:.3e}" if "loss_ic" in aux_host else "")
-                          + f"  relL2 {err_s}  ({elapsed:.1f}s)", flush=True)
-                if log_path is not None:
-                    if main:
-                        with open(log_path, "a") as f:
-                            f.write(json.dumps({"epoch": epoch, "err": err, **aux_host}) + "\n")
-                        self._save(folderpath, epoch, theta, {"seed": self.seed}, optimizer)
-                    barrier(self.mesh)
-                report_overhead += time.perf_counter() - t_rep
+                with spans.span("train.drain"):
+                    self._sync()
+                with spans.timed("train.report") as report:
+                    aux_host = {k: float(v) for k, v in aux.items()}
+                    err = self.compute_error(theta, disc=error_disc, n_times=error_times)
+                    elapsed = time.perf_counter() - t_start
+                    result.epochs.append(epoch)
+                    result.losses.append(aux_host)
+                    result.errors.append(err if err is not None else float("nan"))
+                    result.wall_times.append(elapsed)
+                    if verbose:
+                        err_s = f"{err:.3e}" if err is not None else "n/a"
+                        print(f"[varnet] epoch {epoch:7d}  loss {aux_host['loss']:.4e}"
+                              f"  int {aux_host['loss_int']:.3e}  bc {aux_host['loss_bc']:.3e}"
+                              + (f"  ic {aux_host['loss_ic']:.3e}" if "loss_ic" in aux_host
+                                 else "")
+                              + f"  relL2 {err_s}  ({elapsed:.1f}s)", flush=True)
+                    if log_path is not None:
+                        if main:
+                            with open(log_path, "a") as f:
+                                f.write(json.dumps({"epoch": epoch, "err": err, **aux_host})
+                                        + "\n")
+                            self._save(folderpath, epoch, theta, {"seed": self.seed}, optimizer)
+                        barrier(self.mesh)
+                report_seconds += report.seconds
                 if target_error is not None and err is not None and err < target_error:
                     if verbose:
                         print(f"[varnet] target error {target_error:.1e} reached")
                     break
 
-        self._sync()
-        total_time = time.perf_counter() - t_start - report_overhead if t_start else 0.0
+        with spans.span("train.drain"):
+            self._sync()
+        total_time = time.perf_counter() - t_start - report_seconds if t_start else 0.0
         result.total_steps = timed_epochs * batch_num
         result.steps_per_sec = result.total_steps / total_time if total_time > 0 else 0.0
         result.quad_evals_per_sec = (
             timed_epochs * n_real_quad / total_time if total_time > 0 else 0.0)
+        result.prepare_seconds, result.report_seconds = prepare.seconds, report_seconds
         self.theta = tree_map(torch.Tensor.detach, theta)
         self.train_result = result
         if folderpath is not None:
@@ -1168,76 +1198,86 @@ class VarNet:
             return (f"resuming from LM step {st['offset']} with k_chunks {st['k']}, "
                     f"lam {st['lam']:.1e}")
 
-        return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
-                                     verbose, label="/lm", include_oom=True)
+        with spans.span("lm.call"):
+            return self._retry_transient(attempt_fn, on_fault, max_retries, retry_backoff,
+                                         verbose, label="/lm", include_oom=True)
 
     def _refine_lm_impl(self, steps, weight, cg_iters, save_freq, verbose, error_disc,
                         error_times, lam0, target_error, k_chunks, cg_segment, precond,
                         precond_mode, folderpath=None, step_offset=0) -> TrainResult:
-        w_full = self._weights(weight)
-        # each rank's block of the test functions splits into k_chunks chunks
-        quad_h = pad_quad(self.fixed.quad, self.n_shards * k_chunks)
-        quad_d = shard_quad(quad_h, self.mesh, self.dtype)
-        bc_d, ic_d = self._points()
-        hard_h = self._hard_tables(quad_h)
-        hard_d = None if hard_h is None else shard_hard((hard_h, None, None), self.mesh,
-                                                        self.dtype)[0]
-        rows = self._rows()
-        res_fn = make_residual_fn(
-            self.static, activation=self.activation, k_chunks=k_chunks,
-            value_and_jac=self._value_and_jac(self.use_pallas),
-            has_react=self.has_react, device=self.device,
-            input_scaling=self.input_scaling, apply_fn=self._apply_fn(),
-            hard_mode=self.hard is not None, nl_vec=self.nl_vec, dtype=self.dtype,
-            **self._hook_kwargs())
-        theta0 = replicate(self._params(None), self.mesh)
-        flat0, unravel = ravel_params(theta0)
+        with spans.timed("lm.prepare") as prepare:
+            w_full = self._weights(weight)
+            # each rank's block of the test functions splits into k_chunks chunks
+            quad_h = pad_quad(self.fixed.quad, self.n_shards * k_chunks)
+            quad_d = shard_quad(quad_h, self.mesh, self.dtype)
+            bc_d, ic_d = self._points()
+            hard_h = self._hard_tables(quad_h)
+            hard_d = None if hard_h is None else shard_hard((hard_h, None, None), self.mesh,
+                                                            self.dtype)[0]
+            rows = self._rows()
+            res_fn = make_residual_fn(
+                self.static, activation=self.activation, k_chunks=k_chunks,
+                value_and_jac=self._value_and_jac(self.use_pallas),
+                has_react=self.has_react, device=self.device,
+                input_scaling=self.input_scaling, apply_fn=self._apply_fn(),
+                hard_mode=self.hard is not None, nl_vec=self.nl_vec, dtype=self.dtype,
+                **self._hook_kwargs())
+            theta0 = replicate(self._params(None), self.mesh)
+            flat0, unravel = ravel_params(theta0)
 
-        def closure(flat):
-            return res_fn(unravel(flat), quad_d, bc_d, ic_d, w_full, hard=hard_d, **rows)
+            def closure(flat):
+                return res_fn(unravel(flat), quad_d, bc_d, ic_d, w_full, hard=hard_d, **rows)
 
-        lm_step = make_lm_step(closure, cg_iters=cg_iters, cg_segment=cg_segment,
-                               precond=precond, leaf_segments=leaf_segments(theta0),
-                               precond_mode=precond_mode, mesh=self.mesh)
-        with torch.no_grad():
-            r0 = closure(flat0)
-        state = LMState(flat=flat0,
-                        lam=torch.tensor(lam0, dtype=self.dtype, device=self.device),
-                        loss=all_reduce_sum(torch.dot(r0, r0), self.mesh))
+            lm_step = make_lm_step(closure, cg_iters=cg_iters, cg_segment=cg_segment,
+                                   precond=precond, leaf_segments=leaf_segments(theta0),
+                                   precond_mode=precond_mode, mesh=self.mesh)
+            with torch.no_grad():
+                r0 = closure(flat0)
+            state = LMState(flat=flat0,
+                            lam=torch.tensor(lam0, dtype=self.dtype, device=self.device),
+                            loss=all_reduce_sum(torch.dot(r0, r0), self.mesh))
 
         result = TrainResult()
         t_start = None
+        report_seconds = 0.0
         for it in range(1, steps + 1):
-            state = lm_step(state)
+            with spans.span("lm.iteration"):
+                state = lm_step(state)
             if t_start is None:
-                self._sync()
+                with spans.span("lm.drain"):
+                    self._sync()
                 t_start = time.perf_counter()
             if it % save_freq == 0 or it == steps:
-                theta_now = unravel(state.flat)
-                loss, lam = float(state.loss), float(state.lam)
-                err = self.compute_error(theta_now, disc=error_disc, n_times=error_times)
-                it_g = step_offset + it
-                result.epochs.append(it_g)
-                result.losses.append({"loss": loss, "lam": lam})
-                result.errors.append(err if err is not None else float("nan"))
-                result.wall_times.append(time.perf_counter() - t_start)
-                if verbose:
-                    err_s = f"{err:.3e}" if err is not None else "n/a"
-                    print(f"[varnet/lm] it {it_g:5d}  loss {loss:.4e}  lam {lam:.1e}"
-                          f"  relL2 {err_s}  ({result.wall_times[-1]:.1f}s)", flush=True)
-                if folderpath is not None:
-                    # lam in the sidecar makes the restart exact: a resumed run
-                    # re-enters with the damping it stopped at
-                    if self.mesh.is_main:
-                        self._save(folderpath, it_g, theta_now,
-                                   {"lam": lam, "loss": loss, "phase": "lm"})
-                    barrier(self.mesh)
+                with spans.span("lm.drain"):
+                    self._sync()
+                with spans.timed("lm.report") as report:
+                    theta_now = unravel(state.flat)
+                    loss, lam = float(state.loss), float(state.lam)
+                    err = self.compute_error(theta_now, disc=error_disc, n_times=error_times)
+                    it_g = step_offset + it
+                    result.epochs.append(it_g)
+                    result.losses.append({"loss": loss, "lam": lam})
+                    result.errors.append(err if err is not None else float("nan"))
+                    result.wall_times.append(time.perf_counter() - t_start)
+                    if verbose:
+                        err_s = f"{err:.3e}" if err is not None else "n/a"
+                        print(f"[varnet/lm] it {it_g:5d}  loss {loss:.4e}  lam {lam:.1e}"
+                              f"  relL2 {err_s}  ({result.wall_times[-1]:.1f}s)", flush=True)
+                    if folderpath is not None:
+                        # lam in the sidecar makes the restart exact: a resumed run
+                        # re-enters with the damping it stopped at
+                        if self.mesh.is_main:
+                            self._save(folderpath, it_g, theta_now,
+                                       {"lam": lam, "loss": loss, "phase": "lm"})
+                        barrier(self.mesh)
+                report_seconds += report.seconds
                 if target_error is not None and err is not None and err < target_error:
                     if verbose:
                         print(f"[varnet/lm] target {target_error:.1e} reached")
                     break
         self.theta = tree_map(lambda v: v.detach().clone(), unravel(state.flat))
         result.total_steps = step_offset + steps
+        result.prepare_seconds, result.report_seconds = prepare.seconds, report_seconds
         self.train_result = result
         return result
 
@@ -1728,6 +1768,8 @@ class VarNet:
             last_wall = merged.wall_times[-1] if merged.wall_times else 0.0
             merged.wall_times.extend(w + last_wall for w in res.wall_times)
             merged.total_steps += res.total_steps
+            merged.prepare_seconds += res.prepare_seconds
+            merged.report_seconds += res.report_seconds
             merged.quad_evals_per_sec = res.quad_evals_per_sec
             merged.steps_per_sec = res.steps_per_sec
             offset += per

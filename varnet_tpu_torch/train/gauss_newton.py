@@ -45,6 +45,7 @@ from ..fem.hardbc import hard_transform
 from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac, net_of
 from ..ops.residual import hook_fields, support_volume, weak_residual
 from ..parallel.mesh import all_reduce_sum
+from ..utils.spans import span
 from .loss import flux_error, obs_values
 
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
@@ -294,14 +295,15 @@ def make_lm_step(
         # minv=None is plain CG (z == res).
         x, p, res, rz = carry
         for _ in range(n):
-            ap = all_reduce_sum(pullback(jvp(residual_closure, flat, p)), mesh) + lam * p
-            alpha = rz / torch.clamp_min(torch.dot(p, ap), 1e-30)
-            x = x + alpha * p
-            res = res - alpha * ap
-            z = res if minv is None else minv * res
-            rz_new = torch.dot(res, z)
-            p = z + (rz_new / torch.clamp_min(rz, 1e-30)) * p
-            rz = rz_new
+            with span("lm.cg_iter"):
+                ap = all_reduce_sum(pullback(jvp(residual_closure, flat, p)), mesh) + lam * p
+                alpha = rz / torch.clamp_min(torch.dot(p, ap), 1e-30)
+                x = x + alpha * p
+                res = res - alpha * ap
+                z = res if minv is None else minv * res
+                rz_new = torch.dot(res, z)
+                p = z + (rz_new / torch.clamp_min(rz, 1e-30)) * p
+                rz = rz_new
         return x, p, res, rz
 
     def cg_init(flat, lam):
@@ -309,32 +311,34 @@ def make_lm_step(
         # identity without a group); the floor and the per-leaf means come
         # after the sum, so they see every rank's rows (the ranks' independent
         # probes give an unbiased sum)
-        r, pullback = linearize(residual_closure, flat)
-        b = -pullback(r)
-        n = b.shape[0]
-        parts = [b]
-        if n_probes:
-            z = rademacher_probes(n_probes, r.shape[0], r.dtype, r.device, rank=rank)
-            parts.append(_diag_probe_est(pullback, z))
-        packed = all_reduce_sum(torch.cat(parts + [torch.dot(r, r)[None]]), mesh)
-        b, loss, minv = packed[:n], packed[-1], None
-        if n_probes:
-            diag = _floor_diag(packed[n:2 * n])
-            if precond_mode == "leaf":
-                diag = _leaf_reduce_diag(diag, segs.to(diag.device), n_leaves)
-            minv = 1.0 / (diag + lam)
-        z0 = b if minv is None else minv * b
-        return (torch.zeros_like(b), z0, b, torch.dot(b, z0)), loss, minv, pullback
+        with span("lm.linearize"):
+            r, pullback = linearize(residual_closure, flat)
+            b = -pullback(r)
+            n = b.shape[0]
+            parts = [b]
+            if n_probes:
+                z = rademacher_probes(n_probes, r.shape[0], r.dtype, r.device, rank=rank)
+                parts.append(_diag_probe_est(pullback, z))
+            packed = all_reduce_sum(torch.cat(parts + [torch.dot(r, r)[None]]), mesh)
+            b, loss, minv = packed[:n], packed[-1], None
+            if n_probes:
+                diag = _floor_diag(packed[n:2 * n])
+                if precond_mode == "leaf":
+                    diag = _leaf_reduce_diag(diag, segs.to(diag.device), n_leaves)
+                minv = 1.0 / (diag + lam)
+            z0 = b if minv is None else minv * b
+            return (torch.zeros_like(b), z0, b, torch.dot(b, z0)), loss, minv, pullback
 
     def accept(flat, lam, loss, delta):
-        cand = flat + delta
-        cand_loss = loss_of(cand)
-        improved = cand_loss < loss
-        return LMState(
-            flat=torch.where(improved, cand, flat),
-            lam=torch.clamp(torch.where(improved, lam * LAM_DOWN, lam * LAM_UP), 1e-12, 1e6),
-            loss=torch.where(improved, cand_loss, loss),
-        )
+        with span("lm.accept"):
+            cand = flat + delta
+            cand_loss = loss_of(cand)
+            improved = cand_loss < loss
+            return LMState(
+                flat=torch.where(improved, cand, flat),
+                lam=torch.clamp(torch.where(improved, lam * LAM_DOWN, lam * LAM_UP), 1e-12, 1e6),
+                loss=torch.where(improved, cand_loss, loss),
+            )
 
     seg = int(cg_segment) if cg_segment and int(cg_segment) > 0 else 0
 
@@ -348,7 +352,8 @@ def make_lm_step(
             while done < int(cg_iters):
                 n = min(seg, int(cg_iters) - done)
                 if done:
-                    _, pullback = linearize(residual_closure, flat)
+                    with span("lm.linearize"):
+                        _, pullback = linearize(residual_closure, flat)
                 carry = cg_run(flat, lam, pullback, carry, minv, n)
                 done += n
         return accept(flat, lam, loss, carry[0])

@@ -136,6 +136,11 @@ class TrainResult:
     quad_evals_per_sec: float = 0.0   # quadrature-point residual evals/s
     steps_per_sec: float = 0.0
     total_steps: int = 0
+    # host seconds of the call's set-up before its first step (data layout,
+    # rows, optimizer, resume) and of its reports (loss to host, error, log,
+    # checkpoint); steps_per_sec leaves both out
+    prepare_seconds: float = 0.0
+    report_seconds: float = 0.0
 
     def as_dict(self) -> Dict[str, Any]:
         return {
@@ -146,6 +151,8 @@ class TrainResult:
             "quad_evals_per_sec": self.quad_evals_per_sec,
             "steps_per_sec": self.steps_per_sec,
             "total_steps": self.total_steps,
+            "prepare_seconds": self.prepare_seconds,
+            "report_seconds": self.report_seconds,
         }
 
     def best_error(self) -> Optional[float]:
