@@ -31,8 +31,8 @@ is non-zero and no result line is printed):
                per call of each kernel and plain version.
 7. lm       -- the third stage of the main path: ``refine_lm`` at width (48, 48, 48),
                disc 48 / t_disc 32, from ``flagship_theta_8.3e-4.npz`` (k_chunks 16),
-               on the kernel path (K5/K6 launch counters rise by >= steps x cg_iters)
-               and on the plain path; the loss does not rise, the two paths' losses
+               on the kernel path (K5 fwd launches k_chunks x (1 + 2 steps), K5 bwd and
+               K6 >= steps x cg_iters) and on the plain path; the loss does not rise, the two paths' losses
                agree within rtol 2e-2, and the final rel-L2 stays in (6e-4, 1e-3).
                The kernels are also held to their plain versions at the chunk shape
                the LM calls them with.
@@ -132,7 +132,7 @@ is non-zero and no result line is printed):
 15. hard-accuracy -- the pinned hard-BC thetas re-score on the card: 3-D transient
                < 3e-4, 2-D steady < 4.0e-5, 1-D transient < 5e-6.
 16. hard-lm -- 2 LM iterations (cg 10, k_chunks 16) from ``theta_hardbc_3dt.npz`` at the
-               3-D transient mesh on K5 / K6: launches rise by >= steps x cg_iters, the
+               3-D transient mesh on K5 / K6: launches as in ``lm``, the
                loss does not rise, rel-L2 stays < 3e-4.  Kernel vs plain (rtol 2e-2) at
                disc 8 / t_disc 6.
 
@@ -166,7 +166,7 @@ is non-zero and no result line is printed):
                one LM chunk of the mesh (the shape LM gives them, seeded cotangent and
                tangent); 2 LM iterations (cg 20, k_chunks 16) from
                ``theta_burgers_front_2d.npz`` at the recipe's mesh on K5 / K6 with the
-               nonlinear term: launches rise by >= steps x cg_iters, the loss does not
+               nonlinear term: launches as in ``lm``, the loss does not
                rise, rel-L2 stays < 2e-4; the same on the plain path, whose losses agree
                within rtol 2e-2.
 
@@ -485,12 +485,32 @@ def _kernel_vs_plain(make, epochs, label, counters, start=None, **train_kw):
     return runs[True], runs[False], launches, vk
 
 
+def _lm_need(lm, launches):
+    """The launches ``refine_lm(**lm)`` makes of each kernel named in ``launches``:
+    the net's forward (K5's ``vj_fwd``, K7's ``ff_vj_fwd``) exactly k_chunks x
+    (1 + 2 steps) (r0, then each iteration's linearization and accept: J v and J^T w
+    read the linearization's stored primal), every other kernel at least
+    steps x cg_iters."""
+    from varnet_tpu_torch.ops import value_and_jac as vj
+
+    forwards = (vj.vj_fwd.__name__, vj.ff_vj_fwd.__name__)
+    return {name: (lm.get("k_chunks", 1) * (1 + 2 * lm["steps"]), True) if name in forwards
+            else (lm["steps"] * lm["cg_iters"], False) for name in launches}
+
+
+def _lm_short(launches, need):
+    """True when a count of ``launches`` misses ``_lm_need``'s: an exact count off,
+    or a floor not reached."""
+    return any(launches[name] != n if exact else launches[name] < n
+               for name, (n, exact) in need.items())
+
+
 def _lm_vs_plain(make, theta, lm, label, counters, **kw):
     """LM (``lm``, and ``kw`` to ``refine_lm``) from theta on the kernel path of
     ``make(use_pallas)`` (the launches of ``counters`` set to 0 just before and read just
-    after) and on the plain path: each kernel launched at least steps x cg_iters times,
-    the kernel losses finite and not rising, both within rtol 2e-2.  Returns (the
-    launches, the kernel run's VarNet, its result, the plain run's result)."""
+    after) and on the plain path: each kernel launched as ``_lm_need`` says, the kernel
+    losses finite and not rising, both within rtol 2e-2.  Returns (the launches, the kernel run's VarNet, its result, the plain run's
+    result)."""
     import torch
 
     runs = {}
@@ -507,8 +527,8 @@ def _lm_vs_plain(make, theta, lm, label, counters, **kw):
     (vk, rk, secs_k), (_, rp, secs_p) = runs[True], runs[False]
     lk, lp = _losses(rk), _losses(rp)
     worst = float(np.max(np.abs(lk - lp) / np.abs(lp)))
-    need = lm["steps"] * lm["cg_iters"]
-    if (min(launches.values()) < need or not np.all(np.isfinite(lk))
+    need = _lm_need(lm, launches)
+    if (_lm_short(launches, need) or not np.all(np.isfinite(lk))
             or not np.all(np.diff(lk) <= 0) or not worst <= 2e-2):
         raise AssertionError(f"{label}: launches {launches} (need {need}), kernel {lk} vs "
                              f"plain {lp}, max rel diff {worst:.3e}")
@@ -1435,8 +1455,8 @@ def phase_contaminant_accuracy():
 def _lm_ff_full(theta, label, **kw):
     """2 LM iterations (LM_FF) from theta at the full contaminant mesh through K7 / K8
     (``kw`` to the VarNet), their launch counters set to 0 just before and read just
-    after: each launched at least steps x cg_iters times, the loss finite and not rising
-    from its start.  Returns (the VarNet, its result, the launches)."""
+    after: each launched as ``_lm_need`` says, the loss finite and not rising from its
+    start.  Returns (the VarNet, its result, the launches)."""
     import torch
 
     from varnet_tpu_torch.ops import value_and_jac as vj
@@ -1453,9 +1473,9 @@ def _lm_ff_full(theta, label, **kw):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    need = LM_FF["steps"] * LM_FF["cg_iters"]
-    if min(launches.values()) < need:
-        raise AssertionError(f"{label}: K7/K8 launches {launches} < steps x cg_iters = {need}")
+    need = _lm_need(LM_FF, launches)
+    if _lm_short(launches, need):
+        raise AssertionError(f"{label}: K7/K8 launches {launches}, need {need}")
     lk = _losses(res)
     # the start loss is evaluated on the plain path: allow its f32 rounding
     if not (np.all(np.isfinite(lk)) and lk[0] <= start * (1 + 1e-5) and np.all(np.diff(lk) <= 0)):
@@ -1799,9 +1819,9 @@ def phase_hard_lm(vn3):
     secs = time.perf_counter() - t0
     launches = {"vj_fwd": vj.vj_fwd.launches, "vj_bwd": vj.vj_bwd.launches,
                 "vj_jvp": vj.vj_jvp.launches}
-    need = HARD_LM["steps"] * HARD_LM["cg_iters"]
-    if min(launches.values()) < need:
-        raise AssertionError(f"hard LM kernel launches {launches} < steps x cg_iters = {need}")
+    need = _lm_need(HARD_LM, launches)
+    if _lm_short(launches, need):
+        raise AssertionError(f"hard LM kernel launches {launches}, need {need}")
     lk = _losses(rk)
     if not (np.all(np.isfinite(lk)) and lk[0] <= start * (1 + 1e-5) and np.all(np.diff(lk) <= 0)):
         raise AssertionError(f"hard LM loss rose: start {start} -> {lk.tolist()}")

@@ -24,6 +24,11 @@ with the recorder on also give what the spans show:
   ``lm_cg_ms`` / ``lm_kernels_per_cg_iter`` (device time and kernels launched
   inside ``lm.cg_iter``, per such span of the window call) and
   ``lm_outside_cg_share`` (% of the device time launched outside it);
+* of an LM cell, ``fwd_per_lm_iteration``: the net's forward kernel (K7's
+  ``ff_fwd_kernel``, K5's ``vj_fwd_kernel``) launches per LM iteration of the
+  window call, by innermost span; and in every window line the LM iteration's
+  stored primal (``ops/value_and_jac.py``'s ``primal_fills`` / ``primal_hits``,
+  counted over the window call) with ``primal_hit_share`` = hits / (hits + fills);
 * ``by_span``: launches and device seconds per (kernel, innermost span).
 
 The last line of standard output is one JSON object with every window; the full
@@ -187,6 +192,14 @@ def span_metrics(driver: str, events, corr, start_ns, spans) -> dict:
         out["ff_jvp_launches"] = len(jvp)
         out["ff_jvp_in_cg_iter"] = sum(within(spans, d.span, "lm.cg_iter") for d in jvp)
         out["lm_cg_iters_in_window"] = n_cg
+        n_lm = len(in_call(spans, call, "lm.iteration")) if call is not None else 0
+        if n_lm:
+            fwd: Dict[str, int] = defaultdict(int)
+            for d in kernels:
+                if trace.short_name(d.name) in ("ff_fwd_kernel", "vj_fwd_kernel"):
+                    fwd[OUTSIDE if d.span is None else spans[d.span].name] += 1
+            out["fwd_per_lm_iteration"] = {k: v / n_lm for k, v in sorted(fwd.items())}
+            out["lm_iterations_in_window"] = n_lm
     return out
 
 
@@ -212,14 +225,17 @@ def traced_window(cell, vn, units, device, recorder: bool):
     import torch
 
     from portbench import harness, trace
+    from varnet_tpu_torch.ops import value_and_jac as vj
     from varnet_tpu_torch.utils import spans as program_spans
 
     scope = program_spans.record() if recorder else contextlib.nullcontext()
+    stored = (vj.primal_fills, vj.primal_hits)
     with scope as rec, trace.profile(torch.device(device).type) as prof:
         t = time.perf_counter()
         out = cell.driver.window(cell, vn, units)
         harness._sync(device)
         elapsed = time.perf_counter() - t
+    fills, hits = vj.primal_fills - stored[0], vj.primal_hits - stored[1]
     kin = list(prof.profiler.kineto_results.events())
     events = trace.events(prof)
     corr = [int(e.correlation_id()) for e in kin]
@@ -227,7 +243,9 @@ def traced_window(cell, vn, units, device, recorder: bool):
     del prof, kin
     line = {"recorder": recorder, "elapsed_s": elapsed,
             **cell.driver.rates(cell, units, elapsed),
-            "result_prepare_s": out.prepare_seconds, "result_report_s": out.report_seconds}
+            "result_prepare_s": out.prepare_seconds, "result_report_s": out.report_seconds,
+            "primal_fills": fills, "primal_hits": hits,
+            "primal_hit_share": 100.0 * hits / (hits + fills) if hits + fills else None}
     if recorder:
         line.update(span_metrics(cell.workload["driver"], events, corr, start_ns, rec.spans))
     return line

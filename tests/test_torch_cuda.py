@@ -233,13 +233,13 @@ def test_value_and_jac_function_rules_on_cuda(cuda):
     params, xs_t, g, tangent = _vj_case(3, (20, 20))
     leaves = [layer[k].clone().requires_grad_(True) for layer in params for k in ("w", "b")]
     before = (vj.vj_bwd.launches, vj.vj_jvp.launches)
-    out = vj.ValueAndJacFn.apply(xs_t, "tanh", *leaves)
+    out = vj.ValueAndJacFn.apply(xs_t, "tanh", None, *leaves)
     got = torch.autograd.grad(out, leaves, g)
     # forward-mode through dual tensors: torch.func.jvp's wrapped tensors have
     # no storage that a ctypes launch could read
     with torch.no_grad(), fwAD.dual_level():
         duals = [fwAD.make_dual(p, t) for p, t in zip(vj._leaves(params), vj._leaves(tangent))]
-        dout = fwAD.unpack_dual(vj.ValueAndJacFn.apply(xs_t, "tanh", *duals)).tangent
+        dout = fwAD.unpack_dual(vj.ValueAndJacFn.apply(xs_t, "tanh", None, *duals)).tangent
     assert (vj.vj_bwd.launches, vj.vj_jvp.launches) == (before[0] + 1, before[1] + 1)
     ref = vj._leaves(vj.vj_bwd_plain(params, xs_t, "tanh", g))
     assert max(_rel(a, b) for a, b in zip(got, ref)) < 1e-4
@@ -1406,7 +1406,9 @@ INVERSE_CASES = {  # case -> the Adam step's counted kernels
 def test_inverse_rows_adam_and_lm_on_the_kernels_match_plain(cuda, case):
     """10 Adam epochs through the case's kernel (each launched every epoch) against
     the plain path, every trainable leaf moving on both; then 2 LM iterations
-    through K5/K6 against the plain LM."""
+    through K5/K6 against the plain LM: K5's backward and K6 every CG iteration, K5's
+    forward once for r0 and twice an iteration (J v and J^T w reuse the
+    linearization's primal)."""
     counters = [getattr(fr if name.startswith("dir") else vj, name)
                 for name in INVERSE_CASES[case]]
     runs = {}
@@ -1429,7 +1431,8 @@ def test_inverse_rows_adam_and_lm_on_the_kernels_match_plain(cuda, case):
     vp.theta = vk.theta
     before = [c.launches for c in (vj.vj_fwd, vj.vj_bwd, vj.vj_jvp)]
     lk = [r["loss"] for r in vk.refine_lm(weight=w, **lm).losses]
-    assert min(c.launches - b for c, b in zip((vj.vj_fwd, vj.vj_bwd, vj.vj_jvp), before)) >= 20
+    fwd, bwd, jvp = (c.launches - b for c, b in zip((vj.vj_fwd, vj.vj_bwd, vj.vj_jvp), before))
+    assert fwd == 1 + 2 * 2 and min(bwd, jvp) >= 20
     np.testing.assert_allclose(lk, [r["loss"] for r in vp.refine_lm(weight=w, **lm).losses],
                                rtol=2e-2)
 

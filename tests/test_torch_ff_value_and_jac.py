@@ -124,13 +124,14 @@ def test_ff_function_rules_match_autograd(n_in, widths, activation):
     leaves = [t.clone().requires_grad_(True) for t in _leaves(params)]
     ref = torch.autograd.grad((vj.ff_vj_fwd_plain(vj._as_params(leaves), xs_t, bt, activation)
                                * g).sum(), leaves)
-    got = torch.autograd.grad(vj.FfValueAndJacFn.apply(xs_t, bt, activation, *leaves), leaves, g)
+    got = torch.autograd.grad(vj.FfValueAndJacFn.apply(xs_t, bt, activation, None, *leaves),
+                              leaves, g)
     for a, c in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-10, atol=1e-12)
     _, jref = torch.func.jvp(
         lambda *fl: vj.ff_vj_fwd_plain(vj._as_params(fl), xs_t, bt, activation),
         tuple(_leaves(params)), tuple(_leaves(tan)))
-    _, jgot = torch.func.jvp(lambda *fl: vj.FfValueAndJacFn.apply(xs_t, bt, activation, *fl),
+    _, jgot = torch.func.jvp(lambda *fl: vj.FfValueAndJacFn.apply(xs_t, bt, activation, None, *fl),
                              tuple(_leaves(params)), tuple(_leaves(tan)))
     np.testing.assert_allclose(jgot.numpy(), jref.numpy(), rtol=1e-10, atol=1e-12)
 
@@ -180,7 +181,7 @@ def test_no_embedding_matches_pallas_value_and_jac(widths, activation):
     scale, shift = make_input_scaling(LO[:3], HI[:3])
     xs_t = ((torch.from_numpy(x) - shift) * scale).T.contiguous()
     leaves = [t.requires_grad_(True) for t in _leaves(params_from_jax(theta))]
-    out = vj.FfValueAndJacFn.apply(xs_t, None, activation, *leaves)
+    out = vj.FfValueAndJacFn.apply(xs_t, None, activation, None, *leaves)
     _close(out[0].detach(), ju, 2e-5)
     _close((out[1:] * scale[:, None]).T.detach(), jdu, 2e-5)
     g = torch.cat([torch.from_numpy(cu)[None], (torch.from_numpy(cd) * scale).T])
@@ -189,6 +190,7 @@ def test_no_embedding_matches_pallas_value_and_jac(widths, activation):
     with torch.no_grad(), fwAD.dual_level():
         duals = [fwAD.make_dual(a.detach(), t)
                  for a, t in zip(leaves, _leaves(params_from_jax(tangent)))]
-        dout = fwAD.unpack_dual(vj.FfValueAndJacFn.apply(xs_t, None, activation, *duals)).tangent
+        dout = fwAD.unpack_dual(
+            vj.FfValueAndJacFn.apply(xs_t, None, activation, None, *duals)).tangent
     _close(dout[0], jtu, 5e-4)
     _close((dout[1:] * scale[:, None]).T, jtdu, 5e-4)

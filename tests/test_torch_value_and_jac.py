@@ -124,13 +124,13 @@ def test_function_rules_match_autograd(n_in, widths, activation):
     leaves = [t.clone().requires_grad_(True) for t in _leaves(params)]
     ref = torch.autograd.grad((vj.vj_fwd_plain(vj._as_params(leaves), xs_t, activation)
                                * g).sum(), leaves)
-    out = vj.ValueAndJacFn.apply(xs_t, activation, *leaves)
+    out = vj.ValueAndJacFn.apply(xs_t, activation, None, *leaves)
     got = torch.autograd.grad(out, leaves, g)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
     _, jref = torch.func.jvp(lambda *fl: vj.vj_fwd_plain(vj._as_params(fl), xs_t, activation),
                              tuple(_leaves(params)), tuple(_leaves(tangent)))
-    _, jgot = torch.func.jvp(lambda *fl: vj.ValueAndJacFn.apply(xs_t, activation, *fl),
+    _, jgot = torch.func.jvp(lambda *fl: vj.ValueAndJacFn.apply(xs_t, activation, None, *fl),
                              tuple(_leaves(params)), tuple(_leaves(tangent)))
     np.testing.assert_allclose(jgot.numpy(), jref.numpy(), rtol=1e-10, atol=1e-12)
 

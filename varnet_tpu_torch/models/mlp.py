@@ -180,13 +180,16 @@ def mlp_value_and_jac(
     activation: str = "tanh",
     scale: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
+    primal=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(u, du/dx) at x: [P, n_in] -> ([P], [P, n_in]).
 
     Forward-mode jacobian propagation: the per-point state is a
     [(1 + n_in), H] block (activation row + jacobian rows), so each layer is
     ONE matmul of shape [P*(1+n_in), H_in] @ [H_in, H_out].  The jacobian is
-    with respect to the ORIGINAL (unscaled) inputs.
+    with respect to the ORIGINAL (unscaled) inputs.  ``primal`` is ignored:
+    the plain chain has no differentiation rules of its own, so it recomputes
+    where the kernels' Functions (``ops/value_and_jac.py``) read a stored one.
     """
     act, act_prime = _activation_pair(activation)
     p, n_in = x.shape
@@ -258,10 +261,12 @@ def ff_apply(b_mat, params: Params, x: torch.Tensor, activation: str = "tanh",
 
 def ff_value_and_jac(b_mat, params: Params, x: torch.Tensor, activation: str = "tanh",
                      scale: Optional[torch.Tensor] = None,
-                     shift: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     shift: Optional[torch.Tensor] = None,
+                     primal=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(u, du/dx) through the Fourier-feature embedding + MLP (the math of
     ``varnet_tpu.models.mlp.ff_value_and_jac``): the embedding jacobian seeds
-    the n_in tangent rows; du is with respect to the ORIGINAL coordinates."""
+    the n_in tangent rows; du is with respect to the ORIGINAL coordinates.
+    ``primal`` is ignored, as :func:`mlp_value_and_jac`'s."""
     act, act_prime = _activation_pair(activation)
     p, n_in = x.shape
     dtype = params[0]["w"].dtype

@@ -16,6 +16,10 @@ raise); each counts its kernel launches in ``.launches``.  ``ValueAndJacFn``
 carries both differentiation rules (``backward`` -> K5 backward, ``jvp`` -> K6),
 so reverse and forward mode go through one function where JAX needed two
 wrapped twins; ``value_and_jac`` is the drop-in for ``mlp_value_and_jac``.
+Its ``primal=`` (a :class:`PrimalSlot`) keeps the forward's out for later calls
+at the same parameters and points, whose forward then launches nothing: an LM
+iteration's J v and J^T w reuse the linearization's (``train/gauss_newton.py``);
+``primal_fills`` / ``primal_hits`` count the evaluations that filled / read one.
 
 The Fourier-feature twins (``pallas_ff_value_and_jac`` / ``_jvp``: K7 forward
 and backward, K8) are ``ff_vj_fwd`` / ``ff_vj_bwd`` / ``ff_vj_jvp`` with the
@@ -437,17 +441,54 @@ def _as_params(flat):
     return [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
 
 
+primal_fills = 0   # evaluations that ran the forward and stored it in a PrimalSlot
+primal_hits = 0    # evaluations whose forward a held PrimalSlot gave
+
+
+class PrimalSlot:
+    """The out [1 + n_in, P] of a value + jacobian Function's forward, kept for
+    later calls at the same parameters and points (``primal=`` of
+    :func:`value_and_jac` / :func:`ff_value_and_jac`).  Empty, the next call's
+    forward runs and fills it; held, the forward returns it and launches
+    nothing.  The backward and jvp rules read only the points and the
+    parameters, so they run as without it.  Whoever holds the slot empties it
+    before either changes."""
+
+    __slots__ = ("out",)
+
+    def __init__(self):
+        self.out = None
+
+
+def _forward(primal, compute):
+    """``compute()``, or the out that ``primal`` holds.  The stored out is
+    returned detached: a new tensor on the same memory (no copy), so that
+    autograd's record of this call (the output's grad_fn, its forward-mode
+    tangent) never lands on the stored one."""
+    global primal_fills, primal_hits
+    if primal is None:
+        return compute()
+    if primal.out is not None:
+        primal_hits += 1
+        return primal.out.detach()
+    out = compute()
+    primal.out = out.detach()
+    primal_fills += 1
+    return out
+
+
 class ValueAndJacFn(torch.autograd.Function):
-    """out = vj_fwd(params, xs_t); ``backward`` by K5's backward, ``jvp`` by K6.
+    """out = vj_fwd(params, xs_t), or the out a held ``primal`` slot stores
+    (None: none); ``backward`` by K5's backward, ``jvp`` by K6.
     Differentiable in the parameters only: xs_t is fixed data."""
 
     @staticmethod
-    def forward(xs_t, activation, *flat):
-        return vj_fwd(_as_params(flat), xs_t, activation)
+    def forward(xs_t, activation, primal, *flat):
+        return _forward(primal, lambda: vj_fwd(_as_params(flat), xs_t, activation))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        xs_t, activation, *flat = inputs
+        xs_t, activation, _primal, *flat = inputs
         ctx.activation = activation
         ctx.save_for_backward(xs_t, *flat)
         ctx.save_for_forward(xs_t, *flat)
@@ -456,31 +497,34 @@ class ValueAndJacFn(torch.autograd.Function):
     def backward(ctx, g):
         xs_t, *flat = ctx.saved_tensors
         grads = vj_bwd(_as_params(flat), xs_t, ctx.activation, g)
-        return (None, None, *_leaves(grads))
+        return (None, None, None, *_leaves(grads))
 
     @staticmethod
-    def jvp(ctx, _dxs, _dact, *dflat):
+    def jvp(ctx, _dxs, _dact, _dprimal, *dflat):
         xs_t, *flat = ctx.saved_tensors
         tangent = [torch.zeros_like(t) if d is None else d for t, d in zip(flat, dflat)]
         return vj_jvp(_as_params(flat), xs_t, ctx.activation, _as_params(tangent))
 
 
-def value_and_jac(params, x, activation: str = "tanh", scale=None, shift=None):
+def value_and_jac(params, x, activation: str = "tanh", scale=None, shift=None,
+                  primal=None):
     """(u, du/dx) at x: [P, n_in] -> ([P], [P, n_in]) through
     :class:`ValueAndJacFn`: the signature and semantics of
     ``mlp_value_and_jac`` (du is with respect to the ORIGINAL coordinates),
     differentiable in reverse and forward mode with respect to ``params`` only.
+    ``primal``: a :class:`PrimalSlot` for these parameters and points, filled
+    by this call's forward if empty, standing in for it if held.
     A net without a hidden layer falls back to ``mlp_value_and_jac``, as
-    ``pallas_value_and_jac`` does; on CUDA a net wider than K5 / K6 take runs
-    on K7 / K8 without an embedding."""
+    ``pallas_value_and_jac`` does (and recomputes); on CUDA a net wider than
+    K5 / K6 take runs on K7 / K8 without an embedding."""
     if len(params) < 2:
         return mlp_value_and_jac(params, x, activation, scale, shift)
     xs = x if scale is None else (x - shift) * scale
     xs_t = xs.detach().T.to(torch.float32).contiguous()
     if fr.uses_ff_kernels(params, xs_t.is_cuda, False):
-        out = FfValueAndJacFn.apply(xs_t, None, activation, *_leaves(params))
+        out = FfValueAndJacFn.apply(xs_t, None, activation, primal, *_leaves(params))
     else:
-        out = ValueAndJacFn.apply(xs_t, activation, *_leaves(params))
+        out = ValueAndJacFn.apply(xs_t, activation, primal, *_leaves(params))
     du = out[1:]
     if scale is not None:
         du = du * scale[:, None].to(du.dtype)
@@ -586,16 +630,17 @@ ff_vj_jvp.launches = 0
 
 
 class FfValueAndJacFn(torch.autograd.Function):
-    """out = ff_vj_fwd(params, xs_t, bt); ``backward`` by K7's backward, ``jvp``
-    by K8.  Differentiable in the parameters only: xs_t and bt are fixed."""
+    """out = ff_vj_fwd(params, xs_t, bt), or the out a held ``primal`` slot
+    stores (None: none); ``backward`` by K7's backward, ``jvp`` by K8.
+    Differentiable in the parameters only: xs_t and bt are fixed."""
 
     @staticmethod
-    def forward(xs_t, bt, activation, *flat):
-        return ff_vj_fwd(_as_params(flat), xs_t, bt, activation)
+    def forward(xs_t, bt, activation, primal, *flat):
+        return _forward(primal, lambda: ff_vj_fwd(_as_params(flat), xs_t, bt, activation))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        xs_t, bt, activation, *flat = inputs
+        xs_t, bt, activation, _primal, *flat = inputs
         ctx.activation = activation
         ctx.save_for_backward(xs_t, bt, *flat)
         ctx.save_for_forward(xs_t, bt, *flat)
@@ -604,27 +649,29 @@ class FfValueAndJacFn(torch.autograd.Function):
     def backward(ctx, g):
         xs_t, bt, *flat = ctx.saved_tensors
         grads = ff_vj_bwd(_as_params(flat), xs_t, bt, ctx.activation, g)
-        return (None, None, None, *_leaves(grads))
+        return (None, None, None, None, *_leaves(grads))
 
     @staticmethod
-    def jvp(ctx, _dxs, _dbt, _dact, *dflat):
+    def jvp(ctx, _dxs, _dbt, _dact, _dprimal, *dflat):
         xs_t, bt, *flat = ctx.saved_tensors
         tangent = [torch.zeros_like(t) if d is None else d for t, d in zip(flat, dflat)]
         return ff_vj_jvp(_as_params(flat), xs_t, bt, ctx.activation, _as_params(tangent))
 
 
-def ff_value_and_jac(b_mat, params, x, activation: str = "tanh", scale=None, shift=None):
+def ff_value_and_jac(b_mat, params, x, activation: str = "tanh", scale=None, shift=None,
+                     primal=None):
     """(u, du/dx) of the Fourier-feature net through :class:`FfValueAndJacFn`:
     the signature and semantics of ``models.mlp.ff_value_and_jac`` (bind B with
     ``functools.partial``), differentiable in reverse and forward mode with
-    respect to ``params`` only.  bt = 2 pi B^T is formed as the JAX package
-    forms it.  A net without a hidden layer falls back to the plain function."""
+    respect to ``params`` only; ``primal`` as :func:`value_and_jac`'s.  bt =
+    2 pi B^T is formed as the JAX package forms it.  A net without a hidden
+    layer falls back to the plain function."""
     if len(params) < 2:
         return _mlp.ff_value_and_jac(b_mat, params, x, activation, scale, shift)
     xs = x if scale is None else (x - shift) * scale
     xs_t = xs.detach().T.to(torch.float32).contiguous()
     bt = ((2.0 * math.pi) * b_mat.to(device=x.device, dtype=torch.float32).T).contiguous()
-    out = FfValueAndJacFn.apply(xs_t, bt, activation, *_leaves(params))
+    out = FfValueAndJacFn.apply(xs_t, bt, activation, primal, *_leaves(params))
     du = out[1:]
     if scale is not None:
         du = du * scale[:, None].to(du.dtype)

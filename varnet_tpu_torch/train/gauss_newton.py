@@ -16,7 +16,19 @@ so Gauss-Newton curvature J^T J is applied matrix-free: J v by forward mode
 (``torch.autograd.forward_ad`` dual tensors) and J^T w by a retained reverse
 pass, once each per CG iteration.  With ``value_and_jac`` from
 ``ops/value_and_jac.py`` both reach the hand-written kernels: the forward-mode
-rule is K6, the reverse rule K5's backward.
+rule is K6, the reverse rule K5's backward (K8 and K7's backward with a
+Fourier-feature embedding).
+
+Both run on the iteration's stored primal.  The parameters stay at ``flat``
+from the linearization to the accept, so one LM iteration keeps the net's
+(u, du) per interior chunk (a :class:`PrimalStore`, (1 + n_in) floats per
+interior point: 158.5 MB for the contaminant recipe's 9.9M points), filled by
+the linearization's forward; J v's dual forward, J^T w's checkpointed
+recompute and a segment's re-linearization read it, so the net's forward (K5's
+or K7's) runs twice per chunk and LM iteration, there and in the accept,
+whatever cg_iters and cg_segment are.  The store is dropped before the accept
+evaluates the candidate; the plain value + jacobian (``mlp_value_and_jac``)
+has no rules of its own and recomputes.
 
 The JAX step is one jitted program; here it runs eagerly, with every quantity
 (parameters, damping, loss, CG state) kept on the device, so the host never
@@ -32,7 +44,9 @@ iteration, and every rank takes the same decision from the same sums.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -44,11 +58,71 @@ from ..fem.assembly import ProblemStatic
 from ..fem.hardbc import hard_transform
 from ..models.mlp import make_input_scaling, mlp_apply, mlp_value_and_jac, net_of
 from ..ops.residual import hook_fields, support_volume, weak_residual
+from ..ops.value_and_jac import PrimalSlot
 from ..parallel.mesh import all_reduce_sum
 from ..utils.spans import span
 from .loss import flux_error, obs_values
 
 _CHUNKED = ("coords", "kappa", "vel", "src", "react", "mask")
+
+
+class PrimalStore:
+    """One LM iteration's store of the net's primal: a ``PrimalSlot`` per
+    (residual function, chunk's points), filled by the first evaluation of
+    those points in the iteration and read by every later one.  The points are
+    told apart by their memory, shape, strides and version, and each slot keeps
+    its points alive, so other points (another quad, or the same tensor
+    changed in place) get a slot of their own and never another's primal.  It
+    serves only the parameters it was opened at, ``flat``: parameters that are
+    not views of flat's memory at its version (another point, or flat changed
+    in place) raise rather than get a stale primal.  Dropped, it serves
+    nothing."""
+
+    def __init__(self, flat: torch.Tensor):
+        self._at = (flat.untyped_storage().data_ptr(), flat._version)
+        self._slots = {}   # key -> (the points, their PrimalSlot)
+
+    def slot(self, owner, points: torch.Tensor, net) -> Optional[PrimalSlot]:
+        if self._at is None:
+            return None
+        for layer in net:
+            for leaf in (layer["w"], layer["b"]):
+                if (leaf.untyped_storage().data_ptr(), leaf._version) != self._at:
+                    raise RuntimeError("the LM iteration's primal store was asked to serve "
+                                       "parameters other than the ones it was opened at")
+        key = (owner, points.device, points.dtype, points.data_ptr(), tuple(points.shape),
+               points.stride(), points._version)
+        if key not in self._slots:
+            self._slots[key] = (points, PrimalSlot())
+        return self._slots[key][1]
+
+    def drop(self):
+        self._at = None
+        for _, slot in self._slots.values():
+            slot.out = None
+        self._slots.clear()
+
+
+_scope = threading.local()   # .store: the calling thread's open PrimalStore
+
+
+def _open_store() -> Optional[PrimalStore]:
+    return getattr(_scope, "store", None)
+
+
+@contextlib.contextmanager
+def primal_scope(flat: torch.Tensor):
+    """A :class:`PrimalStore` at ``flat`` for the residual functions of
+    :func:`make_residual_fn` that this thread evaluates inside, dropped on
+    exit.  A chunk's checkpointed recompute reaches the store it was
+    evaluated with, whichever thread runs the reverse pass."""
+    store, outer = PrimalStore(flat), _open_store()
+    _scope.store = store
+    try:
+        yield store
+    finally:
+        store.drop()
+        _scope.store = outer
 
 
 def make_residual_fn(
@@ -94,6 +168,11 @@ def make_residual_fn(
     ``flux_value_and_jac`` (the plain matmul chain by default), the
     observation rows (``has_obs``, weight ``weights[3]``) ``apply_fn``.
     ``dtype``: that of the input scaling and the Burgers direction (the data's).
+
+    ``value_and_jac`` takes ``primal=``: inside a :func:`primal_scope` each
+    interior chunk's slot of the scope's store, else None.  The kernels'
+    Functions (on the CPU too) keep the net's primal there; the plain chain
+    ignores it and recomputes, as do the BC, IC, observation and flux rows.
     """
     d = static.n_space
     td = static.time_dependent
@@ -112,10 +191,15 @@ def make_residual_fn(
           else torch.as_tensor(np.asarray(nl_vec), dtype=dtype, device=device))
     need_u = has_react or nl is not None
 
-    def interior(theta, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq):
+    def interior(theta, coords, kappa, vel, src, react, mask, n_tbl, dn_tbl, w_tbl, hq,
+                 store=None):
+        # store: the open PrimalStore (a checkpointed recompute gets the one its
+        # chunk was first evaluated with), or None
         k, nq = coords.shape[0], coords.shape[1]
         flat = coords.reshape(k * nq, n_in)
-        u, du = value_and_jac(net_of(theta), flat, activation, scale, shift)
+        net = net_of(theta)
+        primal = None if store is None else store.slot(interior, coords, net)
+        u, du = value_and_jac(net, flat, activation, scale, shift, primal=primal)
         grad_u = du[:, :d].reshape(k, nq, d)
         u_t = du[:, d].reshape(k, nq) if td else None
         u = u.reshape(k, nq)
@@ -135,8 +219,9 @@ def make_residual_fn(
                     obs=None, neu=None, hard_obs=None, hard_neu=None):
         fields = [getattr(quad, f) for f in _CHUNKED]
         tables = (quad.N, quad.dN, quad.w)
+        store = _open_store()
         if k_chunks == 1:
-            r = interior(theta, *fields, *tables, hard)
+            r = interior(theta, *fields, *tables, hard, store)
         else:
             k = quad.coords.shape[0]
             if k % k_chunks:
@@ -150,6 +235,7 @@ def make_residual_fn(
                 chunk += [a[sl] for a in tables] if per_node else list(tables)
                 chunk.append(None if hard is None
                              else type(hard)(*(None if a is None else a[sl] for a in hard)))
+                chunk.append(store)
                 if torch.is_grad_enabled():
                     parts.append(checkpoint(interior, theta, *chunk, use_reentrant=False))
                 else:
@@ -344,18 +430,21 @@ def make_lm_step(
 
     def step(state: LMState) -> LMState:
         flat, lam = state.flat.detach(), state.lam
-        carry, loss, minv, pullback = cg_init(flat, lam)
-        if not seg:
-            carry = cg_run(flat, lam, pullback, carry, minv, int(cg_iters))
-        else:
-            done = 0
-            while done < int(cg_iters):
-                n = min(seg, int(cg_iters) - done)
-                if done:
-                    with span("lm.linearize"):
-                        _, pullback = linearize(residual_closure, flat)
-                carry = cg_run(flat, lam, pullback, carry, minv, n)
-                done += n
+        # every J v and J^T w of the iteration is at flat: its linearization's
+        # primal serves them all, and is dropped before the candidate's loss
+        with primal_scope(flat):
+            carry, loss, minv, pullback = cg_init(flat, lam)
+            if not seg:
+                carry = cg_run(flat, lam, pullback, carry, minv, int(cg_iters))
+            else:
+                done = 0
+                while done < int(cg_iters):
+                    n = min(seg, int(cg_iters) - done)
+                    if done:
+                        with span("lm.linearize"):
+                            _, pullback = linearize(residual_closure, flat)
+                    carry = cg_run(flat, lam, pullback, carry, minv, n)
+                    done += n
         return accept(flat, lam, loss, carry[0])
 
     return step
