@@ -29,7 +29,14 @@ with the recorder on also give what the spans show:
   window call, by innermost span; and in every window line the LM iteration's
   stored primal (``ops/value_and_jac.py``'s ``primal_fills`` / ``primal_hits``,
   counted over the window call) with ``primal_hit_share`` = hits / (hits + fills);
+* with exact BC, ``hard_tables_s`` / ``coeff_fold_s`` and their counts: the
+  host seconds of the window call's ``prepare.hard_tables`` (the f64 table
+  build, opened only when its cache misses) and ``prepare.coeff_fold`` (K4's
+  fold of the tables into its coefficients) spans;
 * ``by_span``: launches and device seconds per (kernel, innermost span).
+
+The set-up's span counts and seconds by name (``setup_span_counts``,
+``setup_span_seconds``) hold the first table build.
 
 The last line of standard output is one JSON object with every window; the full
 record is written to ``<DIR>/span_report_<cell>.json`` (default ``build/span_report``).
@@ -147,9 +154,31 @@ def in_call(spans, call: int, name: str) -> List[int]:
     return [i for i, s in enumerate(spans) if s.name == name and descends(i)]
 
 
+def seconds_by_name(spans) -> Dict[str, float]:
+    """Host seconds of the closed spans, summed by name."""
+    out: Dict[str, float] = defaultdict(float)
+    for s in spans:
+        if s.t1_ns is not None:
+            out[s.name] += (s.t1_ns - s.t0_ns) * 1e-9
+    return dict(out)
+
+
+def exact_bc_metrics(spans, call: int) -> dict:
+    """``hard_tables_s`` / ``coeff_fold_s`` (host seconds of the exact-BC
+    table build and of K4's coefficient fold inside span ``call``) and the
+    counts of those spans; nothing where the call opened neither."""
+    out = {}
+    for name, key in (("prepare.hard_tables", "hard_tables"), ("prepare.coeff_fold", "coeff_fold")):
+        found = in_call(spans, call, name)
+        if found:
+            out[f"{key}_s"] = sum((spans[i].t1_ns - spans[i].t0_ns) * 1e-9 for i in found)
+            out[f"{key}_count"] = len(found)
+    return out
+
+
 def span_metrics(driver: str, events, corr, start_ns, spans) -> dict:
     """What the spans show of one traced window (module docstring) of an
-    ``adam`` or ``lm`` driver's cell."""
+    ``lm`` driver's cell or of an Adam driver's (``adam``, ``adam_timed``)."""
     from portbench import trace
 
     lo, hi = min(e.start for e in events), max(e.end for e in events)
@@ -171,14 +200,16 @@ def span_metrics(driver: str, events, corr, start_ns, spans) -> dict:
         by[key][1] += d.seconds
     out["by_span"] = dict(sorted(by.items(), key=lambda kv: -kv[1][1]))
     dur = lambda i: (spans[i].t1_ns - spans[i].t0_ns) * 1e-9  # noqa: E731
-    if driver == "adam":
-        call = window_call(spans, "train.call")
+    lm = driver == "lm"
+    call = window_call(spans, "lm.call" if lm else "train.call")
+    if call is not None:
+        out.update(exact_bc_metrics(spans, call))
+    if not lm:
         if call is not None:
             out["adam_prepare_s"] = sum(dur(i) for i in in_call(spans, call, "train.prepare"))
             out["adam_report_s"] = sum(dur(i) for i in in_call(spans, call, "train.report"))
         out["adam_epoch_idle"] = 100.0 * idle.get("train.epoch", 0.0) / window
     else:
-        call = window_call(spans, "lm.call")
         n_cg = len(in_call(spans, call, "lm.cg_iter")) if call is not None else 0
         cg = [d for d in dev if within(spans, d.span, "lm.cg_iter")]
         cg_kernels = [d for d in cg if d.kernel]
@@ -269,7 +300,8 @@ def run(cell, seed: int, seconds: float, device) -> dict:
         units = cell.driver.size(cell, vn, seconds, first)
         windows = [traced_window(cell, vn, units, device, recorder=True)]
     windows += [traced_window(cell, vn, units, device, on) for on in (False, False, True)]
-    report.update(units=units, setup_span_counts=setup_rec.counts, windows=windows)
+    report.update(units=units, setup_span_counts=setup_rec.counts,
+                  setup_span_seconds=seconds_by_name(setup_rec.spans), windows=windows)
     return report
 
 

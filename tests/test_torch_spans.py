@@ -13,7 +13,11 @@
   ``*.prepare`` / ``*.report`` spans; ``train(profile_dir=)`` puts the spans on
   the Chrome trace's ``varnet`` track;
 * ``scripts/span_report.py``'s join of kernels to spans (correlation ids, the
-  innermost span at the launch call, idle gaps by span) on synthetic events.
+  innermost span at the launch call, idle gaps by span) on synthetic events;
+* with exact BC, ``prepare.hard_tables`` (the f64 table build) opens once per
+  test space, inside the first ``train.prepare`` or ``lm.prepare``, and
+  ``prepare.coeff_fold`` (K4's fold) once a ``train`` call; with the recorder
+  off nothing is recorded; ``span_report.py`` sums their seconds and counts.
 """
 
 import importlib.util
@@ -29,7 +33,7 @@ import pytest
 import torch
 
 from varnet_tpu_torch import VarNet
-from varnet_tpu_torch.problems.analytic import transient_ad_2d
+from varnet_tpu_torch.problems.analytic import transient_ad_2d, transient_ad_3d
 from varnet_tpu_torch.utils import spans
 from _torch_threads import _one_intra_op_thread  # noqa: F401
 
@@ -218,6 +222,71 @@ def test_lm_counts(cg_iters, cg_segment):
     assert res.prepare_seconds > 0 and res.report_seconds > 0
 
 
+HARD = dict(layer_width=(8, 8), disc_num=3, b_disc_num=3, t_disc_num=2, device="cpu", hard_bc=True)
+HARD_EVAL = dict(verbose=False, error_disc=3, error_times=2)
+
+
+def _hard_vn(**kw):
+    return VarNet(transient_ad_3d()["pde"], **HARD, **kw)
+
+
+def _children(recorded, name, parent_name):
+    """The spans ``name`` and whether each sits directly in a ``parent_name``."""
+    found = [s for s in recorded if s.name == name]
+    return found, [s.parent is not None and recorded[s.parent].name == parent_name for s in found]
+
+
+def test_hard_train_spans_the_table_build_once_and_the_fold_per_call():
+    vn = _hard_vn()
+    with spans.record() as rec:
+        for _ in range(2):
+            vn.train(epoch_num=2, save_freq=2, **HARD_EVAL)
+    assert rec.counts["train.call"] == rec.counts["train.prepare"] == 2
+    assert rec.counts["prepare.hard_tables"] == 1             # cached for the second call
+    assert rec.counts["prepare.coeff_fold"] == 2              # K4's fold, once a call
+    for name in ("prepare.hard_tables", "prepare.coeff_fold"):
+        found, inside = _children(rec.spans, name, "train.prepare")
+        assert found and all(inside), name
+    (build,) = [s for s in rec.spans if s.name == "prepare.hard_tables"]
+    assert abs((build.t1_ns - build.t0_ns) * 1e-9 - vn.hard_table_seconds) < 0.05
+
+
+def test_hard_lm_spans_the_table_build_in_its_prepare():
+    vn = _hard_vn()
+    with spans.record() as rec:
+        vn.refine_lm(steps=1, cg_iters=2, k_chunks=2, save_freq=1, **HARD_EVAL)
+    assert rec.counts["prepare.hard_tables"] == 1
+    found, inside = _children(rec.spans, "prepare.hard_tables", "lm.prepare")
+    assert all(inside)
+    # LM applies the ansatz chunk by chunk (hard_transform): it folds no coefficients
+    assert "prepare.coeff_fold" not in rec.counts
+
+
+def test_hard_spans_record_nothing_with_the_recorder_off():
+    vn = _hard_vn()
+    before = len(spans._BUF)
+    vn.train(epoch_num=2, save_freq=2, **HARD_EVAL)
+    vn.refine_lm(steps=1, cg_iters=2, k_chunks=2, save_freq=1, **HARD_EVAL)
+    assert not spans._ON and len(spans._BUF) == before
+    assert vn.hard_table_seconds > 0                          # still timed, as before
+
+
+def test_span_report_exact_bc_metrics_on_synthetic_spans():
+    sr = _span_report()
+    S = spans.Span
+    recorded = [S("train.call", None, 0, 10_000), S("train.prepare", 0, 100, 4_000),
+                S("prepare.hard_tables", 1, 200, 2_200), S("prepare.coeff_fold", 1, 2_300, 3_300),
+                S("train.call", None, 20_000, 30_000), S("train.prepare", 4, 20_100, 21_000),
+                S("prepare.coeff_fold", 5, 20_200, 20_700)]
+    assert sr.exact_bc_metrics(recorded, 0) == pytest.approx(
+        {"hard_tables_s": 2e-6, "hard_tables_count": 1, "coeff_fold_s": 1e-6, "coeff_fold_count": 1})
+    assert sr.exact_bc_metrics(recorded, 4) == pytest.approx(
+        {"coeff_fold_s": 0.5e-6, "coeff_fold_count": 1})
+    assert sr.seconds_by_name(recorded)["prepare.coeff_fold"] == pytest.approx(1.5e-6)
+    plain = [S("train.call", None, 0, 10), S("train.prepare", 0, 1, 5)]
+    assert sr.exact_bc_metrics(plain, 0) == {}
+
+
 def test_results_bit_equal_with_the_recorder_on_and_off():
     def run(on):
         vn = _vn()
@@ -314,6 +383,14 @@ def test_span_report_join_on_synthetic_events():
     assert m["adam_report_s"] == pytest.approx(10e-6)
     assert m["kernels"] == 4 and m["kernels_unmatched"] == 1
     assert m["kernels_in_spans"] == pytest.approx(3 / 4)
+
+
+def test_span_report_reads_every_adam_driver_as_adam():
+    sr = _span_report()
+    recorded, events, corr, start_ns = _synthetic()
+    plain = sr.span_metrics("adam", events, corr, start_ns, recorded)
+    timed = sr.span_metrics("adam_timed", events, corr, start_ns, recorded)
+    assert timed == plain and "adam_prepare_s" in timed and "lm_cg_ms" not in timed
 
 
 def test_span_report_lm_metrics_on_synthetic_events():

@@ -513,23 +513,24 @@ class VarNet:
         ``pad_quad`` of ``self.fixed.quad``: built at the real rows once per
         test space (in chunks, on a few threads) and padded as ``pad_quad``
         pads, by repeating row 0.  ``hard_table_seconds`` holds the build's
-        wall time."""
+        wall time; the build is the span ``prepare.hard_tables``, opened only
+        when the cache misses, so its count is the number of builds."""
         if self.hard is None:
             return None
         if self._hard_cache is None or self._hard_cache[0] is not self.fixed:
-            t0 = time.perf_counter()
-            real = int(self.fixed.quad.mask.sum())
-            coords = np.asarray(self.fixed.quad.coords)[:real]
-            rows = max(1, HARD_TABLE_CHUNK // coords.shape[1])
-            workers = max(1, min(HARD_TABLE_THREADS, os.cpu_count() or 1))
-            with ThreadPoolExecutor(workers) as pool:
-                parts = list(pool.map(self.hard.tables,
-                                      [coords[i:i + rows] for i in range(0, real, rows)]))
-            hq = HardQuad(*(None if parts[0][f] is None
-                            else np.concatenate([p[f] for p in parts])
-                            for f in range(len(HardQuad._fields))))
+            with spans.timed("prepare.hard_tables") as build:
+                real = int(self.fixed.quad.mask.sum())
+                coords = np.asarray(self.fixed.quad.coords)[:real]
+                rows = max(1, HARD_TABLE_CHUNK // coords.shape[1])
+                workers = max(1, min(HARD_TABLE_THREADS, os.cpu_count() or 1))
+                with ThreadPoolExecutor(workers) as pool:
+                    parts = list(pool.map(self.hard.tables,
+                                          [coords[i:i + rows] for i in range(0, real, rows)]))
+                hq = HardQuad(*(None if parts[0][f] is None
+                                else np.concatenate([p[f] for p in parts])
+                                for f in range(len(HardQuad._fields))))
             self._hard_cache = (self.fixed, hq)
-            self.hard_table_seconds = time.perf_counter() - t0
+            self.hard_table_seconds = build.seconds
         k = quad_h.coords.shape[0]
         return HardQuad(*(None if a is None else _pad_axis0(a, k) for a in self._hard_cache[1]))
 
@@ -811,11 +812,13 @@ class VarNet:
                      for b in range(batch_num)]
 
         def prepare(q, hq):
-            # the fused kernel's data layout, ONCE per run (not per step)
+            # the fused kernel's data layout, ONCE per run (not per step); K4's
+            # fold of the coefficients (and of the exact-BC tables) is a span
             if kind == "precoeff":
-                return prepare_residual_coeffs(q, self.scale, self.shift, time_dependent=td,
-                                               has_react=self.has_react, hard=hq,
-                                               device=self.device)
+                with spans.span("prepare.coeff_fold"):
+                    return prepare_residual_coeffs(q, self.scale, self.shift, time_dependent=td,
+                                                   has_react=self.has_react, hard=hq,
+                                                   device=self.device)
             if kind == "dir":
                 return prepare_residual_data(q, self.scale, self.shift, time_dependent=td,
                                              has_react=self.has_react, device=self.device,
