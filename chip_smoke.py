@@ -1334,9 +1334,15 @@ def phase_kernels_ff():
                            lambda: list(vj.ff_vj_jvp_plain(wide, part.xs, bt, "tanh", wtan)),
                            FF_RTOL),
     })
+    bwds = (fr.dir_residual_ff_bwd, vj.ff_vj_bwd)
+    for c in bwds:
+        c.launches = c.wgmma_launches = 0
     out = _ff_checks(checks)
     log("kernels-ff", points=data.k * data.nq, chunk_points=n,
         **{f"{k}_{m}": f"{v:.4g}" for k, d in out.items() for m, v in d.items()})
+    # the backward's engine: launches of K2-FF / K7 bwd on ff_bwd_kernel's wgmma engine
+    log("kernels-ff engine", **{f"{c.__name__}_{what}": getattr(c, what) for c in bwds
+                                for what in ("launches", "wgmma_launches")})
     # the launch shape of every ff launch: blocks and warps resident per SM
     p_full = data.k * data.nq
     for name, (kind, panels, p, hp) in {

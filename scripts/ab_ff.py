@@ -21,8 +21,10 @@ Each run, CUDA events, median of 10 (5 at the full contaminant mesh), at the sha
 * each of those split into its kernels' own device time under ``torch.profiler``
   (mean over a few calls);
 * the blocks (and warps) resident per SM of each launch
-  (``fused_residual.ff_launch_shape``), and ptxas' registers and spills of the ff
-  kernels from the build log;
+  (``fused_residual.ff_launch_shape``; for the backward also whether it takes
+  ``ff_bwd_kernel``'s wgmma engine), the K2-FF and K7 backward launches on that engine
+  of all (``bwd_launches``), and ptxas' registers and spills of the ff kernels from the
+  build log (``<NI,sin,wgmma>``);
 * one contaminant LM iteration at the full mesh from the pinned theta (cg 10, k_chunks
   16, as ``chip_smoke.py``'s lm-ff phase: 2 iterations, the second timed): seconds;
 * contaminant Adam at the full window (10 epochs after one) and Burgers front_2d Adam
@@ -51,10 +53,11 @@ def ptxas():
     # registers and spill bytes of every ff_mlp.cu kernel instantiation
     out, name = {}, None
     for line in (build.build_dir() / "build.log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '_Z\\d+(ff_\\w+?_kernel)(?:ILi(\\d)E(Lb1E)?)?",
-                      line)
-        if m:  # the sin instantiations (bool template argument 1) as "<NI,sin>"
-            name = m.group(1) + (f"<{m.group(2)}{',sin' if m.group(3) else ''}>"
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\\d+(ff_\\w+?_kernel)(?:ILi(\\d)E(?:Lb([01])E)?(?:Lb([01])E)?)?", line)
+        if m:  # the sin instantiations as "<NI,sin>", the backward's wgmma engine ",wgmma"
+            name = m.group(1) + (f"<{m.group(2)}{',sin' if m.group(3) == '1' else ''}"
+                                 f"{',wgmma' if m.group(4) == '1' else ''}>"
                                  if m.group(2) else "")
             continue
         if name is None:
@@ -97,9 +100,15 @@ calls = {
     "k7_bwd": (lambda: vj.ff_vj_bwd(theta, part.xs, bt, "tanh", g), REPS),
     "k8": (lambda: vj.ff_vj_jvp(theta, part.xs, bt, "tanh", tangent), REPS),
 }
+bwds = {"k2ff_bwd": fr.dir_residual_ff_bwd, "k7_bwd": vj.ff_vj_bwd}
+for c in bwds.values():
+    c.launches = 0
+    c.wgmma_launches = 0   # (a tree without the wgmma engine keeps it at 0)
 for name, (fn, reps) in calls.items():
     out[name + "_ms"] = cs._median_ms(fn, n=reps, warmup=1)
     out[name + "_kernels_ms"] = kernel_ms(fn, n=2 if name.startswith("k2ff") else 3)
+# the backward's engine: launches on ff_bwd_kernel's wgmma engine, of all
+out["bwd_launches"] = {name: [c.wgmma_launches, c.launches] for name, c in bwds.items()}
 launch.update({"k2ff_fwd": ("fwd", 2, p_full, 256, 3, 96),
                "k2ff_bwd": ("bwd", 2, p_full, 256, 3, 96),
                "k7_fwd": ("fwd", 4, n, 256, 3, 96), "k7_bwd": ("bwd", 4, n, 256, 3, 96),

@@ -4,7 +4,9 @@ the directional mode) goes, on one NVIDIA GPU, at the contaminant's full mesh as
 ``chip_smoke.py`` gives it (disc 64 / t_disc 40 / bdisc 64: P = 9,906,624; the pinned
 w96x3 net behind 128 features; a seeded cotangent):
 
-* the share of each phase of the forward and the backward: a build with
+* the share of each phase of the forward and the backward (the backward on the engine
+  its launcher takes there, ``bwd_wgmma_engine``: the wgmma engine's phases are the
+  mma.sync engine's, with the same marks): a build with
   ``-DFF_PHASE_CLOCK``, in which thread 0 of every block sums the ``clock64()`` cycles of
   each phase of its walk; the shares are of the cycles summed over blocks.  Its
   gradient is checked bit-equal to the default build's, and its times are printed
@@ -15,14 +17,16 @@ w96x3 net behind 128 features; a seeded cotangent):
   (dW_0 reads the embedding slices left in shared memory instead of forming them
   again).  Their gradients are wrong: they time what the design pays, nothing else.
 
-The four builds start together.  Then the K2-FF backward of each build runs in turns
+The builds start together.  Then the K2-FF backward of each build runs in turns
 D N S C C S N D (default, no partial adds, stale embedding, clock) for 3 rounds in this
 one process, each turn the median of 5 calls (CUDA events); the forward of the default
 and the clock build likewise.  Prints the card's name and power limit, the phase
 shares and each build's median and range over its turns, and last one JSON line (with
-each build's ptxas registers and spills of the HP 96 kernels).
+each build's ptxas registers and spills of the HP 96 kernels).  Names of builds as
+arguments take those alone (the default and the clock build always: ``python3
+scripts/ff_costs.py -`` runs those two).
 
-    python3 scripts/ff_costs.py
+    python3 scripts/ff_costs.py [no_partial_adds] [stale_emb]
 """
 
 from __future__ import annotations
@@ -56,17 +60,18 @@ BWD_PHASES = ["setup", "recompute layer 0 (embedding formed per slice)", "recomp
 
 
 def ptxas(defines):
-    """ptxas' registers and spill loads of ff_fwd_kernel<3> and ff_bwd_kernel<3> (HP 96)
-    in a build's log."""
+    """ptxas' registers and spill loads of the tanh / sigmoid ff_fwd_kernel<3> and of both
+    engines of ff_bwd_kernel<3> (HP 96; "<3,wgmma>" the wgmma engine) in a build's log."""
     out, name = {}, None
     for line in (build.build_dir(defines) / "build.log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(ff_(?:fwd|bwd)_kernel)ILi3E", line)
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\d+(ff_(?:fwd|bwd)_kernel)ILi3ELb0E(Lb([01])E)?", line)
         if m:
-            name = m.group(1)
+            name = m.group(1) + ("<3,wgmma>" if m.group(3) == "1" else "<3>")
         elif name and (m := re.search(r"(\d+) bytes spill loads", line)):
-            out[f"{name}<3> spill loads"] = int(m.group(1))
+            out[f"{name} spill loads"] = int(m.group(1))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
-            out[f"{name}<3> registers"] = int(m.group(1))
+            out[f"{name} registers"] = int(m.group(1))
             name = None
     return out
 
@@ -89,7 +94,11 @@ def phase_shares(lib, fwd, bwd):
     return out
 
 
-def main():
+def main(argv=None):
+    global BUILDS
+    names = sys.argv[1:] if argv is None else argv
+    if names:
+        BUILDS = {k: v for k, v in BUILDS.items() if k in ("default", "clock", *names)}
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -112,7 +121,7 @@ def main():
     def bwd(name):
         return lambda: fr.kernel_ff_bwd(libs[name], theta, data, "tanh", gr, stream)
 
-    g_default, g_clock = bwd("default")(), bwd("clock")()
+    (g_default, wg_default), (g_clock, wg_clock) = bwd("default")(), bwd("clock")()
     bit_equal = all(torch.equal(a[k], b[k]) for a, b in zip(g_default, g_clock) for k in "wb")
     shares = phase_shares(libs["clock"], fwd("clock"), bwd("clock"))
 
@@ -135,9 +144,10 @@ def main():
     out = {"k2ff_bwd_ms": {n: summary(v) for n, v in bwd_ms.items()},
            "k2ff_fwd_ms": {n: summary(v) for n, v in fwd_ms.items()},
            "phase_shares": shares, "clock_build_grad_bit_equal": bit_equal,
+           "bwd_wgmma_engine": {"default": wg_default, "clock": wg_clock},
            "ptxas": {name: ptxas(defines) for name, defines in BUILDS.items()}}
     base = out["k2ff_bwd_ms"]["default"]["median"]
-    for name in ("no_partial_adds", "stale_emb", "clock"):
+    for name in [b for b in BUILDS if b != "default"]:
         med = out["k2ff_bwd_ms"][name]["median"]
         print(f"K2-FF bwd {name}: {med:.4g} ms against {base:.4g} ({100 * (med / base - 1):+.2f}%)")
     print(json.dumps(out), flush=True)

@@ -449,6 +449,67 @@ def test_ff_backwards_are_deterministic(cuda, mode):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
 
 
+CONTAMINANT_P, LM_CHUNK_P = 9_906_624, 619_200   # the full mesh; one of its 16 LM chunks
+
+
+def test_ff_backwards_take_the_wgmma_engine_at_the_contaminant_shapes(cuda):
+    """K2-FF (2 panels, full mesh) and K7 (4 panels, one LM chunk) behind 128 features
+    at w96x3 take ff_bwd_kernel's wgmma engine in blocks of four warpgroups: the launch
+    shape says so, and every launch of the two wrappers counts in ``.wgmma_launches`` as
+    in ``.launches``."""
+    for act in ("tanh", "sin"):
+        for panels, p in ((2, CONTAMINANT_P), (4, LM_CHUNK_P)):
+            shape = fr.ff_launch_shape("bwd", panels, p, 256, 3, 96, act)
+            assert shape["wgmma"] and shape["threads"] == 512, (act, panels, shape)
+    params, bt, gen = _ff_params(128, (96, 96, 96))
+    data = _ff_data(cuda, bt)
+    gr = torch.randn(data.k, generator=gen).to(cuda)
+    g = torch.randn((4, data.xs.shape[1]), generator=gen).to(cuda)
+    counters = (fr.dir_residual_ff_bwd, vj.ff_vj_bwd)
+    before = [(c.launches, c.wgmma_launches) for c in counters]
+    for act in ("tanh", "sin"):
+        fr.dir_residual_ff_bwd(params, data, act, gr)
+        vj.ff_vj_bwd(params, data.xs, bt, act, g)
+    torch.cuda.synchronize()
+    assert [(c.launches - b[0], c.wgmma_launches - b[1])
+            for c, b in zip(counters, before)] == [(2, 2), (2, 2)]
+
+
+@pytest.mark.parametrize("hp", [32, 224, 256])
+@pytest.mark.parametrize("mode", ["dir", "unit"])
+def test_ff_backward_keeps_mma_sync_where_the_wgmma_engine_does_not_fit(cuda, mode, hp):
+    """Three hidden layers at HP 224 or 256: two warpgroups' 64 rows of three slots beside
+    the split weight planes and the raw slices exceed a block's shared memory, so the
+    launcher keeps the mma.sync engine (one group of four warps), counted in ``.launches``
+    alone; at one hidden layer the same width takes the wgmma engine.  HP 32 keeps mma.sync
+    at every depth (16-column warpgroup products do not pay).  Both are right: every
+    gradient leaf within 1e-4 of the plain version in f64 (or 3x the f32 plain version's own
+    distance, as the sweep)."""
+    panels = 2 if mode == "dir" else 4
+    for depth, wgmma in ((3, False), (1, hp > 32)):
+        assert fr.ff_launch_shape("bwd", panels, 3888, 256, depth, hp)["wgmma"] is wgmma
+        params, bt, data, g = _ff_sweep_case(mode, 128, hp, depth, 64, seed=hp + depth)
+        counter = fr.dir_residual_ff_bwd if mode == "dir" else vj.ff_vj_bwd
+        before = (counter.launches, counter.wgmma_launches)
+        if mode == "dir":
+            got = fr.dir_residual_ff_bwd(params, data, "tanh", g)
+            ref = fr.dir_residual_bwd_plain(_f64(params), _f64_data(data)._replace(
+                bt=bt.double()), "tanh", g.double())
+            own = fr.dir_residual_bwd_plain(params, data, "tanh", g)
+        else:
+            got = vj.ff_vj_bwd(params, data, bt, "tanh", g)
+            ref = vj.ff_vj_bwd_plain(_f64(params), data.double(), bt.double(), "tanh",
+                                     g.double())
+            own = vj.ff_vj_bwd_plain(params, data, bt, "tanh", g)
+        torch.cuda.synchronize()
+        assert (counter.launches - before[0], counter.wgmma_launches - before[1]) == (
+            1, int(wgmma))
+        for a, b, c in zip(got, ref, own):
+            for k in ("w", "b"):
+                err, own_err = _rel(a[k].double(), b[k]), _rel(c[k].double(), b[k])
+                assert _gate(err, own_err, 1e-4), (depth, k, err, own_err)
+
+
 def test_ff_kernels_refuse_what_they_do_not_take(cuda):
     """An activation they do not have, a net wider than 256, and a 256-wide net too deep
     for the backward's stacked slots (ValueErrors naming them, before any launch).  sin
@@ -1108,9 +1169,10 @@ def test_burgers_training_on_cuda_goes_through_k3(cuda, hard):
 
 
 # ---------------------------------------------------------------------------
-# ff_mlp.cu's stacked kernels on the tensor cores (3xTF32 mma.sync): every mode (K2-FF,
-# K7, wide K4, K3), every padded hidden width, depths 1 and 3, without an embedding and
-# with 8 or 128 features, against the plain versions evaluated in f64
+# ff_mlp.cu's stacked kernels on the tensor cores (3xTF32: mma.sync, the backward on its
+# wgmma engine where that fits): every mode (K2-FF, K7, wide K4, K3), every padded hidden
+# width, depths 1 and 3, without an embedding and with 8 or 128 features, against the
+# plain versions evaluated in f64
 
 FF_SWEEP_MODES = [("dir", None), ("dir", 8), ("dir", 128), ("unit", None), ("unit", 8),
                   ("unit", 128), ("pre", None), ("jac", None)]

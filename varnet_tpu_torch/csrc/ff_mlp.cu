@@ -32,10 +32,12 @@ int launch_res_fwd(int hp, const FfProblem& pb, const float* params, float* cont
   return vr_qsum(contrib, r, (int)(pb.P / pb.nq), pb.nq, stream);
 }
 
-// The backward: the blocks' partials, then their sum in block order.
+// The backward: the blocks' partials, then their sum in block order (wgmma: whether the
+// first took the wgmma engine).
 int launch_bwd(int hp, const FfProblem& pb, const float* params, const float* g,
-               float* partials, int n_blocks, float* grad, cudaStream_t stream) {
-  const int err = FF_HOST(pb.act, bwd(hp, pb, params, g, partials, n_blocks, stream));
+               float* partials, int n_blocks, float* grad, cudaStream_t stream, int* wgmma) {
+  *wgmma = 0;
+  const int err = FF_HOST(pb.act, bwd(hp, pb, params, g, partials, n_blocks, stream, wgmma));
   if (err) return err;
   const int npp = ff_n_params(hp, pb.ke, pb.n_hidden);
   ff_reduce_kernel<<<(npp + 127) / 128, 128, 0, stream>>>(partials, grad, n_blocks, npp);
@@ -110,14 +112,14 @@ int ff_phase_ticks_read(unsigned long long* out, int* n_phase) {
 // The launch shape of the stacked forward (kind 0) or backward (kind 1) for np panels
 // (K2-FF, wide K4: 2; K7, K3: 1 + n_in), or of K8 (kind 2, np = 1 + n_in), of activation
 // act, on the current device: threads per block, blocks resident per SM, blocks of the
-// launch.
+// launch, and whether the backward takes its wgmma engine (0 for the other kinds).
 int ff_launch_shape(int kind, int np, long long P, int ke, int n_hidden, int hp, int act,
-                    int* threads, int* per_sm, int* blocks) {
+                    int* threads, int* per_sm, int* blocks, int* wgmma) {
   if (kind < 0 || kind > 2 || np < 2 || np > 1 + FF_MAX_IN || bad(P, 1, ke, n_hidden, act))
     return (int)cudaErrorInvalidValue;
   FfProblem pb = {};
   pb.np = np; pb.P = P; pb.ke = ke; pb.n_hidden = n_hidden; pb.act = act;
-  return FF_HOST(act, shape(hp, kind, pb, threads, per_sm, blocks));
+  return FF_HOST(act, shape(hp, kind, pb, threads, per_sm, blocks, wgmma));
 }
 
 // K7 forward: out [1 + n_in][P] = (u, du/dxs) at the scaled points xs [n_in][P].
@@ -149,13 +151,14 @@ int ff_vj_bwd_blocks(long long P, int n_in, int ke, int n_hidden, int hp, int ac
 }
 
 // K7 backward: packed gradient grad of <g, out> for the cotangent g [1 + n_in][P];
-// partials is workspace of n_blocks * n_params floats.
+// partials is workspace of n_blocks * n_params floats; wgmma receives whether the launch
+// took the wgmma engine (as every backward below).
 int ff_vj_bwd(const float* xs, const float* bt, const float* params, const float* g,
               float* partials, int n_blocks, float* grad, long long P, int n_in, int ke,
-              int n_hidden, int hp, int act, void* stream) {
+              int n_hidden, int hp, int act, void* stream, int* wgmma) {
   if (bad(P, n_in, ke, n_hidden, act)) return (int)cudaErrorInvalidValue;
   const FfProblem pb = vj_problem(xs, bt, P, n_in, ke, n_hidden, act);
-  return launch_bwd(hp, pb, params, g, partials, n_blocks, grad, (cudaStream_t)stream);
+  return launch_bwd(hp, pb, params, g, partials, n_blocks, grad, (cudaStream_t)stream, wgmma);
 }
 
 // K2-FF forward: r [k] of the directional weak form; contrib is workspace of k * nq floats.
@@ -184,12 +187,12 @@ int ff_res_bwd_blocks(int k, int nq, int d, int ke, int n_hidden, int hp, int ac
 int ff_res_bwd(const float* xs, const float* flds, const float* tab, const float* scale,
                const float* bt, const float* params, const float* gr, float* partials,
                int n_blocks, float* grad, int k, int nq, int n_in, int d, int td, int has_react,
-               int ke, int n_hidden, int hp, int act, void* stream) {
+               int ke, int n_hidden, int hp, int act, void* stream, int* wgmma) {
   if (bad((long long)k * nq, n_in, ke, n_hidden, act) || nq < 1)
     return (int)cudaErrorInvalidValue;
   const FfProblem pb = res_problem(xs, flds, tab, scale, bt, k, nq, n_in, d, td, has_react, ke,
                                    n_hidden, act);
-  return launch_bwd(hp, pb, params, gr, partials, n_blocks, grad, (cudaStream_t)stream);
+  return launch_bwd(hp, pb, params, gr, partials, n_blocks, grad, (cudaStream_t)stream, wgmma);
 }
 
 // K4 forward for a plain net of hidden width 65..256: r [k] from the precomputed
@@ -215,11 +218,12 @@ int ff_pre_bwd_blocks(int k, int nq, int n_hidden, int hp, int act, int* blocks)
 // Its backward: packed gradient grad for the cotangent gr [k] of r.
 int ff_pre_bwd(const float* xs, const float* cdir, const float* csrc, const float* cu,
                const float* params, const float* gr, float* partials, int n_blocks, float* grad,
-               int k, int nq, int n_in, int n_hidden, int hp, int act, void* stream) {
+               int k, int nq, int n_in, int n_hidden, int hp, int act, void* stream,
+               int* wgmma) {
   if (bad((long long)k * nq, n_in, 32, n_hidden, act) || nq < 1)
     return (int)cudaErrorInvalidValue;
   const FfProblem pb = pre_problem(xs, cdir, csrc, cu, k, nq, n_in, n_hidden, act);
-  return launch_bwd(hp, pb, params, gr, partials, n_blocks, grad, (cudaStream_t)stream);
+  return launch_bwd(hp, pb, params, gr, partials, n_blocks, grad, (cudaStream_t)stream, wgmma);
 }
 
 // K3 forward: r [k] of the jacobian-panel weak form of a plain net (nl [d]: the Burgers
@@ -249,12 +253,12 @@ int ff_jac_bwd_blocks(int k, int nq, int n_in, int d, int n_hidden, int hp, int 
 int ff_jac_bwd(const float* xs, const float* flds, const float* tab, const float* scale,
                const float* nl, const float* params, const float* gr, float* partials,
                int n_blocks, float* grad, int k, int nq, int n_in, int d, int td, int has_react,
-               int n_hidden, int hp, int act, void* stream) {
+               int n_hidden, int hp, int act, void* stream, int* wgmma) {
   if (bad_jac(k, nq, n_in, d, n_hidden, act)) return (int)cudaErrorInvalidValue;
   FfProblem pb = res_problem(xs, flds, tab, scale, nullptr, k, nq, n_in, d, td, has_react, 32,
                              n_hidden, act, FF_JAC);
   pb.nl = nl;
-  return launch_bwd(hp, pb, params, gr, partials, n_blocks, grad, (cudaStream_t)stream);
+  return launch_bwd(hp, pb, params, gr, partials, n_blocks, grad, (cudaStream_t)stream, wgmma);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Fourier-feature MLP kernels for Hopper (sm_90a), all on the tensor cores (3xTF32
-// mma.sync, csrc/tc3xtf32.cuh): the kernels and their host launchers, templated on the
-// padded width (NI) and on the activation's kind (SIN).  csrc/ff_mlp.cu instantiates the
+// mma.sync, csrc/tc3xtf32.cuh; the backward's row products on warpgroup wgmma,
+// csrc/wgmma_tf32.cuh): the kernels and their host launchers, templated on the padded
+// width (NI) and on the activation's kind (SIN).  csrc/ff_mlp.cu instantiates the
 // tanh / sigmoid kernels (SIN false) and holds the C entry points, csrc/ff_mlp_sin.cu the
 // sin ones: two translation units, which the build compiles side by side.
 //
@@ -59,13 +60,40 @@
 // against the embedding (depth KE = 2 FP), the hidden layers, the cotangents
 // G_{l-1} = G_l W_l^T and the weight gradients dW_l = S_{l-1}^T G_l, dW_0 = E^T G_0 --
 // is mma.sync.m16n8k8 tf32 in 3xTF32 with a fresh tile per k-step added on the CUDA cores
-// (csrc/tc3xtf32.cuh: the same split, product order and rounding as the other kernels).
-// A warp takes its group's 32 rows (two 16-row tiles) for its share of the HP / 8 output
-// tiles: each B fragment is split once for both row tiles, each A fragment once for the
-// share.  A group is WG = 2 warps up to HP 128 and 4 above (ff_wg), so a warp's share is
-// at most 8 tiles (64 accumulator floats a lane) at every width, and a block at most 256
-// threads (ng <= 8 / WG).
+// (csrc/tc3xtf32.cuh: the same split, product order and rounding as the other kernels),
+// but the backward's where its wgmma engine fits (below).  A warp takes its
+// group's 32 rows (two 16-row tiles) for its share of the HP / 8 output tiles: each B
+// fragment is split once for both row tiles, each A fragment once for the share.  A group
+// is WG = 2 warps up to HP 128 and 4 above (ff_wg), so a warp's share is at most 8 tiles
+// (64 accumulator floats a lane) at every width, and a block at most 256 threads (ng <= 8
+// / WG).
 //
+// The backward's wgmma engine (ff_bwd_kernel<NI, SIN, true>).  Its row products -- the
+// recompute (layer 0 against the embedding, the hidden layers) and the cotangents, which
+// run down a weight slice -- are warpgroup products, wgmma.mma_async.m64nNk8 .tf32: A, the
+// stacked rows, from registers, split once as a warp loads them (a warp holds its own 16
+// rows for its warpgroup's columns); B, the weight slice, from shared memory, split once
+// per slice into a TF32 hi and a lo plane in wgmma's K-major layout (wg_split, from the
+// raw slice that cp.async brought a slice ahead: one split serves every warpgroup and
+// k-step, and the forward layout's transpose comes free).  3xTF32 stays, with the mma.sync
+// engine's product order and rounding: per k-step a_lo b_hi, a_hi b_lo, a_hi b_hi into a
+// fresh register tile, added to the running sum on the CUDA cores (one fresh tile per
+// slice instead moved K3's cancelling b_out sum, sum |g_u| / |sum g_u| = 26,387, past its
+// gate).  The products are in flight while the threads split the next slice and form the
+// next embedding slice; one block barrier per slice, as before.  What sets the pace is not the tensor cores: a
+// slice is a chain of CUDA-core steps (the split, the cp.async issue, the embedding, the A
+// loads, the barrier) that 8 warps cannot overlap (on an H100, dropping the products alone
+// saved 6% of the kernel), so the engine's block is four warpgroups, 16 warps: warpgroup
+// wg takes the 64 rows 64 (wg / 2).. for the column half HP / 2 (wg % 2)..; N = HP / 2 keeps a
+// thread's fragment and fresh tile in the 128 registers that 512 threads leave it (up to
+// HP 128; above, two warpgroups over 64 rows).  A warp's 16 rows are half the points of
+// one group with all their panels (wg_rows), so the epilogues keep the group layout of the
+// slots: every CUDA-core pass (ff_epilogue, ff_outputs) and the weight-gradient units are
+// the mma.sync engine's.  Those units stay on mma.sync: they sum over the stacked rows,
+// which no slot holds K-major, so wgmma needs one operand split into K-major planes chunk
+// by chunk, and on an H100 that cost more than it saved (dW_l +4.3 ms, dW_0 +9.5 ms of
+// K2-FF's 184 ms).
+
 // K8 (ff_jvp_kernel) is the same walk with its own row layout: a group's 32 rows are two
 // 16-row tiles, tile 0 the s panels (value and unit tangents) of G = 16 / npad points,
 // tile 1 their parameter tangents ds at the same rows, so a lane holds s and ds of the
@@ -96,13 +124,21 @@
 //   biases, w_out (K8: and their tangents), bt, the tile's point data; the backward's
 //   per-epilogue-group sums.
 //   forward  HP 96:  ng 4: 93.3 KB -> 2 blocks, 16 warps per SM
-//   backward HP 96:  ng 4: 196.3 KB -> 1 block, 8 warps per SM
+//   backward HP 96:  ng 4: 196.3 KB -> 1 block, 8 warps per SM (mma.sync engine)
+//                    wgmma engine: beside the raw slices two split planes, 2 x 2 x 16 HP
+//                    floats, and five epilogue groups' sums: 224.9 KB -> 1 block, 16 warps
+//                    (four warpgroups) per SM
 //   K8       HP 96:  ng 4: 105.5 KB -> 2 blocks, 16 warps per SM
-// At HP 256 the backward's three slots leave ng 1 (157 KB, 4 warps per SM).  The launcher
+// At HP 256 the backward's three slots leave ng 1 (157 KB, 4 warps per SM), on the
+// mma.sync engine: the wgmma engine's two warpgroups need 64 rows of three slots beside
+// 64 KB of planes and 40 KB of raw slices; one hidden layer fits it (8 warps).  The launcher
 // takes, of ng = 8 / WG .. 1, the one that keeps the most warps resident
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; on a tie the larger block: more points
-// per fetch of the weights); ff_launch_shape reports it.  Where not even ng 1 fits (a net
-// too deep for its width) the launchers return VJ_DOES_NOT_FIT and launch nothing.
+// per fetch of the weights); the backward, of the wgmma engine's blocks (512 threads up to
+// HP 128, or 256) wherever one fits from HP 64, else of the mma.sync engine's (HP 32; at
+// depth 3 HP 192 and wider); ff_launch_shape reports it, and the backward launchers report
+// the engine they took.  Where not even ng 1 fits (a net too deep for its width) the launchers return
+// VJ_DOES_NOT_FIT and launch nothing.
 //
 // The weight gradient.  At the contaminant shape dW is 43,104 floats (172 KB): it does not
 // fit in shared memory beside the slots, nor in the registers of 8 warps (168 a thread)
@@ -148,6 +184,7 @@
 #pragma once
 
 #include "tc3xtf32.cuh"
+#include "wgmma_tf32.cuh"
 
 #define FF_MAX_IN 4
 #define FF_NCF (3 + FF_MAX_IN)  // per-point coefficient rows: cu, csrc, w N, c_0..c_3
@@ -247,22 +284,30 @@ __host__ __device__ inline int ff_acc_floats(int hp, int n_hidden) {
   return (n_hidden + 1) * hp + 4;
 }
 __host__ __device__ inline int ff_egroups(int nthr, int hp) { return nthr >= hp ? nthr / hp : 1; }
-// Shared memory (floats) of a block of ng groups (the order of ff_tc_carve).
+// Floats of one weight-slice buffer of the backward's wgmma engine: the slice's TF32 hi
+// and lo planes, [FF_SLICE][HP] each, K-major (wg_core).  The engine keeps two of them
+// beside two of ff_wbuf's raw slices, which cp.async fills a slice ahead.
+__host__ __device__ inline int ff_wg_wbuf(int hp) { return 2 * FF_SLICE * hp; }
+// Shared memory (floats) of a block of ng groups (the order of ff_tc_carve); wg: the
+// backward's wgmma engine, whose weight buffers are ff_wg_wbuf's.
 __host__ __device__ inline int ff_tc_smem_floats(int hp, int ng, int ke, int n_hidden, int np,
-                                                 int kind) {
+                                                 int kind, bool wg = false) {
   const int R = 32 * ng, TP = ng * ff_group_points(np, kind);
-  int f = 2 * ff_wbuf(hp, kind) + 2 * R * FF_ELD + (kind == FF_BWD ? n_hidden : 1) * R * (hp + 4) +
+  int f = 2 * (wg ? ff_wg_wbuf(hp) + ff_wbuf(hp, kind) : ff_wbuf(hp, kind)) + 2 * R * FF_ELD +
+          (kind == FF_BWD ? n_hidden : 1) * R * (hp + 4) +
           (kind == FF_JVP ? 2 : 1) * (n_hidden * hp + hp + 4) + ke / 2 * 4 + 8 +
           (2 * FF_MAX_IN + FF_NCF) * TP + 2 * R;
-  if (kind == FF_BWD) f += ff_egroups(32 * ff_wg(hp) * ng, hp) * ff_acc_floats(hp, n_hidden);
+  if (kind == FF_BWD)  // the wgmma engine's warpgroups take 32 of the rows each
+    f += ff_egroups((wg ? 128 : 32 * ff_wg(hp)) * ng, hp) * ff_acc_floats(hp, n_hidden);
   return f;
 }
 
 struct FfTc {
   float *W, *E, *S, *bias, *wout, *dbias, *dwout, *bt, *scale, *nls, *X, *Dir, *Cf, *Go, *Out,
-      *Acc;
+      *Acc, *Wr;
   int npad, G, TP, R, fp, n0, nh, Q, wb, cnt;  // cnt: slices consumed (buffer parity)
-  bool has_next;                               // the block has another tile
+  int wrb;                                     // the wgmma engine's raw slice buffers
+  bool has_next, has_next2;                    // the block has another tile; two more
 };
 
 // The block's shared memory: W, the weight-slice double buffer; E, the embedding-slice
@@ -271,7 +316,8 @@ struct FfTc {
 // the parameter tangent; null otherwise); bt [FP][4]; scale, nls (b_j s_j) [4]; the
 // tile's point data X, Dir [4][TP], Cf [FF_NCF][TP]; per stacked row the output
 // cotangent Go [R] and output Out [R]; the backward's epilogue sums Acc.
-__device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb, int kind) {
+__device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb, int kind,
+                                   bool wg = false) {
   FfTc t;
   const bool bwd = kind == FF_BWD, jvp = kind == FF_JVP;
   t.npad = ff_npad(pb.np);
@@ -282,8 +328,11 @@ __device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb
   t.n0 = t.fp ? t.fp / 8 : 1;
   t.nh = hp / FF_SLICE;
   t.Q = t.n0 + (bwd ? 2 : 1) * (pb.n_hidden - 1) * t.nh;
-  t.wb = ff_wbuf(hp, kind);
+  t.wb = wg ? ff_wg_wbuf(hp) : ff_wbuf(hp, kind);
   t.W = s;      s += 2 * t.wb;
+  t.wrb = ff_wbuf(hp, kind);
+  t.Wr = wg ? s : nullptr;
+  if (wg) s += 2 * t.wrb;
   t.E = s;      s += 2 * t.R * FF_ELD;
   t.S = s;      s += (bwd ? pb.n_hidden : 1) * t.R * (hp + 4);
   t.bias = s;   s += pb.n_hidden * hp;
@@ -303,7 +352,7 @@ __device__ inline FfTc ff_tc_carve(float* s, int hp, int ng, const FfProblem& pb
   t.Out = s;    s += t.R;
   t.Acc = s;
   t.cnt = 0;
-  t.has_next = false;
+  t.has_next = t.has_next2 = false;
   return t;
 }
 
@@ -486,6 +535,14 @@ static __device__ void ff_form_emb(const FfProblem& pb, const FfTc& t, int j, fl
 // tile, or none (-1).
 __device__ __forceinline__ int ff_next(const FfTc& t, int q) {
   return q + 1 < t.Q ? q + 1 : (t.has_next ? 0 : -1);
+}
+
+// The slice d = 1 or 2 places on from q in the schedule, across the block's tiles, or -1.
+__device__ __forceinline__ int ff_ahead(const FfTc& t, int q, int d) {
+  int i = q + d;
+  if (i < t.Q) return i;
+  if ((i -= t.Q) < t.Q) return t.has_next ? i : -1;
+  return t.has_next2 ? i - t.Q : -1;  // Q = 1, d = 2: the tile after next
 }
 
 // The WG warps of group g (threads 32 WG g ..) meet.
@@ -699,13 +756,14 @@ __device__ void ff_store_jvp(float (&acc)[2][4 * NI / ff_wg(32 * NI)][4], const 
 }
 
 // Out[r] = w . S[r] for the R stacked rows of slot S (b_out not added), w = w_out, or in
-// K8 dw_out on a group's s rows (r % 32 < 16): WG threads a row (blockDim = WG R), each
-// HP / WG columns in four chains, then added.  ZROWS: the slot's value rows keep z (a sin
-// backward's), read as a = sin z.
+// K8 dw_out on a group's s rows (r % 32 < 16): WG threads a row (the block's first WG R
+// threads; the backward's wgmma engine has more), each HP / WG columns in four chains,
+// then added.  ZROWS: the slot's value rows keep z (a sin backward's), read as a = sin z.
 template <int NI, bool ZROWS = false>
 __device__ void ff_outputs(const FfTc& t, const float* S) {
   constexpr int HP = 32 * NI, WG = ff_wg(HP), LD = HP + 4, NC = HP / WG;
   const int r = threadIdx.x / WG, part = threadIdx.x & (WG - 1);
+  if (r >= t.R) return;  // whole warps: WG R is a multiple of 32
   const float* w = t.dwout && (r & 31) < 16 ? t.dwout : t.wout;
   const float4* s4 = reinterpret_cast<const float4*>(S + r * LD + part * NC);
   const float4* w4 = reinterpret_cast<const float4*>(w + part * NC);
@@ -913,6 +971,208 @@ __global__ void __launch_bounds__(FF_MAX_THREADS, 2)
 }
 
 // ------------------------------------------------------------------------------------
+// The backward's wgmma engine (csrc/wgmma_tf32.cuh): its row products -- the recompute
+// (layer 0 against the embedding slices, the hidden layers) and the cotangents -- as
+// warpgroup products.  Warpgroup wg takes the 64 stacked rows 64 (wg / 2).. for the
+// columns HP / 2 (wg % 2).. (ff_wg_cols): four warpgroups, 128 rows, up to HP 128, two
+// (64 rows) where four do not fit.  Warp w of a warpgroup holds half the points of group
+// 2 (wg / 2) + w / 2 with all their npad panels, so a lane's two accumulator rows are a
+// point's value row and a tangent row, or two tangent rows (the epilogue's shuffle brings
+// the value, as ff_store_fwd's npad 8).
+
+// Columns per warpgroup: wgmma's N.
+__host__ __device__ constexpr int ff_wg_cols(int hp) { return hp / 2; }
+// The engine's largest block: four warpgroups (128 stacked rows) while N <= 64 (a thread's
+// fragment and fresh tile in 128 registers), else two (64 rows).
+__host__ __device__ constexpr int ff_wg_threads(int hp) { return hp <= 128 ? 512 : 256; }
+
+// A thread's place in the engine: its group g, the group rows r0 / r1 of its warp rows gq
+// and gq + 8 (warp row i: point (w & 1) P2 + i % P2 of the group, panel i / P2, P2 = G /
+// 2 points a warp), its first column n0, and whether r0 is a value row.
+struct WgRows {
+  int g, r0, r1, n0;
+  bool value;
+};
+
+__device__ __forceinline__ WgRows wg_rows(const FfTc& t, int hp) {
+  const int tid = threadIdx.x, w = (tid >> 5) & 3, wg = tid >> 7, gq = (tid & 31) >> 2;
+  const int p2 = t.G >> 1, half = (w & 1) * p2;
+  WgRows r;
+  r.g = 2 * (wg >> 1) + (w >> 1);
+  r.r0 = (gq / p2) * t.G + half + gq % p2;
+  r.r1 = ((gq + 8) / p2) * t.G + half + (gq + 8) % p2;
+  r.n0 = (wg & 1) * (hp / 2);
+  r.value = gq < p2;
+  return r;
+}
+
+// Slice q of the tile's weight schedule, as ff_stage left it in raw ([FF_SLICE][HP + 8] a
+// forward slice, B(k, n) = raw[k][n]; [HP][FF_ELD] a cotangent slice, B(k, n) =
+// raw[n][k]), split into its TF32 hi and lo planes at hi and hi + FF_SLICE HP (wg_core's
+// K-major layout), four k of one column n a thread.  Ends with the async-proxy fence (the
+// reads are wgmma's).
+template <int HP>
+__device__ void wg_split(const FfProblem& pb, const FfTc& t, int q, const float* raw,
+                         float* hi) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const bool fwd = q < t.n0 + (pb.n_hidden - 1) * t.nh;
+  float* lo = hi + FF_SLICE * HP;
+  for (int c = tid; c < 4 * HP; c += nthr) {
+    // 8 consecutive threads: 8 columns n of one k quad (128 contiguous plane bytes)
+    const int n = (c & 7) + 8 * (c >> 5), k0 = 4 * ((c >> 3) & 3);
+    float v[4];
+    if (fwd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = raw[(k0 + e) * (HP + 8) + n];
+    } else {
+      const float4 x = *reinterpret_cast<const float4*>(raw + n * FF_ELD + k0);
+      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    }
+    float h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      unsigned uh, ul;
+      vj_split(v[e], uh, ul);
+      h[e] = __uint_as_float(uh);
+      l[e] = __uint_as_float(ul);
+    }
+    *reinterpret_cast<float4*>(hi + wg_core(n, k0)) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(lo + wg_core(n, k0)) = make_float4(l[0], l[1], l[2], l[3]);
+  }
+  wg_fence_proxy();
+}
+
+// One stacked product over n slices of the weight schedule from slice q0, by the
+// warpgroups: acc (the thread's D fragment, columns rw.n0..) = A B with A(r, k) = a(r, s,
+// k) (group row r < 32 of group rw.g, k < FF_SLICE of slice s) and B the slice's planes.
+// Per slice, after the block barrier: cp.async of the raw slice two on (ff_stage); the
+// thread's A fragments of both k-steps, split; the six products (per k-step a_lo b_hi,
+// a_hi b_lo, a_hi b_hi into a fresh tile of its own: tc3xtf32.cuh's order and rounding),
+// in flight while the threads split the next slice's raw copy into the other planes
+// (wg_split; and, with emb, form the embedding slice s + 1); then the two tiles are added
+// on the CUDA cores in k order.
+template <int NI, class LoadA>
+__device__ void wg_product(const FfProblem& pb, const float* __restrict__ params, FfTc& t,
+                           int q0, int n, bool emb, const WgRows& rw, LoadA a,
+                           float (&acc)[ff_wg_cols(32 * NI) / 8][4]) {
+  constexpr int HP = 32 * NI, N = ff_wg_cols(HP), NT = N / 8;
+  const int q = threadIdx.x & 3;
+  float tile[2][NT][4];  // a fresh tile per k-step
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) acc[nt][h] = tile[0][nt][h] = tile[1][nt][h] = 0.0f;
+  for (int s = 0; s < n; ++s) {
+    ff_cp_async_wait_all();  // the next slice's raw copy
+    __syncthreads();  // the slice's planes and embedding slice; every read of the others done
+    const int qs = q0 + s, q2 = ff_ahead(t, qs, 2);
+    if (q2 >= 0) ff_stage<HP, false>(pb, params, nullptr, t, q2, t.Wr + (t.cnt & 1) * t.wrb);
+    const float* P = t.W + (t.cnt & 1) * t.wb + 16 * rw.n0;
+    unsigned ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int k = 8 * ks + q;
+      vj_split(a(rw.r0, s, k), ah[ks][0], al[ks][0]);
+      vj_split(a(rw.r1, s, k), ah[ks][1], al[ks][1]);
+      vj_split(a(rw.r0, s, k + 4), ah[ks][2], al[ks][2]);
+      vj_split(a(rw.r1, s, k + 4), ah[ks][3], al[ks][3]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) wg_pin(tile[ks][nt][h]);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      float(&d)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(&tile[ks][0][0]);
+      const uint64_t bh = wg_desc(P + 64 * ks, 128, 512);
+      const uint64_t bl = wg_desc(P + FF_SLICE * HP + 64 * ks, 128, 512);
+      wg_mma<N>(d, al[ks], bh, 0);
+      wg_mma<N>(d, ah[ks], bl, 1);
+      wg_mma<N>(d, ah[ks], bh, 1);
+    }
+    wg_commit();
+    const int q1 = ff_ahead(t, qs, 1);
+    if (q1 >= 0)
+      wg_split<HP>(pb, t, q1, t.Wr + ((t.cnt + 1) & 1) * t.wrb, t.W + ((t.cnt + 1) & 1) * t.wb);
+    if (emb && s + 1 < n) ff_form_emb(pb, t, s + 1, t.E + ((s + 1) & 1) * t.R * FF_ELD);
+    wg_wait_all();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) wg_pin(tile[ks][nt][h]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wg_pin(ah[ks][i]);
+        wg_pin(al[ks][i]);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) vj_add(acc[nt], tile[ks][nt]);
+    ++t.cnt;
+  }
+}
+
+// A forward layer's epilogue from the engine's fragment, stored to slot O: a = act(z + b)
+// on the value rows, J = act'(a) z on the tangent rows, a of the same point and column
+// from lane lane & (4 P2 - 1) (its r0, registers 0 and 1).  SIN / KEEPZ as ff_store_fwd.
+template <int NI, bool SIN = false, bool KEEPZ = false>
+__device__ void wg_store_fwd(float (&acc)[ff_wg_cols(32 * NI) / 8][4], const float* b, float* O,
+                             const FfTc& t, const WgRows& rw, int act) {
+  constexpr int HP = 32 * NI, NT = ff_wg_cols(HP) / 8, LD = HP + 4;
+  const int lane = threadIdx.x & 31, q = lane & 3, src = lane & (2 * t.G - 1);
+  float* o0 = O + (32 * rw.g + rw.r0) * LD + rw.n0 + 2 * q;
+  float* o1 = O + (32 * rw.g + rw.r1) * LD + rw.n0 + 2 * q;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = 0.0f;  // the value row's a (SIN: cos z)
+      if (rw.value) {
+        const float z = acc[nt][e] + b[rw.n0 + 8 * nt + 2 * q + e];
+        if constexpr (SIN) {
+          float sz;
+          sincosf(z, &sz, &v);
+          acc[nt][e] = KEEPZ ? z : sz;
+        } else {
+          acc[nt][e] = v = vj_act(z, act);
+        }
+      }
+      v = __shfl_sync(0xffffffffu, v, src);
+      float sp;
+      if constexpr (SIN) sp = v;
+      else sp = vj_dact(v, act);
+      if (!rw.value) acc[nt][e] *= sp;
+      acc[nt][2 + e] *= sp;
+      o0[8 * nt + e] = acc[nt][e];
+      o1[8 * nt + e] = acc[nt][2 + e];
+    }
+}
+
+// The engine's fragment as it is, to slot O (the cotangents G_{l-1}).
+template <int NI>
+__device__ void wg_store_raw(const float (&acc)[ff_wg_cols(32 * NI) / 8][4], float* O,
+                             const WgRows& rw) {
+  constexpr int HP = 32 * NI, NT = ff_wg_cols(HP) / 8, LD = HP + 4;
+  const int q = threadIdx.x & 3;
+  float* o0 = O + (32 * rw.g + rw.r0) * LD + rw.n0 + 2 * q;
+  float* o1 = O + (32 * rw.g + rw.r1) * LD + rw.n0 + 2 * q;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      o0[8 * nt + e] = acc[nt][e];
+      o1[8 * nt + e] = acc[nt][2 + e];
+    }
+}
+
+// ------------------------------------------------------------------------------------
 // Backward (K2-FF / K4-wide / K3 in the residual modes, K7 in unit mode): persistent, one
 // gradient partial per block.  The output cotangent per stacked row is (gr cu, gr) in
 // FF_DIR / FF_PRE (gr [K] per test function), K3's (g_u, g_du_j) in FF_JAC (formed from
@@ -922,13 +1182,13 @@ __global__ void __launch_bounds__(FF_MAX_THREADS, 2)
 // l, the epilogue into slot l - 1; last dW_0 += E^T [gz; gp]_0 over the embedding slices,
 // formed again (one sincosf per point and feature).  SIN: the slots keep [z; J] (the
 // file's header), and every read of a value row forms a = sin z.
-template <int NI, bool SIN>
-__global__ void __launch_bounds__(FF_MAX_THREADS, 1)
+template <int NI, bool SIN, bool WGMMA>
+__global__ void __launch_bounds__(WGMMA ? ff_wg_threads(32 * NI) : FF_MAX_THREADS, 1)
     ff_bwd_kernel(FfProblem pb, const float* __restrict__ params, const float* __restrict__ g,
                   float* __restrict__ partials, long long n_tiles, int ng) {
   extern __shared__ float4 ff_smem4[];
   constexpr int HP = 32 * NI, LD = HP + 4, WG = ff_wg(HP), NTW = HP / (8 * WG);
-  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, FF_BWD);
+  FfTc t = ff_tc_carve(reinterpret_cast<float*>(ff_smem4), HP, ng, pb, FF_BWD, WGMMA);
   const int L = pb.n_hidden, act = pb.act, tid = threadIdx.x, nthr = blockDim.x;
   const int grp = tid / (32 * WG), warp = tid >> 5, nwarp = nthr >> 5;
   const int lane = tid & 31, gq = lane >> 2, q = lane & 3;
@@ -940,9 +1200,24 @@ __global__ void __launch_bounds__(FF_MAX_THREADS, 1)
   for (int i = tid; i < npp; i += nthr) part[i] = 0.0f;
   for (int i = tid; i < EG * na; i += nthr) t.Acc[i] = 0.0f;
   ff_tc_load_consts(pb, params, nullptr, t, HP);
-  if (blockIdx.x < n_tiles) ff_stage<HP, false>(pb, params, nullptr, t, 0, t.W);
+  if (blockIdx.x < n_tiles) {
+    if constexpr (WGMMA) {  // raw slices 0 and 1 of the first tile; slice 0 split
+      t.has_next = blockIdx.x + gridDim.x < n_tiles;
+      ff_stage<HP, false>(pb, params, nullptr, t, 0, t.Wr);
+      if (const int q1 = ff_ahead(t, 0, 1); q1 >= 0)
+        ff_stage<HP, false>(pb, params, nullptr, t, q1, t.Wr + t.wrb);
+      ff_cp_async_wait_all();
+      __syncthreads();
+      wg_split<HP>(pb, t, 0, t.Wr, t.W);
+    } else {
+      ff_stage<HP, false>(pb, params, nullptr, t, 0, t.W);
+    }
+  }
   const float* Eg = t.E + 32 * grp * FF_ELD;
   float acc[2][NTW][4];
+  // the wgmma engine's: its place and its fragment
+  [[maybe_unused]] const WgRows rw = wg_rows(t, HP);
+  [[maybe_unused]] float wacc[ff_wg_cols(HP) / 8][4];
 #ifdef FF_DW_NO_PARTIAL_ADDS
   float dw_sink = 0.0f;
 #define FF_DW_ADD(dst, v) ((void)&(dst), dw_sink += (v))
@@ -952,26 +1227,39 @@ __global__ void __launch_bounds__(FF_MAX_THREADS, 1)
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     t.has_next = tile + gridDim.x < n_tiles;
+    t.has_next2 = tile + 2 * gridDim.x < n_tiles;
     __syncthreads();  // the previous tile is done with the point data and E
     ff_tc_setup(pb, t, tile, pb.mode == FF_JAC ? nullptr : g);
     __syncthreads();
     FF_MARK(0);
     ff_form_emb(pb, t, 0, t.E);
-    ff_product<NI>(pb, params, t, 0, t.n0, false, true,
-                   [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
-                   acc);
-    ff_store_fwd<NI, SIN, SIN>(acc, t.bias, t.S, t, act);
+    if constexpr (WGMMA) {
+      const float* Ew = t.E + 32 * rw.g * FF_ELD;
+      wg_product<NI>(pb, params, t, 0, t.n0, true, rw,
+                     [&](int r, int s, int k) { return Ew[((s & 1) * t.R + r) * FF_ELD + k]; },
+                     wacc);
+      wg_store_fwd<NI, SIN, SIN>(wacc, t.bias, t.S, t, rw, act);
+    } else {
+      ff_product<NI>(pb, params, t, 0, t.n0, false, true,
+                     [&](int r, int s, int k) { return Eg[((s & 1) * t.R + r) * FF_ELD + k]; },
+                     acc);
+      ff_store_fwd<NI, SIN, SIN>(acc, t.bias, t.S, t, act);
+    }
     FF_MARK(1);
     for (int l = 1; l < L; ++l) {
-      const float* Sp = t.S + (l - 1) * slot + 32 * grp * LD;
-      ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false,
-                     [&](int r, int s, int k) {
-                       const float v = Sp[r * LD + FF_SLICE * s + k];
-                       if constexpr (SIN) return r < t.G ? sinf(v) : v;
-                       else return v;
-                     },
-                     acc);
-      ff_store_fwd<NI, SIN, SIN>(acc, t.bias + l * HP, t.S + l * slot, t, act);
+      const float* Sp = t.S + (l - 1) * slot + 32 * (WGMMA ? rw.g : grp) * LD;
+      const auto a = [&](int r, int s, int k) {
+        const float v = Sp[r * LD + FF_SLICE * s + k];
+        if constexpr (SIN) return r < t.G ? sinf(v) : v;
+        else return v;
+      };
+      if constexpr (WGMMA) {
+        wg_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, rw, a, wacc);
+        wg_store_fwd<NI, SIN, SIN>(wacc, t.bias + l * HP, t.S + l * slot, t, rw, act);
+      } else {
+        ff_product<NI>(pb, params, t, t.n0 + (l - 1) * t.nh, t.nh, false, false, a, acc);
+        ff_store_fwd<NI, SIN, SIN>(acc, t.bias + l * HP, t.S + l * slot, t, act);
+      }
     }
     __syncthreads();
     FF_MARK(2);
@@ -1013,11 +1301,18 @@ __global__ void __launch_bounds__(FF_MAX_THREADS, 1)
         FF_MARK(5);
       }
       // G_{l-1} = [gz; gp]_l W_l^T, in place in slot l once the group has read its rows
-      const float* Sg = Sl + 32 * grp * LD;
-      ff_product<NI>(pb, params, t, nf + (L - 1 - l) * t.nh, t.nh, true, false,
-                     [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; }, acc);
-      ff_group_sync<WG>();
-      ff_store_raw<NI>(acc, Sl);
+      // (the engine: once the block has: two warpgroups share each row)
+      const float* Sg = Sl + 32 * (WGMMA ? rw.g : grp) * LD;
+      const auto a = [&](int r, int s, int k) { return Sg[r * LD + FF_SLICE * s + k]; };
+      if constexpr (WGMMA) {
+        wg_product<NI>(pb, params, t, nf + (L - 1 - l) * t.nh, t.nh, false, rw, a, wacc);
+        __syncthreads();
+        wg_store_raw<NI>(wacc, Sl, rw);
+      } else {
+        ff_product<NI>(pb, params, t, nf + (L - 1 - l) * t.nh, t.nh, true, false, a, acc);
+        ff_group_sync<WG>();
+        ff_store_raw<NI>(acc, Sl);
+      }
       __syncthreads();
       FF_MARK(6);
       ff_epilogue<NI, SIN>(pb, t, l - 1, Sl);
@@ -1135,16 +1430,18 @@ namespace {
 const size_t kMaxSmem = 227 * 1024 - FF_STATIC_SMEM;  // a block's dynamic shared memory, sm_90
 
 // The launch shape of a stacked kernel: ng warp groups per block, blocks resident per SM,
-// the persistent grid and the tiles it walks.
+// the persistent grid and the tiles it walks; wg: the backward's wgmma engine.
 struct TcShape {
   int ng, threads, per_sm, blocks;
   long long n_tiles;
   size_t smem;
+  bool wg;
 };
 
 template <int NI, bool SIN>
-const void* tc_kernel(int kind) {
-  return kind == FF_BWD   ? (const void*)ff_bwd_kernel<NI, SIN>
+const void* tc_kernel(int kind, bool wg) {
+  return kind == FF_BWD   ? (wg ? (const void*)ff_bwd_kernel<NI, SIN, true>
+                                : (const void*)ff_bwd_kernel<NI, SIN, false>)
          : kind == FF_JVP ? (const void*)ff_jvp_kernel<NI, SIN>
                           : (const void*)ff_fwd_kernel<NI, SIN>;
 }
@@ -1154,31 +1451,39 @@ const void* tc_kernel(int kind) {
 // persistent blocks, or fewer when there are fewer tiles (at least one: a backward with
 // P = 0 writes a zero partial).  From the mode and shapes alone, so a blocks query (null
 // pointers) sizes the grid as the launch does.  VJ_DOES_NOT_FIT where not even one group
-// fits in shared memory.
+// fits in shared memory.  The backward takes its wgmma engine wherever one of its blocks
+// fits -- pairs of warpgroups over 64 rows, a column half each: 512 or 256 threads up to
+// HP 128, 256 above -- and its mma.sync engine where none does, and at HP 32, where the
+// engine's 16-column products do not pay (on an H100, K3's backward at the Burgers
+// front_2d mesh, w32x3: 5.4 ms on mma.sync, 6.7 on wgmma).
 template <int NI, bool SIN>
-int tc_shape(int kind, const FfProblem& pb, TcShape* out) {
-  constexpr int WG = ff_wg(32 * NI);
-  const void* fn = tc_kernel<NI, SIN>(kind);
+int tc_shape(int kind, const FfProblem& pb, TcShape* out, bool wg) {
+  constexpr int HP = 32 * NI, WG = ff_wg(HP);
+  if (wg && HP < 64) return tc_shape<NI, SIN>(kind, pb, out, false);
+  const void* fn = tc_kernel<NI, SIN>(kind, wg);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (err != cudaSuccess) return (int)err;
   int best = 0;
   bool fits = false;
-  for (int ng = FF_MAX_THREADS / (32 * WG); ng >= 1; --ng) {
+  for (int ng = (wg ? ff_wg_threads(HP) : FF_MAX_THREADS) / (32 * WG); ng >= 1; --ng) {
+    const int threads = wg ? 128 * ng : 32 * WG * ng;
+    if (wg && (ng & 1 || threads > ff_wg_threads(HP))) continue;
     const size_t smem =
-        sizeof(float) * (size_t)ff_tc_smem_floats(32 * NI, ng, pb.ke, pb.n_hidden, pb.np, kind);
+        sizeof(float) * (size_t)ff_tc_smem_floats(HP, ng, pb.ke, pb.n_hidden, pb.np, kind, wg);
     if (smem > kMaxSmem) continue;
     fits = true;
     int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * WG * ng,
-                                                             smem)) != cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
+        cudaSuccess)
       return (int)err;
-    if (per_sm * WG * ng > best) {
-      best = per_sm * WG * ng;
-      *out = TcShape{ng, 32 * WG * ng, per_sm, 0, 0, smem};
+    if (per_sm * threads / 32 > best) {
+      best = per_sm * threads / 32;
+      *out = TcShape{ng, threads, per_sm, 0, 0, smem, wg};
     }
   }
-  if (!fits) return VJ_DOES_NOT_FIT;
+  if (!fits) return kind == FF_BWD && wg ? tc_shape<NI, SIN>(kind, pb, out, false)
+                                         : VJ_DOES_NOT_FIT;
   if (best == 0) return (int)cudaErrorInvalidConfiguration;
   int n_sm = 0;
   if (const int e = vj_sm_count(&n_sm)) return e;
@@ -1193,7 +1498,7 @@ template <int NI, bool SIN>
 int launch_fwd(const FfProblem& pb, const float* params, float* out, cudaStream_t stream) {
   if (pb.P == 0) return 0;
   TcShape sh;
-  const int err = tc_shape<NI, SIN>(FF_FWD, pb, &sh);
+  const int err = tc_shape<NI, SIN>(FF_FWD, pb, &sh, false);
   if (err) return err;
   ff_fwd_kernel<NI, SIN><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, out,
                                                                      sh.n_tiles, sh.ng);
@@ -1204,21 +1509,27 @@ int launch_fwd(const FfProblem& pb, const float* params, float* out, cudaStream_
 template <int NI, bool SIN>
 int count_bwd_blocks(const FfProblem& pb, int* blocks) {
   TcShape sh;
-  const int err = tc_shape<NI, SIN>(FF_BWD, pb, &sh);
+  const int err = tc_shape<NI, SIN>(FF_BWD, pb, &sh, true);
   if (err) return err;
   *blocks = sh.blocks;
   return 0;
 }
 
+// wgmma: set to whether the launch took the wgmma engine.
 template <int NI, bool SIN>
 int launch_bwd(const FfProblem& pb, const float* params, const float* g, float* partials,
-               int n_blocks, cudaStream_t stream) {
+               int n_blocks, cudaStream_t stream, int* wgmma) {
   TcShape sh;
-  const int err = tc_shape<NI, SIN>(FF_BWD, pb, &sh);
+  const int err = tc_shape<NI, SIN>(FF_BWD, pb, &sh, true);
   if (err) return err;
   if (n_blocks != sh.blocks) return (int)cudaErrorInvalidValue;
-  ff_bwd_kernel<NI, SIN><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, g, partials,
-                                                                     sh.n_tiles, sh.ng);
+  if (sh.wg)
+    ff_bwd_kernel<NI, SIN, true><<<sh.blocks, sh.threads, sh.smem, stream>>>(
+        pb, params, g, partials, sh.n_tiles, sh.ng);
+  else
+    ff_bwd_kernel<NI, SIN, false><<<sh.blocks, sh.threads, sh.smem, stream>>>(
+        pb, params, g, partials, sh.n_tiles, sh.ng);
+  *wgmma = sh.wg;
   return (int)cudaGetLastError();
 }
 
@@ -1227,7 +1538,7 @@ int launch_jvp(const FfProblem& pb, const float* params, const float* dparams, f
                cudaStream_t stream) {
   if (pb.P == 0) return 0;
   TcShape sh;
-  const int err = tc_shape<NI, SIN>(FF_JVP, pb, &sh);
+  const int err = tc_shape<NI, SIN>(FF_JVP, pb, &sh, false);
   if (err) return err;
   ff_jvp_kernel<NI, SIN><<<sh.blocks, sh.threads, sh.smem, stream>>>(pb, params, dparams, out,
                                                                      sh.n_tiles, sh.ng);
@@ -1235,13 +1546,15 @@ int launch_jvp(const FfProblem& pb, const float* params, const float* dparams, f
 }
 
 template <int NI, bool SIN>
-int shape_of(int kind, const FfProblem& pb, int* threads, int* per_sm, int* blocks) {
+int shape_of(int kind, const FfProblem& pb, int* threads, int* per_sm, int* blocks,
+             int* wgmma) {
   TcShape sh;
-  const int err = tc_shape<NI, SIN>(kind, pb, &sh);
+  const int err = tc_shape<NI, SIN>(kind, pb, &sh, kind == FF_BWD);
   if (err) return err;
   *threads = sh.threads;
   *per_sm = sh.per_sm;
   *blocks = sh.blocks;
+  *wgmma = sh.wg;
   return 0;
 }
 
@@ -1262,7 +1575,8 @@ int shape_of(int kind, const FfProblem& pb, int* threads, int* per_sm, int* bloc
 
 // The stacked kernels of one activation kind at the padded width hp (cudaErrorInvalidValue
 // for another): the forward's per-point results (launch_fwd), the backward's block count
-// and its partials (launch_bwd; the caller sums them), K8, a launch shape.  The members
+// and its partials (launch_bwd; the caller sums them; wgmma: its engine), K8, a launch
+// shape (wgmma: the backward's engine, 0 for the other kinds).  The members
 // are instantiated once per kind, each in its own translation unit: FfHost<false> in
 // csrc/ff_mlp.cu, FfHost<true> in csrc/ff_mlp_sin.cu.
 template <bool SIN>
@@ -1271,11 +1585,11 @@ struct FfHost {
                  cudaStream_t stream);
   static int bwd_blocks(int hp, const FfProblem& pb, int* blocks);
   static int bwd(int hp, const FfProblem& pb, const float* params, const float* g,
-                 float* partials, int n_blocks, cudaStream_t stream);
+                 float* partials, int n_blocks, cudaStream_t stream, int* wgmma);
   static int jvp(int hp, const FfProblem& pb, const float* params, const float* dparams,
                  float* out, cudaStream_t stream);
   static int shape(int hp, int kind, const FfProblem& pb, int* threads, int* per_sm,
-                   int* blocks);
+                   int* blocks, int* wgmma);
 };
 
 template <bool SIN>
@@ -1291,8 +1605,8 @@ int FfHost<SIN>::bwd_blocks(int hp, const FfProblem& pb, int* blocks) {
 
 template <bool SIN>
 int FfHost<SIN>::bwd(int hp, const FfProblem& pb, const float* params, const float* g,
-                     float* partials, int n_blocks, cudaStream_t stream) {
-  FF_DISPATCH(hp, (launch_bwd<NI, SIN>(pb, params, g, partials, n_blocks, stream)))
+                     float* partials, int n_blocks, cudaStream_t stream, int* wgmma) {
+  FF_DISPATCH(hp, (launch_bwd<NI, SIN>(pb, params, g, partials, n_blocks, stream, wgmma)))
 }
 
 template <bool SIN>
@@ -1303,6 +1617,6 @@ int FfHost<SIN>::jvp(int hp, const FfProblem& pb, const float* params, const flo
 
 template <bool SIN>
 int FfHost<SIN>::shape(int hp, int kind, const FfProblem& pb, int* threads, int* per_sm,
-                       int* blocks) {
-  FF_DISPATCH(hp, (shape_of<NI, SIN>(kind, pb, threads, per_sm, blocks)))
+                       int* blocks, int* wgmma) {
+  FF_DISPATCH(hp, (shape_of<NI, SIN>(kind, pb, threads, per_sm, blocks, wgmma)))
 }

@@ -42,7 +42,9 @@ Two implementations share one signature:
 version, CUDA tensors launch the kernel (or raise), anything else raises.
 Every one takes tanh, sigmoid and sin (SIREN nets; each CUDA source has sin
 instantiations of its own, ``ff_mlp.cu``'s in ``csrc/ff_mlp_sin.cu``).
-Each counts its kernel launches in ``.launches``.  ``DirResidualFn`` is the
+Each counts its kernel launches in ``.launches``; the backwards on ``ff_mlp.cu``
+also count, in ``.wgmma_launches``, those that took its wgmma engine (the launcher
+reports the engine it chose).  ``DirResidualFn`` is the
 autograd glue for all of them (:func:`_residual_fns` picks the pair),
 ``fused_residual`` the loss's entry.  ``csrc/ff_mlp.cu`` also runs without an
 embedding (``bt`` None: layer 0 reads the scaled coordinates): on CUDA a plain
@@ -378,15 +380,15 @@ def load_library(defines: tuple = ()) -> ctypes.CDLL:
     lib.ff_n_params_c.argtypes = [i32] * 3
     lib.ff_res_fwd.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
     lib.ff_res_bwd_blocks.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
-    lib.ff_res_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 10 + [ptr]
+    lib.ff_res_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 10 + [ptr, ctypes.POINTER(i32)]
     lib.ff_pre_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.ff_pre_bwd_blocks.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
-    lib.ff_pre_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 6 + [ptr]
+    lib.ff_pre_bwd.argtypes = [ptr] * 7 + [i32, ptr] + [i32] * 6 + [ptr, ctypes.POINTER(i32)]
     lib.ff_jac_fwd.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
     lib.ff_jac_bwd_blocks.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
-    lib.ff_jac_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 9 + [ptr]
+    lib.ff_jac_bwd.argtypes = [ptr] * 8 + [i32, ptr] + [i32] * 9 + [ptr, ctypes.POINTER(i32)]
     lib.ff_launch_shape.argtypes = ([i32, i32, ctypes.c_int64] + [i32] * 4
-                                    + [ctypes.POINTER(i32)] * 3)
+                                    + [ctypes.POINTER(i32)] * 4)
     lib.vr_launch_shape.argtypes = [i32] * 8 + [ctypes.POINTER(i32)]
     for fn in (lib.vr_dir_residual_n_params, lib.vr_dir_residual_fwd,
                lib.vr_dir_residual_bwd_blocks, lib.vr_dir_residual_bwd,
@@ -778,16 +780,17 @@ def ff_launch_shape(kind: str, panels: int, p: int, ke: int, n_hidden: int, hp: 
     """The launch shape csrc/ff_mlp.cu takes on the current card for its stacked
     forward (``kind`` "fwd") or backward ("bwd") over ``panels`` panels (K2-FF and
     wide K4: 2; K7 and K3: 1 + n_in), or for K8 ("jvp", panels 1 + n_in), of the
-    ``activation``'s instantiation: threads per block, blocks resident per SM and
-    blocks of the grid."""
-    out = [ctypes.c_int(0) for _ in range(3)]
+    ``activation``'s instantiation: threads per block, blocks resident per SM,
+    blocks of the grid and whether the backward takes its wgmma engine (False for the
+    other kinds)."""
+    out = [ctypes.c_int(0) for _ in range(4)]
     build.raise_on(load_library().ff_launch_shape(
         ("fwd", "bwd", "jvp").index(kind), panels, p, ke, n_hidden, hp,
         ACTIVATIONS[activation], *map(ctypes.byref, out)),
         "ff_launch_shape")
-    threads, per_sm, blocks = (v.value for v in out)
+    threads, per_sm, blocks, wgmma = (v.value for v in out)
     return {"threads": threads, "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
-            "blocks": blocks}
+            "blocks": blocks, "wgmma": bool(wgmma)}
 
 
 def dir_launch_shape(kind: str, params, data, activation: str) -> dict:
@@ -828,7 +831,8 @@ def kernel_ff_fwd(lib, params, data: ResidualData, activation: str, stream=None)
 
 
 def kernel_ff_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None):
-    """Launch K2-FF's backward of ``lib``.  Returns ``{'w', 'b'}`` grads."""
+    """Launch K2-FF's backward of ``lib``.  Returns the ``{'w', 'b'}`` grads and
+    whether the launch took the wgmma engine."""
     hp, fp, packed = _ff_packed(lib, params, data.bt is not None)
     dev = data.xs.device
     bt = ff_bt(data.bt, fp)
@@ -840,12 +844,13 @@ def kernel_ff_bwd(lib, params, data: ResidualData, activation: str, gr, stream=N
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
+    wgmma = ctypes.c_int(0)
     raise_on_fit(params, lib.ff_res_bwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(bt), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
-        grad.data_ptr(), *_ff_res_args(data, params, activation, hp, fp), stream),
-        "dir_residual_ff_bwd")
-    return ff_unpack(grad, params, hp, fp)
+        grad.data_ptr(), *_ff_res_args(data, params, activation, hp, fp), stream,
+        ctypes.byref(wgmma)), "dir_residual_ff_bwd")
+    return ff_unpack(grad, params, hp, fp), bool(wgmma.value)
 
 
 def _check_ff_data(params, data: ResidualData, activation):
@@ -871,14 +876,16 @@ def dir_residual_ff_bwd(params, data: ResidualData, activation: str, gr):
     if _route(data) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_ff_data(params, data, activation)
-    grads = kernel_ff_bwd(load_library(), params, data, activation, gr,
-                          torch.cuda.current_stream(data.xs.device).cuda_stream)
+    grads, wgmma = kernel_ff_bwd(load_library(), params, data, activation, gr,
+                                 torch.cuda.current_stream(data.xs.device).cuda_stream)
     dir_residual_ff_bwd.launches += 1
+    dir_residual_ff_bwd.wgmma_launches += wgmma
     return grads
 
 
 dir_residual_ff_fwd.launches = 0
 dir_residual_ff_bwd.launches = 0
+dir_residual_ff_bwd.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -917,7 +924,8 @@ def kernel_dirp_ff_fwd(lib, params, data: CoeffData, activation: str, stream=Non
 
 
 def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream=None):
-    """Launch ff_mlp.cu's precoeff backward (K4, wide nets): ``{'w', 'b'}`` grads."""
+    """Launch ff_mlp.cu's precoeff backward (K4, wide nets): ``{'w', 'b'}`` grads and
+    whether the launch took the wgmma engine."""
     hp, _, packed = _ff_packed(lib, params, False)
     dev = data.xs.device
     blocks = ctypes.c_int(0)
@@ -927,11 +935,13 @@ def kernel_dirp_ff_bwd(lib, params, data: CoeffData, activation: str, gr, stream
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
+    wgmma = ctypes.c_int(0)
     raise_on_fit(params, lib.ff_pre_bwd(
         data.xs.data_ptr(), data.cdir.data_ptr(), data.csrc.data_ptr(), _ptr(data.cu),
         packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value, grad.data_ptr(),
-        *_ff_pre_args(data, params, activation, hp), stream), "dirp_residual_ff_bwd")
-    return ff_unpack(grad, params, hp, 0)
+        *_ff_pre_args(data, params, activation, hp), stream, ctypes.byref(wgmma)),
+        "dirp_residual_ff_bwd")
+    return ff_unpack(grad, params, hp, 0), bool(wgmma.value)
 
 
 def dirp_residual_ff_fwd(params, data: CoeffData, activation: str = "tanh"):
@@ -952,14 +962,16 @@ def dirp_residual_ff_bwd(params, data: CoeffData, activation: str, gr):
     if _route(data) == "cpu":
         return dir_residual_bwd_plain(params, data, activation, gr)
     _check_dirp_ff_args(params, data, activation)
-    grads = kernel_dirp_ff_bwd(load_library(), params, data, activation, gr,
-                               torch.cuda.current_stream(data.xs.device).cuda_stream)
+    grads, wgmma = kernel_dirp_ff_bwd(load_library(), params, data, activation, gr,
+                                      torch.cuda.current_stream(data.xs.device).cuda_stream)
     dirp_residual_ff_bwd.launches += 1
+    dirp_residual_ff_bwd.wgmma_launches += wgmma
     return grads
 
 
 dirp_residual_ff_fwd.launches = 0
 dirp_residual_ff_bwd.launches = 0
+dirp_residual_ff_bwd.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1051,7 +1063,8 @@ def kernel_jac_fwd(lib, params, data: ResidualData, activation: str, stream=None
 
 
 def kernel_jac_bwd(lib, params, data: ResidualData, activation: str, gr, stream=None):
-    """Launch K3's backward of ``lib``.  Returns ``{'w', 'b'}`` grads."""
+    """Launch K3's backward of ``lib``.  Returns the ``{'w', 'b'}`` grads and whether
+    the launch took the wgmma engine."""
     hp, _, packed = _ff_packed(lib, params, False)
     dev = data.xs.device
     blocks = ctypes.c_int(0)
@@ -1062,12 +1075,13 @@ def kernel_jac_bwd(lib, params, data: ResidualData, activation: str, gr, stream=
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32, device=dev)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=dev)
     gr = gr.detach().to(torch.float32).contiguous()
+    wgmma = ctypes.c_int(0)
     raise_on_fit(params, lib.ff_jac_bwd(
         data.xs.data_ptr(), data.flds.data_ptr(), data.tab.data_ptr(), data.scale.data_ptr(),
         _ptr(data.nl), packed.data_ptr(), gr.data_ptr(), partials.data_ptr(), blocks.value,
-        grad.data_ptr(), *_ff_jac_args(data, params, activation, hp), stream),
-        "jac_residual_bwd")
-    return ff_unpack(grad, params, hp, 0)
+        grad.data_ptr(), *_ff_jac_args(data, params, activation, hp), stream,
+        ctypes.byref(wgmma)), "jac_residual_bwd")
+    return ff_unpack(grad, params, hp, 0), bool(wgmma.value)
 
 
 def jac_residual_fwd(params, data: ResidualData, activation: str = "tanh"):
@@ -1089,14 +1103,16 @@ def jac_residual_bwd(params, data: ResidualData, activation: str, gr):
     if _route(data) == "cpu":
         return jac_residual_bwd_plain(params, data, activation, gr)
     _check_jac_data(params, data, activation)
-    grads = kernel_jac_bwd(load_library(), params, data, activation, gr,
-                           torch.cuda.current_stream(data.xs.device).cuda_stream)
+    grads, wgmma = kernel_jac_bwd(load_library(), params, data, activation, gr,
+                                  torch.cuda.current_stream(data.xs.device).cuda_stream)
     jac_residual_bwd.launches += 1
+    jac_residual_bwd.wgmma_launches += wgmma
     return grads
 
 
 jac_residual_fwd.launches = 0
 jac_residual_bwd.launches = 0
+jac_residual_bwd.wgmma_launches = 0
 
 
 def uses_ff_kernels(params, on_cuda: bool, embedded: bool) -> bool:

@@ -266,7 +266,7 @@ def load_library() -> ctypes.CDLL:
     lib.ff_vj_fwd.argtypes = [ptr] * 4 + [i64] + [i32] * 5 + [ptr]
     lib.ff_vj_jvp.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr]
     lib.ff_vj_bwd_blocks.argtypes = [i64] + [i32] * 5 + [ctypes.POINTER(i32)]
-    lib.ff_vj_bwd.argtypes = [ptr] * 5 + [i32, ptr, i64] + [i32] * 5 + [ptr]
+    lib.ff_vj_bwd.argtypes = [ptr] * 5 + [i32, ptr, i64] + [i32] * 5 + [ptr, ctypes.POINTER(i32)]
     for fn in (lib.vj_n_params_c, lib.vj_fwd, lib.vj_jvp, lib.vj_bwd_blocks, lib.vj_bwd,
                lib.vj_launch_shape,
                lib.ff_n_params_c, lib.ff_vj_fwd, lib.ff_vj_jvp, lib.ff_vj_bwd_blocks,
@@ -553,7 +553,8 @@ def kernel_ff_vj_fwd(lib, params, xs_t, bt, activation: str, stream=None):
 
 
 def kernel_ff_vj_bwd(lib, params, xs_t, bt, activation: str, g, stream=None):
-    """Launch K7's backward of ``lib``: gradients of <g, out>."""
+    """Launch K7's backward of ``lib``: gradients of <g, out>, and whether the launch
+    took the wgmma engine."""
     hp, fp, packed = fr._ff_packed(lib, params, bt is not None)
     btf = fr.ff_bt(bt, fp)  # held until the launch has read it
     n_in, p = xs_t.shape
@@ -567,11 +568,12 @@ def kernel_ff_vj_bwd(lib, params, xs_t, bt, activation: str, g, stream=None):
     partials = torch.empty(blocks.value * packed.numel(), dtype=torch.float32,
                            device=xs_t.device)
     grad = torch.empty(packed.numel(), dtype=torch.float32, device=xs_t.device)
+    wgmma = ctypes.c_int(0)
     fr.raise_on_fit(params, lib.ff_vj_bwd(
         xs_t.data_ptr(), fr._ptr(btf), packed.data_ptr(), g.data_ptr(), partials.data_ptr(),
-        blocks.value, grad.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp), stream),
-        "ff_vj_bwd")
-    return fr.ff_unpack(grad, params, hp, fp)
+        blocks.value, grad.data_ptr(), *_ff_vj_args(params, xs_t, activation, hp, fp), stream,
+        ctypes.byref(wgmma)), "ff_vj_bwd")
+    return fr.ff_unpack(grad, params, hp, fp), bool(wgmma.value)
 
 
 def kernel_ff_vj_jvp(lib, params, xs_t, bt, activation: str, tangent, stream=None):
@@ -608,8 +610,10 @@ def ff_vj_bwd(params, xs_t, bt, activation: str, g):
     if _route(xs_t, activation) == "cpu":
         return ff_vj_bwd_plain(params, xs_t, bt, activation, g)
     _ff_check(params, xs_t, bt, activation)
-    grads = kernel_ff_vj_bwd(load_library(), params, xs_t, bt, activation, g, _stream(xs_t))
+    grads, wgmma = kernel_ff_vj_bwd(load_library(), params, xs_t, bt, activation, g,
+                                    _stream(xs_t))
     ff_vj_bwd.launches += 1
+    ff_vj_bwd.wgmma_launches += wgmma
     return grads
 
 
@@ -626,6 +630,7 @@ def ff_vj_jvp(params, xs_t, bt, activation: str, tangent):
 
 ff_vj_fwd.launches = 0
 ff_vj_bwd.launches = 0
+ff_vj_bwd.wgmma_launches = 0   # those on ff_mlp.cu's wgmma engine
 ff_vj_jvp.launches = 0
 
 
